@@ -5,22 +5,35 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from recom_tpu_torch/csrc/, serves
-full-size model E (1000 embedding columns, five 2^23 x 32 tables, random
-weights from a seed) through ``Engine(..., device="cuda")`` with the default
-``EngineConfig()``, and checks:
+It builds the port's CUDA kernels from recom_tpu_torch/csrc/ and serves,
+through ``Engine(..., device="cuda")``, random weights from a seed:
 
-1. each kernel (K1 one-id lookup, X1 gather + pooling, X2 string hashing)
-   against its plain PyTorch version on the card, at the shapes model E's
-   main path gives it at batch 2048: exact equality (``==``, so +0 == -0);
-   it times kernel, plain version and, where one exists, the one PyTorch
-   call computing the same function (``library_ms``, a yardstick the port
-   never calls), and computes the least time the card could take;
-2. that ``predict`` really went through every kernel: the launch counts are
-   zeroed just before a predict and read just after;
+* full-size model E (1000 embedding columns, five 2^23 x 32 tables) with
+  the default ``EngineConfig()`` (kernels K1, X1, X2) and with
+  ``host_bucketize=False`` (its 880 bucketize columns bucketized on the
+  card, then K1);
+* the microbenchmark model at 1000 columns with random boundaries (two
+  pure-bucketize one-hot groups, vocab padded to 128 and 256) with
+  ``host_bucketize=False`` and with ``wire_pack=False``: raw floats reach
+  the card, and K2 bucketizes and looks them up in one pass.
+
+It checks:
+
+1. each kernel (K1 one-id lookup, K2 fused bucketize + lookup, X1 gather +
+   pooling, X2 string hashing) against its plain PyTorch version on the
+   card, at the shapes its path gives it at batch 2048 (K2 also on planes
+   holding NaN, +-inf, -0.0 and exact boundary values): exact equality
+   (``==``, so +0 == -0); it times kernel, plain version and, where one
+   exists, the one PyTorch call computing the same function
+   (``library_ms``, a yardstick the port never calls), and computes the
+   least time the card could take;
+2. that each ``predict`` went through its path's kernels and no other:
+   the launch counts are zeroed just before a predict and read just after;
 3. pooled outputs of all 1000 columns against the port's NumPy oracle
-   exactly, and the model output at rtol 1e-4 / atol 1e-5, at batch 512;
-4. median ``predict`` latency at batch 512 and 2048.
+   exactly, and the model output at rtol 1e-4 / atol 1e-5 (model E) or
+   exactly (the microbenchmark's identity tower);
+4. median ``predict`` latency of each path, and ``Engine.benchmark``'s
+   step time on the microbenchmark.
 
 The last lines of stdout are one JSON object for the kernels, the card's
 name and power limit as nvidia-smi reports them, and ``{"ok": true,
@@ -85,6 +98,67 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3,
     return t0.elapsed_time(t1) / iters
 
 
+def require_launches(counts, kids, path: str, exactly=None) -> None:
+    """The path launched each of its kernels ``kids`` (``exactly`` those
+    counts where given) and no other kernel."""
+    for kid, n in counts.items():
+        if kid in kids:
+            require(n > 0, f"{path}: predict did not launch kernel {kid}")
+        else:
+            require(n == 0, f"{path}: predict launched kernel {kid} {n} x, "
+                    "which is not on its path")
+    for kid, n in (exactly or {}).items():
+        require(counts[kid] == n, f"{path}: kernel {kid} launched "
+                f"{counts[kid]} x, expected {n}")
+
+
+def check_micro(ref, out, bs: int) -> None:
+    """The microbenchmark's 1000 pooled columns and its output (the
+    identity tower: the concatenation) == the oracle."""
+    import numpy as np
+
+    require(len(ref["pooled"]) == 1000, "1000 pooled columns")
+    bad = [c for c, r in ref["pooled"].items()
+           if not np.array_equal(out["pooled"][c], r)]
+    require(not bad, f"micro pooled outputs differ from the oracle: "
+            f"{bad[:5]}")
+    require(out["output"].shape == (bs, 8000)
+            and np.array_equal(out["output"], ref["output"]),
+            "micro output != oracle output")
+    log(f"micro-1000 batch {bs}: pooled outputs of all 1000 columns and the "
+        "output == oracle")
+
+
+def latency(torch, eng, name: str, cases) -> None:
+    """Median ``predict`` latency (host clock, 10 calls), its stages, and
+    the device forward alone (CUDA events), for each (batch size, batch)."""
+    from recom_tpu_torch.utils.logging import StageTimer
+
+    for bs, batch in cases:
+        for _ in range(2):
+            eng.predict(batch)
+        eng.timers = StageTimer()
+        lat = []
+        for _ in range(10):
+            t = time.perf_counter()
+            eng.predict(batch)
+            lat.append((time.perf_counter() - t) * 1e3)
+        log(f"{name}: predict latency batch {bs}: median "
+            f"{statistics.median(lat):.3f} ms (min {min(lat):.3f}, max "
+            f"{max(lat):.3f}, 10 calls; host prep + H2D + device + D2H)")
+        stages = eng.timers.summary()
+        log(f"  stage p50 ms (host clock): " + ", ".join(
+            f"{k} {v['p50_ms']}" for k, v in sorted(stages.items())))
+        prep = eng.prepare(batch)
+        on_dev = eng.to_device(prep)
+        fwd = lambda: eng._forward(on_dev, prep.signature)
+        with torch.inference_mode():
+            fwd_dev = time_ms(torch, fwd, iters=10)
+            fwd_paced = time_ms(torch, fwd, iters=10, queued=False)
+        log(f"  device forward (unpack + lookups + tower, CUDA events): "
+            f"{fwd_dev:.4f} ms queued, {fwd_paced:.4f} ms host-paced")
+
+
 def bound_ms(nbytes: float, flops: float = 0.0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
@@ -104,6 +178,7 @@ def main() -> int:
 
     from recom_tpu_torch import EngineConfig
     from recom_tpu_torch.models import make_model_e, make_random_batch
+    from recom_tpu_torch.models.synthetic import make_microbenchmark_model
     from recom_tpu_torch.ops import kernels
     from recom_tpu_torch.ops.hash_device import (
         hash_verbatim,
@@ -114,6 +189,8 @@ def main() -> int:
         group_pooled_plain,
     )
     from recom_tpu_torch.ops.lookup_onehot import (
+        onehot_bucketize_lookup,
+        onehot_bucketize_lookup_plain,
         onehot_lookup,
         onehot_lookup_plain,
     )
@@ -178,7 +255,7 @@ def main() -> int:
         v = by_key[(gid, name)]
         return blob[v.offset: v.offset + v.nbytes].view(dtype).reshape(v.shape)
 
-    calls = {"K1": [], "X1": [], "X2": []}   # per-call records
+    calls = {"K1": [], "K2": [], "X1": [], "X2": []}   # per-call records
     for g, packed in zip(eng.compiled.groups, arrays["groups"]):
         c = eng._consts[g.gid]
         table = eng.device_params["stacked"][str(g.gid)]
@@ -269,9 +346,79 @@ def main() -> int:
                 shape=f"{n} cols x {bp} rows, width bucket {wbk}, L={rl}",
             ))
 
+    # K2's path: the microbenchmark model at 1000 columns, raw floats on
+    # the card (wire blob, host_bucketize=False)
+    t = time.perf_counter()
+    micro = make_microbenchmark_model(1000, random_boundary=True, seed=0)
+    micro_params = init_model_params(micro)
+    eng_mb = Engine(micro, EngineConfig(host_bucketize=False),
+                    params=micro_params, device="cuda")
+    torch.cuda.synchronize()
+    log(f"Engine(micro-1000, host_bucketize=False): "
+        f"{time.perf_counter() - t:.1f} s, groups " + "; ".join(
+            f"gid {g.gid}: {g.num_columns} cols V_pad={g.pallas_vocab}"
+            for g in eng_mb.compiled.groups))
+    mb_big = make_random_batch(micro, 2048, seed=1)
+    prep_mb = eng_mb.prepare(mb_big)
+    require(prep_mb.batch_padded == 2048, "micro batch 2048 bucket")
+    with torch.inference_mode():
+        mb_arrays = unpack_blob(eng_mb.compiled,
+                                eng_mb.to_device(prep_mb)["blob"], 2048,
+                                prep_mb.rowlens, prep_mb.wsig)
+    for g, packed in zip(eng_mb.compiled.groups, mb_arrays["groups"]):
+        c = eng_mb._consts[g.gid]
+        require("bz_hi" in c and "raw_bz" in packed,
+                f"micro group {g.gid} should take K2")
+        table = eng_mb.device_params["stacked"][str(g.gid)]
+        raw = packed["raw_bz"].contiguous()
+        a = (table, raw, c["bz_lo"], c["bz_hi"], c["bz_counts"])
+        cc, bp_mb = raw.shape
+        v, d = table.shape[1], table.shape[2]
+        require(raw.dtype == torch.float32 and bp_mb == 2048
+                and cc == g.num_columns, "raw_bz is f32 [n_bz, Bp]")
+        # the specials, in a copy: NaN, +-inf, -0.0, +0.0, each column's
+        # boundaries exactly, and the float just below each
+        cnt = c["bz_counts"][:cc, 0].long()
+        hi = c["bz_hi"][:cc]
+        special = raw.clone()
+        special[:, 0:5] = torch.tensor(
+            [float("nan"), float("inf"), float("-inf"), -0.0, 0.0],
+            device=dev)
+        pick = (torch.arange(64, device=dev)[None, :] * 7) % cnt[:, None]
+        hits = hi.gather(1, pick)                        # [C, 64]
+        special[:, 5:69] = hits
+        special[:, 69:133] = torch.nextafter(
+            hits, torch.full_like(hits, float("-inf")))
+        sa = (table, special) + a[2:]
+        got, want = onehot_bucketize_lookup(*sa), \
+            onehot_bucketize_lookup_plain(*sa)
+        torch.cuda.synchronize()
+        require(bool((got.view(torch.int32) == want.view(torch.int32)).all()),
+                f"K2 group {g.gid}: kernel != plain on the special values")
+        log(f"K2 group {g.gid}: kernel == plain bit for bit on NaN, +-inf, "
+            "-0.0, +0.0, 64 boundary values per column and the floats "
+            "below them")
+        # bytes this run's data needs: raw, counts and boundaries read, the
+        # distinct rows selected, the output written
+        ids = torch.searchsorted(hi, raw, right=True)
+        ids = torch.where(raw < float("inf"), torch.minimum(ids, cnt[:, None]),
+                          cnt[:, None])
+        uniq = torch.unique(
+            ids + torch.arange(cc, device=dev)[:, None] * v).numel()
+        nbytes = (raw.numel() * 4 + cc * 4 + int(cnt.sum()) * 4
+                  + uniq * d * 4 + bp_mb * cc * d * 4)
+        calls["K2"].append(dict(
+            group=g.gid, kern=lambda a=a: onehot_bucketize_lookup(*a),
+            plain=lambda a=a: onehot_bucketize_lookup_plain(*a), lib=None,
+            bound=bound_ms(nbytes),
+            shape=f"raw [{cc}, {bp_mb}], V_pad {v} -> [{bp_mb}, {cc}, {d}]",
+        ))
+
     kernel_meta = {
         "K1": ("recom_tpu_torch/csrc/onehot_lookup.cu",
                "recom_tpu/ops/lookup_pallas.py:36"),
+        "K2": ("recom_tpu_torch/csrc/onehot_bucketize.cu",
+               "recom_tpu/ops/lookup_pallas.py:92"),
         "X1": ("recom_tpu_torch/csrc/pooled_gather.cu",
                "recom_tpu/ops/lookup_xla.py:185"),
         "X2": ("recom_tpu_torch/csrc/hash_device.cu",
@@ -317,10 +464,11 @@ def main() -> int:
                     f"{pms:.4f} ms, library "
                     f"{'-' if lms is None else f'{lms:.4f} ms'}, bound "
                     f"{bms:.4f} ms ({by}), exact")
+            has_lib = any(r["lib"] is not None for r in recs)
             results[kid] = dict(
                 err=err, bound_by="bytes" if "bytes" in bound_by
                 else "operations",
-                lib=None if kid == "X2" else tot["library_ms"], **tot,
+                lib=tot["library_ms"] if has_lib else None, **tot,
             )
 
     # ---- phase 3: the main path, counted --------------------------------
@@ -330,8 +478,7 @@ def main() -> int:
     torch.cuda.synchronize()
     counts_512 = dict(kernels.launches)
     log(f"launches in predict(batch 512): {counts_512}")
-    for kid, n in counts_512.items():
-        require(n > 0, f"predict did not launch kernel {kid}")
+    require_launches(counts_512, ("K1", "X1", "X2"), "model E")
     require(out["output"].shape == (512, 1), "output shape")
     require(bool(np.isfinite(out["output"]).all()), "finite outputs")
 
@@ -353,38 +500,78 @@ def main() -> int:
     torch.cuda.synchronize()
     counts_2048 = dict(kernels.launches)
     log(f"launches in predict(batch 2048): {counts_2048}")
-    for kid, n in counts_2048.items():
-        require(n > 0, f"predict did not launch kernel {kid}")
+    require_launches(counts_2048, ("K1", "X1", "X2"), "model E")
     require(out_big["output"].shape == (2048, 1)
             and bool(np.isfinite(out_big["output"]).all()),
             "batch 2048 output")
 
     # ---- phase 4: predict latency and where it goes ----------------------
-    from recom_tpu_torch.utils.logging import StageTimer
+    latency(torch, eng, "model E", ((512, batch_small), (2048, batch_big)))
 
-    for bs, batch in ((512, batch_small), (2048, batch_big)):
-        for _ in range(2):
-            eng.predict(batch)
-        eng.timers = StageTimer()
-        lat = []
-        for _ in range(10):
-            t = time.perf_counter()
-            eng.predict(batch)
-            lat.append((time.perf_counter() - t) * 1e3)
-        log(f"predict latency batch {bs}: median "
-            f"{statistics.median(lat):.3f} ms (min {min(lat):.3f}, max "
-            f"{max(lat):.3f}, 10 calls; host prep + H2D + device + D2H)")
-        stages = eng.timers.summary()
-        log(f"  stage p50 ms (host clock): " + ", ".join(
-            f"{k} {v['p50_ms']}" for k, v in sorted(stages.items())))
-        prep = eng.prepare(batch)
-        on_dev = eng.to_device(prep)
-        fwd = lambda: eng._forward(on_dev, prep.signature)
-        with torch.inference_mode():
-            fwd_dev = time_ms(torch, fwd, iters=10)
-            fwd_paced = time_ms(torch, fwd, iters=10, queued=False)
-        log(f"  device forward (unpack + lookups + tower, CUDA events): "
-            f"{fwd_dev:.4f} ms queued, {fwd_paced:.4f} ms host-paced")
+    # ---- phase 5: model E with device bucketize (then K1), counted --------
+    t = time.perf_counter()
+    eng_bz = Engine(model, EngineConfig(host_bucketize=False),
+                    params=np_params, device="cuda")
+    torch.cuda.synchronize()
+    log(f"Engine(model E, host_bucketize=False): "
+        f"{time.perf_counter() - t:.1f} s")
+    kernels.reset_launches()
+    out_bz = eng_bz.predict(batch_small, return_pooled=True)
+    torch.cuda.synchronize()
+    counts_bz = dict(kernels.launches)
+    log(f"launches in predict(batch 512), host_bucketize=False: {counts_bz}")
+    require_launches(counts_bz, ("K1", "X1", "X2"), "model E, device bz")
+    bad = [c for c, r in ref["pooled"].items()
+           if not np.array_equal(out_bz["pooled"][c], r)]
+    require(not bad, f"device-bucketize pooled outputs differ from the "
+            f"oracle: {bad[:5]}")
+    np.testing.assert_allclose(out_bz["output"], ref["output"], rtol=1e-4,
+                               atol=1e-5)
+    log("host_bucketize=False: pooled outputs of all 1000 columns == oracle; "
+        "output within rtol 1e-4 / atol 1e-5 (max abs diff "
+        f"{float(np.abs(out_bz['output'] - ref['output']).max()):.3g})")
+    latency(torch, eng_bz, "model E, host_bucketize=False",
+            ((512, batch_small), (2048, batch_big)))
+    log(f"peak device memory (two model E engines): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # ---- phase 6: the microbenchmark path, K2 only, counted ---------------
+    t = time.perf_counter()
+    ref_mb = OracleModel(micro, micro_params).forward(mb_big)
+    log(f"oracle forward (micro-1000, batch 2048): "
+        f"{time.perf_counter() - t:.1f} s")
+    kernels.reset_launches()
+    out_mb = eng_mb.predict(mb_big, return_pooled=True)
+    torch.cuda.synchronize()
+    counts_mb = dict(kernels.launches)
+    log(f"launches in predict(micro-1000, batch 2048): {counts_mb}")
+    require_launches(counts_mb, ("K2",), "micro-1000", exactly={"K2": 2})
+    check_micro(ref_mb, out_mb, 2048)
+    latency(torch, eng_mb, "micro-1000, host_bucketize=False",
+            ((2048, mb_big),))
+    mb_batches = [mb_big] + [make_random_batch(micro, 2048, seed=10 + i)
+                             for i in range(4)]
+    bench = eng_mb.benchmark(mb_batches, iters=20, warmup=3)
+    log(f"Engine.benchmark(micro-1000, batch 2048, 20 steps over 4 "
+        f"batches): latency_ms {bench['latency_ms']:.4f}, examples_per_s "
+        f"{bench['examples_per_s']:.0f} (H2D + device forward)")
+    report = eng_mb.stats_report()
+    log(f"stats_report: programs_compiled {report['programs_compiled']}, "
+        f"backends {[g['backend'] for g in report['groups']]}")
+
+    eng_st = Engine(micro, EngineConfig(wire_pack=False),
+                    params=micro_params, device="cuda")
+    mb_small = make_random_batch(micro, 512, seed=3)
+    ref_st = OracleModel(micro, micro_params).forward(mb_small)
+    kernels.reset_launches()
+    out_st = eng_st.predict(mb_small, return_pooled=True)
+    torch.cuda.synchronize()
+    counts_st = dict(kernels.launches)
+    log(f"launches in predict(micro-1000, batch 512), wire_pack=False: "
+        f"{counts_st}")
+    require_launches(counts_st, ("K2",), "micro-1000 structured",
+                     exactly={"K2": 2})
+    check_micro(ref_st, out_st, 512)
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB")
 
@@ -392,14 +579,14 @@ def main() -> int:
         {
             "name": kid, "route": "cuda",
             "source": kernel_meta[kid][0], "replaces": kernel_meta[kid][1],
-            "launches": counts_2048[kid],
+            "launches": (counts_mb if kid == "K2" else counts_2048)[kid],
             "max_abs_err": results[kid]["err"],
             "ms": results[kid]["ms"], "plain_ms": results[kid]["plain_ms"],
             "bound_ms": results[kid]["bound_ms"],
             "bound_by": results[kid]["bound_by"],
             "library_ms": results[kid]["lib"],
         }
-        for kid in ("K1", "X1", "X2")
+        for kid in ("K1", "K2", "X1", "X2")
     ]}
     print(json.dumps(line))
     print(card)

@@ -9,6 +9,8 @@ package name of their imports.  What runs on the device is rewritten:
   runtime/executor.py   Engine: host prep -> one H2D copy -> lookups -> tower
   runtime/wire.py       unpack_blob: blob views + device string hashing
   ops/lookup_onehot.py  K1  one-id lookup of one-hot groups (Pallas _kernel)
+                        K2  fused bucketize + lookup of pure-bucketize
+                            one-hot groups fed raw floats (Pallas _bz_kernel)
   ops/lookup_gather.py  X1  gather + in-order pooling (lookup_xla.group_pooled)
   ops/hash_device.py    X2  split + FarmHash + mod (ops/hash_device.py)
   csrc/*.cu             the kernels, built by nvcc at first use (ops/kernels.py)

@@ -13,8 +13,8 @@ add separately rounded (the pooling contract of ops/lookup_gather.py), and
 the kernels spell the rounding out with ``__fmul_rn``/``__fadd_rn`` besides.
 
 Every entry point returns the ``cudaError_t`` of its launch, which
-``check`` turns into an exception.  ``launches`` counts the launches of each
-kernel (K1, X1, X2): a wrapper adds one where it launches, and nowhere
+``launch`` turns into an exception.  ``launches`` counts the launches of each
+kernel (K1, K2, X1, X2): a wrapper adds one where it launches, and nowhere
 else, so a run can show that a path went through its kernels.
 """
 
@@ -45,6 +45,10 @@ LIBRARIES = {
         "onehot_lookup.cu", "K1", "rt_onehot_lookup_f32",
         [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     ),
+    "onehot_bucketize": (
+        "onehot_bucketize.cu", "K2", "rt_onehot_bucketize_f32",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
     "pooled_gather": (
         "pooled_gather.cu", "X1", "rt_pooled_gather_f32",
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -55,7 +59,7 @@ LIBRARIES = {
     ),
 }
 
-launches: Dict[str, int] = {"K1": 0, "X1": 0, "X2": 0}
+launches: Dict[str, int] = {"K1": 0, "K2": 0, "X1": 0, "X2": 0}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -3,9 +3,11 @@
 The port of recom_tpu/runtime/executor.py::Engine for the single-device
 serving path: host prep (the copied wire/host_prep modules) -> one H2D copy
 -> the grouped lookups through the hand-written kernels (K1 for one-hot
-groups, X1 for gather groups, X2 for device string hashing) -> the MLP
-tower -> outputs.  It runs eagerly: there is no per-shape program cache
-(CUDA graphs per signature are ROADMAP Queue 1 item 6).
+groups, K2 for pure-bucketize one-hot groups fed raw floats, X1 for gather
+groups, X2 for device string hashing) -> the MLP tower -> outputs.  It runs
+eagerly: a "program" is a shape signature, and ``stats["compiles"]`` counts
+the distinct ones served (CUDA graphs per signature are ROADMAP Queue 1
+item 6).
 
 Entry points run on CUDA unless the caller names another device; asking for
 CUDA where there is none raises.  Features of the JAX Engine outside this
@@ -14,6 +16,7 @@ slice raise NotImplementedError naming their ROADMAP item.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -25,7 +28,11 @@ from recom_tpu_torch.compiler.pipeline import run_passes
 from recom_tpu_torch.config import EngineConfig
 from recom_tpu_torch.ir.spec import ModelSpec
 from recom_tpu_torch.ops.lookup_gather import device_bucketize, group_pooled
-from recom_tpu_torch.ops.lookup_onehot import onehot_lookup
+from recom_tpu_torch.ops.lookup_onehot import (
+    bucket_bounds,
+    onehot_bucketize_lookup,
+    onehot_lookup,
+)
 from recom_tpu_torch.runtime.host_prep import PreparedBatch, prepare_batch
 from recom_tpu_torch.utils.device import resolve_device
 from recom_tpu_torch.utils.params import init_model_params
@@ -85,10 +92,6 @@ class Engine:
             raise _unported("mesh_shape (multi-device serving)", "item 13")
         if cfg.table_dtype != "float32":
             raise _unported(f"table_dtype={cfg.table_dtype!r}", "item 9")
-        if not cfg.host_bucketize:
-            raise _unported(
-                "host_bucketize=False (device bucketize, kernel K2)", "item 8"
-            )
         # TF32 would round the tower's f32 matmul inputs to 10 mantissa
         # bits, far outside the rtol 1e-4 the outputs are held to against
         # the f32 oracle; both switches off (cuDNN's is on by default)
@@ -106,7 +109,9 @@ class Engine:
         self.device_params = self._build_device_params(np_params)
         self._consts = self._build_group_consts()
         self._rowlen_hints: Dict[int, int] = {}
-        self.stats = {"calls": 0}
+        self._programs = set()      # (signature, mode) keys served
+        self._programs_lock = threading.Lock()
+        self.stats = {"calls": 0, "compiles": 0}
         from recom_tpu_torch.utils.logging import Logger, StageTimer
 
         self.log = Logger("engine", cfg.log_verbosity or None)
@@ -121,15 +126,16 @@ class Engine:
         for g in self.compiled.groups:
             if g.any_post or not all(m.column.in_concat for m in g.members):
                 raise _unported("post-pool ops (PostPool)", "item 8")
-            if (
-                g.pallas_vocab is not None
-                and not self.config.wire_pack
-                and g.n_bucketize == g.num_columns
-                and g.lut_matrix is None
-            ):
-                raise _unported(
-                    "the fused bucketize one-hot path (kernel K2)", "item 8"
-                )
+
+    @staticmethod
+    def _fused_bucketize(g) -> bool:
+        """A one-hot group of bucketize columns only, with no id LUT: K2
+        takes it whenever its raw floats reach the device."""
+        return (
+            g.pallas_vocab is not None
+            and g.n_bucketize == g.num_columns
+            and g.lut_matrix is None
+        )
 
     # ------------------------------------------------------------------
     def _build_device_params(self, np_params: Dict) -> Dict:
@@ -216,6 +222,15 @@ class Engine:
                 if g.lut_matrix is not None:
                     c["lut"] = torch.as_tensor(g.lut_matrix,
                                                dtype=torch.int32, device=dev)
+            if self._fused_bucketize(g):
+                # K2's interval arrays, sized like the group's table3
+                c_pad = int(self.device_params["stacked"][str(g.gid)].shape[0])
+                lo, hi, cnts = bucket_bounds(g.boundary_matrix,
+                                             g.boundary_counts,
+                                             g.pallas_vocab, c_pad)
+                c["bz_lo"] = torch.from_numpy(lo).to(dev)
+                c["bz_hi"] = torch.from_numpy(hi).to(dev)
+                c["bz_counts"] = torch.from_numpy(cnts).to(dev)
             out.append(c)
         return out
 
@@ -246,9 +261,17 @@ class Engine:
         per-group pooled [Bp, C, d] list)."""
         pooled_list = []
         for g, packed in zip(self.compiled.groups, arrays["groups"]):
-            ids, weights = self.group_ids(g, packed)
             c = self._consts[g.gid]
             table = self.device_params["stacked"][str(g.gid)]
+            if "bz_hi" in c and "raw_bz" in packed:
+                # the raw [n_bz, Bp] plane as the host staged it: K2 never
+                # materializes ids (recom_tpu/runtime/executor.py:452-476)
+                pooled_list.append(onehot_bucketize_lookup(
+                    table, packed["raw_bz"], c["bz_lo"],
+                    c["bz_hi"], c["bz_counts"],
+                ))
+                continue
+            ids, weights = self.group_ids(g, packed)
             if g.pallas_vocab is not None:
                 # one id per entry: every combiner passes the row through
                 # (divisor 1) or gives 0 for a missing id
@@ -374,6 +397,7 @@ class Engine:
             mode += ("concat",)
         if return_pooled:
             mode += ("pooled",)
+        self._note_program(prepared.signature, mode)
         t0 = time.perf_counter()
         with torch.inference_mode():
             dev_out = self._forward(
@@ -398,14 +422,119 @@ class Engine:
         return result
 
     # ------------------------------------------------------------------
+    def _note_program(self, signature, mode=()) -> None:
+        """Count a (shape signature, outputs) pair the first time it is
+        served: the eager engine's counterpart of the reference's jit cache
+        (recom_tpu/runtime/executor.py:661-680), whose size the batch and
+        rowlen buckets bound."""
+        key = (signature, tuple(sorted(mode)))
+        with self._programs_lock:
+            if key not in self._programs:
+                self._programs.add(key)
+                self.stats["compiles"] += 1
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def stats_report(self) -> Dict:
+        """Serving snapshot: call and program counters, per-stage latency
+        percentiles (host clock), and each group's layout and kernel."""
+
+        def backend(g) -> str:
+            if g.pallas_vocab is None:
+                return "pooled_gather (X1)"
+            if self._fused_bucketize(g) and not (
+                self._wire and self.config.host_bucketize
+            ):
+                return "onehot_bucketize (K2)"
+            return "onehot_lookup (K1)"
+
+        return {
+            "counters": dict(self.stats),
+            "stage_latency": self.timers.summary(),
+            "programs_compiled": len(self._programs),
+            "groups": [
+                {
+                    "gid": g.gid,
+                    "dim": g.dim,
+                    "columns": g.num_columns,
+                    "ragged": g.ragged,
+                    "rows": g.stacked_rows,
+                    "backend": backend(g),
+                }
+                for g in self.compiled.groups
+            ],
+        }
+
+    def warmup(self, batches=None, batch_sizes=None) -> int:
+        """Serve one forward per shape signature ahead of traffic: the
+        first launch of each kernel builds it (nvcc) and the first of each
+        shape fills the allocator's cache.
+
+        * ``batches``: representative raw batches; they also seed the
+          rowlen hints, so the first live request skips the counting scan.
+        * ``batch_sizes``: those batch buckets, with empty prepared arrays
+          (ragged groups at their largest rowlen bucket; under device_hash
+          only the host-hash signature, which empty arrays give).
+        * neither: every batch bucket of the config.
+
+        Returns the number of signatures new to the engine."""
+        before = self.stats["compiles"]
+        if batches is not None:
+            prepared = [self.prepare(b) for b in batches]
+        else:
+            from recom_tpu_torch.compiler.buckets import pick_bucket
+            from recom_tpu_torch.runtime.host_prep import make_empty_prepared
+            from recom_tpu_torch.runtime.wire import make_empty_prepared_wire
+
+            make = (make_empty_prepared_wire if self._wire
+                    else make_empty_prepared)
+            prepared = [
+                make(self.compiled, pick_bucket(
+                    self.config.batch_buckets, bs,
+                    self.config.allow_truncate_overflow))
+                for bs in (batch_sizes or self.config.batch_buckets)
+            ]
+        with torch.inference_mode():
+            for p in prepared:
+                self._note_program(p.signature)
+                self._forward(self.to_device(p), p.signature)
+        self._sync()
+        return self.stats["compiles"] - before
+
+    def benchmark(self, batch, iters: int = 100,
+                  warmup: int = 10) -> Dict[str, float]:
+        """Steady-state time of one step over pre-prepared inputs: H2D copy
+        plus device forward, ended by a device synchronize (the reference
+        protocol: warm up, then the mean of ``iters`` timed steps).
+
+        ``batch`` may be a list of batches: the timed steps then rotate
+        over those whose signature matches the first (warmed on the first,
+        timed on the rest)."""
+        batches = batch if isinstance(batch, (list, tuple)) else [batch]
+        prepped = []
+        for bt in batches:
+            p = self.prepare(bt)
+            if not prepped or p.signature == prepped[0].signature:
+                prepped.append(p)
+        sig, b0 = prepped[0].signature, prepped[0].batch_size
+        self._note_program(sig)
+        timed = prepped[1:] if len(prepped) > 1 else prepped
+        with torch.inference_mode():
+            for _ in range(warmup + 1):
+                self._forward(self.to_device(prepped[0]), sig)
+            self._sync()
+            t0 = time.perf_counter()
+            for i in range(iters):
+                self._forward(self.to_device(timed[i % len(timed)]), sig)
+            self._sync()
+        dt = (time.perf_counter() - t0) / iters
+        return {"latency_ms": dt * 1e3, "examples_per_s": b0 / dt}
+
+    # ------------------------------------------------------------------
     def reload_params(self, np_params: Dict) -> None:
         raise _unported("Engine.reload_params", "item 10")
 
     def update_table_rows(self, table: str, row_ids, values) -> int:
         raise _unported("Engine.update_table_rows", "item 10")
-
-    def warmup(self, batches=None, batch_sizes=None) -> int:
-        raise _unported("Engine.warmup", "item 6")
-
-    def benchmark(self, batch, iters: int = 100, warmup: int = 10):
-        raise _unported("Engine.benchmark", "item 7")

@@ -161,7 +161,7 @@ def test_engine_defaults_to_cuda_and_never_falls_back():
 def test_unported_features_raise():
     tm = t_make_dlrm(*MINI_E, name="mini", large_rows=20_000)
     for kw in ({"mesh_shape": (1, 2)}, {"table_dtype": "bfloat16"},
-               {"table_dtype": "int8"}, {"host_bucketize": False}):
+               {"table_dtype": "int8"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(tm, EngineConfig(**kw), device="cpu")
     K, C = ts.FeatureKind, ts.Combiner
@@ -177,8 +177,7 @@ def test_unported_features_raise():
     eng = Engine(tm, device="cpu")
     for call in (lambda: eng.reload_params({}),
                  lambda: eng.update_table_rows("emb_sparse0", [0],
-                                               np.zeros((1, 8))),
-                 lambda: eng.warmup(), lambda: eng.benchmark({})):
+                                               np.zeros((1, 8)))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 
@@ -203,7 +202,11 @@ def test_mini_model_e_on_card_matches_oracle_and_launches_kernels():
     eng = Engine(tm, EngineConfig(), params=params, device="cuda")
     kernels.reset_launches()
     out = eng.predict(batch, return_pooled=True)
-    assert all(n > 0 for n in kernels.launches.values()), kernels.launches
+    # the default path's kernels; K2 runs only where raw floats reach a
+    # pure-bucketize group (tests/test_torch_bucketize.py)
+    launched = kernels.launches
+    assert all(launched[k] > 0 for k in ("K1", "X1", "X2")), launched
+    assert launched["K2"] == 0, launched
     ref = OracleModel(jm, params).forward(batch)
     for col, r in ref["pooled"].items():
         np.testing.assert_array_equal(out["pooled"][col], r, err_msg=col)
