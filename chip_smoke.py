@@ -22,11 +22,17 @@ It checks:
 1. each kernel (K1 one-id lookup, K2 fused bucketize + lookup, X1 gather +
    pooling, X2 string hashing) against its plain PyTorch version on the
    card, at the shapes its path gives it at batch 2048 (K2 also on planes
-   holding NaN, +-inf, -0.0 and exact boundary values): exact equality
-   (``==``, so +0 == -0); it times kernel, plain version and, where one
+   holding NaN, +-inf, -0.0 and exact boundary values; K1 also on ragged
+   tiles, d in {1, 3, 8, 32}, missing and out-of-range ids and -0.0 / NaN
+   rows, as bits; X2 also on 512-byte rows with more than L = 128 pieces,
+   delimiters first, last, everywhere and >= 0x80, odd itemsizes, every
+   FarmHash length and bucket counts 1 .. 2^31): exact equality (``==``,
+   so +0 == -0, or bits); it times kernel, plain version and, where one
    exists, the one PyTorch call computing the same function
    (``library_ms``, a yardstick the port never calls), and computes the
-   least time the card could take;
+   least time the card could take (X2: bytes, or integer operations
+   counted from this batch's pieces over the INT32 rate, whichever is
+   larger);
 2. that each ``predict`` went through its path's kernels and no other:
    the launch counts are zeroed just before a predict and read just after;
 3. pooled outputs of all 1000 columns against the port's NumPy oracle
@@ -50,9 +56,11 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and f32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores.  The INT32 rate is 132 SMs x 64 lanes x the SM
+# clock nvidia-smi reports as clocks.max.sm (int32_ops_per_s).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+H100_SMS, INT32_LANES_PER_SM = 132, 64
 # about 0.1 s of an H100's ~2 GHz clock: long enough for the host to queue
 # every timed call behind it
 SLEEP_CYCLES = 200_000_000
@@ -62,12 +70,56 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
+def nvidia_smi(query: str) -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    ).stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def int32_ops_per_s() -> float:
+    """132 SMs x 64 INT32 lanes x the card's top SM clock."""
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    return H100_SMS * INT32_LANES_PER_SM * mhz * 1e6
+
+
+# Integer operations of one FarmHash Fingerprint64 by length branch (0,
+# 1-3, 4-7, 8-16, 17-32, 33-64 bytes), counted from csrc/hash_device.cu: a
+# 64-bit multiply is four 32-bit multiply-adds; a 64-bit add, xor, shift or
+# rotate is two operations; a 32-bit one is one; byte fetches are loads.
+HASH_OPS = (0, 22, 32, 46, 58, 116)
+# the modulo: umulhi(h, M) (a 64-bit multiply), a 32-bit multiply, a
+# subtract, a compare and the one correction
+MOD_OPS = 8
+
+
+def x2_int_ops(torch, raw, widths, delims, bp: int, wbk: int,
+               rowlen: int) -> int:
+    """Integer operations kernel X2 needs for this batch: one test per
+    staged byte (finding row lengths and delimiters), plus each piece's
+    hash by its length branch and its modulo."""
+    from recom_tpu_torch.ops.hash_device import (
+        row_lengths,
+        split_pieces,
+        verbatim_rows,
+    )
+
+    rows = verbatim_rows(raw, widths, bp, wbk)
+    if delims is None:
+        plen = row_lengths(rows).reshape(-1)
+    else:
+        _, lens, npieces = split_pieces(rows, delims, rowlen)
+        valid = (torch.arange(rowlen, device=raw.device)
+                 < npieces[..., None])
+        plen = lens[valid]
+    edges = torch.tensor([1, 4, 8, 17, 33], device=raw.device)
+    branch = torch.bucketize(plen, edges, right=True)
+    ops = torch.tensor(HASH_OPS, device=raw.device)[branch] + MOD_OPS
+    return int(widths.long().sum()) * bp + int(ops.sum())
 
 
 def require(ok: bool, what: str) -> None:
@@ -159,10 +211,106 @@ def latency(torch, eng, name: str, cases) -> None:
             f"{fwd_dev:.4f} ms queued, {fwd_paced:.4f} ms host-paced")
 
 
-def bound_ms(nbytes: float, flops: float = 0.0):
+def bound_ms(nbytes: float, flops: float = 0.0, int_ops: float = 0.0,
+             int_rate: float = 1.0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = max(flops / F32_FLOPS_PER_S, int_ops / int_rate) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+EDGE_BUCKETS = (1, 7, (1 << 31) - 5, (1 << 31) - 1, 1 << 31)
+
+
+def _s_buffer(rows, bp: int, wbk: int):
+    """Rows as numpy 'S' buffers staged verbatim, as runtime/wire.py does:
+    [n, bp * wbk] bytes and [n] itemsizes."""
+    import numpy as np
+
+    raw = np.zeros((len(rows), bp * wbk), np.uint8)
+    widths = np.zeros(len(rows), np.int32)
+    for i, col in enumerate(rows):
+        arr = np.asarray(col, dtype="S")
+        widths[i] = arr.dtype.itemsize
+        buf = arr.view(np.uint8).ravel()
+        raw[i, : buf.size] = buf
+    return raw, widths
+
+
+def x2_edge_cases(seed: int = 0):
+    """Inputs on which X2's staging, split and piece lists have edges, one
+    dict per case: name, cols (the rows of each column, bytes), raw and
+    widths (as the wire stages them), delim (a byte, or None for fixed
+    columns), bp, wbk (the width bucket) and rowlen.  Five columns each,
+    for the bucket counts EDGE_BUCKETS."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = [0, 1, 3, 4, 7, 8, 15, 16, 17, 31, 32, 33, 63, 64]
+
+    def piece(n, avoid):
+        return bytes(rng.integers(1, 256, n).astype(np.uint8)).replace(
+            avoid, b"\x01")
+
+    def split_cols(bp, delim, max_pieces, max_piece):
+        """The delimiter first, last, and as every byte; an empty row;
+        up to max_pieces pieces of every length up to max_piece."""
+        d = bytes([delim])
+        lens = [x for x in lengths if x <= max_piece]
+        cols = []
+        for i in range(len(EDGE_BUCKETS)):
+            rows = [d.join(piece(int(n), d) for n in rng.choice(
+                lens, int(rng.integers(1, max_pieces + 1))))
+                for _ in range(bp)]
+            rows[:6] = [b"", d + rows[1], rows[2] + d, d * (5 + 7 * i), d,
+                        piece(64, d)]
+            cols.append(rows)
+        return cols
+
+    cases = [
+        ("512-byte rows, L = 128, up to 129 pieces", 77,
+         split_cols(77, ord(";"), 129, 3), ord(";"), 128, 512),
+        ("0xFE delimiter, every piece length, rows over 300 bytes", 300,
+         split_cols(300, 0xFE, 9, 64), 0xFE, 12, None),
+    ]
+    fixed = []
+    for width in (1, 13, 30, 61, 64):
+        lens = [min(n, width) for n in lengths]
+        rows = [piece(int(rng.choice(lens)), b"\x00") for _ in range(1000)]
+        rows[0] = piece(width, b"\x00")             # fixes the itemsize
+        fixed.append(rows)
+    cases.append(("fixed, itemsizes 1/13/30/61/64, 1000 rows", 1000, fixed,
+                  None, 1, None))
+    out = []
+    for name, bp, cols, delim, rowlen, wbk in cases:
+        width = max(np.asarray(c, dtype="S").dtype.itemsize for c in cols)
+        wbk = wbk or ((width + 4 + 3) // 4) * 4
+        raw, widths = _s_buffer(cols, bp, wbk)
+        out.append(dict(name=name, cols=cols, raw=raw, widths=widths,
+                        delim=delim, bp=bp, wbk=wbk, rowlen=rowlen))
+    return out
+
+
+def k1_edge_case(c: int, v: int, d: int, b: int, seed: int,
+                 specials: bool = True):
+    """K1 inputs on tiles that do not divide C and Bp: a zero-padded
+    [C_pad, V_pad, d] table3 (with ``specials``, -0.0 and NaN rows), ids
+    with an all-missing column, ids past their caps and below -1, and
+    caps."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    c_pad, v_pad = ((c + 7) // 8) * 8, ((v + 127) // 128) * 128
+    t3 = np.zeros((c_pad, v_pad, d), np.float32)
+    t3[:c, :v] = rng.standard_normal((c, v, d)).astype(np.float32)
+    if specials:
+        bits = t3.view(np.int32)
+        bits[:, 0::3] = np.int32(-2**31)
+        bits[:, 1::5] = np.int32(0x7FC0_1234)
+    ids = rng.integers(-5, v + 40, (c, b)).astype(np.int32)
+    ids[c // 2] = -1
+    ids[0, :3] = [-2, np.iinfo(np.int32).min, np.iinfo(np.int32).max]
+    caps = rng.integers(v // 2, v, c).astype(np.int32)
+    return t3, ids, caps
 
 
 def main() -> int:
@@ -181,6 +329,7 @@ def main() -> int:
     from recom_tpu_torch.models.synthetic import make_microbenchmark_model
     from recom_tpu_torch.ops import kernels
     from recom_tpu_torch.ops.hash_device import (
+        bucket_reciprocals,
         hash_verbatim,
         hash_verbatim_plain,
     )
@@ -201,7 +350,9 @@ def main() -> int:
 
     card = card_line()
     dev = torch.device("cuda")
-    log(f"card: {card}")
+    int_rate = int32_ops_per_s()
+    log(f"card: {card}; INT32 peak {int_rate / 1e12:.2f} Tops/s (132 SMs x "
+        f"64 lanes x clocks.max.sm {nvidia_smi('clocks.max.sm')})")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
@@ -327,24 +478,58 @@ def main() -> int:
             raw = view(g.gid, f"{name}_raw", torch.uint8)
             widths = view(g.gid, f"{name}_w", torch.int32)
             if ws:
-                bk = torch.as_tensor(p.str_buckets, device=dev)
-                dl, wbk, rl = None, ws, 1
+                bk_np, dl, wbk, rl = p.str_buckets, None, ws, 1
             else:
-                bk = torch.as_tensor(p.fast_buckets, device=dev)
+                bk_np, wbk, rl = p.fast_buckets, wd, rowlens[gi]
                 dl = torch.as_tensor(p.fast_delims_np, device=dev)
-                wbk, rl = wd, rowlens[gi]
+            bk = torch.as_tensor(bk_np, device=dev)
+            rc = torch.as_tensor(bucket_reciprocals(bk_np), device=dev)
             n = raw.shape[0]
-            kern = lambda a=(raw, widths, bk, dl, bp, wbk, rl): (
+            kern = lambda a=(raw, widths, bk, rc, dl, bp, wbk, rl): (
                 hash_verbatim(*a))
             plain = lambda a=(raw, widths, bk, dl, bp, wbk, rl): (
                 hash_verbatim_plain(*a))
             wsum = int(widths.long().sum())
-            nbytes = wsum * bp + n * 4 + n * 8 + n * bp * rl * 4
+            nbytes = wsum * bp + n * (4 + 8 + 8 + 1) + n * bp * rl * 4
+            int_ops = x2_int_ops(torch, raw, widths, dl, bp, wbk, rl)
             calls["X2"].append(dict(
                 group=g.gid, kern=kern, plain=plain, lib=None,
-                bound=bound_ms(nbytes),
-                shape=f"{n} cols x {bp} rows, width bucket {wbk}, L={rl}",
+                bound=bound_ms(nbytes, int_ops=int_ops, int_rate=int_rate),
+                shape=f"{n} cols x {bp} rows, width bucket {wbk}, L={rl}, "
+                f"{int_ops / 1e6:.2f} M int ops",
             ))
+
+    # K1 and X2 on their edge inputs (exact, as bits for K1)
+    with torch.inference_mode():
+        bk_np = np.asarray(EDGE_BUCKETS, np.int64)
+        rc = torch.from_numpy(bucket_reciprocals(bk_np)).to(dev)
+        for case in x2_edge_cases():
+            a = [torch.from_numpy(case["raw"]).to(dev),
+                 torch.from_numpy(case["widths"]).to(dev),
+                 torch.from_numpy(bk_np).to(dev)]
+            dl = (None if case["delim"] is None else torch.full(
+                (len(bk_np),), case["delim"], dtype=torch.uint8, device=dev))
+            rest = (case["bp"], case["wbk"], case["rowlen"])
+            got = hash_verbatim(*a, rc, dl, *rest)
+            want = hash_verbatim_plain(*a, dl, *rest)
+            torch.cuda.synchronize()
+            require(got.shape == want.shape and bool((got == want).all()),
+                    f"X2 edge case ({case['name']}): kernel != plain")
+            log(f"X2 edge case ({case['name']}; width bucket {case['wbk']}, "
+                f"itemsizes {case['widths'].tolist()}): kernel == plain")
+        for cc, bb, d in ((45, 100, 1), (45, 100, 3), (45, 100, 8),
+                          (45, 100, 32), (930, 2000, 8)):
+            t3, ids_np, caps_np = k1_edge_case(cc, 101, d, bb, seed=d)
+            a = (torch.from_numpy(t3).to(dev), torch.from_numpy(ids_np).to(dev),
+                 torch.from_numpy(caps_np).to(dev))
+            got, want = onehot_lookup(*a), onehot_lookup_plain(*a)
+            torch.cuda.synchronize()
+            require(got.shape == want.shape == (bb, cc, d) and bool(
+                (got.view(torch.int32) == want.view(torch.int32)).all()),
+                f"K1 edge case C={cc} Bp={bb} d={d}: kernel != plain")
+            log(f"K1 edge case C={cc} Bp={bb} d={d} (an all-missing column, "
+                "ids past caps and below -1, -0.0 and NaN rows): kernel == "
+                "plain bit for bit")
 
     # K2's path: the microbenchmark model at 1000 columns, raw floats on
     # the card (wire blob, host_bucketize=False)
@@ -430,7 +615,7 @@ def main() -> int:
             require(bool(recs), f"no main-path call of {kid}")
             err = 0.0
             tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-            bound_by = set()
+            bound_by = {"bytes": 0.0, "operations": 0.0}
             for r in recs:
                 a, b = r["kern"](), r["plain"]()
                 torch.cuda.synchronize()
@@ -441,6 +626,10 @@ def main() -> int:
                 require(bool((a == b).all()),
                         f"{kid} group {r['group']}: kernel != plain "
                         f"(max abs err {e})")
+                if kid == "K1":
+                    require(bool((a.view(torch.int32)
+                                  == b.view(torch.int32)).all()),
+                            "K1: kernel != plain as bits")
                 err = max(err, e)
                 ms = time_ms(torch, r["kern"])
                 paced = time_ms(torch, r["kern"], queued=False)
@@ -455,7 +644,7 @@ def main() -> int:
                     lms = time_ms(torch, r["lib"])
                     tot["library_ms"] += lms
                 bms, by = r["bound"]
-                bound_by.add(by)
+                bound_by[by] += bms
                 tot["ms"] += ms
                 tot["plain_ms"] += pms
                 tot["bound_ms"] += bms
@@ -464,10 +653,11 @@ def main() -> int:
                     f"{pms:.4f} ms, library "
                     f"{'-' if lms is None else f'{lms:.4f} ms'}, bound "
                     f"{bms:.4f} ms ({by}), exact")
+            log(f"{kid} summed over {len(recs)} launch(es): kernel "
+                f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
             has_lib = any(r["lib"] is not None for r in recs)
             results[kid] = dict(
-                err=err, bound_by="bytes" if "bytes" in bound_by
-                else "operations",
+                err=err, bound_by=max(bound_by, key=bound_by.get),
                 lib=tot["library_ms"] if has_lib else None, **tot,
             )
 

@@ -19,63 +19,135 @@
 // table3 of model E (936 x 128 x 8 x 4 B = 3.8 MB) sits in the 50 MB L2, so
 // the row reads hit L2 and the work is bound by writing the [Bp, C, d]
 // output (2048 x 930 x 8 x 4 B = 61 MB at batch 2048) plus reading the
-// [C, Bp] ids once (7.6 MB).
+// [C, Bp] ids once (7.6 MB): 0.021 ms at 3.35 TB/s.  A thread per output
+// float (the first port) spent about 100 instructions on every 4 bytes it
+// wrote (two divisions and two remainders by runtime sizes, a strided
+// reload of the id and its cap), so instruction throughput, not memory,
+// bounded it.
 //
-// Design: one thread per output element, in output order (d fastest, then
-// c, then b), so a warp's stores are one contiguous run and the row reads
-// of consecutive lanes fall in one 32-byte sector.  The ids are read in the
-// host's column-major [C, Bp] layout directly; the stride this gives the id
-// loads is absorbed by L1/L2 (each id sector serves the next batch rows'
-// threads).  32-bit index math when the output fits, 64-bit otherwise.
+// Design: one block per tile of 32 columns x 32 batch rows.  Phase 1: the
+// block reads the tile's ids along the batch (coalesced in the host's
+// column-major [C, Bp] layout), applies the cap and the missing test once
+// per id, and keeps each entry's table offset in shared memory.  Phase 2:
+// a warp writes one batch row's slice of the tile, 32 x d contiguous floats
+// of the output, lane e moving elements e, e + 32, ... (512 contiguous
+// bytes a warp store); consecutive lanes read one table row's consecutive
+// floats.  Rows move as float4 when d is a multiple of 4 and the pointers
+// allow it, else float by float.  A lane's (column, offset in row) is
+// carried from element to element, so no element divides.  Stores carry
+// the evict-first hint (__stcs), so the streamed output does not push
+// table3 out of L2.  32-bit index math when every index fits, 64-bit
+// otherwise.  Staging the output tile in shared memory and writing it with
+// TMA bulk stores (cp.async.bulk) was slower than these direct stores.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-template <typename I>
-__global__ void onehot_lookup_f32_kernel(
-    const float* __restrict__ table3,   // [C_pad, V, d]
+namespace {
+
+constexpr int kCols = 32;      // columns per block tile
+constexpr int kRows = 32;      // batch rows per block tile
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+template <typename T> __device__ __forceinline__ T Zero();
+template <> __device__ __forceinline__ float Zero<float>() { return 0.0f; }
+template <> __device__ __forceinline__ float4 Zero<float4>() {
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// T: float, or float4 with d counted in float4s (dq = d or d / 4).
+template <typename I, typename T>
+__global__ void __launch_bounds__(kThreads) onehot_lookup_kernel(
+    const T* __restrict__ table3,       // [C_pad, V, d]
     const int32_t* __restrict__ ids,    // [C, Bp] local ids, < 0 = missing
     const int32_t* __restrict__ caps,   // [C] last valid row per column
-    float* __restrict__ out,            // [Bp, C, d]
-    I C, I Bp, I V, I d, I total) {
-  I e = static_cast<I>(blockIdx.x) * static_cast<I>(blockDim.x) +
-        static_cast<I>(threadIdx.x);
-  if (e >= total) return;
-  I j = e % d;
-  I bc = e / d;
-  I c = bc % C;
-  I b = bc / C;
-  int32_t id = ids[static_cast<int64_t>(c) * Bp + b];
-  int32_t cap = caps[c];
-  id = id < cap ? id : cap;
-  float v = 0.0f;
-  if (id >= 0) {
-    v = table3[(static_cast<int64_t>(c) * V + id) * d + j];
+    T* __restrict__ out,                // [Bp, C, d]
+    I C, I Bp, I V, int dq) {
+  __shared__ I rows[kRows][kCols + 1];  // table3 offset of (b, c), -1 missing
+  const I c0 = static_cast<I>(blockIdx.x) * kCols;
+  const I b0 = static_cast<I>(blockIdx.y) * kRows;
+  const int nc = C - c0 < kCols ? static_cast<int>(C - c0) : kCols;
+  const int nb = Bp - b0 < kRows ? static_cast<int>(Bp - b0) : kRows;
+
+  for (int i = threadIdx.x; i < kCols * kRows; i += kThreads) {
+    const int cl = i / kRows;
+    const int bl = i % kRows;
+    if (cl < nc && bl < nb) {
+      const I c = c0 + cl;
+      const int32_t cap = __ldg(caps + c);
+      int32_t id = __ldg(ids + c * Bp + b0 + bl);
+      id = id < cap ? id : cap;
+      rows[bl][cl] = id >= 0 ? (c * V + id) * dq : static_cast<I>(-1);
+    }
   }
-  out[e] = v;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int span = nc * dq;            // elements of one batch row's slice
+  const int cl_first = lane / dq, q_first = lane - cl_first * dq;
+  const int cl_step = 32 / dq, q_step = 32 - cl_step * dq;
+  for (int bl = threadIdx.x >> 5; bl < nb; bl += kWarps) {
+    T* o = out + ((b0 + bl) * C + c0) * dq;
+    const I* r = rows[bl];
+    int cl = cl_first, q = q_first;
+#pragma unroll 2
+    for (int e = lane; e < span; e += 32) {
+      const I row = r[cl];
+      __stcs(o + e, row >= 0 ? __ldg(table3 + row + q) : Zero<T>());
+      q += q_step;
+      cl += cl_step;
+      if (q >= dq) {
+        q -= dq;
+        ++cl;
+      }
+    }
+  }
 }
+
+template <typename I>
+void launch(const void* table3, const void* ids, const void* caps, void* out,
+            I C, I Bp, I V, int d, bool vec, dim3 grid, cudaStream_t s) {
+  const int32_t* i = static_cast<const int32_t*>(ids);
+  const int32_t* k = static_cast<const int32_t*>(caps);
+  if (vec) {
+    onehot_lookup_kernel<I, float4><<<grid, kThreads, 0, s>>>(
+        static_cast<const float4*>(table3), i, k, static_cast<float4*>(out),
+        C, Bp, V, d / 4);
+  } else {
+    onehot_lookup_kernel<I, float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(table3), i, k, static_cast<float*>(out),
+        C, Bp, V, d);
+  }
+}
+
+}  // namespace
 
 extern "C" int rt_onehot_lookup_f32(
     const void* table3, const void* ids, const void* caps, void* out,
     int64_t C, int64_t Bp, int64_t V, int64_t d, void* stream) {
-  const int64_t total = C * Bp * d;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > 2147483647) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (C == 0 || Bp == 0 || d == 0) return 0;
+  const int64_t col_tiles = (C + kCols - 1) / kCols;
+  const int64_t row_tiles = (Bp + kRows - 1) / kRows;
+  if (col_tiles > 2147483647 || row_tiles > 65535 || d > 2147483647) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const dim3 grid(static_cast<unsigned>(col_tiles),
+                  static_cast<unsigned>(row_tiles));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (total < (int64_t{1} << 31)) {
-    onehot_lookup_f32_kernel<int32_t><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-        static_cast<const float*>(table3), static_cast<const int32_t*>(ids),
-        static_cast<const int32_t*>(caps), static_cast<float*>(out),
-        static_cast<int32_t>(C), static_cast<int32_t>(Bp),
-        static_cast<int32_t>(V), static_cast<int32_t>(d),
-        static_cast<int32_t>(total));
+  // the largest index: the output's, or the table's (planes c < C only)
+  const int64_t out_n = C * Bp * d;
+  const int64_t tab_n = C * V * d;
+  const bool vec = d % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(table3) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (out_n < (int64_t{1} << 31) && tab_n < (int64_t{1} << 31)) {
+    launch<int32_t>(table3, ids, caps, out, static_cast<int32_t>(C),
+                    static_cast<int32_t>(Bp), static_cast<int32_t>(V),
+                    static_cast<int>(d), vec, grid, s);
   } else {
-    onehot_lookup_f32_kernel<int64_t><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-        static_cast<const float*>(table3), static_cast<const int32_t*>(ids),
-        static_cast<const int32_t*>(caps), static_cast<float*>(out),
-        C, Bp, V, d, total);
+    launch<int64_t>(table3, ids, caps, out, C, Bp, V, static_cast<int>(d),
+                    vec, grid, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,8 @@ Fingerprint64 of each piece (up to 64 bytes: the straight-line branches;
 longer pieces are routed to host hashing per request by the wire plan),
 reduces it modulo the bucket count and pads with -1.  On CUDA tensors
 ``hash_verbatim`` runs all of that as one launch of kernel X2
-(csrc/hash_device.cu), with native ``uint64_t``.
+(csrc/hash_device.cu), with native ``uint64_t``; its modulo is a
+multiply by the per-column constants of ``bucket_reciprocals``.
 
 The plain versions below must do without uint64: torch has no shifts, adds
 or remainders for it.  They carry u64 values as int64 two's complement, in
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from recom_tpu_torch.ops import kernels
@@ -156,6 +158,20 @@ def mod_buckets(h: torch.Tensor, num_buckets: torch.Tensor) -> torch.Tensor:
     return r.to(torch.int32)
 
 
+def bucket_reciprocals(buckets) -> np.ndarray:
+    """Per-column constants of kernel X2's modulo: M = floor((2^64 - 1) /
+    m) for each bucket count m in [1, 2^31], as the int64 with the same
+    bits.  With them h % m = r or r - m, where r = h - umulhi(h, M) * m:
+    M * m = 2^64 - 1 - e with 0 <= e < m, so h * M / 2^64 lies in
+    (h / m - 1, h / m] and the quotient is exact or one short."""
+    m = np.asarray(buckets, dtype=np.int64).reshape(-1)
+    if m.size and (m.min() < 1 or m.max() > MAX_BUCKETS):
+        raise ValueError(f"bucket counts must lie in [1, 2^31], got "
+                         f"[{m.min()}, {m.max()}]")
+    recips = [((1 << 64) - 1) // int(x) for x in m]
+    return np.asarray(recips, dtype=np.uint64).view(np.int64)
+
+
 def row_lengths(bytes_u8: torch.Tensor) -> torch.Tensor:
     """Byte length of each NUL-right-padded row: the last non-NUL byte + 1.
     [..., W] uint8 -> [...] int64."""
@@ -252,6 +268,7 @@ def hash_verbatim(
     raw: torch.Tensor,              # [n, Bp*W] uint8 verbatim buffers
     widths: torch.Tensor,           # [n] int32 itemsize per column (<= W)
     buckets: torch.Tensor,          # [n] int64 bucket count per column
+    recips: torch.Tensor,           # [n] int64 bucket_reciprocals(buckets)
     delims: Optional[torch.Tensor],  # [n] uint8, None for fixed columns
     bp: int,
     wbk: int,
@@ -259,8 +276,8 @@ def hash_verbatim(
 ) -> torch.Tensor:
     """Hashed ids [n, Bp, L] int32 for the verbatim string views of the
     wire (L = 1 for fixed columns, ``rowlen`` for delimited ones, -1
-    padded).  CPU tensors take the plain version; CUDA tensors launch
-    kernel X2."""
+    padded).  CPU tensors take the plain version (which needs no
+    ``recips``); CUDA tensors launch kernel X2."""
     n = raw.shape[0]
     if raw.dtype != torch.uint8 or tuple(raw.shape) != (n, bp * wbk):
         raise ValueError(f"raw must be uint8 [{n}, {bp * wbk}], got "
@@ -269,12 +286,14 @@ def hash_verbatim(
         raise ValueError(f"widths must be int32 [{n}]")
     if buckets.dtype != torch.int64 or tuple(buckets.shape) != (n,):
         raise ValueError(f"buckets must be int64 [{n}]")
+    if recips.dtype != torch.int64 or tuple(recips.shape) != (n,):
+        raise ValueError(f"recips must be int64 [{n}]")
     if delims is not None and (
         delims.dtype != torch.uint8 or tuple(delims.shape) != (n,)
     ):
         raise ValueError(f"delims must be uint8 [{n}]")
     for name, t in (("widths", widths), ("buckets", buckets),
-                    ("delims", delims)):
+                    ("recips", recips), ("delims", delims)):
         if t is not None and t.device != raw.device:
             raise ValueError(f"{name} on {t.device}, raw on {raw.device}")
     length = 1 if delims is None else rowlen
@@ -284,14 +303,16 @@ def hash_verbatim(
     if raw.device.type != "cuda":
         raise ValueError(f"unsupported device {raw.device}")
     for name, t in (("raw", raw), ("widths", widths), ("buckets", buckets),
-                    ("delims", delims)):
+                    ("recips", recips), ("delims", delims)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if not 1 <= wbk <= 65535:
+        raise ValueError(f"kernel X2 takes width buckets 1..65535, got {wbk}")
     out = torch.empty((n, bp, length), dtype=torch.int32, device=raw.device)
     kernels.launch(
         "hash_device",
         kernels.ptr(raw), kernels.ptr(widths), kernels.ptr(buckets),
-        kernels.ptr(delims), kernels.ptr(out), n, bp, wbk, length,
-        kernels.stream_of(raw),
+        kernels.ptr(recips), kernels.ptr(delims), kernels.ptr(out), n, bp,
+        wbk, length, kernels.stream_of(raw),
     )
     return out

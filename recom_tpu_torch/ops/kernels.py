@@ -55,7 +55,7 @@ LIBRARIES = {
     ),
     "hash_device": (
         "hash_device.cu", "X2", "rt_hash_rows",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     ),
 }
 

@@ -926,9 +926,12 @@ _TORCH_DTYPES = {
 
 def _hash_constants(compiled: CompiledModel, device) -> List[Optional[Dict]]:
     """Per-group device copies of the plan's hash constants (bucket counts,
-    delimiters), made once per (model, device) and cached on the
-    CompiledModel like the wire layouts."""
+    their reciprocals for kernel X2's modulo, delimiters), made once per
+    (model, device) and cached on the CompiledModel like the wire
+    layouts."""
     import torch
+
+    from recom_tpu_torch.ops.hash_device import bucket_reciprocals
 
     cache = getattr(compiled, "_torch_hash_consts", None)
     if cache is None:
@@ -941,24 +944,25 @@ def _hash_constants(compiled: CompiledModel, device) -> List[Optional[Dict]]:
     out: List[Optional[Dict]] = []
     for p in _plan(compiled):
         consts = {}
-        if p.n_str:
-            consts["str_buckets"] = torch.as_tensor(
-                p.str_buckets, dtype=torch.int64, device=device
-            )
-        if p.n_fast:
-            consts["fast_buckets"] = torch.as_tensor(
-                p.fast_buckets, dtype=torch.int64, device=device
-            )
-            consts["fast_delims"] = torch.as_tensor(
-                p.fast_delims_np, dtype=torch.uint8, device=device
-            )
-        for name in ("str_buckets", "fast_buckets"):
-            b = getattr(p, name)
-            if b is not None and (b.min() < 1 or b.max() > (1 << 31)):
+        for name in ("str", "fast"):
+            b = getattr(p, f"{name}_buckets")
+            if b is None:
+                continue
+            if b.min() < 1 or b.max() > (1 << 31):
                 raise ValueError(
                     f"group {p.gid}: device hash needs bucket counts in "
                     f"[1, 2^31], got [{b.min()}, {b.max()}]"
                 )
+            consts[f"{name}_buckets"] = torch.as_tensor(
+                b, dtype=torch.int64, device=device
+            )
+            consts[f"{name}_recips"] = torch.as_tensor(
+                bucket_reciprocals(b), device=device
+            )
+        if p.n_fast:
+            consts["fast_delims"] = torch.as_tensor(
+                p.fast_delims_np, dtype=torch.uint8, device=device
+            )
         out.append(consts)
     cache[key] = out
     return out
@@ -1015,7 +1019,8 @@ def unpack_blob(
                 sids = hash_verbatim(
                     get(by_key[(g.gid, "str_raw")]),
                     get(by_key[(g.gid, "str_w")]),
-                    consts[gi]["str_buckets"], None, bp, ws,
+                    consts[gi]["str_buckets"], consts[gi]["str_recips"],
+                    None, bp, ws,
                 )                                   # [n_str, Bp, 1]
                 pre = host[: p.n_int] if host is not None else None
                 suf = host[p.n_int :] if host is not None else None
@@ -1023,8 +1028,8 @@ def unpack_blob(
                 sids = hash_verbatim(
                     get(by_key[(g.gid, "split_raw")]),
                     get(by_key[(g.gid, "split_w")]),
-                    consts[gi]["fast_buckets"], consts[gi]["fast_delims"],
-                    bp, wd, rowlens[gi],
+                    consts[gi]["fast_buckets"], consts[gi]["fast_recips"],
+                    consts[gi]["fast_delims"], bp, wd, rowlens[gi],
                 )                                   # [n_fast, Bp, rl]
                 pre = host[: p.fast_lo] if host is not None else None
                 suf = host[p.fast_lo :] if host is not None else None

@@ -10,6 +10,7 @@ import torch
 
 import jax.numpy as jnp
 
+import chip_smoke
 from recom_tpu.ops import lookup_xla
 from recom_tpu.ops.lookup_pallas import _onehot_lookup_impl, group_pooled_onehot
 from recom_tpu_torch.ops import kernels
@@ -71,6 +72,41 @@ def test_k1_clamp_and_combiners_match_group_pooled_onehot():
     got = onehot_lookup(torch.from_numpy(t3), torch.from_numpy(ids),
                         torch.from_numpy(caps))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("d", [1, 3, 8, 32])
+def test_k1_plain_matches_pallas_on_ragged_tiles(d):
+    c, v, b = 45, 101, 100
+    # NaN rows would spread through the reference's one-hot product
+    t3, ids, caps = chip_smoke.k1_edge_case(c, v, d, b, seed=d,
+                                            specials=False)
+    clamped = np.minimum(ids, caps[:, None])
+    ids_t = np.full((t3.shape[0], b), -1, np.int32)
+    ids_t[:c] = clamped
+    want = np.asarray(
+        _onehot_lookup_impl(jnp.asarray(t3), jnp.asarray(ids_t),
+                            interpret=True)
+    )[:c].transpose(1, 0, 2)
+    got = onehot_lookup(torch.from_numpy(t3), torch.from_numpy(ids),
+                        torch.from_numpy(caps))
+    assert got.shape == (b, c, d)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_k1_plain_copies_rows_bit_for_bit():
+    """-0.0 and NaN rows (with payloads) come through as their bits; a
+    missing id gives +0.0."""
+    c, v, d, b = 5, 16, 3, 40
+    t3, ids, caps = chip_smoke.k1_edge_case(c, v, d, b, seed=3)
+    t3.view(np.int32)[:, 2::7] = np.int32(-8_388_607)     # 0xFF800001, NaN
+    got = onehot_lookup(torch.from_numpy(t3), torch.from_numpy(ids),
+                        torch.from_numpy(caps)).numpy()
+    clamped = np.minimum(ids, caps[:, None])
+    want = np.zeros((b, c, d), np.float32)
+    for i in range(c):
+        ok = clamped[i] >= 0
+        want[ok, i] = t3[i, clamped[i, ok]]
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_k1_wrapper_rejects_bad_inputs():
@@ -223,3 +259,23 @@ def test_x1_kernel_matches_plain_on_card(cuda, l, d, weighted):
     assert kernels.launches["X1"] == before + 1
     want = tg.group_pooled_plain(tt, it, offs, code, wt, wcols, caps)
     assert bool((got == want).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 8, 32])
+def test_k1_kernel_edges_match_plain_on_card(cuda, d):
+    """Ragged tiles (C = 45, Bp = 100), d off the float4 path (1, 3) and on
+    it (8, 32), an all-missing column, ids past their caps and below -1,
+    and -0.0 / NaN rows, compared as bits."""
+    c, v, b = 45, 101, 100
+    t3, ids, caps = chip_smoke.k1_edge_case(c, v, d, b, seed=100 + d)
+    t3g = torch.from_numpy(t3).to(cuda)
+    idsg = torch.from_numpy(ids).to(cuda)
+    capsg = torch.from_numpy(caps).to(cuda)
+    before = kernels.launches["K1"]
+    got = onehot_lookup(t3g, idsg, capsg)
+    assert kernels.launches["K1"] == before + 1
+    want = onehot_lookup_plain(t3g, idsg, capsg)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, c, d)
+    assert bool((got.view(torch.int32) == want.view(torch.int32)).all())
