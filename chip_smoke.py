@@ -20,21 +20,27 @@ through ``Engine(..., device="cuda")``, random weights from a seed:
 It checks:
 
 1. each kernel (K1 one-id lookup, K2 fused bucketize + lookup, X1 gather +
-   pooling, X2 string hashing) against its plain PyTorch version on the
-   card, at the shapes its path gives it at batch 2048 (K2 also on planes
-   holding NaN, +-inf, -0.0 and exact boundary values; K1 also on ragged
-   tiles, d in {1, 3, 8, 32}, missing and out-of-range ids and -0.0 / NaN
-   rows, as bits; X2 also on 512-byte rows with more than L = 128 pieces,
-   delimiters first, last, everywhere and >= 0x80, odd itemsizes, every
-   FarmHash length and bucket counts 1 .. 2^31): exact equality (``==``,
-   so +0 == -0, or bits); it times kernel, plain version and, where one
-   exists, the one PyTorch call computing the same function
-   (``library_ms``, a yardstick the port never calls), and computes the
-   least time the card could take (X2: bytes, or integer operations
-   counted from this batch's pieces over the INT32 rate, whichever is
-   larger);
-2. that each ``predict`` went through its path's kernels and no other:
-   the launch counts are zeroed just before a predict and read just after;
+   pooling, one launch for all of model E's gather groups, X2 string
+   hashing) against its plain PyTorch version on the card, at the shapes
+   its path gives it at batch 2048 (K2 also on planes holding NaN, +-inf,
+   -0.0 and exact boundary values, and on ragged tiles with d in {1, 3,
+   8, 32}, V_pad 128 / 256 / 384 and edge boundary sets; K1 also on
+   ragged tiles, d in {1, 3, 8, 32}, missing and out-of-range ids and
+   -0.0 / NaN rows; X1 also on d in {1, 3, 8, 32} x L in {1, 2, 12, 33},
+   all-missing and zero-weight bags, -0.0 / NaN / +-inf rows; X2 also on
+   512-byte rows with more than L = 128 pieces, delimiters first, last,
+   everywhere and >= 0x80, odd itemsizes, every FarmHash length and
+   bucket counts 1 .. 2^31): exact equality (``==``, so +0 == -0, with
+   NaN where the plain version has it for X1; as bits for K1 and K2); it
+   times kernel (warm, and with L2 flushed before each call), plain
+   version and, where one exists, the one PyTorch call computing the same
+   function (``library_ms``, a yardstick the port never calls), and
+   computes the least time the card could take (X2: bytes, or integer
+   operations counted from this batch's pieces over the INT32 rate,
+   whichever is larger);
+2. that each ``predict`` went through its path's kernels and no other
+   (model E: one launch of X1): the launch counts are zeroed just before
+   a predict and read just after;
 3. pooled outputs of all 1000 columns against the port's NumPy oracle
    exactly, and the model output at rtol 1e-4 / atol 1e-5 (model E) or
    exactly (the microbenchmark's identity tower);
@@ -64,6 +70,8 @@ H100_SMS, INT32_LANES_PER_SM = 132, 64
 # about 0.1 s of an H100's ~2 GHz clock: long enough for the host to queue
 # every timed call behind it
 SLEEP_CYCLES = 200_000_000
+# written between calls to flush the H100's 50 MB L2 (time_cold_ms)
+FLUSH_BYTES = 128 << 20
 
 
 def log(msg: str) -> None:
@@ -148,6 +156,27 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3,
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def time_cold_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of ``fn`` with L2 flushed before each call, as a serving
+    caller finds it after the rest of ``predict``: a FLUSH_BYTES buffer is
+    written between calls, outside the timed window (a pair of CUDA events
+    around each call), all queued behind a sleep kernel."""
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for i, (t0, t1) in enumerate(events):
+        buf.fill_(float(i))
+        t0.record()
+        fn()
+        t1.record()
+    torch.cuda.synchronize()
+    return sum(t0.elapsed_time(t1) for t0, t1 in events) / iters
 
 
 def require_launches(counts, kids, path: str, exactly=None) -> None:
@@ -313,6 +342,99 @@ def k1_edge_case(c: int, v: int, d: int, b: int, seed: int,
     return t3, ids, caps
 
 
+# X1's edge shapes: row lengths off (1, 3) and on (8, 32) the float4 path,
+# and bag lengths 1 (its own path), 2, 12 (model E's lists) and 33 (past
+# four chunks of 8)
+X1_EDGE_D = (1, 3, 8, 32)
+X1_EDGE_L = (1, 2, 12, 33)
+
+
+def x1_edge_case(d: int, l: int, seed: int, specials: bool = True):
+    """X1 inputs on a ragged tile (C = 6 members, Bp = 100): a stacked
+    [R, d] table (with ``specials``, -0.0 rows and NaN / +-inf rows, never
+    in a member's row 0, which a missing slot reads in the reference, and
+    no +-inf row in a bag's first slot), ids
+    [C, Bp, L] with all-missing bags and ids past their caps and below -1,
+    row offsets, caps, combiner codes (sum, mean, sqrtn), weights [C, Bp,
+    L] with zero-weight MEAN and SQRTN bags, and the per-column rounding
+    (divide or reciprocal)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    c, bp = 6, 100
+    vocab = rng.integers(5, 40, c)
+    offs = np.concatenate([[0], np.cumsum(vocab)[:-1]]).astype(np.int32)
+    table = rng.standard_normal((int(vocab.sum()), d)).astype(np.float32)
+    if specials:
+        inner = np.setdiff1d(np.arange(table.shape[0]), offs)
+        pick = rng.permutation(inner)
+        table[pick[0::7]] = -0.0
+        table[pick[1::11]] = np.nan
+        table[pick[2::13]] = np.inf
+        table[pick[3::17]] = -np.inf
+    ids = rng.integers(-3, vocab[:, None, None] + 6, (c, bp, l)).astype(np.int32)
+    ids[:, 7] = -1                                  # all-missing bags
+    ids[0, 0, :3] = [-2, np.iinfo(np.int32).min, np.iinfo(np.int32).max][:l]
+    caps = (vocab - 1 - rng.integers(0, 3, c)).astype(np.int32)
+    if specials and l > 1:
+        # the reference starts a ragged sum at (first slot's row) x 0, so
+        # an inf row there makes it NaN where the oracle's sum is inf:
+        # such bags point their first slot at the member's row 0
+        first = np.minimum(ids[:, :, 0], caps[:, None])
+        row = offs[:, None] + np.maximum(first, 0)
+        ids[:, :, 0][(first >= 0) & np.isinf(table[row]).any(-1)] = 0
+    codes = np.asarray([0, 1, 2, 1, 2, 0], np.int32)
+    weights = rng.uniform(0.1, 2.0, (c, bp, l)).astype(np.float32)
+    weights[:, 9] = 0.0                             # zero-weight bags
+    wcols = np.asarray([True, False, True, False, True, False])
+    return table, ids, offs, caps, codes, weights, wcols
+
+
+def k2_edge_case(c: int, v_pad: int, d: int, b: int, seed: int):
+    """K2 inputs on tiles that do not divide C and Bp: a boundary matrix
+    [C, v_pad - 1] and its counts, with column 0 holding no boundary,
+    column 1 v_pad - 1 of them (the most bucket_bounds takes), column 2
+    one value repeated, column 3 only -inf, column 4 two f64 boundaries
+    that ceil32 merges; a zero-padded table3 [C_pad, v_pad, d]; and raw
+    [C, b] holding NaN, +-inf, +-0.0, the least subnormals, each column's
+    boundaries and the float below each."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    kmax = v_pad - 1
+    bmat = np.full((c, kmax), np.inf, np.float32)
+    cnts = rng.integers(1, kmax + 1, c).astype(np.int32)
+    for i in range(c):
+        steps = rng.uniform(0.25, 3.0, cnts[i])
+        bmat[i, : cnts[i]] = np.cumsum(steps) - steps.sum() / 2
+    bmat[:5] = np.inf
+    cnts[0] = 0
+    cnts[1] = kmax
+    bmat[1] = np.arange(kmax, dtype=np.float32) * 0.5 - 30.0
+    cnts[2] = 9
+    bmat[2, :9] = 2.5
+    cnts[3] = 4
+    bmat[3, :4] = -np.inf
+    # ceil32 of (-1.0, 1.5 + 1e-12, 1.5 + 2e-12, 4.0): the middle two merge
+    up = np.nextafter(np.float32(1.5), np.float32(np.inf))
+    cnts[4] = 4
+    bmat[4, :4] = [-1.0, up, up, 4.0]
+    c_pad = ((c + 7) // 8) * 8
+    table3 = np.zeros((c_pad, v_pad, d), np.float32)
+    table3[:c] = rng.standard_normal((c, v_pad, d)).astype(np.float32)
+    raw = rng.uniform(-60, 60, (c, b)).astype(np.float32)
+    raw[:, :5] = [np.nan, np.inf, -np.inf, -0.0, 0.0]
+    for i in range(c):
+        k = max(int(cnts[i]), 1)
+        hits = bmat[i, rng.integers(0, k, 16)]
+        raw[i, 5:21] = hits
+        raw[i, 21:37] = np.nextafter(hits, np.float32(-np.inf))
+    raw[4, 37:40] = [up, 1.5, 4.0]
+    tiny = np.nextafter(np.float32(0), np.float32(1))   # the least subnormal
+    raw[:, 40:42] = [-tiny, tiny]
+    return bmat, cnts, table3, raw
+
+
 def main() -> int:
     import torch
 
@@ -334,10 +456,11 @@ def main() -> int:
         hash_verbatim_plain,
     )
     from recom_tpu_torch.ops.lookup_gather import (
-        group_pooled,
         group_pooled_plain,
+        groups_pooled,
     )
     from recom_tpu_torch.ops.lookup_onehot import (
+        bucket_bounds,
         onehot_bucketize_lookup,
         onehot_bucketize_lookup_plain,
         onehot_lookup,
@@ -407,6 +530,7 @@ def main() -> int:
         return blob[v.offset: v.offset + v.nbytes].view(dtype).reshape(v.shape)
 
     calls = {"K1": [], "K2": [], "X1": [], "X2": []}   # per-call records
+    x1_groups = []          # model E's gather groups, one launch of X1
     for g, packed in zip(eng.compiled.groups, arrays["groups"]):
         c = eng._consts[g.gid]
         table = eng.device_params["stacked"][str(g.gid)]
@@ -439,11 +563,8 @@ def main() -> int:
                 f"[{bp}, {cc}, {d}]",
             ))
         else:
-            offs_np, codes_np = g.row_offsets, g.combiner_code
-            wc_np, caps_np = g.weighted_cols, g.vocab_caps
             args = (table, ids, c["row_offsets"], c["codes"], weights,
                     c["weighted"], c["caps"])
-            kern = lambda args=args: group_pooled(*args)
             plain = lambda table=table, ids=ids, weights=weights, g=g: (
                 group_pooled_plain(table, ids, g.row_offsets,
                                    g.combiner_code, weights,
@@ -464,9 +585,10 @@ def main() -> int:
             uniq = torch.unique(rows[valid]).numel()
             nbytes = (ids.numel() * 4 + uniq * d * 4 + bp * cc * d * 4
                       + (0 if weights is None else weights.numel() * 4))
-            calls["X1"].append(dict(
-                group=g.gid, kern=kern, plain=plain, lib=lib,
+            x1_groups.append(dict(
+                group=g.gid, args=args, plain=plain, lib=lib,
                 bound=bound_ms(nbytes, 2.0 * nvalid * d),
+                nbytes=nbytes, flops=2.0 * nvalid * d,
                 shape=f"ids [{cc}, {bp}, {ll}], table [{table.shape[0]}, "
                 f"{d}] -> [{bp}, {cc}, {d}]",
             ))
@@ -499,6 +621,18 @@ def main() -> int:
                 f"{int_ops / 1e6:.2f} M int ops",
             ))
 
+    # X1's one launch serves every gather group of the path
+    x1_args = [x["args"] for x in x1_groups]
+    calls["X1"].append(dict(
+        group="+".join(str(x["group"]) for x in x1_groups),
+        kern=lambda: groups_pooled(x1_args),
+        plain=lambda: [x["plain"]() for x in x1_groups],
+        lib=lambda: [x["lib"]() for x in x1_groups],
+        bound=bound_ms(sum(x["nbytes"] for x in x1_groups),
+                       sum(x["flops"] for x in x1_groups)),
+        shape="; ".join(x["shape"] for x in x1_groups),
+    ))
+
     # K1 and X2 on their edge inputs (exact, as bits for K1)
     with torch.inference_mode():
         bk_np = np.asarray(EDGE_BUCKETS, np.int64)
@@ -530,6 +664,57 @@ def main() -> int:
             log(f"K1 edge case C={cc} Bp={bb} d={d} (an all-missing column, "
                 "ids past caps and below -1, -0.0 and NaN rows): kernel == "
                 "plain bit for bit")
+        # X1: every (d, L) pair, unweighted and weighted, through launches
+        # of 8 groups each (float and float4 rows, 1 to 32 lanes a bag,
+        # mixed in one launch); == with NaN where the plain version has it
+        x1_edge = []
+        for d in X1_EDGE_D:
+            for ll in X1_EDGE_L:
+                for weighted in (False, True):
+                    tb, ids_np, offs, caps_np, codes, w_np, wc = x1_edge_case(
+                        d, ll, seed=10 * d + ll)
+                    x1_edge.append(((d, ll, weighted), (
+                        torch.from_numpy(tb).to(dev),
+                        torch.from_numpy(ids_np).to(dev), offs, codes,
+                        torch.from_numpy(w_np).to(dev) if weighted else None,
+                        wc if weighted else np.zeros(len(wc), bool), caps_np,
+                    )))
+        before = kernels.launches["X1"]
+        got_all = groups_pooled([a for _, a in x1_edge])
+        require(kernels.launches["X1"] - before == -(-len(x1_edge) // 8),
+                "X1 edge cases: one launch per 8 groups")
+        for (key, a), got in zip(x1_edge, got_all):
+            want = group_pooled_plain(*a)
+            torch.cuda.synchronize()
+            same = (got == want) | (got.isnan() & want.isnan())
+            require(got.shape == want.shape and bool(same.all()),
+                    f"X1 edge case (d, L, weighted) = {key}: kernel != plain")
+        log(f"X1 edge cases (d in {X1_EDGE_D} x L in {X1_EDGE_L}, unweighted "
+            "and weighted; C = 6, Bp = 100; all-missing and zero-weight "
+            "bags, ids past caps and below -1, -0.0 / NaN / +-inf rows): "
+            f"kernel == plain, {len(x1_edge)} groups in "
+            f"{kernels.launches['X1'] - before} launches")
+        # K2: ragged tiles, d off and on the float4 path, V_pad 128, 256
+        # and 384 (not a power of two), count 0 and V_pad - 1, repeated,
+        # -inf-only and merged boundaries
+        for v_pad in (128, 256, 384):
+            for d in (1, 3, 8, 32):
+                bm, cn, t3, raw_np = k2_edge_case(45, v_pad, d, 100,
+                                                  seed=v_pad + d)
+                a = (torch.from_numpy(t3).to(dev),
+                     torch.from_numpy(raw_np).to(dev),
+                     *(torch.from_numpy(x).to(dev) for x in bucket_bounds(
+                         bm, cn, v_pad, t3.shape[0])))
+                got = onehot_bucketize_lookup(*a)
+                want = onehot_bucketize_lookup_plain(*a)
+                torch.cuda.synchronize()
+                require(got.shape == want.shape and bool(
+                    (got.view(torch.int32) == want.view(torch.int32)).all()),
+                    f"K2 edge case V_pad={v_pad} d={d}: kernel != plain")
+        log("K2 edge cases (C = 45, Bp = 100, V_pad 128 / 256 / 384, d 1 / 3 "
+            "/ 8 / 32; counts 0 and V_pad - 1, repeated, -inf-only and "
+            "merged boundaries; NaN, +-inf, +-0.0, boundaries and the floats "
+            "below them): kernel == plain bit for bit")
 
     # K2's path: the microbenchmark model at 1000 columns, raw floats on
     # the card (wire blob, host_bucketize=False)
@@ -593,7 +778,7 @@ def main() -> int:
         nbytes = (raw.numel() * 4 + cc * 4 + int(cnt.sum()) * 4
                   + uniq * d * 4 + bp_mb * cc * d * 4)
         calls["K2"].append(dict(
-            group=g.gid, kern=lambda a=a: onehot_bucketize_lookup(*a),
+            group=g.gid, args=a, kern=lambda a=a: onehot_bucketize_lookup(*a),
             plain=lambda a=a: onehot_bucketize_lookup_plain(*a), lib=None,
             bound=bound_ms(nbytes),
             shape=f"raw [{cc}, {bp_mb}], V_pad {v} -> [{bp_mb}, {cc}, {d}]",
@@ -610,51 +795,59 @@ def main() -> int:
                "recom_tpu/ops/hash_device.py:234"),
     }
     results = {}
+    as_list = lambda x: x if isinstance(x, list) else [x]
     with torch.inference_mode():
         for kid, recs in calls.items():
             require(bool(recs), f"no main-path call of {kid}")
             err = 0.0
-            tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+            tot = dict(ms=0.0, cold_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                       library_ms=0.0)
             bound_by = {"bytes": 0.0, "operations": 0.0}
             for r in recs:
-                a, b = r["kern"](), r["plain"]()
+                outs, wants = as_list(r["kern"]()), as_list(r["plain"]())
                 torch.cuda.synchronize()
-                require(a.shape == b.shape and a.dtype == b.dtype,
-                        f"{kid} group {r['group']}: shape/dtype mismatch")
-                e = float((a.double() - b.double()).abs().max()) \
-                    if a.numel() else 0.0
-                require(bool((a == b).all()),
-                        f"{kid} group {r['group']}: kernel != plain "
-                        f"(max abs err {e})")
-                if kid == "K1":
-                    require(bool((a.view(torch.int32)
-                                  == b.view(torch.int32)).all()),
-                            "K1: kernel != plain as bits")
-                err = max(err, e)
+                require(len(outs) == len(wants), f"{kid}: output count")
+                for a, b in zip(outs, wants):
+                    require(a.shape == b.shape and a.dtype == b.dtype,
+                            f"{kid} group {r['group']}: shape/dtype mismatch")
+                    e = float((a.double() - b.double()).abs().max()) \
+                        if a.numel() else 0.0
+                    require(bool((a == b).all()),
+                            f"{kid} group {r['group']}: kernel != plain "
+                            f"(max abs err {e})")
+                    if kid in ("K1", "K2"):
+                        require(bool((a.view(torch.int32)
+                                      == b.view(torch.int32)).all()),
+                                f"{kid}: kernel != plain as bits")
+                    err = max(err, e)
                 ms = time_ms(torch, r["kern"])
+                cold = time_cold_ms(torch, r["kern"])
                 paced = time_ms(torch, r["kern"], queued=False)
                 pms = time_ms(torch, r["plain"], iters=5, warmup=1)
                 lms = None
                 if r["lib"] is not None:
-                    ref = r["lib"]()
-                    close = torch.allclose(
-                        ref.reshape(a.shape), a, rtol=1e-5, atol=1e-6)
-                    require(close, f"{kid} group {r['group']}: library "
-                            "yardstick computes another function")
+                    for ref, a in zip(as_list(r["lib"]()), outs):
+                        require(torch.allclose(ref.reshape(a.shape), a,
+                                               rtol=1e-5, atol=1e-6),
+                                f"{kid} group {r['group']}: library "
+                                "yardstick computes another function")
                     lms = time_ms(torch, r["lib"])
                     tot["library_ms"] += lms
                 bms, by = r["bound"]
                 bound_by[by] += bms
                 tot["ms"] += ms
+                tot["cold_ms"] += cold
                 tot["plain_ms"] += pms
                 tot["bound_ms"] += bms
                 log(f"{kid} group {r['group']} ({r['shape']}): kernel "
-                    f"{ms:.4f} ms (host-paced {paced:.4f} ms), plain "
-                    f"{pms:.4f} ms, library "
+                    f"{ms:.4f} ms warm, {cold:.4f} ms cold L2 (host-paced "
+                    f"{paced:.4f} ms), plain {pms:.4f} ms, library "
                     f"{'-' if lms is None else f'{lms:.4f} ms'}, bound "
                     f"{bms:.4f} ms ({by}), exact")
             log(f"{kid} summed over {len(recs)} launch(es): kernel "
-                f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+                f"{tot['ms']:.4f} ms warm, {tot['cold_ms']:.4f} ms cold, "
+                f"bound {tot['bound_ms']:.4f} ms (share of bound, cold: "
+                f"{tot['bound_ms'] / tot['cold_ms']:.0%})")
             has_lib = any(r["lib"] is not None for r in recs)
             results[kid] = dict(
                 err=err, bound_by=max(bound_by, key=bound_by.get),
@@ -668,7 +861,8 @@ def main() -> int:
     torch.cuda.synchronize()
     counts_512 = dict(kernels.launches)
     log(f"launches in predict(batch 512): {counts_512}")
-    require_launches(counts_512, ("K1", "X1", "X2"), "model E")
+    require_launches(counts_512, ("K1", "X1", "X2"), "model E",
+                     exactly={"X1": 1})
     require(out["output"].shape == (512, 1), "output shape")
     require(bool(np.isfinite(out["output"]).all()), "finite outputs")
 
@@ -690,7 +884,8 @@ def main() -> int:
     torch.cuda.synchronize()
     counts_2048 = dict(kernels.launches)
     log(f"launches in predict(batch 2048): {counts_2048}")
-    require_launches(counts_2048, ("K1", "X1", "X2"), "model E")
+    require_launches(counts_2048, ("K1", "X1", "X2"), "model E",
+                     exactly={"X1": 1})
     require(out_big["output"].shape == (2048, 1)
             and bool(np.isfinite(out_big["output"]).all()),
             "batch 2048 output")
@@ -710,7 +905,8 @@ def main() -> int:
     torch.cuda.synchronize()
     counts_bz = dict(kernels.launches)
     log(f"launches in predict(batch 512), host_bucketize=False: {counts_bz}")
-    require_launches(counts_bz, ("K1", "X1", "X2"), "model E, device bz")
+    require_launches(counts_bz, ("K1", "X1", "X2"), "model E, device bz",
+                     exactly={"X1": 1})
     bad = [c for c, r in ref["pooled"].items()
            if not np.array_equal(out_bz["pooled"][c], r)]
     require(not bad, f"device-bucketize pooled outputs differ from the "
@@ -772,6 +968,7 @@ def main() -> int:
             "launches": (counts_mb if kid == "K2" else counts_2048)[kid],
             "max_abs_err": results[kid]["err"],
             "ms": results[kid]["ms"], "plain_ms": results[kid]["plain_ms"],
+            "cold_ms": results[kid]["cold_ms"],
             "bound_ms": results[kid]["bound_ms"],
             "bound_by": results[kid]["bound_by"],
             "library_ms": results[kid]["lib"],

@@ -14,13 +14,15 @@
 //
 // The TPU kernel's interval test (lo[c,v] <= x < hi[c,v]) selects exactly
 // this bucket for the arrays bucket_bounds builds: column c's boundaries are
-// hi[c, 0:counts[c]], sorted, with lo[c, v] = hi[c, v-1].  Repeated f32
-// boundaries (two f64 boundaries that ceil32 rounds to one value) leave an
-// empty interval between them, and only a true upper bound puts x equal to
-// that value in the bucket after both; a lower bound with an equality
-// fix-up does not.  Comparisons are on floats, so -0.0 equals a boundary at
-// 0 and lands above it; -inf lands in bucket 0 unless a boundary is -inf.
-// NaN fails every comparison, so it is caught before the search.
+// hi[c, 0:counts[c]], sorted, with lo[c, v] = hi[c, v-1], and hi[c, v] =
+// +inf for every v >= counts[c].  Repeated f32 boundaries (two f64
+// boundaries that ceil32 rounds to one value) leave an empty interval
+// between them, and only a true upper bound puts x equal to that value in
+// the bucket after both; a lower bound with an equality fix-up does not.
+// Comparisons are on floats, so -0.0 equals a boundary at 0 and lands above
+// it; -inf lands in bucket 0 unless a boundary is -inf.  NaN fails every
+// comparison and +inf passes the +inf padding, so both are settled by a
+// test ahead of the search.
 //
 // One id per entry: the row is copied, no arithmetic touches it, and the
 // output is bit-exact by construction.
@@ -31,47 +33,46 @@
 // in the 50 MB L2.
 //
 // Design: one block per tile of 32 columns x 32 batch rows.  Phase 1: the
-// block's threads read the tile's raw values along the batch (coalesced in
-// the host's column-major [C, Bp] layout), binary-search each column's
-// boundaries (at most 8 steps over <= 255 values, from L1/L2), and keep the
-// ids in shared memory.  Phase 2: they write the tile's output in output
-// order; one batch row's slice of it is 32 x d contiguous floats, so a
-// warp's stores are one contiguous run, and consecutive lanes read one
-// table row's consecutive floats.  Rows move as float4 when d is a multiple
-// of 4 and the pointers allow it (16-byte loads and stores, a quarter of
-// the index math), else float by float.  32-bit index math when every
-// index fits, 64-bit otherwise.
+// block reads the tile's raw values along the batch (coalesced in the
+// host's column-major [C, Bp] layout) and finds each one's bucket with a
+// branchless upper bound of a fixed number of steps over the column's whole
+// hi row: for a finite x, counting hi[j] <= x over the +inf-padded row
+// counts exactly the boundaries <= x, so the search needs no per-column
+// length, and entries past V (a V that is not a power of two) count as
+// +inf.  Each thread searches four entries, interleaved step by step, so
+// their loads are in flight together rather than four chains of dependent
+// loads one after another.  The block keeps each entry's table offset in
+// shared memory.  Phase 2 is K1's write phase (onehot_write.cuh): a warp
+// writes one batch row's contiguous slice, float4 rows with __stcs, no
+// per-element division.  32-bit index math when every index fits, 64-bit
+// otherwise.  The first port ran one binary search per thread entry after
+// entry, up to 8 dependent loads each (up to 32 in series a thread), and
+// wrote with a division per element and without the evict-first hint.
+//
+// Tried on the H100 and dropped (an experiment build, not kept): staging
+// the tile's 32 hi rows in shared memory (16 or 32 KB a block) to feed the
+// search; no faster than reading through L1, since the staging reads whole
+// rows where a tile's searches touch part of each.  What still holds it
+// back: the V_pad-256 launch of micro-1000 has 512 blocks, under four an
+// SM, so its searches' latency is not hidden behind other blocks' writes;
+// and each group is a launch of its own.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "onehot_write.cuh"
+
 namespace {
 
-constexpr int kCols = 32;      // columns per block tile
-constexpr int kRows = 32;      // batch rows per block tile
-constexpr int kThreads = 256;
+using onehot::kCols;
+using onehot::kRows;
+using onehot::kThreads;
 
-// Count of bounds[0:n] <= x, for sorted bounds; n for NaN and +inf.
-__device__ __forceinline__ int32_t bucket_of(float x,
-                                             const float* __restrict__ bounds,
-                                             int32_t n) {
-  if (!(x < CUDART_INF_F)) return n;
-  int32_t first = 0;
-  int32_t len = n;
-  while (len > 0) {
-    const int32_t half = len >> 1;
-    if (__ldg(bounds + first + half) <= x) {
-      first += half + 1;
-      len -= half + 1;
-    } else {
-      len = half;
-    }
-  }
-  return first;
-}
+constexpr int kPerThread = kCols * kRows / kThreads;   // searches a thread runs
 
-// T: float, or float4 with d counted in float4s.
+// T: float, or float4 with d counted in float4s (dq = d or d / 4).
+// half: half of the smallest power of two >= V (0 for V == 1).
 template <typename I, typename T>
 __global__ void __launch_bounds__(kThreads) onehot_bucketize_f32_kernel(
     const T* __restrict__ table3,        // [C_pad, V, d]
@@ -79,52 +80,64 @@ __global__ void __launch_bounds__(kThreads) onehot_bucketize_f32_kernel(
     const float* __restrict__ hi,        // [C_pad, V] upper interval bounds
     const int32_t* __restrict__ counts,  // [C_pad] boundary counts
     T* __restrict__ out,                 // [Bp, C, d]
-    I C, I Bp, I V, I d) {
-  __shared__ int32_t ids[kRows][kCols + 1];
+    I C, I Bp, I V, int dq, int half) {
+  __shared__ I rows[kRows][kCols + 1];   // table3 offset of (b, c)
   const I c0 = static_cast<I>(blockIdx.x) * kCols;
   const I b0 = static_cast<I>(blockIdx.y) * kRows;
-  const I nc = C - c0 < kCols ? C - c0 : static_cast<I>(kCols);
-  const I nb = Bp - b0 < kRows ? Bp - b0 : static_cast<I>(kRows);
+  const int nc = C - c0 < kCols ? static_cast<int>(C - c0) : kCols;
+  const int nb = Bp - b0 < kRows ? static_cast<int>(Bp - b0) : kRows;
+  const int v = static_cast<int>(V);
 
-  for (int i = threadIdx.x; i < kCols * kRows; i += kThreads) {
-    const int cl = i / kRows;
-    const int bl = i % kRows;
+  // entry k of this thread: column (tid / 32) + 8 k, batch row tid % 32
+  const int bl = threadIdx.x & 31;
+  float x[kPerThread];
+  I h[kPerThread];                       // offset of the column's hi row
+  int pos[kPerThread];
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    const int cl = (threadIdx.x >> 5) + k * onehot::kWarps;
+    const bool live = cl < nc && bl < nb;
+    const I c = c0 + (live ? cl : 0);
+    x[k] = live ? __ldg(raw + c * Bp + b0 + bl) : 0.0f;
+    h[k] = c * V;
+    pos[k] = 0;
+  }
+  for (int s = half; s > 0; s >>= 1) {
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int j = pos[k] + s - 1;
+      const float b = j < v ? __ldg(hi + h[k] + j) : CUDART_INF_F;
+      pos[k] += b <= x[k] ? s : 0;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    const int cl = (threadIdx.x >> 5) + k * onehot::kWarps;
     if (cl < nc && bl < nb) {
       const I c = c0 + cl;
-      const float x = raw[c * Bp + b0 + bl];
-      ids[bl][cl] = bucket_of(x, hi + c * V, counts[c]);
+      const int32_t id = x[k] < CUDART_INF_F ? pos[k] : __ldg(counts + c);
+      rows[bl][cl] = (c * V + id) * dq;
     }
   }
   __syncthreads();
-
-  const I span = nc * d;   // contiguous output elements of one batch row
-  const I total = nb * span;
-  for (I j = threadIdx.x; j < total; j += kThreads) {
-    const I bl = j / span;
-    const I r = j - bl * span;
-    const I cl = r / d;
-    const I k = r - cl * d;
-    const I c = c0 + cl;
-    out[((b0 + bl) * C + c) * d + k] =
-        table3[(c * V + ids[bl][cl]) * d + k];
-  }
+  onehot::write_tile_rows<I, T>(table3, rows, out, C, c0, b0, nc, nb, dq);
 }
 
 template <typename I>
 void launch(const void* table3, const void* raw, const void* hi,
-            const void* counts, void* out, I C, I Bp, I V, I d, bool vec,
-            dim3 grid, cudaStream_t s) {
+            const void* counts, void* out, I C, I Bp, I V, int d, bool vec,
+            int half, dim3 grid, cudaStream_t s) {
   const float* r = static_cast<const float*>(raw);
   const float* h = static_cast<const float*>(hi);
   const int32_t* n = static_cast<const int32_t*>(counts);
   if (vec) {
     onehot_bucketize_f32_kernel<I, float4><<<grid, kThreads, 0, s>>>(
         static_cast<const float4*>(table3), r, h, n,
-        static_cast<float4*>(out), C, Bp, V, d / 4);
+        static_cast<float4*>(out), C, Bp, V, d / 4, half);
   } else {
     onehot_bucketize_f32_kernel<I, float><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(table3), r, h, n,
-        static_cast<float*>(out), C, Bp, V, d);
+        static_cast<float*>(out), C, Bp, V, d, half);
   }
 }
 
@@ -136,9 +149,13 @@ extern "C" int rt_onehot_bucketize_f32(
   if (C == 0 || Bp == 0 || d == 0) return 0;
   const int64_t col_tiles = (C + kCols - 1) / kCols;
   const int64_t row_tiles = (Bp + kRows - 1) / kRows;
-  if (col_tiles > 2147483647 || row_tiles > 65535) {
+  if (col_tiles > 2147483647 || row_tiles > 65535 || d > 2147483647 ||
+      V < 1 || V > (int64_t{1} << 30)) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
+  int64_t p2 = 1;                        // the smallest power of two >= V
+  while (p2 < V) p2 *= 2;
+  const int half = static_cast<int>(p2 / 2);   // the search's first step
   const dim3 grid(static_cast<unsigned>(col_tiles),
                   static_cast<unsigned>(row_tiles));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -151,9 +168,10 @@ extern "C" int rt_onehot_bucketize_f32(
   if (out_n < (int64_t{1} << 31) && tab_n < (int64_t{1} << 31)) {
     launch<int32_t>(table3, raw, hi, counts, out, static_cast<int32_t>(C),
                     static_cast<int32_t>(Bp), static_cast<int32_t>(V),
-                    static_cast<int32_t>(d), vec, grid, s);
+                    static_cast<int>(d), vec, half, grid, s);
   } else {
-    launch<int64_t>(table3, raw, hi, counts, out, C, Bp, V, d, vec, grid, s);
+    launch<int64_t>(table3, raw, hi, counts, out, C, Bp, V,
+                    static_cast<int>(d), vec, half, grid, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

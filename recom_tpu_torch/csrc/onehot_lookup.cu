@@ -32,29 +32,25 @@
 // a warp writes one batch row's slice of the tile, 32 x d contiguous floats
 // of the output, lane e moving elements e, e + 32, ... (512 contiguous
 // bytes a warp store); consecutive lanes read one table row's consecutive
-// floats.  Rows move as float4 when d is a multiple of 4 and the pointers
-// allow it, else float by float.  A lane's (column, offset in row) is
-// carried from element to element, so no element divides.  Stores carry
-// the evict-first hint (__stcs), so the streamed output does not push
-// table3 out of L2.  32-bit index math when every index fits, 64-bit
-// otherwise.  Staging the output tile in shared memory and writing it with
-// TMA bulk stores (cp.async.bulk) was slower than these direct stores.
+// floats (the write phase K1 shares with K2, in onehot_write.cuh).  Rows
+// move as float4 when d is a multiple of 4 and the pointers allow it, else
+// float by float.  A lane's (column, offset in row) is carried from element
+// to element, so no element divides.  Stores carry the evict-first hint
+// (__stcs), so the streamed output does not push table3 out of L2.  32-bit
+// index math when every index fits, 64-bit otherwise.  Staging the output
+// tile in shared memory and writing it with TMA bulk stores
+// (cp.async.bulk) was slower than these direct stores.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "onehot_write.cuh"
+
 namespace {
 
-constexpr int kCols = 32;      // columns per block tile
-constexpr int kRows = 32;      // batch rows per block tile
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-template <typename T> __device__ __forceinline__ T Zero();
-template <> __device__ __forceinline__ float Zero<float>() { return 0.0f; }
-template <> __device__ __forceinline__ float4 Zero<float4>() {
-  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
+using onehot::kCols;
+using onehot::kRows;
+using onehot::kThreads;
 
 // T: float, or float4 with d counted in float4s (dq = d or d / 4).
 template <typename I, typename T>
@@ -82,27 +78,7 @@ __global__ void __launch_bounds__(kThreads) onehot_lookup_kernel(
     }
   }
   __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int span = nc * dq;            // elements of one batch row's slice
-  const int cl_first = lane / dq, q_first = lane - cl_first * dq;
-  const int cl_step = 32 / dq, q_step = 32 - cl_step * dq;
-  for (int bl = threadIdx.x >> 5; bl < nb; bl += kWarps) {
-    T* o = out + ((b0 + bl) * C + c0) * dq;
-    const I* r = rows[bl];
-    int cl = cl_first, q = q_first;
-#pragma unroll 2
-    for (int e = lane; e < span; e += 32) {
-      const I row = r[cl];
-      __stcs(o + e, row >= 0 ? __ldg(table3 + row + q) : Zero<T>());
-      q += q_step;
-      cl += cl_step;
-      if (q >= dq) {
-        q -= dq;
-        ++cl;
-      }
-    }
-  }
+  onehot::write_tile_rows<I, T>(table3, rows, out, C, c0, b0, nc, nb, dq);
 }
 
 template <typename I>

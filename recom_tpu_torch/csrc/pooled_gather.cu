@@ -1,4 +1,5 @@
-// X1: masked, in-order gather + pooling of a stacked column group.
+// X1: masked, in-order gather + pooling of stacked column groups, by hand
+// for Hopper.
 //
 // Replaces: recom_tpu/ops/lookup_xla.py::group_pooled (both its L == 1 and
 // its ragged branch) with pool_rows_inorder and apply_combiner_divisors,
@@ -7,9 +8,10 @@
 // this in the JAX package: it runs there as XLA gather + scan.
 //
 //   id_l  = min(ids[c, b, l], caps[c]);  valid_l = id_l >= 0
-//   w_l   = valid_l ? (weights ? weights[c, b, l] : 1) : 0
-//   acc   = sum_l table[id_l + row_offsets[c], :] * w_l   (l = 0, 1, ...)
-//   out[b, c, :] = combiner(acc, sum w_l, sum w_l^2)
+//   w_l   = weights ? weights[c, b, l] : 1
+//   acc   = +0.0;  acc += table[id_l + row_offsets[c], :] * w_l
+//           for each valid l, l = 0, 1, ... in order
+//   out[b, c, :] = combiner(acc, sum w_l, sum w_l^2)   (valid l only)
 //
 // Exactness (the bit-exact contract with the NumPy oracle): each product
 // and each sum is rounded separately, strictly left to right in f32 --
@@ -18,100 +20,259 @@
 // weight sum, SQRTN by __fsqrt_rn(sum w^2); a column with an explicit
 // weight field divides (__fdiv_rn(acc, denom)), an unweighted one
 // multiplies by the rounded reciprocal (acc * __fdiv_rn(1, denom)), the two
-// TF rounding conventions of lookup_xla.apply_combiner_divisors.  A row
-// whose denominator is not > 0 gives 0.  Invalid slots are skipped: in the
-// reference they add row * 0, which leaves every finite sum's value as is.
+// TF rounding conventions of lookup_xla.apply_combiner_divisors.  A bag
+// whose denominator is not > 0 gives 0.
 //
-// What bounds it on the H100: bytes.  Per entry the kernel reads one id,
-// one weight and a d-float row, and does 2 flops per float; the rows of the
-// 2^23 x 32 tables are random reads from HBM, 128 bytes each.
+// Missing slots are skipped and the sum starts at +0.0, as in the oracle
+// (oracle/reference.py::pool_lookup).  The JAX reference, and the plain
+// version in ops/lookup_gather.py, instead add row 0 of the member times a
+// zero weight for a missing slot, and start a ragged sum at the first
+// slot's row times 0.  The two agree on every value except in three
+// places: the sign of a sum that is zero; a bag with a missing slot whose
+// member's row 0 holds NaN or inf; and a bag whose first slot's row holds
+// inf.  There row * 0 turns the reference's sum into NaN while this kernel
+// and the oracle keep their value.  Reading row 0 for missing slots here
+// would trade the oracle's answer for the reference's quirk, so the kernel
+// does not; its tests compare with == and equal NaN positions, and keep
+// NaN and inf out of a member's row 0 and inf out of a bag's first slot.
 //
-// Design: one thread per output element (d fastest, then c, then b), each
-// walking its L slots in order.  For d = 32 a warp is one (b, c) pair: the
-// id load is a broadcast and the row read one 128-byte line.  For d = 8 a
-// warp covers four columns of one batch row.  The 64-bit row index
-// (id + row_offset) * d keeps the 41.9 M-row group (1.34 G floats) in range.
+// What bounds it on the H100: bytes, in principle.  Per entry the kernel
+// reads one id, one weight and a d-float row, and does 2 flops per float;
+// the rows of the 2^23 x 32 tables are random 128-byte reads from HBM.  In
+// practice model E's three groups move 21 MB together, 6 us at the HBM
+// rate, so latency bounds it: the launch, and the chain of dependent steps
+// a bag takes (its ids, then its rows, then the sum), times the waves of
+// blocks the register file lets the SMs hold at once (registers, not
+// shared memory, limit the blocks an SM holds).  The first port ran a thread per output
+// float, each walking its L slots as a serial chain of id load, row load
+// and add, with two divisions and two remainders by runtime sizes per
+// float, one launch per group.
+//
+// Design:
+// - A bag is one (column, batch row) pair.  A group of G lanes owns a bag,
+//   G the smallest power of two >= d/4 (float4 rows, when d % 4 == 0 and
+//   the pointers allow it) or >= d (scalar), at most 32; a lane moves
+//   elements q, q + G, ... of the row.  Model E's groups: d = 8 is 2 lanes
+//   a bag (16 bags a warp), d = 32 is 8 lanes (4 bags a warp).
+// - A block of 256 lanes takes a tile of TC columns x TB batch rows (TB =
+//   min(32, 256 / G), TC = 256 / G / TB), bags running along the batch
+//   inside a column, so a warp's id reads are contiguous in the host's
+//   column-major [C, Bp, L] layout.  The tile comes from one division per
+//   block; G, TB and TC are compile-time, so no element divides.
+// - A bag's per-column constants are read once.  Its ids are read a chunk
+//   of kChunk = 4 at a time, each clamped and turned into a 64-bit row
+//   index once (the 41.9 M-row group holds 1.34 G floats), and every valid
+//   slot's row load of the chunk is issued before the first add; only the
+//   adds are ordered.  L = 1 has its own path (one id, one row).
+// - Outputs leave with the evict-first hint (__stcs), so the tables that
+//   the next launch reads from L2 survive.  A warp's stores are whole
+//   32-byte sectors (d = 8) or lines (d = 32), one run per bag.
+// - One launch serves up to kMaxGroups groups: the host packs a descriptor
+//   per group (ops/lookup_gather.py::x1_descriptors), passed by value as
+//   the kernel's argument; each block finds its group by its index.
+//
+// Tried on the H100 and dropped (experiment builds, not kept): one launch
+// per group (the three launches' tails and gaps cost more than the shared
+// kernel's extra registers); staging each tile's output in shared memory to
+// write whole batch-row runs (slower: a barrier and a second pass, for
+// stores that were already whole sectors); chunks of 6, 8, 12 and 16 row
+// loads (more registers, fewer blocks an SM, slower), and of 2 and 3 (more
+// round trips); reading the next chunk's ids while a chunk's rows load
+// (more registers, no faster); capping registers with __launch_bounds__ to
+// hold 4 or 6 blocks an SM (spills, slower).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-template <typename I>
-__global__ void pooled_gather_f32_kernel(
-    const float* __restrict__ table,        // [R, d] stacked rows
-    const int32_t* __restrict__ ids,        // [C, Bp, L] member-local ids
-    const float* __restrict__ weights,      // [C, Bp, L] or nullptr
-    const int32_t* __restrict__ row_offsets,  // [C]
-    const int32_t* __restrict__ caps,       // [C]
-    const int32_t* __restrict__ codes,      // [C] 0 sum / 1 mean / 2 sqrtn
-    const uint8_t* __restrict__ weighted,   // [C] 1 = divide, 0 = reciprocal
-    float* __restrict__ out,                // [Bp, C, d]
-    I C, I Bp, I L, I d, I total) {
-  I e = static_cast<I>(blockIdx.x) * static_cast<I>(blockDim.x) +
-        static_cast<I>(threadIdx.x);
-  if (e >= total) return;
-  I j = e % d;
-  I bc = e / d;
-  I c = bc % C;
-  I b = bc / C;
-  const int64_t slot = (static_cast<int64_t>(c) * Bp + b) * L;
-  const int32_t* id_row = ids + slot;
-  const float* w_row = weights ? weights + slot : nullptr;
-  const int32_t cap = caps[c];
-  const int64_t off = row_offsets[c];
-  float acc = 0.0f, wsum = 0.0f, w2sum = 0.0f;
-  for (I l = 0; l < L; ++l) {
-    int32_t id = id_row[l];
-    id = id < cap ? id : cap;
-    if (id < 0) continue;
-    const float w = w_row ? w_row[l] : 1.0f;
-    const float r = table[(static_cast<int64_t>(id) + off) * d + j];
-    acc = __fadd_rn(acc, __fmul_rn(r, w));
-    wsum = __fadd_rn(wsum, w);
-    w2sum = __fadd_rn(w2sum, __fmul_rn(w, w));
-  }
-  const int32_t code = codes[c];
-  float res = acc;
-  if (code != 0) {
-    const float denom = code == 1 ? wsum : __fsqrt_rn(w2sum);
-    if (denom > 0.0f) {
-      res = weighted[c] ? __fdiv_rn(acc, denom)
-                        : __fmul_rn(acc, __fdiv_rn(1.0f, denom));
-    } else {
-      res = 0.0f;
-    }
-  }
-  out[e] = res;
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kChunk = 4;       // row loads in flight per lane
+constexpr int kMaxGroups = 8;   // groups per launch
+
+// One group of a launch; the layout of ops/lookup_gather.py::X1_DESC.
+struct X1Group {
+  const void* table;            // [R, d] f32 stacked rows
+  const int32_t* ids;           // [C, Bp, L] member-local ids
+  const float* weights;         // [C, Bp, L] or nullptr
+  const int32_t* row_offsets;   // [C]
+  const int32_t* caps;          // [C]
+  const int32_t* codes;         // [C] 0 sum / 1 mean / 2 sqrtn
+  const uint8_t* weighted;      // [C] 1 = divide, 0 = reciprocal
+  void* out;                    // [Bp, C, d]
+  int64_t C, Bp, L;
+  int64_t dq;                   // row length in T units (d or d / 4)
+  int64_t block_begin;          // first block of this group
+  int32_t tiles_b;              // batch tiles per column tile
+  int32_t kind;                 // 8 * vec + log2(G)
+};
+
+struct X1Launch {
+  X1Group g[kMaxGroups];
+  int32_t n;
+};
+
+__device__ __forceinline__ float fmul(float a, float w) {
+  return __fmul_rn(a, w);
+}
+__device__ __forceinline__ float4 fmul(float4 a, float w) {
+  return make_float4(__fmul_rn(a.x, w), __fmul_rn(a.y, w),
+                     __fmul_rn(a.z, w), __fmul_rn(a.w, w));
+}
+__device__ __forceinline__ float fadd(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float4 fadd(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.0f; }
+template <> __device__ __forceinline__ float4 zero<float4>() {
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-extern "C" int rt_pooled_gather_f32(
-    const void* table, const void* ids, const void* weights,
-    const void* row_offsets, const void* caps, const void* codes,
-    const void* weighted, void* out,
-    int64_t C, int64_t Bp, int64_t L, int64_t d, void* stream) {
-  const int64_t total = C * Bp * d;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > 2147483647) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* t = static_cast<const float*>(table);
-  const int32_t* i = static_cast<const int32_t*>(ids);
-  const float* w = static_cast<const float*>(weights);
-  const int32_t* ro = static_cast<const int32_t*>(row_offsets);
-  const int32_t* cp = static_cast<const int32_t*>(caps);
-  const int32_t* cd = static_cast<const int32_t*>(codes);
-  const uint8_t* wt = static_cast<const uint8_t*>(weighted);
-  float* o = static_cast<float*>(out);
-  if (total < (int64_t{1} << 31) && C * Bp * L < (int64_t{1} << 31)) {
-    pooled_gather_f32_kernel<int32_t><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-        t, i, w, ro, cp, cd, wt, o, static_cast<int32_t>(C),
-        static_cast<int32_t>(Bp), static_cast<int32_t>(L),
-        static_cast<int32_t>(d), static_cast<int32_t>(total));
-  } else {
-    pooled_gather_f32_kernel<int64_t><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-        t, i, w, ro, cp, cd, wt, o, C, Bp, L, d, total);
+// The combiner on a finished sum: divide (weighted column) or multiply by
+// the rounded reciprocal; 0 where the denominator is not > 0.
+template <typename T>
+__device__ __forceinline__ T finish(T acc, int32_t code, bool divide,
+                                    float wsum, float w2sum) {
+  if (code == 0) return acc;
+  const float denom = code == 1 ? wsum : __fsqrt_rn(w2sum);
+  if (!(denom > 0.0f)) return zero<T>();
+  if (divide) {
+    if constexpr (sizeof(T) == sizeof(float)) {
+      return __fdiv_rn(acc, denom);
+    } else {
+      return make_float4(__fdiv_rn(acc.x, denom), __fdiv_rn(acc.y, denom),
+                         __fdiv_rn(acc.z, denom), __fdiv_rn(acc.w, denom));
+    }
   }
+  return fmul(acc, __fdiv_rn(1.0f, denom));
+}
+
+// Slots 0 .. L-1 of one bag, K at a time: a chunk's ids, then all its
+// row loads, then the adds in slot order.
+template <typename T, int K>
+__device__ __forceinline__ void pool_slots(
+    const T* __restrict__ table, const int32_t* __restrict__ id_row,
+    const float* __restrict__ w_row, int L, int32_t cap, int64_t off,
+    int64_t dq, int64_t q, T& acc, float& wsum, float& w2sum) {
+  for (int l0 = 0; l0 < L; l0 += K) {
+    int32_t id[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      id[k] = l0 + k < L ? __ldg(id_row + l0 + k) : -1;
+    }
+    T r[K];
+    float w[K];
+    bool ok[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int32_t i = id[k] < cap ? id[k] : cap;
+      ok[k] = i >= 0;
+      const int64_t row = (static_cast<int64_t>(i) + off) * dq + q;
+      r[k] = ok[k] ? __ldg(table + row) : zero<T>();
+      w[k] = ok[k] && w_row ? __ldg(w_row + l0 + k) : 1.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (ok[k]) {
+        acc = fadd(acc, fmul(r[k], w[k]));
+        wsum = __fadd_rn(wsum, w[k]);
+        w2sum = __fadd_rn(w2sum, __fmul_rn(w[k], w[k]));
+      }
+    }
+  }
+}
+
+// One block of group g: its tile's bags, G lanes a bag.
+template <typename T, int G>
+__device__ __forceinline__ void pool_tile(const X1Group& g, int64_t local) {
+  constexpr int kBags = kThreads / G;
+  constexpr int TB = kBags < 32 ? kBags : 32;    // batch rows a tile
+  constexpr int TC = kBags / TB;                 // columns a tile
+  const int64_t tc = local / g.tiles_b;
+  const int64_t c0 = tc * TC;
+  const int64_t b0 = (local - tc * g.tiles_b) * TB;
+  const int bag = threadIdx.x / G;
+  const int cl = bag / TB, bl = bag % TB;
+  const int sub = threadIdx.x % G;
+  const int64_t c = c0 + cl, b = b0 + bl;
+  if (c >= g.C || b >= g.Bp) return;
+  const int64_t dq = g.dq;
+  const int L = static_cast<int>(g.L);
+  const int64_t slot = (c * g.Bp + b) * g.L;
+  const int32_t* id_row = g.ids + slot;
+  const float* w_row = g.weights ? g.weights + slot : nullptr;
+  const int32_t cap = __ldg(g.caps + c);
+  const int64_t off = __ldg(g.row_offsets + c);
+  const int32_t code = __ldg(g.codes + c);
+  const bool divide = __ldg(g.weighted + c) != 0;
+  const T* table = static_cast<const T*>(g.table);
+  T* out = static_cast<T*>(g.out) + (b * g.C + c) * dq;
+  for (int64_t q = sub; q < dq; q += G) {
+    T acc = zero<T>();
+    float wsum = 0.0f, w2sum = 0.0f;
+    if (L == 1) {
+      pool_slots<T, 1>(table, id_row, w_row, 1, cap, off, dq, q, acc, wsum,
+                       w2sum);
+    } else {
+      pool_slots<T, kChunk>(table, id_row, w_row, L, cap, off, dq, q, acc,
+                            wsum, w2sum);
+    }
+    __stcs(out + q, finish(acc, code, divide, wsum, w2sum));
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void pool_tile_g(const X1Group& g, int lg,
+                                            int64_t local) {
+  switch (lg) {
+    case 0: pool_tile<T, 1>(g, local); break;
+    case 1: pool_tile<T, 2>(g, local); break;
+    case 2: pool_tile<T, 4>(g, local); break;
+    case 3: pool_tile<T, 8>(g, local); break;
+    case 4: pool_tile<T, 16>(g, local); break;
+    default: pool_tile<T, 32>(g, local); break;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) pooled_gather_f32_kernel(
+    const __grid_constant__ X1Launch batch) {
+  const int64_t blk = blockIdx.x;
+  int i = 0;
+  while (i + 1 < batch.n && blk >= batch.g[i + 1].block_begin) ++i;
+  const X1Group& g = batch.g[i];
+  const int64_t local = blk - g.block_begin;
+  if (g.kind >= 8) {
+    pool_tile_g<float4>(g, g.kind - 8, local);
+  } else {
+    pool_tile_g<float>(g, g.kind, local);
+  }
+}
+
+}  // namespace
+
+// Launch X1 over n <= kMaxGroups groups described by the host array
+// `groups` (block_begin ascending from 0), `blocks` blocks in all.
+extern "C" int rt_pooled_gather_f32(const void* groups, int64_t n,
+                                    int64_t blocks, void* stream) {
+  if (n < 1 || n > kMaxGroups || blocks < 0 || blocks > 2147483647) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (blocks == 0) return 0;
+  X1Launch batch = {};
+  const X1Group* src = static_cast<const X1Group*>(groups);
+  for (int64_t i = 0; i < n; ++i) batch.g[i] = src[i];
+  batch.n = static_cast<int32_t>(n);
+  pooled_gather_f32_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(batch);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rt_pooled_gather_desc_size() {
+  return static_cast<int>(sizeof(X1Group));
 }
 
 extern "C" const char* rt_cuda_error_string(int err) {

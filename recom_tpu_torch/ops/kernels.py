@@ -50,8 +50,7 @@ LIBRARIES = {
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     ),
     "pooled_gather": (
-        "pooled_gather.cu", "X1", "rt_pooled_gather_f32",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "pooled_gather.cu", "X1", "rt_pooled_gather_f32", [_P, _I, _I, _P],
     ),
     "hash_device": (
         "hash_device.cu", "X2", "rt_hash_rows",
@@ -85,9 +84,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, LIBRARIES[name][0])
-    with open(src, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, keyed by its source, every header in csrc/ (a
+    source may include any of them) and the flags."""
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [LIBRARIES[name][0]] + headers:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            key.update(f.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{key.hexdigest()[:16]}.so")
 
 

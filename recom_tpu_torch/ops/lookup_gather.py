@@ -10,7 +10,9 @@ applied once, after the sum, as IEEE float32 divisions and square roots;
 unweighted columns multiply by the rounded reciprocal, weighted columns
 divide (TF's two rounding conventions).  The reference needs emulated f64
 for this on the TPU; f32 IEEE division on the CPU and in CUDA (``__fdiv_rn``,
-and torch's own ``/``) gives the same bits directly.
+and torch's own ``/``) gives the same bits directly.  Square roots: CUDA's
+``__fsqrt_rn`` is correctly rounded, torch's f32 ``sqrt`` on the CPU is not,
+so the plain version takes the root in f64 and narrows it.
 
 Layout: the port keeps the host's column-major order, so ids and weights
 are ``[C, Bp, L]``, gathered rows ``[C, Bp, L, d]``, sums ``[C, Bp, d]``
@@ -18,12 +20,18 @@ and ``[C, Bp]``.  ``group_pooled`` returns batch-major ``[Bp, C, d]`` like
 its reference.  The plain versions below are the reference's arithmetic as
 eager torch ops (a Python loop over L, the multiply and the add as separate
 ops); on CUDA tensors ``group_pooled`` launches kernel X1
-(csrc/pooled_gather.cu) instead.
+(csrc/pooled_gather.cu) instead, and ``groups_pooled`` serves several
+groups with one launch (the Engine's gather groups, all at once).  The
+kernel skips a missing slot where the plain version adds row 0 of the
+member times 0, as the reference does: the two agree with ``==`` while
+no member's row 0 holds NaN or inf (csrc/pooled_gather.cu says why).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import struct
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -82,7 +90,10 @@ def apply_combiner_divisors(
     code = torch.as_tensor(combiner_code, device=dev)[:, None]
     one = torch.ones_like(wsum)
     if need_sqrtn:
-        sq = torch.sqrt(w2sum)
+        # torch's f32 sqrt on the CPU is not always correctly rounded (its
+        # vectorized kernel misses by an ulp on some inputs); narrowing the
+        # f64 root to f32 rounds correctly
+        sq = torch.sqrt(w2sum.double()).float()
         denom = torch.where(code == 1, wsum, torch.where(code == 2, sq, one))
     else:
         denom = torch.where(code == 1, wsum, one)
@@ -167,6 +178,61 @@ def group_pooled_plain(
     return acc.transpose(0, 1).contiguous()                  # [Bp, C, d]
 
 
+# The host side of kernel X1's launch (csrc/pooled_gather.cu): a block of
+# X1_THREADS lanes takes a tile of columns x batch rows of one group, and
+# one launch serves up to X1_MAX_GROUPS groups, each described by one
+# X1_DESC record (the kernel's struct X1Group, field for field: X1_FIELDS).
+X1_THREADS = 256
+X1_MAX_GROUPS = 8
+X1_FIELDS = ("table", "ids", "weights", "row_offsets", "caps", "codes",
+             "weighted", "out", "C", "Bp", "L", "dq", "block_begin",
+             "tiles_b", "kind")
+X1_DESC = struct.Struct("<8Q5q2i")
+
+
+def x1_tile(d: int, vec: bool):
+    """(dq, lanes, tile_rows, tile_cols) of a group with row length d:
+    dq row elements (float4s when ``vec``, else floats), ``lanes`` (G) a
+    bag, the smallest power of two >= dq up to 32, and a block tile of
+    tile_cols columns x tile_rows batch rows."""
+    dq = d // 4 if vec else d
+    lanes = 1
+    while lanes < min(dq, 32):
+        lanes *= 2
+    bags = X1_THREADS // lanes
+    rows = min(32, bags)
+    return dq, lanes, rows, bags // rows
+
+
+def x1_descriptors(groups):
+    """The X1_DESC records of one launch, packed, and its block count.
+
+    groups: one dict per group, with the device pointers ``table``,
+    ``ids``, ``weights`` (0 for none), ``row_offsets``, ``caps``, ``codes``,
+    ``weighted`` and ``out``, the sizes ``C``, ``Bp``, ``L``, ``d``, and
+    ``vec`` (rows move as float4).  Blocks are numbered group after group;
+    each group's first block is its ``block_begin``."""
+    if not 1 <= len(groups) <= X1_MAX_GROUPS:
+        raise ValueError(f"1 to {X1_MAX_GROUPS} groups per launch, got "
+                         f"{len(groups)}")
+    records = []
+    blocks = 0
+    for g in groups:
+        if g["vec"] and g["d"] % 4:
+            raise ValueError(f"float4 rows need d % 4 == 0, got d={g['d']}")
+        dq, lanes, rows, cols = x1_tile(g["d"], g["vec"])
+        tiles_b = -(-g["Bp"] // rows)
+        records.append(X1_DESC.pack(
+            g["table"], g["ids"], g["weights"], g["row_offsets"], g["caps"],
+            g["codes"], g["weighted"], g["out"], g["C"], g["Bp"], g["L"], dq,
+            blocks, tiles_b, 8 * bool(g["vec"]) + lanes.bit_length() - 1,
+        ))
+        blocks += -(-g["C"] // cols) * tiles_b
+    if blocks >= 1 << 31:
+        raise ValueError(f"{blocks} blocks exceed the grid")
+    return b"".join(records), blocks
+
+
 def _weighted_mask(weighted_cols, weights, c: int) -> np.ndarray:
     if weighted_cols is None:
         return np.full(c, weights is not None)
@@ -177,24 +243,7 @@ def _weighted_mask(weighted_cols, weights, c: int) -> np.ndarray:
     return np.asarray(weighted_cols, bool)
 
 
-def group_pooled(
-    table: torch.Tensor,
-    ids: torch.Tensor,
-    row_offsets,
-    combiner_code,
-    weights: Optional[torch.Tensor] = None,
-    weighted_cols=None,
-    vocab_caps=None,
-) -> torch.Tensor:
-    """Pooled group lookups [Bp, C, d] f32.
-
-    table: [R, d] f32 stacked rows; ids: [C, Bp, L] int32 member-local ids
-    (< 0 = missing), clamped to ``vocab_caps`` then offset by
-    ``row_offsets``; weights: optional [C, Bp, L] f32; combiner_code: [C]
-    0 sum / 1 mean / 2 sqrtn; weighted_cols: per-column divide-vs-reciprocal
-    rounding (default: weights given).  The per-column arguments may be
-    host arrays or device tensors.  CPU tensors take the plain version;
-    CUDA tensors launch kernel X1."""
+def _check_group(table, ids, weights):
     if table.dtype != torch.float32 or table.dim() != 2:
         raise ValueError(f"table must be f32 [R, d], got {table.dtype} "
                          f"{tuple(table.shape)}")
@@ -210,18 +259,24 @@ def group_pooled(
     for name, t in (("ids", ids), ("weights", weights)):
         if t is not None and t.device != table.device:
             raise ValueError(f"{name} on {t.device}, table on {table.device}")
-    if table.device.type == "cpu":
-        to_np = lambda x: (
-            x.cpu().numpy() if isinstance(x, torch.Tensor) else x
-        )
-        return group_pooled_plain(
-            table, ids, to_np(row_offsets), to_np(combiner_code), weights,
-            _weighted_mask(weighted_cols, weights, c),
-            None if vocab_caps is None else to_np(vocab_caps),
-        )
-    if table.device.type != "cuda":
-        raise ValueError(f"unsupported device {table.device}")
+
+
+def _plain(table, ids, row_offsets, combiner_code, weights=None,
+           weighted_cols=None, vocab_caps=None):
+    to_np = lambda x: x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+    return group_pooled_plain(
+        table, ids, to_np(row_offsets), to_np(combiner_code), weights,
+        _weighted_mask(weighted_cols, weights, ids.shape[0]),
+        None if vocab_caps is None else to_np(vocab_caps),
+    )
+
+
+def _x1_group(table, ids, row_offsets, combiner_code, weights=None,
+              weighted_cols=None, vocab_caps=None):
+    """One group's descriptor fields on the card, its output, and the
+    tensors its pointers refer to (held until the launch is queued)."""
     dev = table.device
+    c, bp, l = ids.shape
     if vocab_caps is None:
         vocab_caps = np.full(c, np.iinfo(np.int32).max, np.int32)
     offs = as_device(row_offsets, torch.int32, dev)
@@ -242,11 +297,74 @@ def group_pooled(
             raise ValueError(f"{name} must be contiguous")
     d = table.shape[1]
     out = torch.empty((bp, c, d), dtype=torch.float32, device=dev)
-    kernels.launch(
-        "pooled_gather",
-        kernels.ptr(table), kernels.ptr(ids), kernels.ptr(weights),
-        kernels.ptr(offs), kernels.ptr(caps), kernels.ptr(codes),
-        kernels.ptr(wcols), kernels.ptr(out), c, bp, l, d,
-        kernels.stream_of(table),
+    vec = d % 4 == 0 and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    fields = dict(
+        table=table.data_ptr(), ids=ids.data_ptr(),
+        weights=0 if weights is None else weights.data_ptr(),
+        row_offsets=offs.data_ptr(), caps=caps.data_ptr(),
+        codes=codes.data_ptr(), weighted=wcols.data_ptr(),
+        out=out.data_ptr(), C=c, Bp=bp, L=l, d=d, vec=vec,
     )
-    return out
+    return fields, out, (offs, caps, codes, wcols)
+
+
+@functools.lru_cache(maxsize=None)
+def _x1_library() -> None:
+    """Load X1's library and check, once, that its X1Group is X1_DESC's
+    size."""
+    lib = kernels.library("pooled_gather")
+    if lib.rt_pooled_gather_desc_size() != X1_DESC.size:
+        raise RuntimeError("csrc/pooled_gather.cu's X1Group and X1_DESC "
+                           "differ in size")
+
+
+def groups_pooled(groups) -> List[torch.Tensor]:
+    """Pooled lookups of several groups, [Bp, C, d] f32 each.
+
+    groups: one argument tuple of ``group_pooled`` per group (table, ids,
+    row_offsets, combiner_code[, weights, weighted_cols, vocab_caps]), all
+    on one device.  CPU tensors take the plain version; on CUDA one launch
+    of kernel X1 serves up to X1_MAX_GROUPS groups."""
+    groups = [tuple(g) for g in groups]
+    for g in groups:
+        _check_group(g[0], g[1], g[4] if len(g) > 4 else None)
+    if not groups:
+        return []
+    dev = groups[0][0].device
+    if any(g[0].device != dev for g in groups):
+        raise ValueError("groups on more than one device")
+    if dev.type == "cpu":
+        return [_plain(*g) for g in groups]
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _x1_library()
+    outs = []
+    for i in range(0, len(groups), X1_MAX_GROUPS):
+        made = [_x1_group(*g) for g in groups[i: i + X1_MAX_GROUPS]]
+        desc, blocks = x1_descriptors([f for f, _, _ in made])
+        kernels.launch("pooled_gather", desc, len(made), blocks,
+                       kernels.stream_of(groups[i][0]))
+        outs += [o for _, o, _ in made]
+    return outs
+
+
+def group_pooled(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    row_offsets,
+    combiner_code,
+    weights: Optional[torch.Tensor] = None,
+    weighted_cols=None,
+    vocab_caps=None,
+) -> torch.Tensor:
+    """Pooled group lookups [Bp, C, d] f32.
+
+    table: [R, d] f32 stacked rows; ids: [C, Bp, L] int32 member-local ids
+    (< 0 = missing), clamped to ``vocab_caps`` then offset by
+    ``row_offsets``; weights: optional [C, Bp, L] f32; combiner_code: [C]
+    0 sum / 1 mean / 2 sqrtn; weighted_cols: per-column divide-vs-reciprocal
+    rounding (default: weights given).  The per-column arguments may be
+    host arrays or device tensors.  CPU tensors take the plain version;
+    CUDA tensors launch kernel X1."""
+    return groups_pooled([(table, ids, row_offsets, combiner_code, weights,
+                           weighted_cols, vocab_caps)])[0]

@@ -27,7 +27,7 @@ from recom_tpu_torch.compiler.lowering import CompiledModel, lower_model
 from recom_tpu_torch.compiler.pipeline import run_passes
 from recom_tpu_torch.config import EngineConfig
 from recom_tpu_torch.ir.spec import ModelSpec
-from recom_tpu_torch.ops.lookup_gather import device_bucketize, group_pooled
+from recom_tpu_torch.ops.lookup_gather import device_bucketize, groups_pooled
 from recom_tpu_torch.ops.lookup_onehot import (
     bucket_bounds,
     onehot_bucketize_lookup,
@@ -260,6 +260,7 @@ class Engine:
         """Grouped lookups -> (grouped-order emb concat [Bp, grouped_emb],
         per-group pooled [Bp, C, d] list)."""
         pooled_list = []
+        gathers = []            # (slot in pooled_list, group_pooled args)
         for g, packed in zip(self.compiled.groups, arrays["groups"]):
             c = self._consts[g.gid]
             table = self.device_params["stacked"][str(g.gid)]
@@ -275,15 +276,19 @@ class Engine:
             if g.pallas_vocab is not None:
                 # one id per entry: every combiner passes the row through
                 # (divisor 1) or gives 0 for a missing id
-                pooled = onehot_lookup(table, ids[:, :, 0].contiguous(),
-                                       c["caps"])
+                pooled_list.append(onehot_lookup(
+                    table, ids[:, :, 0].contiguous(), c["caps"]))
             else:
-                pooled = group_pooled(
+                gathers.append((len(pooled_list), (
                     table, ids, c["row_offsets"], c["codes"],
                     None if weights is None else weights.contiguous(),
                     c["weighted"], c["caps"],
-                )
-            pooled_list.append(pooled)
+                )))
+                pooled_list.append(None)
+        # every gather group in one launch of X1
+        for (slot, _), pooled in zip(
+                gathers, groups_pooled([a for _, a in gathers])):
+            pooled_list[slot] = pooled
         group_out = [p.reshape(p.shape[0], -1) for p in pooled_list]
         if group_out:
             grouped = torch.cat(group_out, dim=1)

@@ -12,6 +12,8 @@ import torch
 
 import jax.numpy as jnp
 
+import chip_smoke
+
 from recom_tpu import Engine as JEngine
 from recom_tpu import EngineConfig as JConfig
 from recom_tpu.models.synthetic import make_dlrm_model as j_make_dlrm
@@ -134,6 +136,77 @@ def test_k2_plain_matches_pallas_interpret_bitwise(v_pad, c, d, b):
     assert (ids[:, 2] == 0).all()
     assert ids[0, 3] == ids[0, 4] == 1
     assert ids[1, 19] == 3 and ids[1, 20] == 1
+
+
+@pytest.mark.parametrize("d", [1, 3, 32])
+@pytest.mark.parametrize("v_pad", [128, 256])
+def test_k2_plain_matches_pallas_on_edges(v_pad, d):
+    """Ragged tiles (C = 45, Bp = 100); a column with no boundary, one with
+    v_pad - 1 of them, one value repeated, only -inf, a merged pair."""
+    c, b = 45, 100
+    bmat, cnts, table3, raw = chip_smoke.k2_edge_case(c, v_pad, d, b,
+                                                      seed=v_pad + d)
+    c_pad = table3.shape[0]
+    lo, hi, counts = j_bucket_bounds(bmat, cnts, v_pad, c_pad)
+    raw_pad = np.zeros((c_pad, b), np.float32)
+    raw_pad[:c] = raw
+    want = np.asarray(j_k2(
+        jnp.asarray(table3), jnp.asarray(raw_pad), jnp.asarray(lo),
+        jnp.asarray(hi), jnp.asarray(counts), interpret=True,
+    ))[:c].transpose(1, 0, 2)
+    got = tk.onehot_bucketize_lookup(
+        torch.from_numpy(table3), torch.from_numpy(raw),
+        *_torch_bounds(bmat, cnts, v_pad, c_pad),
+    ).numpy()
+    assert got.shape == (b, c, d)
+    # XLA on the CPU compares subnormals as zero (the float below a
+    # boundary at 0 lands above it there); the port, numpy and the oracle
+    # compare them as they are, so those entries are held to numpy alone
+    sub = ((raw != 0) & (np.abs(raw) < np.finfo(np.float32).tiny)).T
+    assert sub.any()
+    np.testing.assert_array_equal(got[~sub].view(np.int32),
+                                  want[~sub].view(np.int32))
+    ids = _np_bucket(bmat, cnts, raw)
+    ref = table3[np.arange(c)[:, None], ids].transpose(1, 0, 2)
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    assert (ids[0] == 0).all()                       # no boundary
+    assert ids[1, 0] == v_pad - 1 and ids[1, 2] == 0
+    assert ids[2, 3] == 0 and (ids[2][raw[2] == 2.5] == 9).all()
+    assert (ids[3] == 4).all()                       # -inf only
+    assert list(ids[4, 37:40]) == [3, 1, 4]          # merged pair
+
+
+def _branchless_bucket(hi, counts, raw):
+    """csrc/onehot_bucketize.cu's search in numpy: a fixed number of steps
+    over each column's whole hi row, entries past V counting as +inf; NaN
+    and +inf take the count."""
+    v = hi.shape[1]
+    p2 = 1
+    while p2 < v:
+        p2 *= 2
+    pos = np.zeros(raw.shape, np.int64)
+    s = p2 // 2
+    while s:
+        j = pos + s - 1
+        h = np.take_along_axis(hi[: raw.shape[0]], np.minimum(j, v - 1), 1)
+        pos += np.where((j < v) & (h <= raw), s, 0)
+        s //= 2
+    return np.where(raw < np.inf, pos, counts[: raw.shape[0], :1])
+
+
+@pytest.mark.parametrize("v_pad", [1, 2, 128, 200, 256, 384])
+def test_k2_branchless_search_is_the_upper_bound(v_pad):
+    if v_pad >= 128:
+        bmat, cnts, _, raw = chip_smoke.k2_edge_case(45, v_pad, 1, 100,
+                                                     seed=v_pad)
+    else:                              # at most v_pad - 1 boundaries
+        bmat = np.full((3, v_pad - 1), 0.5, np.float32)
+        cnts = np.asarray([0, v_pad - 1, 0], np.int32)
+        raw = np.asarray([[np.nan, np.inf, -np.inf, -0.0, 0.5, 7.0]] * 3,
+                         np.float32)
+    _, hi, counts = tk.bucket_bounds(bmat, cnts, v_pad, bmat.shape[0])
+    np.testing.assert_array_equal(_branchless_bucket(hi, counts, raw),
+                                  _np_bucket(bmat, cnts, raw))
 
 
 def test_k2_wrapper_rejects_bad_inputs():
@@ -292,6 +365,21 @@ def test_k2_kernel_matches_plain_on_card(cuda, v_pad, c, d, b):
     before = kernels.launches["K2"]
     got = tk.onehot_bucketize_lookup(t3, x, *bounds)
     assert kernels.launches["K2"] == before + 1
+    want = tk.onehot_bucketize_lookup_plain(t3, x, *bounds)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 8, 32])
+@pytest.mark.parametrize("v_pad", [128, 256, 384])
+def test_k2_kernel_edges_match_plain_on_card(cuda, v_pad, d):
+    bmat, cnts, table3, raw = chip_smoke.k2_edge_case(45, v_pad, d, 100,
+                                                      seed=v_pad + d)
+    t3 = torch.from_numpy(table3).to(cuda)
+    x = torch.from_numpy(raw).to(cuda)
+    bounds = _torch_bounds(bmat, cnts, v_pad, table3.shape[0], cuda)
+    got = tk.onehot_bucketize_lookup(t3, x, *bounds)
     want = tk.onehot_bucketize_lookup_plain(t3, x, *bounds)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))

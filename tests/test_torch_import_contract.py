@@ -1,4 +1,5 @@
-"""The port's import contract: recom_tpu_torch (and chip_smoke.py) import
+"""The port's import contract: recom_tpu_torch (and chip_smoke.py and
+predict_latency.py) import
 torch and numpy, never jax and nothing of the JAX package recom_tpu, not
 even its jax-free modules (the port keeps its own copies)."""
 
@@ -14,7 +15,8 @@ PORT = os.path.join(ROOT, "recom_tpu_torch")
 
 
 def _port_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, f)
+           for f in ("chip_smoke.py", "predict_latency.py")]
     for dirpath, _, files in os.walk(PORT):
         if os.sep + "build" in dirpath[len(PORT):]:
             continue

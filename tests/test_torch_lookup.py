@@ -279,3 +279,154 @@ def test_k1_kernel_edges_match_plain_on_card(cuda, d):
     torch.cuda.synchronize()
     assert got.shape == want.shape == (b, c, d)
     assert bool((got.view(torch.int32) == want.view(torch.int32)).all())
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("l", chip_smoke.X1_EDGE_L)
+@pytest.mark.parametrize("d", chip_smoke.X1_EDGE_D)
+def test_x1_plain_matches_lookup_xla_on_edges(d, l, weighted):
+    """All-missing bags, ids past their caps and below -1, -0.0 rows, NaN
+    and +-inf rows (never a member's row 0, which the reference reads for
+    a missing slot), zero-weight MEAN and SQRTN bags, mixed rounding."""
+    table, ids, offs, caps, code, w, wcols = chip_smoke.x1_edge_case(
+        d, l, seed=10 * d + l)
+    if not weighted:
+        w, wcols = None, np.zeros(len(wcols), bool)
+    clamped = np.minimum(ids, caps[:, None, None]).transpose(1, 0, 2)
+    want = np.asarray(lookup_xla.group_pooled(
+        jnp.asarray(table), jnp.asarray(clamped), offs, code,
+        None if w is None else jnp.asarray(w.transpose(1, 0, 2)),
+        exact_math=True, weighted_cols=wcols,
+    ))
+    got = tg.group_pooled(
+        torch.from_numpy(table), torch.from_numpy(ids), offs, code,
+        None if w is None else torch.from_numpy(w), wcols, caps,
+    ).numpy()
+    assert got.shape == (100, 6, d)
+    np.testing.assert_array_equal(got, want)
+
+
+def _x1_blocks(desc, blocks):
+    """The (group, column, batch row) bags each block of an X1 launch
+    pools, as csrc/pooled_gather.cu maps them: a block takes a tile of
+    tile_cols columns x tile_rows batch rows of its group, G lanes a bag."""
+    seen = []
+    begins = [g["block_begin"] for g in desc]
+    for blk in range(blocks):
+        i = int(np.searchsorted(begins, blk, side="right")) - 1
+        g = desc[i]
+        lanes = 1 << (int(g["kind"]) % 8)
+        bags = 256 // lanes                  # pool_tile's kBags, TB, TC
+        rows = min(32, bags)
+        cols = bags // rows
+        local = blk - int(g["block_begin"])
+        tc, tb = divmod(local, int(g["tiles_b"]))
+        for t in range(0, tg.X1_THREADS, lanes):
+            bag = t // lanes
+            c, b = tc * cols + bag // rows, tb * rows + bag % rows
+            if c < g["C"] and b < g["Bp"]:
+                seen.append((i, c, b))
+    return seen
+
+
+def test_x1_descriptors_cover_every_bag_once():
+    shapes = [(50, 2048, 1, 8, True), (15, 2048, 12, 8, True),
+              (5, 2048, 7, 32, True), (6, 100, 33, 3, False),
+              (3, 37, 2, 1, False), (2, 9, 1, 200, True),
+              (4, 70, 5, 33, False), (1, 1, 1, 4, False)]
+    groups = [dict(table=1 + i, ids=2, weights=0, row_offsets=3, caps=4,
+                   codes=5, weighted=6, out=7 + i, C=c, Bp=bp, L=l, d=d,
+                   vec=vec) for i, (c, bp, l, d, vec) in enumerate(shapes)]
+    # (dq, lanes, tile rows, tile cols) as csrc/pooled_gather.cu has them
+    assert [tg.x1_tile(d, vec) for d, vec in ((8, True), (32, True),
+                                              (1, False), (3, False),
+                                              (200, True))] == [
+        (2, 2, 32, 4), (8, 8, 32, 1), (1, 1, 32, 8), (3, 4, 32, 2),
+        (50, 32, 8, 1)]
+    packed, blocks = tg.x1_descriptors(groups)
+    assert tg.X1_DESC.size == 112 and len(packed) == 112 * len(shapes)
+    desc = [dict(zip(tg.X1_FIELDS, r)) for r in tg.X1_DESC.iter_unpack(packed)]
+    field = lambda k: [g[k] for g in desc]
+    assert field("kind") == [8 + 1, 8 + 1, 8 + 3, 2, 0, 8 + 5, 5, 2]
+    assert field("dq") == [2, 2, 8, 3, 1, 50, 33, 4]
+    assert field("out") == [7 + i for i in range(len(shapes))]
+    assert field("C") == [s[0] for s in shapes]
+    assert field("block_begin")[0] == 0
+    assert (np.diff(field("block_begin")) > 0).all()
+    seen = _x1_blocks(desc, blocks)
+    want = {(i, c, b) for i, (cc, bp, _, _, _) in enumerate(shapes)
+            for c in range(cc) for b in range(bp)}
+    assert len(seen) == len(set(seen)) == len(want) and set(seen) == want
+    with pytest.raises(ValueError, match="groups per launch"):
+        tg.x1_descriptors(groups + groups[:1])
+    with pytest.raises(ValueError, match="float4"):
+        tg.x1_descriptors([dict(groups[3], vec=True)])
+
+
+def test_groups_pooled_equals_group_pooled_per_group():
+    cases = [chip_smoke.x1_edge_case(d, l, seed=d + l)
+             for d, l in ((8, 1), (32, 12), (3, 33))]
+    args = [(torch.from_numpy(t), torch.from_numpy(i), o, code,
+             torch.from_numpy(w), wc, caps)
+            for t, i, o, caps, code, w, wc in cases]
+    got = tg.groups_pooled(args)
+    assert len(got) == 3 and tg.groups_pooled([]) == []
+    for g, a in zip(got, args):
+        np.testing.assert_array_equal(g.numpy(), tg.group_pooled(*a).numpy())
+
+
+def _same_or_nan(a, b):
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", chip_smoke.X1_EDGE_L)
+@pytest.mark.parametrize("d", chip_smoke.X1_EDGE_D)
+def test_x1_kernel_edges_match_plain_on_card(cuda, d, l):
+    """The kernel skips missing slots (as the oracle does) where the plain
+    version adds row 0 x 0: the two agree with == and equal NaN positions
+    while row 0 of every member is finite."""
+    table, ids, offs, caps, code, w, wcols = chip_smoke.x1_edge_case(
+        d, l, seed=10 * d + l)
+    a = (torch.from_numpy(table).to(cuda), torch.from_numpy(ids).to(cuda),
+         offs, code, torch.from_numpy(w).to(cuda), wcols, caps)
+    before = kernels.launches["X1"]
+    got = tg.group_pooled(*a)
+    assert kernels.launches["X1"] == before + 1
+    want = tg.group_pooled_plain(*a)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (100, 6, d)
+    assert _same_or_nan(got, want)
+
+
+@pytest.mark.cuda
+def test_x1_one_launch_serves_many_groups_on_card(cuda):
+    """Ten groups of every lane count and both row types: two launches (8
+    groups each at most), each group == its plain version."""
+    pairs = [(d, l) for d in chip_smoke.X1_EDGE_D for l in (1, 12)]
+    pairs += [(8, 33), (32, 2)]
+    args = []
+    for d, l in pairs:
+        table, ids, offs, caps, code, w, wcols = chip_smoke.x1_edge_case(
+            d, l, seed=d * l)
+        args.append((torch.from_numpy(table).to(cuda),
+                     torch.from_numpy(ids).to(cuda), offs, code,
+                     torch.from_numpy(w).to(cuda), wcols, caps))
+    before = kernels.launches["X1"]
+    got = tg.groups_pooled(args)
+    assert kernels.launches["X1"] == before + 2
+    for g, a in zip(got, args):
+        assert _same_or_nan(g, tg.group_pooled_plain(*a))
+
+
+def test_sqrtn_denominator_is_correctly_rounded():
+    """SQRTN divides by the correctly rounded f32 root of the squared
+    weight sum (the oracle's np.sqrt, the kernel's __fsqrt_rn); torch's own
+    f32 sqrt on the CPU misses by an ulp on some inputs."""
+    rng = np.random.default_rng(11)
+    w2 = rng.uniform(0.01, 4.0, (1, 100_000)).astype(np.float32)
+    acc = torch.ones((1, w2.shape[1], 1))
+    got = tg.apply_combiner_divisors(
+        acc, torch.from_numpy(w2), torch.from_numpy(w2), np.asarray([2]),
+        True)[0, :, 0].numpy()
+    np.testing.assert_array_equal(got, np.float32(1) / np.sqrt(w2[0]))
