@@ -17,35 +17,61 @@ through ``Engine(..., device="cuda")``, random weights from a seed:
   ``host_bucketize=False`` and with ``wire_pack=False``: raw floats reach
   the card, and K2 bucketizes and looks them up in one pass.
 
+Then it frees the serving engines and trains, through ``Trainer(...,
+optimizer=dlrm_optimizer())`` on the card:
+
+* model E with the default config (forward K1, X1, X2; backward K3a, X1b),
+  a step at batch 512 and five at 2048;
+* model E's 880 bucketize columns and tower alone
+  (``make_dlrm_model(880, 0, 0, 0, 0, 32, [32], [1024, 1024, 128])``) with
+  ``host_bucketize=False`` (forward K2, backward K3b), three steps.
+
 It checks:
 
-1. each kernel (K1 one-id lookup, K2 fused bucketize + lookup, X1 gather +
-   pooling, one launch for all of model E's gather groups, X2 string
-   hashing) against its plain PyTorch version on the card, at the shapes
-   its path gives it at batch 2048 (K2 also on planes holding NaN, +-inf,
-   -0.0 and exact boundary values, and on ragged tiles with d in {1, 3,
-   8, 32}, V_pad 128 / 256 / 384 and edge boundary sets; K1 also on
-   ragged tiles, d in {1, 3, 8, 32}, missing and out-of-range ids and
-   -0.0 / NaN rows; X1 also on d in {1, 3, 8, 32} x L in {1, 2, 12, 33},
+1. each forward kernel (K1 one-id lookup, K2 fused bucketize + lookup, X1
+   gather + pooling, one launch for all of model E's gather groups, X2
+   string hashing) against its plain PyTorch version on the card, at the
+   shapes its path gives it at batch 2048 (K2 also on planes holding NaN,
+   +-inf, -0.0 and exact boundary values, and on ragged tiles with d in
+   {1, 3, 8, 32}, V_pad 128 / 256 / 384 and edge boundary sets; K1 also on
+   ragged tiles, d in {1, 3, 8, 32}, missing and out-of-range ids and -0.0
+   / NaN rows; X1 also on d in {1, 3, 8, 32} x L in {1, 2, 12, 33},
    all-missing and zero-weight bags, -0.0 / NaN / +-inf rows; X2 also on
    512-byte rows with more than L = 128 pieces, delimiters first, last,
-   everywhere and >= 0x80, odd itemsizes, every FarmHash length and
-   bucket counts 1 .. 2^31): exact equality (``==``, so +0 == -0, with
-   NaN where the plain version has it for X1; as bits for K1 and K2); it
-   times kernel (warm, and with L2 flushed before each call), plain
-   version and, where one exists, the one PyTorch call computing the same
-   function (``library_ms``, a yardstick the port never calls), and
-   computes the least time the card could take (X2: bytes, or integer
-   operations counted from this batch's pieces over the INT32 rate,
-   whichever is larger);
-2. that each ``predict`` went through its path's kernels and no other
-   (model E: one launch of X1): the launch counts are zeroed just before
-   a predict and read just after;
-3. pooled outputs of all 1000 columns against the port's NumPy oracle
+   everywhere and >= 0x80, odd itemsizes, every FarmHash length and bucket
+   counts 1 .. 2^31): exact equality (``==``, so +0 == -0, with NaN where
+   the plain version has it for X1; as bits for K1 and K2);
+2. each backward kernel (K3a of K1, K3b of K2, X1b of X1, one launch per
+   gather group) at its path's shapes at batch 2048 (K3a with missing and
+   past-cap ids added, K3b on a plane holding NaN, +-inf, +-0.0 and exact
+   boundaries) and on edge inputs (K3a: Bp past one sorting segment, V_pad
+   384, d 1 to 32; K3b: K2's 12 edge planes; X1b: d in {1, 3, 8, 32} x L
+   in {1, 2, 12, 33}, weighted MEAN / SQRTN, all-missing and zero-weight
+   bags, ids at and past caps): two runs give the same bits, equal to the
+   plain version on CPU copies (``index_add_`` in slot order), and within
+   1e-5 of the terms' magnitudes of the plain version on the card (whose
+   ``index_add_`` adds with atomics);
+3. for every kernel, its time (warm, and with L2 flushed before each call),
+   the plain version's and, where one exists, one PyTorch call computing
+   the same function (``library_ms``, a yardstick the port never calls;
+   for the backward kernels ``torch.zeros`` + ``index_add_`` of
+   precomputed contributions), and the least time the card could take (X2:
+   bytes, or integer operations counted from this batch's pieces over the
+   INT32 rate, whichever is larger);
+4. that each ``predict`` and training step went through its path's
+   kernels and no other (model E: one launch of X1 a predict; a training
+   step K1 1, X1 1, X2 3, K3a 1 and X1b once per gather group; the
+   bucketize path K2 1 and K3b 1 a step): the launch counts are zeroed
+   just before and read just after;
+5. pooled outputs of all 1000 columns against the port's NumPy oracle
    exactly, and the model output at rtol 1e-4 / atol 1e-5 (model E) or
-   exactly (the microbenchmark's identity tower);
-4. median ``predict`` latency of each path, and ``Engine.benchmark``'s
-   step time on the microbenchmark.
+   exactly (the microbenchmark's identity tower); the first training
+   step's loss against the masked BCE of the oracle's logits at rtol 1e-4,
+   finite losses falling on a fixed batch, and ``predict`` serving the
+   updated params;
+6. median ``predict`` latency of each path, ``Engine.benchmark``'s step
+   time on the microbenchmark, and the median training step time with its
+   forward / backward / optimizer split (CUDA events) and peak memory.
 
 The last lines of stdout are one JSON object for the kernels, the card's
 name and power limit as nvidia-smi reports them, and ``{"ok": true,
@@ -55,6 +81,7 @@ and prints no result.  Without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -435,19 +462,36 @@ def k2_edge_case(c: int, v_pad: int, d: int, b: int, seed: int):
     return bmat, cnts, table3, raw
 
 
-def main() -> int:
-    import torch
+# each kernel's source and the TPU-side function it replaces
+KERNEL_META = {
+    "K1": ("recom_tpu_torch/csrc/onehot_lookup.cu",
+           "recom_tpu/ops/lookup_pallas.py:36"),
+    "K2": ("recom_tpu_torch/csrc/onehot_bucketize.cu",
+           "recom_tpu/ops/lookup_pallas.py:92"),
+    "X1": ("recom_tpu_torch/csrc/pooled_gather.cu",
+           "recom_tpu/ops/lookup_xla.py:185"),
+    "X2": ("recom_tpu_torch/csrc/hash_device.cu",
+           "recom_tpu/ops/hash_device.py:234"),
+    "K3a": ("recom_tpu_torch/csrc/onehot_grad.cu",
+            "recom_tpu/ops/lookup_pallas.py:321"),
+    "K3b": ("recom_tpu_torch/csrc/onehot_grad.cu",
+            "recom_tpu/ops/lookup_pallas.py:211"),
+    "X1b": ("recom_tpu_torch/csrc/pooled_gather_grad.cu",
+            "recom_tpu/ops/lookup_xla.py:61"),
+}
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
-        return 2
 
+def serve_phases(torch, model, np_params, int_rate: float):
+    """Phases 2-6: serve model E and micro-1000, hold the forward kernels
+    against their plain versions, and time them.  Returns the kernels'
+    results, the launch counts of the counted predicts, the oracle's
+    forward of the 512 batch and the two model E batches; the engines are
+    freed when it returns."""
     import numpy as np
     import torch.nn.functional as F
 
     from recom_tpu_torch import EngineConfig
-    from recom_tpu_torch.models import make_model_e, make_random_batch
+    from recom_tpu_torch.models import make_random_batch
     from recom_tpu_torch.models.synthetic import make_microbenchmark_model
     from recom_tpu_torch.ops import kernels
     from recom_tpu_torch.ops.hash_device import (
@@ -469,30 +513,10 @@ def main() -> int:
     from recom_tpu_torch.oracle import OracleModel
     from recom_tpu_torch.runtime.executor import Engine
     from recom_tpu_torch.runtime.wire import _plan, wire_layout
+    from recom_tpu_torch.runtime.wire import unpack_blob
     from recom_tpu_torch.utils.params import init_model_params
 
-    card = card_line()
     dev = torch.device("cuda")
-    int_rate = int32_ops_per_s()
-    log(f"card: {card}; INT32 peak {int_rate / 1e12:.2f} Tops/s (132 SMs x "
-        f"64 lanes x clocks.max.sm {nvidia_smi('clocks.max.sm')})")
-    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-
-    # ---- phase 1: build every kernel from the checkout's sources ---------
-    nvcc = subprocess.run([kernels.nvcc_path(), "--version"],
-                          capture_output=True, text=True, check=True,
-                          timeout=60).stdout.strip().splitlines()[-1]
-    t = time.perf_counter()
-    paths = kernels.build_all()
-    log(f"kernel build: {time.perf_counter() - t:.2f} s "
-        f"({', '.join(sorted(paths))}; {nvcc})")
-
-    # ---- full-size model E on the card ------------------------------------
-    t = time.perf_counter()
-    model = make_model_e(seed=0)
-    np_params = init_model_params(model)
-    log(f"model E params on host: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(model, EngineConfig(), params=np_params, device="cuda")
@@ -784,16 +808,6 @@ def main() -> int:
             shape=f"raw [{cc}, {bp_mb}], V_pad {v} -> [{bp_mb}, {cc}, {d}]",
         ))
 
-    kernel_meta = {
-        "K1": ("recom_tpu_torch/csrc/onehot_lookup.cu",
-               "recom_tpu/ops/lookup_pallas.py:36"),
-        "K2": ("recom_tpu_torch/csrc/onehot_bucketize.cu",
-               "recom_tpu/ops/lookup_pallas.py:92"),
-        "X1": ("recom_tpu_torch/csrc/pooled_gather.cu",
-               "recom_tpu/ops/lookup_xla.py:185"),
-        "X2": ("recom_tpu_torch/csrc/hash_device.cu",
-               "recom_tpu/ops/hash_device.py:234"),
-    }
     results = {}
     as_list = lambda x: x if isinstance(x, list) else [x]
     with torch.inference_mode():
@@ -961,11 +975,424 @@ def main() -> int:
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB")
 
+    return dict(results=results, counts_2048=counts_2048,
+                counts_mb=counts_mb, ref=ref, batch_small=batch_small,
+                batch_big=batch_big)
+
+
+def _equal_bits(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def check_backward(torch, what: str, fn, plain, args, mag_args) -> float:
+    """A backward kernel's wrapper ``fn`` on the card: two runs give the
+    same bits; those bits equal the wrapper on CPU copies of ``args`` (its
+    plain version, ``index_add_`` in slot order); and the plain version on
+    the card (``index_add_`` with atomics, in no fixed order) is within
+    1e-5 of the sum of the terms' magnitudes (``plain(*mag_args)``).
+    Returns the largest absolute difference from the card's plain
+    version."""
+    out = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    require(_equal_bits(torch, out, again), f"{what}: two runs differ")
+    del again
+    cpu = tuple(x.cpu() if isinstance(x, torch.Tensor) else x for x in args)
+    require(_equal_bits(torch, out.cpu(), fn(*cpu)),
+            f"{what}: kernel != plain version on CPU copies")
+    err = (out - plain(*args)).abs_()
+    del out
+    mag = plain(*mag_args)
+    require(bool((err <= 1e-5 * mag).all()),
+            f"{what}: kernel differs from the plain version on the card by "
+            "more than 1e-5 of the terms' magnitudes")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def train_phases(torch, model, np_params, batch_small, batch_big, ref):
+    """Phases 7-10: train model E (default config, dlrm_optimizer) and the
+    880-column bucketize model (host_bucketize=False) on the card; hold
+    the backward kernels K3a, K3b and X1b against their plain versions at
+    the path's shapes and on edge inputs, and time them.  Returns the
+    kernels' results and the launch counts of one counted step of each
+    path."""
+    import numpy as np
+
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.models import make_dlrm_model, make_random_batch
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.ops.lookup_gather import (
+        group_pooled_grad,
+        group_pooled_grad_plain,
+        slot_contributions,
+    )
+    from recom_tpu_torch.ops.lookup_onehot import (
+        bucket_bounds,
+        bucket_ids_plain,
+        onehot_bucketize_lookup_grad,
+        onehot_bucketize_lookup_grad_plain,
+        onehot_lookup_grad,
+        onehot_lookup_grad_plain,
+    )
+    from recom_tpu_torch.oracle.reference import run_mlp
+    from recom_tpu_torch.runtime.wire import unpack_blob
+    from recom_tpu_torch.train import Trainer, dlrm_optimizer
+    from recom_tpu_torch.utils.params import init_model_params
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+
+    def cotangent(bp, c, d):
+        return torch.from_numpy(
+            rng.standard_normal((bp, c, d), dtype=np.float32)).to(dev)
+
+    # ---- phase 7: the trainers --------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    tr = Trainer(model, EngineConfig(), optimizer=dlrm_optimizer(),
+                 params=np_params)
+    torch.cuda.synchronize()
+    require(tr.engine.device.type == "cuda", "Trainer defaults to CUDA")
+    log(f"Trainer(model E, EngineConfig(), dlrm_optimizer()): "
+        f"{time.perf_counter() - t:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    bz_model = make_dlrm_model(880, 0, 0, 0, 0, 32, [32], [1024, 1024, 128],
+                               name="bucketize880", seed=0)
+    # dlrm_optimizer()'s tower_lr 1e-3 overshoots on this random tower:
+    # Adam's first step moves every weight of the 1024-wide layers by
+    # 1e-3 the same way, and the loss jumps 20x (on the CPU too, with the
+    # plain versions); at 1e-5 it falls step after step
+    tr_bz = Trainer(bz_model, EngineConfig(host_bucketize=False),
+                    optimizer=dlrm_optimizer(table_lr=1e-3, tower_lr=1e-5),
+                    params=init_model_params(bz_model))
+    eng, eng_bz = tr.engine, tr_bz.engine
+
+    # ---- phase 8: the backward kernels against their plain versions -------
+    recs = {"K3a": [], "K3b": [], "X1b": []}
+    with torch.no_grad():
+        prep = eng.prepare(batch_big)
+        bp = prep.batch_padded
+        arrays = unpack_blob(eng.compiled, eng.to_device(prep)["blob"], bp,
+                             prep.rowlens, prep.wsig)
+        for g, packed in zip(eng.compiled.groups, arrays["groups"]):
+            c = eng._consts[g.gid]
+            table = eng.device_params["stacked"][str(g.gid)]
+            ids, weights = eng.group_ids(g, packed)
+            cot = cotangent(bp, g.num_columns, g.dim)
+            if g.pallas_vocab is not None:
+                # the batch's ids, with missing ids and ids past each cap
+                ids2 = ids[:, :, 0].clone()
+                ids2[:, ::17] = -1
+                ids2[:, 5::19] = c["caps"][:, None] + 3
+                c_pad, v = table.shape[0], table.shape[1]
+                a = (cot, ids2, c["caps"], c_pad, v)
+                clamped = torch.minimum(ids2, c["caps"][:, None])
+                valid = clamped >= 0
+                cols = torch.arange(g.num_columns, device=dev)[:, None] * v
+                flat = (cols + clamped.long())[valid]
+                src = cot.transpose(0, 1)[valid]
+                nbytes = (cot.numel() + ids2.numel() + g.num_columns
+                          + table.numel()) * 4
+                recs["K3a"].append(dict(
+                    what=f"K3a group {g.gid}", fn=onehot_lookup_grad,
+                    plain=onehot_lookup_grad_plain, args=a,
+                    mag_args=(cot.abs(),) + a[1:],
+                    lib=lambda n=table.numel() // g.dim, d=g.dim, f=flat,
+                    s=src: torch.zeros((n, d), device=dev).index_add_(0, f, s),
+                    bound=bound_ms(nbytes, float(src.numel())),
+                    shape=f"g [{bp}, {g.num_columns}, {g.dim}] -> "
+                    f"[{c_pad}, {v}, {g.dim}]",
+                ))
+                continue
+            r = table.shape[0]
+            cols = (c["row_offsets"], c["codes"])
+            tail = (c["weighted"], c["caps"])
+            a = (cot, r, ids) + cols + (weights,) + tail
+            rows, contrib = slot_contributions(cot, ids, *cols, weights,
+                                               *tail)
+            nbytes = (r * g.dim + cot.numel() + ids.numel() + 4 * g.num_columns
+                      + (0 if weights is None else weights.numel())) * 4
+            recs["X1b"].append(dict(
+                what=f"X1b group {g.gid}", fn=group_pooled_grad,
+                plain=group_pooled_grad_plain, args=a,
+                mag_args=(cot.abs(), r, ids) + cols + (
+                    None if weights is None else weights.abs(),) + tail,
+                lib=lambda r=r, d=g.dim, i=rows, s=contrib: torch.zeros(
+                    (r, d), device=dev).index_add_(0, i, s),
+                bound=bound_ms(nbytes, 2.0 * contrib.numel()),
+                shape=f"g [{bp}, {g.num_columns}, {g.dim}], ids "
+                f"{list(ids.shape)} -> [{r}, {g.dim}]",
+            ))
+        # K3b: the 880-column group, its raw plane with the special values
+        prep_bz = eng_bz.prepare(make_random_batch(bz_model, 2048, seed=4))
+        arrays_bz = unpack_blob(eng_bz.compiled,
+                                eng_bz.to_device(prep_bz)["blob"], 2048,
+                                prep_bz.rowlens, prep_bz.wsig)
+        for g, packed in zip(eng_bz.compiled.groups, arrays_bz["groups"]):
+            c = eng_bz._consts[g.gid]
+            require("bz_hi" in c and "raw_bz" in packed,
+                    f"bucketize group {g.gid} should take K2")
+            raw = packed["raw_bz"].clone()
+            cc = raw.shape[0]
+            cnt = c["bz_counts"][:cc, 0].long()
+            raw[:, 0:5] = torch.tensor(
+                [float("nan"), float("inf"), float("-inf"), -0.0, 0.0],
+                device=dev)
+            pick = (torch.arange(64, device=dev)[None, :] * 7) % cnt[:, None]
+            raw[:, 5:69] = c["bz_hi"][:cc].gather(1, pick)
+            cot = cotangent(2048, cc, g.dim)
+            table = eng_bz.device_params["stacked"][str(g.gid)]
+            a = (cot, raw, c["bz_lo"], c["bz_hi"], c["bz_counts"])
+            ids = bucket_ids_plain(raw, c["bz_hi"], c["bz_counts"])
+            flat = (torch.arange(cc, device=dev)[:, None] * table.shape[1]
+                    + ids.long()).reshape(-1)
+            src = cot.transpose(0, 1).reshape(-1, g.dim)
+            nbytes = (cot.numel() + raw.numel() + cc + int(cnt.sum())
+                      + table.numel()) * 4
+            recs["K3b"].append(dict(
+                what=f"K3b group {g.gid}", fn=onehot_bucketize_lookup_grad,
+                plain=onehot_bucketize_lookup_grad_plain, args=a,
+                mag_args=(cot.abs(),) + a[1:],
+                lib=lambda n=table.numel() // g.dim, d=g.dim, f=flat,
+                s=src: torch.zeros((n, d), device=dev).index_add_(0, f, s),
+                bound=bound_ms(nbytes, float(src.numel())),
+                shape=f"g [2048, {cc}, {g.dim}], raw [{cc}, 2048] with NaN, "
+                f"+-inf, +-0.0 and 64 boundaries a column -> "
+                f"{list(table.shape)}",
+            ))
+
+        # edge inputs: == plain on CPU copies, twice the same bits
+        for cc, bb, d in ((45, 100, 1), (45, 100, 3), (45, 100, 32),
+                          (930, 2000, 8), (9, 5000, 8)):
+            t3, ids_np, caps_np = k1_edge_case(cc, 300, d, bb, seed=d,
+                                               specials=False)
+            a = (cotangent(bb, cc, d), torch.from_numpy(ids_np).to(dev),
+                 torch.from_numpy(caps_np).to(dev), t3.shape[0], t3.shape[1])
+            check_backward(torch, f"K3a edge C={cc} Bp={bb} d={d}",
+                           onehot_lookup_grad, onehot_lookup_grad_plain, a,
+                           (a[0].abs(),) + a[1:])
+        log("K3a edge cases (C 45 / 930 / 9, Bp up to 5000, V_pad 384, d 1 / "
+            "3 / 8 / 32; an all-missing column, ids past caps and below -1): "
+            "== plain on CPU copies, repeatable bit for bit")
+        for v_pad in (128, 256, 384):
+            for d in (1, 3, 8, 32):
+                bm, cn, t3, raw_np = k2_edge_case(45, v_pad, d, 100,
+                                                  seed=v_pad + d)
+                a = (cotangent(100, 45, d), torch.from_numpy(raw_np).to(dev),
+                     *(torch.from_numpy(x).to(dev) for x in bucket_bounds(
+                         bm, cn, v_pad, t3.shape[0])))
+                check_backward(torch, f"K3b edge V_pad={v_pad} d={d}",
+                               onehot_bucketize_lookup_grad,
+                               onehot_bucketize_lookup_grad_plain, a,
+                               (a[0].abs(),) + a[1:])
+        log("K3b edge cases (K2's 12 edge planes: counts 0 and V_pad - 1, "
+            "repeated, -inf-only and merged boundaries; NaN, +-inf, +-0.0, "
+            "subnormals, boundaries and the floats below them): == plain on "
+            "CPU copies, repeatable bit for bit")
+        n_edge = 0
+        for d in X1_EDGE_D:
+            for ll in X1_EDGE_L:
+                for weighted in (False, True):
+                    tb, ids_np, offs, caps_np, codes, w_np, wc = x1_edge_case(
+                        d, ll, seed=10 * d + ll, specials=False)
+                    w = torch.from_numpy(w_np).to(dev) if weighted else None
+                    wc = wc if weighted else np.zeros(len(wc), bool)
+                    ids_t = torch.from_numpy(ids_np).to(dev)
+                    cot = cotangent(ids_np.shape[1], ids_np.shape[0], d)
+                    a = (cot, tb.shape[0], ids_t, offs, codes, w, wc, caps_np)
+                    check_backward(
+                        torch, f"X1b edge d={d} L={ll} weighted={weighted}",
+                        group_pooled_grad, group_pooled_grad_plain, a,
+                        (cot.abs(), tb.shape[0], ids_t, offs, codes,
+                         None if w is None else w.abs(), wc, caps_np))
+                    n_edge += 1
+        log(f"X1b edge cases ({n_edge} groups: d in {X1_EDGE_D} x L in "
+            f"{X1_EDGE_L}, unweighted and weighted; SUM, MEAN and SQRTN, "
+            "all-missing and zero-weight bags, ids at and past caps): == "
+            "plain on CPU copies, repeatable bit for bit")
+
+        results = {}
+        for kid, rs in recs.items():
+            require(bool(rs), f"no main-path call of {kid}")
+            tot = dict(err=0.0, ms=0.0, cold_ms=0.0, plain_ms=0.0,
+                       bound_ms=0.0, lib=0.0)
+            bound_by = {"bytes": 0.0, "operations": 0.0}
+            for r in rs:
+                err = check_backward(torch, r["what"], r["fn"], r["plain"],
+                                     r["args"], r["mag_args"])
+                kern = lambda r=r: r["fn"](*r["args"])
+                ms = time_ms(torch, kern)
+                cold = time_cold_ms(torch, kern)
+                pms = time_ms(torch, lambda r=r: r["plain"](*r["args"]),
+                              iters=5, warmup=1)
+                lms = time_ms(torch, r["lib"])
+                bms, by = r["bound"]
+                bound_by[by] += bms
+                for k, v in (("ms", ms), ("cold_ms", cold), ("plain_ms", pms),
+                             ("bound_ms", bms), ("lib", lms)):
+                    tot[k] += v
+                tot["err"] = max(tot["err"], err)
+                log(f"{r['what']} ({r['shape']}): kernel {ms:.4f} ms warm, "
+                    f"{cold:.4f} ms cold L2, plain {pms:.4f} ms, library "
+                    f"(torch.zeros + index_add_) {lms:.4f} ms, bound "
+                    f"{bms:.4f} ms ({by}); == plain on CPU copies, max abs "
+                    f"diff from the card's plain version {err:.3g}")
+            log(f"{kid} summed over {len(rs)} launch(es): kernel "
+                f"{tot['ms']:.4f} ms warm, {tot['cold_ms']:.4f} ms cold, "
+                f"bound {tot['bound_ms']:.4f} ms (share of bound, warm: "
+                f"{tot['bound_ms'] / tot['ms']:.0%})")
+            results[kid] = dict(tot, bound_by=max(bound_by, key=bound_by.get))
+        del recs, arrays, arrays_bz
+        torch.cuda.empty_cache()
+
+    # ---- phase 9: training path 1, model E ---------------------------------
+    # the first step (batch 512) against the oracle's logits on the same
+    # batch and params (phase 3's forward)
+    lab_small = rng.integers(0, 2, 512).astype(np.float32)
+    x = run_mlp(np_params["tower"]["top"], ref["tower_input"],
+                model.tower.activation, None)[:, 0].astype(np.float64)
+    want = float(np.mean(lab_small * np.logaddexp(0.0, -x)
+                         + (1 - lab_small) * np.logaddexp(0.0, x)))
+    before = eng.predict(batch_small)["output"]
+    loss0 = tr.step(batch_small, lab_small)
+    require(abs(loss0 - want) <= 1e-4 * abs(want),
+            f"first step's loss {loss0} != the oracle's BCE {want}")
+    after = eng.predict(batch_small)["output"]
+    require(not np.array_equal(before, after), "predict after a step "
+            "serves the same outputs as before it")
+    log(f"model E, step 1 (batch 512): loss {loss0:.6f}, the oracle's BCE "
+        f"{want:.6f} (within rtol 1e-4); predict after the step differs")
+    lab_big = rng.integers(0, 2, 2048).astype(np.float32)
+    kernels.reset_launches()
+    losses = [tr.step(batch_big, lab_big)]
+    torch.cuda.synchronize()
+    counts_train = dict(kernels.launches)
+    log(f"launches in one training step (model E, batch 2048): "
+        f"{counts_train}")
+    require_launches(counts_train, ("K1", "X1", "X2", "K3a", "X1b"),
+                     "training, model E",
+                     exactly={"K1": 1, "X1": 1, "X2": 3, "K3a": 1})
+    losses += [tr.step(batch_big, lab_big) for _ in range(4)]
+    require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+            f"model E losses on one batch do not decrease: {losses}")
+    log(f"model E, 5 steps on one batch of 2048: losses {losses}")
+    step_times(torch, tr, "model E", ((512, batch_small, lab_small),
+                                      (2048, batch_big, lab_big)))
+    log(f"peak device memory (model E training): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del tr, eng
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: training path 2, 880 bucketize columns (K2, K3b) --------
+    b2 = make_random_batch(bz_model, 2048, seed=5)
+    lab2 = rng.integers(0, 2, 2048).astype(np.float32)
+    losses = []
+    for _ in range(3):
+        kernels.reset_launches()
+        losses.append(tr_bz.step(b2, lab2))
+        torch.cuda.synchronize()
+        counts_bz = dict(kernels.launches)
+        require_launches(counts_bz, ("K2", "K3b"), "training, bucketize-880",
+                         exactly={"K2": 1, "K3b": 1})
+    log(f"launches in each of 3 training steps (bucketize-880, batch "
+        f"2048): {counts_bz}")
+    require(bool(np.isfinite(losses).all())
+            and all(b < a for a, b in zip(losses, losses[1:])),
+            f"bucketize-880 losses on one batch do not decrease: {losses}")
+    log(f"bucketize-880, 3 steps on one batch of 2048: losses {losses}")
+    step_times(torch, tr_bz, "bucketize-880", ((2048, b2, lab2),))
+    return dict(results=results, counts_train=counts_train,
+                counts_bz=counts_bz)
+
+
+def step_times(torch, tr, name: str, cases) -> None:
+    """Median training step time (host clock around ``Trainer.step``,
+    which ends in a device sync) over 6 steps, and the device time of its
+    forward, backward and optimizer parts by CUDA events over 5 more."""
+    for bs, batch, labels in cases:
+        host = []
+        for _ in range(6):
+            t = time.perf_counter()
+            tr.step(batch, labels)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t) * 1e3)
+        parts = []
+        for _ in range(5):
+            prepared = tr.engine.prepare(batch)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            tr.optimizer.zero_grad(set_to_none=True)
+            loss = tr.loss(prepared, labels)
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            tr.optimizer.step()
+            ev[3].record()
+            torch.cuda.synchronize()
+            parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        fwd, bwd, opt = (statistics.median(p[i] for p in parts)
+                         for i in range(3))
+        log(f"{name}: training step batch {bs}: median {statistics.median(host):.3f} "
+            f"ms (min {min(host):.3f}, max {max(host):.3f}, 6 steps; host "
+            f"prep + H2D + forward + backward + optimizer); CUDA events, "
+            f"median of 5: forward {fwd:.3f} ms, backward {bwd:.3f} ms, "
+            f"optimizer {opt:.3f} ms")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+
+    from recom_tpu_torch.models import make_model_e
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.utils.params import init_model_params
+
+    card = card_line()
+    int_rate = int32_ops_per_s()
+    log(f"card: {card}; INT32 peak {int_rate / 1e12:.2f} Tops/s (132 SMs x "
+        f"64 lanes x clocks.max.sm {nvidia_smi('clocks.max.sm')})")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+
+    # ---- phase 1: build every kernel from the checkout's sources ---------
+    nvcc = subprocess.run([kernels.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[-1]
+    t = time.perf_counter()
+    paths = kernels.build_all()
+    log(f"kernel build: {time.perf_counter() - t:.2f} s "
+        f"({', '.join(sorted(paths))}; {nvcc})")
+
+    # ---- full-size model E on the card ------------------------------------
+    t = time.perf_counter()
+    model = make_model_e(seed=0)
+    np_params = init_model_params(model)
+    log(f"model E params on host: {time.perf_counter() - t:.1f} s")
+    served = serve_phases(torch, model, np_params, int_rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serving engines freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB left on the card")
+    trained = train_phases(torch, model, np_params, served["batch_small"],
+                           served["batch_big"], served["ref"])
+    results = {**served["results"], **trained["results"]}
+    launches = {
+        "K1": served["counts_2048"]["K1"], "K2": served["counts_mb"]["K2"],
+        "X1": served["counts_2048"]["X1"], "X2": served["counts_2048"]["X2"],
+        "K3a": trained["counts_train"]["K3a"],
+        "K3b": trained["counts_bz"]["K3b"],
+        "X1b": trained["counts_train"]["X1b"],
+    }
     line = {"kernels": [
         {
             "name": kid, "route": "cuda",
-            "source": kernel_meta[kid][0], "replaces": kernel_meta[kid][1],
-            "launches": (counts_mb if kid == "K2" else counts_2048)[kid],
+            "source": KERNEL_META[kid][0], "replaces": KERNEL_META[kid][1],
+            "launches": launches[kid],
             "max_abs_err": results[kid]["err"],
             "ms": results[kid]["ms"], "plain_ms": results[kid]["plain_ms"],
             "cold_ms": results[kid]["cold_ms"],
@@ -973,7 +1400,7 @@ def main() -> int:
             "bound_by": results[kid]["bound_by"],
             "library_ms": results[kid]["lib"],
         }
-        for kid in ("K1", "K2", "X1", "X2")
+        for kid in KERNEL_META
     ]}
     print(json.dumps(line))
     print(card)

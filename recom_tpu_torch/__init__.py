@@ -13,6 +13,9 @@ package name of their imports.  What runs on the device is rewritten:
                             one-hot groups fed raw floats (Pallas _bz_kernel)
   ops/lookup_gather.py  X1  gather + in-order pooling (lookup_xla.group_pooled)
   ops/hash_device.py    X2  split + FarmHash + mod (ops/hash_device.py)
+  train.py              Trainer, optax-rule optimizers; the backward kernels
+                        K3a (of K1), K3b (of K2) and X1b (of X1)
+  runtime/checkpoint.py export/save/load in the JAX package's npz layout
   csrc/*.cu             the kernels, built by nvcc at first use (ops/kernels.py)
 
 Entry points run on CUDA unless the caller asks for the CPU, where every
@@ -52,4 +55,8 @@ def __getattr__(name):
         from recom_tpu_torch.runtime.executor import Engine
 
         return Engine
+    if name == "Trainer":
+        from recom_tpu_torch.train import Trainer
+
+        return Trainer
     raise AttributeError(f"module 'recom_tpu_torch' has no attribute {name!r}")

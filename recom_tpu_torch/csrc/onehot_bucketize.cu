@@ -41,7 +41,8 @@
 // length, and entries past V (a V that is not a power of two) count as
 // +inf.  Each thread searches four entries, interleaved step by step, so
 // their loads are in flight together rather than four chains of dependent
-// loads one after another.  The block keeps each entry's table offset in
+// loads one after another (the search lives in bucket_search.cuh, which the
+// backward K3b shares).  The block keeps each entry's table offset in
 // shared memory.  Phase 2 is K1's write phase (onehot_write.cuh): a warp
 // writes one batch row's contiguous slice, float4 rows with __stcs, no
 // per-element division.  32-bit index math when every index fits, 64-bit
@@ -59,8 +60,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <math_constants.h>
-
+#include "bucket_search.cuh"
 #include "onehot_write.cuh"
 
 namespace {
@@ -100,22 +100,14 @@ __global__ void __launch_bounds__(kThreads) onehot_bucketize_f32_kernel(
     const I c = c0 + (live ? cl : 0);
     x[k] = live ? __ldg(raw + c * Bp + b0 + bl) : 0.0f;
     h[k] = c * V;
-    pos[k] = 0;
   }
-  for (int s = half; s > 0; s >>= 1) {
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const int j = pos[k] + s - 1;
-      const float b = j < v ? __ldg(hi + h[k] + j) : CUDART_INF_F;
-      pos[k] += b <= x[k] ? s : 0;
-    }
-  }
+  bucket::upper_bounds<kPerThread, I>(hi, h, x, pos, v, half);
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
     const int cl = (threadIdx.x >> 5) + k * onehot::kWarps;
     if (cl < nc && bl < nb) {
       const I c = c0 + cl;
-      const int32_t id = x[k] < CUDART_INF_F ? pos[k] : __ldg(counts + c);
+      const int32_t id = bucket::bucket_of(x[k], pos[k], counts, c);
       rows[bl][cl] = (c * V + id) * dq;
     }
   }
@@ -153,9 +145,7 @@ extern "C" int rt_onehot_bucketize_f32(
       V < 1 || V > (int64_t{1} << 30)) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  int64_t p2 = 1;                        // the smallest power of two >= V
-  while (p2 < V) p2 *= 2;
-  const int half = static_cast<int>(p2 / 2);   // the search's first step
+  const int half = bucket::first_step(V);
   const dim3 grid(static_cast<unsigned>(col_tiles),
                   static_cast<unsigned>(row_tiles));
   cudaStream_t s = static_cast<cudaStream_t>(stream);

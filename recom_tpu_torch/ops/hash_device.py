@@ -310,7 +310,7 @@ def hash_verbatim(
         raise ValueError(f"kernel X2 takes width buckets 1..65535, got {wbk}")
     out = torch.empty((n, bp, length), dtype=torch.int32, device=raw.device)
     kernels.launch(
-        "hash_device",
+        "X2",
         kernels.ptr(raw), kernels.ptr(widths), kernels.ptr(buckets),
         kernels.ptr(recips), kernels.ptr(delims), kernels.ptr(out), n, bp,
         wbk, length, kernels.stream_of(raw),

@@ -14,8 +14,9 @@ the kernels spell the rounding out with ``__fmul_rn``/``__fadd_rn`` besides.
 
 Every entry point returns the ``cudaError_t`` of its launch, which
 ``launch`` turns into an exception.  ``launches`` counts the launches of each
-kernel (K1, K2, X1, X2): a wrapper adds one where it launches, and nowhere
-else, so a run can show that a path went through its kernels.
+kernel (the forwards K1, K2, X1, X2 and the backwards K3a, K3b, X1b): a
+wrapper adds one where it launches, and nowhere else, so a run can show that
+a path went through its kernels.
 """
 
 from __future__ import annotations
@@ -39,26 +40,34 @@ NVCC_FLAGS = (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 
-# library -> (source file, kernel id, C entry point, argtypes)
+# library -> its source file; a library may hold several kernels
 LIBRARIES = {
-    "onehot_lookup": (
-        "onehot_lookup.cu", "K1", "rt_onehot_lookup_f32",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    ),
-    "onehot_bucketize": (
-        "onehot_bucketize.cu", "K2", "rt_onehot_bucketize_f32",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    ),
-    "pooled_gather": (
-        "pooled_gather.cu", "X1", "rt_pooled_gather_f32", [_P, _I, _I, _P],
-    ),
-    "hash_device": (
-        "hash_device.cu", "X2", "rt_hash_rows",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    ),
+    "onehot_lookup": "onehot_lookup.cu",
+    "onehot_bucketize": "onehot_bucketize.cu",
+    "pooled_gather": "pooled_gather.cu",
+    "hash_device": "hash_device.cu",
+    "onehot_grad": "onehot_grad.cu",
+    "pooled_gather_grad": "pooled_gather_grad.cu",
 }
 
-launches: Dict[str, int] = {"K1": 0, "K2": 0, "X1": 0, "X2": 0}
+# kernel id -> (library, C entry point, argtypes)
+KERNELS = {
+    "K1": ("onehot_lookup", "rt_onehot_lookup_f32",
+           [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "K2": ("onehot_bucketize", "rt_onehot_bucketize_f32",
+           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "X1": ("pooled_gather", "rt_pooled_gather_f32", [_P, _I, _I, _P]),
+    "X2": ("hash_device", "rt_hash_rows",
+           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "K3a": ("onehot_grad", "rt_onehot_lookup_grad_f32",
+            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "K3b": ("onehot_grad", "rt_onehot_bucketize_grad_f32",
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "X1b": ("pooled_gather_grad", "rt_pooled_gather_grad_f32",
+            [_P] * 9 + [_I] * 8 + [_P]),
+}
+
+launches: Dict[str, int] = {kid: 0 for kid in KERNELS}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -88,7 +97,7 @@ def library_path(name: str) -> str:
     source may include any of them) and the flags."""
     key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-    for f in [LIBRARIES[name][0]] + headers:
+    for f in [LIBRARIES[name]] + headers:
         with open(os.path.join(CSRC_DIR, f), "rb") as fh:
             key.update(f.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{key.hexdigest()[:16]}.so")
@@ -108,7 +117,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     procs: List = []
     for n in todo:
         tmp = f"{paths[n]}.tmp{os.getpid()}"
-        src = os.path.join(CSRC_DIR, LIBRARIES[n][0])
+        src = os.path.join(CSRC_DIR, LIBRARIES[n])
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
         procs.append((n, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT
@@ -134,20 +143,21 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             path = build_all([name])[name]
             lib = ctypes.CDLL(path)
-            _, _, fn, argtypes = LIBRARIES[name]
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            for lname, fn, argtypes in KERNELS.values():
+                if lname == name:
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
             lib.rt_cuda_error_string.argtypes = [ctypes.c_int]
             lib.rt_cuda_error_string.restype = ctypes.c_char_p
             _loaded[name] = lib
     return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call library ``name``'s entry point, raise on a launch error, and
-    count the launch."""
+def launch(kid: str, *args) -> None:
+    """Call kernel ``kid``'s entry point, raise on a launch error, and count
+    the launch."""
+    name, fn, _ = KERNELS[kid]
     lib = library(name)
-    _, kid, fn, _ = LIBRARIES[name]
     err = getattr(lib, fn)(*args)
     if err != 0:
         msg = lib.rt_cuda_error_string(err).decode()

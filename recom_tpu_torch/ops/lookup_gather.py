@@ -25,6 +25,18 @@ groups with one launch (the Engine's gather groups, all at once).  The
 kernel skips a missing slot where the plain version adds row 0 of the
 member times 0, as the reference does: the two agree with ``==`` while
 no member's row 0 holds NaN or inf (csrc/pooled_gather.cu says why).
+
+Gradient (training): ``groups_pooled`` is differentiable in each group's
+table.  X1b (``group_pooled_grad``, csrc/pooled_gather_grad.cu) is the
+transpose of the reference's arithmetic, each step rounded on its own: the
+pooled cotangent scaled as the combiner divided (times the rounded
+reciprocal, or divided, by the bag's denominator; 0 where it is not > 0),
+times each slot's weight, added into the dense ``[R, d]`` table gradient at
+the slot's clamped, offset row.  A missing slot adds nothing.  Both the
+plain version and the kernel sum each row in ``[C, Bp, L]`` slot order, so
+they agree bit for bit; the reference's autodiff adds in its gather's
+``[L, Bp, C]`` order, so it agrees to rounding where a row takes several
+slots.
 """
 
 from __future__ import annotations
@@ -72,6 +84,26 @@ def gather_rows_f32(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx]
 
 
+def combiner_denominators(wsum: torch.Tensor, w2sum: torch.Tensor,
+                          combiner_code: np.ndarray):
+    """(nonzero, safe) [C, Bp]: whether each bag's combiner denominator
+    (mean: the weight sum, sqrtn: the root of the squared weights' sum,
+    sum: 1) is > 0, and the denominator where it is, else 1."""
+    combiner_code = np.asarray(combiner_code)
+    code = torch.as_tensor(combiner_code, device=wsum.device)[:, None]
+    one = torch.ones_like(wsum)
+    if (combiner_code == 2).any():
+        # torch's f32 sqrt on the CPU is not always correctly rounded (its
+        # vectorized kernel misses by an ulp on some inputs); narrowing the
+        # f64 root to f32 rounds correctly
+        sq = torch.sqrt(w2sum.double()).float()
+        denom = torch.where(code == 1, wsum, torch.where(code == 2, sq, one))
+    else:
+        denom = torch.where(code == 1, wsum, one)
+    nonzero = denom > 0
+    return nonzero, torch.where(nonzero, denom, one)
+
+
 def apply_combiner_divisors(
     acc: torch.Tensor,              # [C, Bp, d] in-order sums
     wsum: torch.Tensor,             # [C, Bp] sum of weights
@@ -82,23 +114,11 @@ def apply_combiner_divisors(
     """Combiner denominator (mean: wsum, sqrtn: sqrt(w2sum)); rows whose
     denominator is not > 0 become zeros."""
     combiner_code = np.asarray(combiner_code)
-    need_mean = bool((combiner_code == 1).any())
-    need_sqrtn = bool((combiner_code == 2).any())
-    if not (need_mean or need_sqrtn):
+    if not ((combiner_code == 1) | (combiner_code == 2)).any():
         return acc
     dev = acc.device
-    code = torch.as_tensor(combiner_code, device=dev)[:, None]
-    one = torch.ones_like(wsum)
-    if need_sqrtn:
-        # torch's f32 sqrt on the CPU is not always correctly rounded (its
-        # vectorized kernel misses by an ulp on some inputs); narrowing the
-        # f64 root to f32 rounds correctly
-        sq = torch.sqrt(w2sum.double()).float()
-        denom = torch.where(code == 1, wsum, torch.where(code == 2, sq, one))
-    else:
-        denom = torch.where(code == 1, wsum, one)
-    nonzero = denom > 0
-    safe = torch.where(nonzero, denom, one)
+    nonzero, safe = combiner_denominators(wsum, w2sum, combiner_code)
+    one = torch.ones_like(safe)
     wmask = (
         np.full(combiner_code.shape, bool(weighted_cols))
         if isinstance(weighted_cols, (bool, np.bool_))
@@ -271,12 +291,11 @@ def _plain(table, ids, row_offsets, combiner_code, weights=None,
     )
 
 
-def _x1_group(table, ids, row_offsets, combiner_code, weights=None,
-              weighted_cols=None, vocab_caps=None):
-    """One group's descriptor fields on the card, its output, and the
-    tensors its pointers refer to (held until the launch is queued)."""
-    dev = table.device
-    c, bp, l = ids.shape
+def _column_args(c: int, dev, row_offsets, combiner_code, weights,
+                 weighted_cols, vocab_caps):
+    """A group's per-column kernel arguments on ``dev``: row offsets, caps
+    (no clamp: int32 max), combiner codes (int32) and the divide-or-
+    reciprocal flags (uint8)."""
     if vocab_caps is None:
         vocab_caps = np.full(c, np.iinfo(np.int32).max, np.int32)
     offs = as_device(row_offsets, torch.int32, dev)
@@ -292,6 +311,18 @@ def _x1_group(table, ids, row_offsets, combiner_code, weights=None,
         if tuple(t.shape) != (c,):
             raise ValueError(f"{name} must have shape ({c},), got "
                              f"{tuple(t.shape)}")
+    return offs, caps, codes, wcols
+
+
+def _x1_group(table, ids, row_offsets, combiner_code, weights=None,
+              weighted_cols=None, vocab_caps=None):
+    """One group's descriptor fields on the card, its output, and the
+    tensors its pointers refer to (held until the launch is queued)."""
+    dev = table.device
+    c, bp, l = ids.shape
+    offs, caps, codes, wcols = _column_args(c, dev, row_offsets,
+                                            combiner_code, weights,
+                                            weighted_cols, vocab_caps)
     for name, t in (("table", table), ("ids", ids), ("weights", weights)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -324,12 +355,19 @@ def groups_pooled(groups) -> List[torch.Tensor]:
     groups: one argument tuple of ``group_pooled`` per group (table, ids,
     row_offsets, combiner_code[, weights, weighted_cols, vocab_caps]), all
     on one device.  CPU tensors take the plain version; on CUDA one launch
-    of kernel X1 serves up to X1_MAX_GROUPS groups."""
+    of kernel X1 serves up to X1_MAX_GROUPS groups.  Differentiable in
+    each table (backward: ``group_pooled_grad`` per group)."""
     groups = [tuple(g) for g in groups]
     for g in groups:
         _check_group(g[0], g[1], g[4] if len(g) > 4 else None)
     if not groups:
         return []
+    if torch.is_grad_enabled() and any(g[0].requires_grad for g in groups):
+        return list(_GroupsPooled.apply(groups, *(g[0] for g in groups)))
+    return _groups_pooled(groups)
+
+
+def _groups_pooled(groups) -> List[torch.Tensor]:
     dev = groups[0][0].device
     if any(g[0].device != dev for g in groups):
         raise ValueError("groups on more than one device")
@@ -342,7 +380,7 @@ def groups_pooled(groups) -> List[torch.Tensor]:
     for i in range(0, len(groups), X1_MAX_GROUPS):
         made = [_x1_group(*g) for g in groups[i: i + X1_MAX_GROUPS]]
         desc, blocks = x1_descriptors([f for f, _, _ in made])
-        kernels.launch("pooled_gather", desc, len(made), blocks,
+        kernels.launch("X1", desc, len(made), blocks,
                        kernels.stream_of(groups[i][0]))
         outs += [o for _, o, _ in made]
     return outs
@@ -368,3 +406,161 @@ def group_pooled(
     CUDA tensors launch kernel X1."""
     return groups_pooled([(table, ids, row_offsets, combiner_code, weights,
                            weighted_cols, vocab_caps)])[0]
+
+
+# ---------------------------------------------------------------------------
+# X1b: the gradient of the pooled lookup in the stacked table
+# ---------------------------------------------------------------------------
+
+
+def slot_contributions(
+    g: torch.Tensor,                # [Bp, C, d] cotangent of the pooled
+    ids: torch.Tensor,              # [C, Bp, L] int32, -1 = missing/pad
+    row_offsets: np.ndarray,        # [C]
+    combiner_code: np.ndarray,      # [C]
+    weights: Optional[torch.Tensor] = None,   # [C, Bp, L] f32
+    weighted_cols=None,             # scalar or [C] bool
+    vocab_caps: Optional[np.ndarray] = None,  # [C] last valid row
+):
+    """(rows [N] int64, contributions [N, d] f32) of the valid slots in
+    [C, Bp, L] order: each slot's clamped, offset row, and the pooled
+    cotangent scaled as the combiner divided, times the slot's weight.
+    The per-column arguments may be host arrays or device tensors."""
+    dev = ids.device
+    if isinstance(combiner_code, torch.Tensor):
+        combiner_code = combiner_code.cpu().numpy()
+    combiner_code = np.asarray(combiner_code)
+    if vocab_caps is not None:
+        ids = torch.minimum(
+            ids, as_device(vocab_caps, torch.int32, dev)[:, None, None]
+        )
+    c, bp, l = ids.shape
+    mask = ids >= 0
+    w = mask.to(torch.float32) if weights is None else weights * mask
+    dacc = g.transpose(0, 1)                                 # [C, Bp, d]
+    need_sqrtn = bool((combiner_code == 2).any())
+    if need_sqrtn or bool((combiner_code == 1).any()):
+        wsum = w[:, :, 0] * 0.0
+        w2sum = w[:, :, 0] * 0.0
+        for k in range(l):
+            wk = w[:, :, k]
+            wsum = wsum + wk
+            w2sum = w2sum + (wk * wk if need_sqrtn else wk)
+        nz, safe = combiner_denominators(wsum, w2sum, combiner_code)
+        safe = safe[:, :, None]
+        dacc = torch.where(nz[:, :, None], dacc, torch.zeros_like(dacc))
+        wmask = torch.as_tensor(
+            _weighted_mask(weighted_cols, weights, c), device=dev
+        )[:, None, None]
+        dacc = torch.where(wmask, dacc / safe,
+                           dacc * (torch.ones_like(safe) / safe))
+    contrib = dacc[:, :, None, :] * w[:, :, :, None]         # [C, Bp, L, d]
+    offs = as_device(row_offsets, torch.int64, dev)[:, None, None]
+    return (ids.long() + offs)[mask], contrib[mask]
+
+
+def group_pooled_grad_plain(
+    g: torch.Tensor,                # [Bp, C, d] cotangent of the pooled
+    num_rows: int,                  # R, the stacked table's rows
+    ids: torch.Tensor,              # [C, Bp, L] int32, -1 = missing/pad
+    row_offsets: np.ndarray,        # [C]
+    combiner_code: np.ndarray,      # [C]
+    weights: Optional[torch.Tensor] = None,   # [C, Bp, L] f32
+    weighted_cols=None,             # scalar or [C] bool
+    vocab_caps: Optional[np.ndarray] = None,  # [C] last valid row
+) -> torch.Tensor:
+    """The plain PyTorch version of X1b: ``slot_contributions``, then
+    ``index_add_`` into a zero [R, d] in their [C, Bp, L] order (exact on
+    the CPU; atomics on CUDA)."""
+    rows, contrib = slot_contributions(g, ids, row_offsets, combiner_code,
+                                       weights, weighted_cols, vocab_caps)
+    out = torch.zeros((num_rows, g.shape[2]), dtype=torch.float32,
+                      device=g.device)
+    return out.index_add_(0, rows, contrib)
+
+
+def _slot_rows(num_rows: int, ids: torch.Tensor, row_offsets, vocab_caps):
+    """[C * Bp * L] int64: each slot's destination row in the stacked table,
+    ``num_rows`` for a missing slot, in [C, Bp, L] order."""
+    dev = ids.device
+    c = ids.shape[0]
+    if vocab_caps is None:
+        vocab_caps = np.full(c, np.iinfo(np.int32).max, np.int32)
+    caps = as_device(vocab_caps, torch.int32, dev)[:, None, None]
+    offs = as_device(row_offsets, torch.int64, dev)[:, None, None]
+    clamped = torch.minimum(ids, caps)
+    full = torch.full_like(clamped, num_rows, dtype=torch.int64)
+    return torch.where(clamped >= 0, clamped.long() + offs, full).reshape(-1)
+
+
+def group_pooled_grad(
+    g: torch.Tensor,
+    num_rows: int,
+    ids: torch.Tensor,
+    row_offsets,
+    combiner_code,
+    weights: Optional[torch.Tensor] = None,
+    weighted_cols=None,
+    vocab_caps=None,
+) -> torch.Tensor:
+    """d(table) [R, d] f32 of ``group_pooled(table, ids, row_offsets,
+    combiner_code, weights, weighted_cols, vocab_caps)`` for the cotangent
+    g [Bp, C, d]: dense, as the reference's cotangent is, with +0.0 in
+    every row no slot touches.  CPU tensors take the plain version; CUDA
+    tensors launch kernel X1b after a stable sort of the slots' rows."""
+    from recom_tpu_torch.ops.lookup_onehot import cotangent_rows
+
+    c, bp, l = ids.shape
+    d = g.shape[2] if g.dim() == 3 else -1
+    g, gs = cotangent_rows(g, bp, c, d)
+    if ids.dtype != torch.int32 or ids.device != g.device:
+        raise ValueError(f"ids must be int32 on {g.device}")
+    if weights is not None and (weights.dtype != torch.float32 or
+                                tuple(weights.shape) != (c, bp, l) or
+                                weights.device != g.device):
+        raise ValueError(f"weights must be f32 {(c, bp, l)} on {g.device}")
+    if g.device.type == "cpu":
+        return group_pooled_grad_plain(g, num_rows, ids, row_offsets,
+                                       combiner_code, weights, weighted_cols,
+                                       vocab_caps)
+    if g.device.type != "cuda":
+        raise ValueError(f"unsupported device {g.device}")
+    offs, caps, codes, wcols = _column_args(c, g.device, row_offsets,
+                                            combiner_code, weights,
+                                            weighted_cols, vocab_caps)
+    ids = ids.contiguous()
+    weights = None if weights is None else weights.contiguous()
+    keys = _slot_rows(num_rows, ids, offs, caps)
+    if num_rows < 2**31:
+        keys = keys.int()       # a radix sort of half the passes
+    keys, order = torch.sort(keys, stable=True)
+    out = torch.zeros((num_rows, d), dtype=torch.float32, device=g.device)
+    kernels.launch(
+        "X1b", kernels.ptr(g), kernels.ptr(ids), kernels.ptr(weights),
+        kernels.ptr(caps), kernels.ptr(codes), kernels.ptr(wcols),
+        kernels.ptr(keys), kernels.ptr(order), kernels.ptr(out),
+        keys.numel(), num_rows, c, bp, l, d, gs, keys.element_size(),
+        kernels.stream_of(g),
+    )
+    return out
+
+
+class _GroupsPooled(torch.autograd.Function):
+    """X1 forward (one launch for every group), X1b backward (one launch a
+    group).  Saves the groups' ids, weights and per-column arguments, not
+    their outputs."""
+
+    @staticmethod
+    def forward(ctx, groups, *tables):
+        ctx.groups = [(t.shape[0],) + tuple(grp[1:])
+                      for t, grp in zip(tables, groups)]
+        return tuple(_groups_pooled(groups))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = [None]
+        for i, (grp, gr) in enumerate(zip(ctx.groups, grads)):
+            need = ctx.needs_input_grad[1 + i]
+            out.append(group_pooled_grad(gr, *grp) if need and gr is not None
+                       else None)
+        return tuple(out)

@@ -14,8 +14,7 @@ same function is a row gather: the group's ``[C_pad, V_pad, d]`` table
 Layout: ids arrive in the host's column-major ``[C, Bp]`` form and the
 result leaves batch-major ``[Bp, C, d]``, so the reference's pad, its two
 transposes and its one-id combiner fold into the one launch, as does the
-serving clamp to each member's ``vocab_caps``.  Forward only: the
-scatter-add gradient (K3) comes with training.
+serving clamp to each member's ``vocab_caps``.
 
 K2 takes raw ``[C, Bp]`` f32 values instead of ids: bucket v of column c is
 the interval ``lo[c, v] <= x < hi[c, v]``, and NaN and +inf select bucket
@@ -23,6 +22,19 @@ the interval ``lo[c, v] <= x < hi[c, v]``, and NaN and +inf select bucket
 (csrc/onehot_bucketize.cu); its result leaves batch-major ``[Bp, C, d]``
 too, which folds in the reference's ``rows[:num_columns]`` slice and
 transpose.
+
+Gradients (training): both lookups are differentiable in ``table3``.  K3a
+(``onehot_lookup_grad``, the port of ``onehot_lookup._bwd``) scatter-adds
+the ``[Bp, C, d]`` cotangent into ``[C_pad, V_pad, d]``: per column, in
+batch order, at the clamped ids, missing ids dropped.  The JAX package
+clamps ids before its kernel (recom_tpu/runtime/executor.py:503-505); K1
+fuses the clamp, so K3a clamps too and an id past its cap adds to the cap's
+row.  K3b (``onehot_bucketize_lookup_grad``, the port of
+``onehot_bucketize_lookup._bwd``) finds each raw value's bucket again with
+K2's own search (csrc/bucket_search.cuh) and scatters the same way; raw
+values get no gradient.  Both kernels sum each row in batch order without
+float atomics (csrc/onehot_grad.cu), so they are repeatable bit for bit
+and equal their plain versions.
 """
 
 from __future__ import annotations
@@ -75,8 +87,15 @@ def onehot_lookup(table3: torch.Tensor, ids: torch.Tensor,
 
     table3: [C_pad, V_pad, d] f32 (zero-padded planes); ids: [C, Bp] int32
     local ids, < 0 = missing; caps: [C] int32 last valid row per column.
-    CPU tensors take the plain version; CUDA tensors launch kernel K1."""
+    CPU tensors take the plain version; CUDA tensors launch kernel K1.
+    Differentiable in table3 (backward: ``onehot_lookup_grad``)."""
     _check(table3, ids, caps)
+    if table3.requires_grad and torch.is_grad_enabled():
+        return _OnehotLookup.apply(table3, ids, caps)
+    return _onehot_lookup(table3, ids, caps)
+
+
+def _onehot_lookup(table3, ids, caps):
     if table3.device.type == "cpu":
         return onehot_lookup_plain(table3, ids, caps)
     if table3.device.type != "cuda":
@@ -85,7 +104,7 @@ def onehot_lookup(table3: torch.Tensor, ids: torch.Tensor,
     v, d = table3.shape[1], table3.shape[2]
     out = torch.empty((bp, c, d), dtype=torch.float32, device=table3.device)
     kernels.launch(
-        "onehot_lookup",
+        "K1",
         kernels.ptr(table3), kernels.ptr(ids), kernels.ptr(caps),
         kernels.ptr(out), c, bp, v, d, kernels.stream_of(table3),
     )
@@ -125,10 +144,16 @@ def _check_bz(table3, raw, lo, hi, counts):
     if table3.dtype != torch.float32 or table3.dim() != 3:
         raise ValueError(f"table3 must be f32 [C_pad, V_pad, d], got "
                          f"{table3.dtype} {tuple(table3.shape)}")
+    if not table3.is_contiguous():
+        raise ValueError("table3 must be contiguous")
+    _check_bounds(raw, lo, hi, counts, table3.shape[0], table3.shape[1],
+                  table3.device)
+
+
+def _check_bounds(raw, lo, hi, counts, c_pad: int, v: int, device):
     if raw.dtype != torch.float32 or raw.dim() != 2:
         raise ValueError(f"raw must be f32 [C, Bp], got {raw.dtype} "
                          f"{tuple(raw.shape)}")
-    c_pad, v = table3.shape[0], table3.shape[1]
     if raw.shape[0] > c_pad:
         raise ValueError(f"{raw.shape[0]} raw columns for a {c_pad}-plane "
                          "table")
@@ -139,10 +164,10 @@ def _check_bz(table3, raw, lo, hi, counts):
     if counts.dtype != torch.int32 or tuple(counts.shape) != (c_pad, 1):
         raise ValueError(f"counts must be int32 [{c_pad}, 1], got "
                          f"{counts.dtype} {tuple(counts.shape)}")
-    for name, t in (("table3", table3), ("raw", raw), ("lo", lo),
-                    ("hi", hi), ("counts", counts)):
-        if t.device != table3.device:
-            raise ValueError(f"{name} on {t.device}, table3 on {table3.device}")
+    for name, t in (("raw", raw), ("lo", lo), ("hi", hi),
+                    ("counts", counts)):
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, table3 on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -179,8 +204,15 @@ def onehot_bucketize_lookup(table3: torch.Tensor, raw: torch.Tensor,
     host staged it (C <= C_pad: padded planes are never read); lo, hi,
     counts: ``bucket_bounds(boundary_matrix, boundary_counts, V_pad,
     C_pad)`` on table3's device.  CPU tensors take the plain version; CUDA
-    tensors launch kernel K2."""
+    tensors launch kernel K2.  Differentiable in table3 (backward:
+    ``onehot_bucketize_lookup_grad``)."""
     _check_bz(table3, raw, lo, hi, counts)
+    if table3.requires_grad and torch.is_grad_enabled():
+        return _OnehotBucketizeLookup.apply(table3, raw, lo, hi, counts)
+    return _onehot_bucketize_lookup(table3, raw, lo, hi, counts)
+
+
+def _onehot_bucketize_lookup(table3, raw, lo, hi, counts):
     if table3.device.type == "cpu":
         return onehot_bucketize_lookup_plain(table3, raw, lo, hi, counts)
     if table3.device.type != "cuda":
@@ -189,9 +221,159 @@ def onehot_bucketize_lookup(table3: torch.Tensor, raw: torch.Tensor,
     v, d = table3.shape[1], table3.shape[2]
     out = torch.empty((bp, c, d), dtype=torch.float32, device=table3.device)
     kernels.launch(
-        "onehot_bucketize",
+        "K2",
         kernels.ptr(table3), kernels.ptr(raw), kernels.ptr(hi),
         kernels.ptr(counts), kernels.ptr(out), c, bp, v, d,
         kernels.stream_of(table3),
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# K3a and K3b: the gradients of K1 and K2 in table3
+# ---------------------------------------------------------------------------
+
+
+def cotangent_rows(g: torch.Tensor, bp: int, c: int, d: int):
+    """(g, batch stride) for a kernel that reads ``g[b, c, e]`` at
+    ``b * stride + c * d + e``: g as given where its (C, d) rows are
+    contiguous (a slice of a wider cotangent, or one broadcast along the
+    batch), else a contiguous copy."""
+    if g.dtype != torch.float32 or tuple(g.shape) != (bp, c, d):
+        raise ValueError(f"cotangent must be f32 {(bp, c, d)}, got "
+                         f"{g.dtype} {tuple(g.shape)}")
+    if (d > 1 and g.stride(2) != 1) or (c > 1 and g.stride(1) != d):
+        g = g.contiguous()
+    return g, (g.stride(0) if bp > 1 else 0)
+
+
+def _scatter_rows_plain(g, ids, c_pad, v_pad):
+    """``[C_pad, V_pad, d]``: g's rows added at ``ids`` (< 0 dropped) with
+    index_add_, one column after another, each in batch order."""
+    c = ids.shape[0]
+    d = g.shape[2]
+    valid = ids >= 0
+    cols = torch.arange(c, device=ids.device)[:, None] * v_pad
+    flat = (cols + ids.long())[valid]                  # [C, Bp] order
+    src = g.transpose(0, 1)[valid]
+    out = torch.zeros((c_pad * v_pad, d), dtype=torch.float32,
+                      device=g.device)
+    return out.index_add_(0, flat, src).view(c_pad, v_pad, d)
+
+
+def onehot_lookup_grad_plain(g: torch.Tensor, ids: torch.Tensor,
+                             caps: torch.Tensor, c_pad: int,
+                             v_pad: int) -> torch.Tensor:
+    """The plain PyTorch version of K3a: ids clamped to ``caps`` as K1 reads
+    them, then the scatter (``index_add_`` in batch order, column after
+    column).  On the CPU that order is exact; on CUDA ``index_add_`` adds
+    with atomics in no fixed order."""
+    ids = torch.minimum(ids, caps[:, None])
+    return _scatter_rows_plain(g, ids, c_pad, v_pad)
+
+
+def onehot_lookup_grad(g: torch.Tensor, ids: torch.Tensor, caps: torch.Tensor,
+                       c_pad: int, v_pad: int) -> torch.Tensor:
+    """d(table3) [C_pad, V_pad, d] of ``onehot_lookup(table3, ids, caps)``
+    for the cotangent g [Bp, C, d]: g's rows summed per (column, clamped
+    id) in batch order; missing ids, padded planes and rows no id selects
+    give 0.  CPU tensors take the plain version; CUDA tensors launch kernel
+    K3a."""
+    c, bp = ids.shape
+    d = g.shape[2] if g.dim() == 3 else -1
+    g, gs = cotangent_rows(g, bp, c, d)
+    if ids.dtype != torch.int32 or caps.dtype != torch.int32 or \
+            tuple(caps.shape) != (c,) or c > c_pad:
+        raise ValueError("ids must be int32 [C, Bp], caps int32 [C], C <= "
+                         "C_pad")
+    for name, t in (("ids", ids), ("caps", caps)):
+        if t.device != g.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {g.device}")
+    if g.device.type == "cpu":
+        return onehot_lookup_grad_plain(g, ids, caps, c_pad, v_pad)
+    if g.device.type != "cuda":
+        raise ValueError(f"unsupported device {g.device}")
+    out = torch.empty((c_pad, v_pad, d), dtype=torch.float32, device=g.device)
+    kernels.launch(
+        "K3a", kernels.ptr(g), kernels.ptr(ids), kernels.ptr(caps),
+        kernels.ptr(out), c, c_pad, bp, v_pad, d, gs, kernels.stream_of(g),
+    )
+    return out
+
+
+def bucket_ids_plain(raw: torch.Tensor, hi: torch.Tensor,
+                     counts: torch.Tensor) -> torch.Tensor:
+    """[C, Bp] int32 buckets of raw values as ``onehot_bucketize_lookup._bwd``
+    finds them: the count of the column's boundaries <= x, and ``counts``
+    for NaN and +inf.  Counted over ``hi`` (boundaries, then +inf), the row
+    K2 searches.  _bwd counts the finite ``lo`` instead, which agrees
+    except where a boundary is -inf: _bwd drops it and so disagrees with its
+    own forward (ROADMAP Queue 3)."""
+    c = raw.shape[0]
+    ids = (hi[:c, None, :] <= raw[:, :, None]).sum(dim=2, dtype=torch.int32)
+    special = ~(raw < float("inf"))
+    return torch.where(special, counts[:c, 0:1], ids)
+
+
+def onehot_bucketize_lookup_grad_plain(g: torch.Tensor, raw: torch.Tensor,
+                                       lo: torch.Tensor, hi: torch.Tensor,
+                                       counts: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of K3b: ``bucket_ids_plain``, then K3a's
+    scatter."""
+    return _scatter_rows_plain(g, bucket_ids_plain(raw, hi, counts),
+                               hi.shape[0], hi.shape[1])
+
+
+def onehot_bucketize_lookup_grad(g: torch.Tensor, raw: torch.Tensor,
+                                 lo: torch.Tensor, hi: torch.Tensor,
+                                 counts: torch.Tensor) -> torch.Tensor:
+    """d(table3) [C_pad, V_pad, d] of ``onehot_bucketize_lookup(table3,
+    raw, lo, hi, counts)`` for the cotangent g [Bp, C, d].  CPU tensors
+    take the plain version; CUDA tensors launch kernel K3b."""
+    c, bp = raw.shape
+    c_pad, v_pad = hi.shape
+    d = g.shape[2] if g.dim() == 3 else -1
+    g, gs = cotangent_rows(g, bp, c, d)
+    _check_bounds(raw, lo, hi, counts, c_pad, v_pad, g.device)
+    if g.device.type == "cpu":
+        return onehot_bucketize_lookup_grad_plain(g, raw, lo, hi, counts)
+    if g.device.type != "cuda":
+        raise ValueError(f"unsupported device {g.device}")
+    out = torch.empty((c_pad, v_pad, d), dtype=torch.float32, device=g.device)
+    kernels.launch(
+        "K3b", kernels.ptr(g), kernels.ptr(raw), kernels.ptr(hi),
+        kernels.ptr(counts), kernels.ptr(out), c, c_pad, bp, v_pad, d, gs,
+        kernels.stream_of(g),
+    )
+    return out
+
+
+class _OnehotLookup(torch.autograd.Function):
+    """K1 forward, K3a backward; saves the ids, not the output."""
+
+    @staticmethod
+    def forward(ctx, table3, ids, caps):
+        ctx.save_for_backward(ids, caps)
+        ctx.planes = (table3.shape[0], table3.shape[1])
+        return _onehot_lookup(table3, ids, caps)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, caps = ctx.saved_tensors
+        return onehot_lookup_grad(g, ids, caps, *ctx.planes), None, None
+
+
+class _OnehotBucketizeLookup(torch.autograd.Function):
+    """K2 forward, K3b backward; saves the raw values, not the output.
+    Bucketize is piecewise constant: raw gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, table3, raw, lo, hi, counts):
+        ctx.save_for_backward(raw, lo, hi, counts)
+        return _onehot_bucketize_lookup(table3, raw, lo, hi, counts)
+
+    @staticmethod
+    def backward(ctx, g):
+        raw, lo, hi, counts = ctx.saved_tensors
+        return (onehot_bucketize_lookup_grad(g, raw, lo, hi, counts), None,
+                None, None, None)

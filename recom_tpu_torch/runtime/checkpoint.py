@@ -1,0 +1,109 @@
+"""Checkpoints of the port's Engine, in the JAX package's npz layout.
+
+Copied from recom_tpu/runtime/checkpoint.py (``export_params``,
+``save_checkpoint``, ``load_checkpoint``) for the port's single-device
+float32 engine: no quantized or row-sharded tables, and always the npz
+layout, never orbax.  A checkpoint directory holds ``model_spec.json``
+(ir/serde.py, the format both packages write) and ``params.npz`` with keys
+``tables/<name>`` and ``tower/<key>/<layer>/<w|b>``, so the JAX package's
+``load_checkpoint`` reads what this module writes.  The JAX package saves
+through orbax where it is installed (a ``params/`` directory); reading that
+is ROADMAP Queue 1 item 10, and ``load_checkpoint`` says so.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Tuple
+
+import numpy as np
+
+from recom_tpu_torch.ir.serde import model_from_json, model_to_json
+from recom_tpu_torch.ir.spec import ModelSpec
+
+
+def export_params(engine) -> Dict:
+    """Engine device params -> the portable numpy pytree ``{"tables":
+    {name: [vocab, d]}, "tower": {key: [{"w", "b"}, ...]}}``: stacked group
+    tables sliced back into per-table arrays, and the first top matmul
+    unfolded back into model order."""
+    out: Dict = {"tables": {}, "tower": {}}
+    for g in engine.compiled.groups:
+        stacked = engine.device_params["stacked"][str(g.gid)]
+        stacked = stacked.detach().cpu().numpy()
+        if stacked.ndim == 3:  # one-hot layout [C_pad, V_pad, d]
+            for i, m in enumerate(g.members):
+                out["tables"][m.table] = stacked[i, : m.vocab_size].astype(
+                    np.float32
+                )
+            continue
+        for m in g.members:
+            out["tables"][m.table] = stacked[
+                m.row_offset : m.row_offset + m.vocab_size
+            ].astype(np.float32)
+    for key, layers in engine.device_params["tower"].items():
+        out["tower"][key] = [
+            {"w": l["w"].detach().cpu().numpy(),
+             "b": l["b"].detach().cpu().numpy()}
+            for l in layers
+        ]
+    if getattr(engine, "_fold_emb_perm", False):
+        # the device keeps the first top matmul with emb-perm-folded rows;
+        # export it in model order.  With dedup aliases a grouped row holds
+        # the SUM of its model rows: the whole sum goes to the FIRST model
+        # slot of each grouped row and 0 to the other aliases, so refolding
+        # (a scatter-add) rebuilds the device rows exactly (bit-exact
+        # resume) and the model-order function is unchanged (aliased slots
+        # carry identical activations).
+        perm_full = engine._fold_perm_full()
+        w_g = out["tower"]["top"][0]["w"]
+        uniq, first_idx = np.unique(perm_full, return_index=True)
+        w_m = np.zeros((len(perm_full),) + w_g.shape[1:], w_g.dtype)
+        w_m[first_idx] = w_g[uniq]
+        out["tower"]["top"][0]["w"] = w_m
+    return out
+
+
+def save_checkpoint(path: str, engine) -> None:
+    """Save spec + params under ``path`` (``model_spec.json`` and
+    ``params.npz``)."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "model_spec.json"), "w") as f:
+        f.write(model_to_json(engine.model))
+    params = export_params(engine)
+    flat = {}
+    for t, arr in params["tables"].items():
+        flat[f"tables/{t}"] = arr
+    for key, layers in params["tower"].items():
+        for i, l in enumerate(layers):
+            flat[f"tower/{key}/{i}/w"] = l["w"]
+            flat[f"tower/{key}/{i}/b"] = l["b"]
+    np.savez(os.path.join(path, "params.npz"), **flat)
+
+
+def load_checkpoint(path: str) -> Tuple[ModelSpec, Dict]:
+    """Restore (model spec, numpy params pytree) from ``path``."""
+    with open(os.path.join(path, "model_spec.json")) as f:
+        model = model_from_json(f.read())
+    if os.path.exists(os.path.join(os.path.abspath(path), "params")):
+        raise NotImplementedError(
+            f"{path} holds an orbax params/ directory: reading orbax "
+            "checkpoints is not ported to recom_tpu_torch yet (ROADMAP.md "
+            "Queue 1 item 10); save it in the npz layout (params.npz)"
+        )
+    npz = np.load(os.path.join(path, "params.npz"))
+    params: Dict = {"tables": {}, "tower": {}}
+    for key in npz.files:
+        kind, rest = key.split("/", 1)
+        if kind == "tables":
+            # imported TF table names may hold '/' (variable scopes): the
+            # whole remainder is the name
+            params["tables"][rest] = npz[key]
+        else:
+            # "tower/<key>/<layer idx>/<w|b>", parsed from the right
+            tk, idx, wb = rest.rsplit("/", 2)
+            layers = params["tower"].setdefault(tk, [])
+            while len(layers) <= int(idx):
+                layers.append({})
+            layers[int(idx)][wb] = npz[key]
+    return model, params

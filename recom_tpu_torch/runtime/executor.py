@@ -76,7 +76,14 @@ class Engine:
     ``params``: the portable numpy pytree ``{"tables", "tower"}`` (as
     ``init_model_params`` or the JAX package's ``export_params`` produce
     it); default: ``init_model_params(model)``.  ``device``: default
-    ``"cuda"``; ``"cpu"`` runs every kernel's plain PyTorch version."""
+    ``"cuda"``; ``"cpu"`` runs every kernel's plain PyTorch version.
+
+    ``device_params`` holds leaf tensors: the stacked group tables under
+    ``"stacked"`` (one-hot groups as ``[C_pad, V_pad, d]``) and the tower's
+    layers under ``"tower"``.  ``predict`` runs under
+    ``torch.inference_mode``; ``train.Trainer`` makes the leaves require
+    grad and updates them in place, and the same Engine goes on serving
+    the updated values."""
 
     def __init__(
         self,
@@ -305,8 +312,9 @@ class Engine:
                                device=grouped.device)
         return grouped.index_select(1, perm)
 
-    def _tower_forward(self, dense, emb):
+    def _tower_forward(self, dense, emb, logits_only: bool = False):
         """emb: GROUPED order when _fold_emb_perm, else model order.
+        ``logits_only`` strips the final activation (losses want logits).
         Returns (out, front)."""
         tower = self.model.tower
         params = self.device_params["tower"]
@@ -316,10 +324,13 @@ class Engine:
                               tower.activation)
         tower_in = torch.cat([front, emb], dim=1)
         out = mlp_apply(params["top"], tower_in, tower.activation,
-                        tower.final_activation)
+                        None if logits_only else tower.final_activation)
         return out, front
 
-    def _forward(self, arrays, signature, mode=()):
+    def _forward(self, arrays, signature, mode=(), logits_only: bool = False):
+        """The device forward of one prepared batch.  Differentiable in the
+        device params where they require grad (train.Trainer sets that):
+        every kernel wrapper on the path has its backward kernel."""
         if "blob" in arrays:
             from recom_tpu_torch.runtime.wire import unpack_blob
 
@@ -331,7 +342,8 @@ class Engine:
         emb_tower = (
             grouped if self._fold_emb_perm else self._model_order(grouped)
         )
-        out, front = self._tower_forward(arrays["dense"].T, emb_tower)
+        out, front = self._tower_forward(arrays["dense"].T, emb_tower,
+                                         logits_only)
         result = {"output": out}
         if "concat" in mode:
             result["concat"] = torch.cat(

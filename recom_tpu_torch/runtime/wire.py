@@ -942,28 +942,31 @@ def _hash_constants(compiled: CompiledModel, device) -> List[Optional[Dict]]:
     if hit is not None:
         return hit
     out: List[Optional[Dict]] = []
-    for p in _plan(compiled):
-        consts = {}
-        for name in ("str", "fast"):
-            b = getattr(p, f"{name}_buckets")
-            if b is None:
-                continue
-            if b.min() < 1 or b.max() > (1 << 31):
-                raise ValueError(
-                    f"group {p.gid}: device hash needs bucket counts in "
-                    f"[1, 2^31], got [{b.min()}, {b.max()}]"
+    # built outside inference mode even when predict is the first caller:
+    # a training step's forward reads them too
+    with torch.inference_mode(False):
+        for p in _plan(compiled):
+            consts = {}
+            for name in ("str", "fast"):
+                b = getattr(p, f"{name}_buckets")
+                if b is None:
+                    continue
+                if b.min() < 1 or b.max() > (1 << 31):
+                    raise ValueError(
+                        f"group {p.gid}: device hash needs bucket counts in "
+                        f"[1, 2^31], got [{b.min()}, {b.max()}]"
+                    )
+                consts[f"{name}_buckets"] = torch.as_tensor(
+                    b, dtype=torch.int64, device=device
                 )
-            consts[f"{name}_buckets"] = torch.as_tensor(
-                b, dtype=torch.int64, device=device
-            )
-            consts[f"{name}_recips"] = torch.as_tensor(
-                bucket_reciprocals(b), device=device
-            )
-        if p.n_fast:
-            consts["fast_delims"] = torch.as_tensor(
-                p.fast_delims_np, dtype=torch.uint8, device=device
-            )
-        out.append(consts)
+                consts[f"{name}_recips"] = torch.as_tensor(
+                    bucket_reciprocals(b), device=device
+                )
+            if p.n_fast:
+                consts["fast_delims"] = torch.as_tensor(
+                    p.fast_delims_np, dtype=torch.uint8, device=device
+                )
+            out.append(consts)
     cache[key] = out
     return out
 
