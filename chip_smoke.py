@@ -20,8 +20,9 @@ through ``Engine(..., device="cuda")``, random weights from a seed:
 Then it frees the serving engines and trains, through ``Trainer(...,
 optimizer=dlrm_optimizer())`` on the card:
 
-* model E with the default config (forward K1, X1, X2; backward K3a, X1b),
-  a step at batch 512 and five at 2048;
+* model E with the default config (forward K1, X1, X2; backward K3a, and
+  X1b once for all three gather groups), a step at batch 512 and five at
+  2048;
 * model E's 880 bucketize columns and tower alone
   (``make_dlrm_model(880, 0, 0, 0, 0, 32, [32], [1024, 1024, 128])``) with
   ``host_bucketize=False`` (forward K2, backward K3b), three steps.
@@ -41,15 +42,20 @@ It checks:
    everywhere and >= 0x80, odd itemsizes, every FarmHash length and bucket
    counts 1 .. 2^31): exact equality (``==``, so +0 == -0, with NaN where
    the plain version has it for X1; as bits for K1 and K2);
-2. each backward kernel (K3a of K1, K3b of K2, X1b of X1, one launch per
-   gather group) at its path's shapes at batch 2048 (K3a with missing and
-   past-cap ids added, K3b on a plane holding NaN, +-inf, +-0.0 and exact
-   boundaries) and on edge inputs (K3a: Bp past one sorting segment, V_pad
-   384, d 1 to 32; K3b: K2's 12 edge planes; X1b: d in {1, 3, 8, 32} x L
-   in {1, 2, 12, 33}, weighted MEAN / SQRTN, all-missing and zero-weight
-   bags, ids at and past caps): two runs give the same bits, equal to the
-   plain version on CPU copies (``index_add_`` in slot order), and within
-   1e-5 of the terms' magnitudes of the plain version on the card (whose
+2. each backward kernel (K3a of K1, K3b of K2, X1b of X1, one launch for
+   all of model E's gather groups) at its path's shapes at batch 2048 (K3a
+   with missing and past-cap ids added, K3b on a plane holding NaN, +-inf,
+   +-0.0 and exact boundaries; X1b also into outputs filled with NaN, so
+   that every element must be written) and on edge inputs (K3a: C not a
+   multiple of the columns an item takes, Bp past a stage and past a pass,
+   V_pad 384, d 1 to 32; K3b: K2's 12 edge planes, and Bp past a stage;
+   X1b: d in {1, 3, 8, 32} x L in {1, 2, 12, 33}, weighted MEAN / SQRTN,
+   all-missing and zero-weight bags, ids at and past caps, and groups that
+   mix small-vocab members (dense tiles) with large-vocab ones (sparse
+   ranges), one with all its slots in one range, one hot row, one range
+   crowded past a window): two runs give the same bits, equal to the plain
+   version on CPU copies (``index_add_`` in slot order), and within 1e-5
+   of the terms' magnitudes of the plain version on the card (whose
    ``index_add_`` adds with atomics);
 3. for every kernel, its time (warm, and with L2 flushed before each call),
    the plain version's and, where one exists, one PyTorch call computing
@@ -57,12 +63,13 @@ It checks:
    for the backward kernels ``torch.zeros`` + ``index_add_`` of
    precomputed contributions), and the least time the card could take (X2:
    bytes, or integer operations counted from this batch's pieces over the
-   INT32 rate, whichever is larger);
+   INT32 rate, whichever is larger); X1b also per class of member (the
+   small-vocab groups alone, the large-vocab group alone);
 4. that each ``predict`` and training step went through its path's
    kernels and no other (model E: one launch of X1 a predict; a training
-   step K1 1, X1 1, X2 3, K3a 1 and X1b once per gather group; the
-   bucketize path K2 1 and K3b 1 a step): the launch counts are zeroed
-   just before and read just after;
+   step K1 1, X1 1, X2 3, K3a 1 and X1b 1; the bucketize path K2 1 and K3b
+   1 a step): the launch counts are zeroed just before and read just
+   after;
 5. pooled outputs of all 1000 columns against the port's NumPy oracle
    exactly, and the model output at rtol 1e-4 / atol 1e-5 (model E) or
    exactly (the microbenchmark's identity tower); the first training
@@ -415,6 +422,35 @@ def x1_edge_case(d: int, l: int, seed: int, specials: bool = True):
     weights[:, 9] = 0.0                             # zero-weight bags
     wcols = np.asarray([True, False, True, False, True, False])
     return table, ids, offs, caps, codes, weights, wcols
+
+
+def x1b_class_case(d: int, seed: int, weighted: bool, crowded: bool = False):
+    """X1b inputs whose members take both of X1b's classes: (g [Bp, C, d],
+    R, ids [C, Bp, L], row offsets, caps, combiner codes, weights or None,
+    weighted_cols), numpy.  Members: a small vocab (dense tiles); a large
+    one whose slots span every range; one whose slots all fall in one
+    range; one with a hot row; rows past the last member.  ``crowded``:
+    one large member whose slots touch 30 000 rows of one range, more than
+    a window holds."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if crowded:
+        vocab, bp, ll = np.asarray([1 << 20]), 4096, 8
+        ids = rng.integers(0, 30_000, (1, bp, ll))
+    else:
+        vocab, bp, ll = np.asarray([300, 200_000, 150_000, 90_000]), 64, 3
+        ids = np.stack([rng.integers(-2, v + 3, (bp, ll)) for v in vocab])
+        ids[2] = rng.integers(0, 1000, (bp, ll))      # all in one range
+        ids[3, :, 0] = 5                              # a hot row
+    c = len(vocab)
+    offs = np.concatenate([[0], np.cumsum(vocab)[:-1]]).astype(np.int32)
+    codes = np.asarray([0, 1, 2, 0][:c], np.int32)
+    g = rng.standard_normal((bp, c, d)).astype(np.float32)
+    w = rng.uniform(0.1, 2.0, (c, bp, ll)).astype(np.float32)
+    return (g, int(vocab.sum()) + 77, ids.astype(np.int32), offs,
+            (vocab - 1).astype(np.int32), codes, w if weighted else None,
+            np.full(c, weighted))
 
 
 def k2_edge_case(c: int, v_pad: int, d: int, b: int, seed: int):
@@ -985,29 +1021,51 @@ def _equal_bits(torch, a, b) -> bool:
                                               b.view(torch.int32))
 
 
-def check_backward(torch, what: str, fn, plain, args, mag_args) -> float:
-    """A backward kernel's wrapper ``fn`` on the card: two runs give the
-    same bits; those bits equal the wrapper on CPU copies of ``args`` (its
-    plain version, ``index_add_`` in slot order); and the plain version on
-    the card (``index_add_`` with atomics, in no fixed order) is within
-    1e-5 of the sum of the terms' magnitudes (``plain(*mag_args)``).
-    Returns the largest absolute difference from the card's plain
-    version."""
-    out = fn(*args)
-    again = fn(*args)
+def _on_cpu(torch, x):
+    """x with every tensor in it (through tuples and lists) copied to the
+    host."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_on_cpu(torch, y) for y in x)
+    return x
+
+
+def check_backward(torch, what: str, fn, plain, args, mag_args,
+                   into=None) -> float:
+    """A backward kernel's wrapper ``fn`` on the card (one output, or a
+    list): two runs give the same bits (the second into outputs filled
+    with NaN where ``into`` runs it, so every element must be written);
+    those bits equal the wrapper on CPU copies of ``args`` (its plain
+    version, ``index_add_`` in slot order); and the plain version on the
+    card (``index_add_`` with atomics, in no fixed order) is within 1e-5 of
+    the sum of the terms' magnitudes (``plain(*mag_args)``).  Returns the
+    largest absolute difference from the card's plain version."""
+    as_list = lambda x: list(x) if isinstance(x, (list, tuple)) else [x]
+    outs = as_list(fn(*args))
+    again = as_list(into(args) if into else fn(*args))
     torch.cuda.synchronize()
-    require(_equal_bits(torch, out, again), f"{what}: two runs differ")
+    require(all(_equal_bits(torch, a, b) for a, b in zip(outs, again)),
+            f"{what}: two runs differ" + (" (the second into NaN-filled "
+                                          "outputs)" if into else ""))
     del again
-    cpu = tuple(x.cpu() if isinstance(x, torch.Tensor) else x for x in args)
-    require(_equal_bits(torch, out.cpu(), fn(*cpu)),
+    wants = as_list(fn(*_on_cpu(torch, args)))
+    require(all(_equal_bits(torch, o.cpu(), w) for o, w in zip(outs, wants)),
             f"{what}: kernel != plain version on CPU copies")
-    err = (out - plain(*args)).abs_()
-    del out
-    mag = plain(*mag_args)
-    require(bool((err <= 1e-5 * mag).all()),
+    del wants
+    # one output at a time against the card's plain version, each dropped
+    # once used: the peak stays one output, its plain version and the error
+    plains = as_list(plain(*args))
+    errs = []
+    for i in range(len(outs)):
+        errs.append((outs[i] - plains[i]).abs_())
+        outs[i] = plains[i] = None
+    del outs, plains
+    mags = as_list(plain(*mag_args))
+    require(all(bool((e <= 1e-5 * m).all()) for e, m in zip(errs, mags)),
             f"{what}: kernel differs from the plain version on the card by "
             "more than 1e-5 of the terms' magnitudes")
-    return float(err.max()) if err.numel() else 0.0
+    return max((float(e.max()) for e in errs if e.numel()), default=0.0)
 
 
 def train_phases(torch, model, np_params, batch_small, batch_big, ref):
@@ -1025,6 +1083,7 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     from recom_tpu_torch.ops.lookup_gather import (
         group_pooled_grad,
         group_pooled_grad_plain,
+        groups_pooled_grad,
         slot_contributions,
     )
     from recom_tpu_torch.ops.lookup_onehot import (
@@ -1070,6 +1129,7 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
 
     # ---- phase 8: the backward kernels against their plain versions -------
     recs = {"K3a": [], "K3b": [], "X1b": []}
+    x1b = []                # model E's gather groups: X1b's one launch
     with torch.no_grad():
         prep = eng.prepare(batch_big)
         bp = prep.batch_padded
@@ -1108,22 +1168,41 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
             r = table.shape[0]
             cols = (c["row_offsets"], c["codes"])
             tail = (c["weighted"], c["caps"])
-            a = (cot, r, ids) + cols + (weights,) + tail
             rows, contrib = slot_contributions(cot, ids, *cols, weights,
                                                *tail)
             nbytes = (r * g.dim + cot.numel() + ids.numel() + 4 * g.num_columns
                       + (0 if weights is None else weights.numel())) * 4
-            recs["X1b"].append(dict(
-                what=f"X1b group {g.gid}", fn=group_pooled_grad,
-                plain=group_pooled_grad_plain, args=a,
-                mag_args=(cot.abs(), r, ids) + cols + (
+            x1b.append(dict(
+                gid=g.gid, args=(cot, r, ids) + cols + (weights,) + tail,
+                mag=(cot.abs(), r, ids) + cols + (
                     None if weights is None else weights.abs(),) + tail,
                 lib=lambda r=r, d=g.dim, i=rows, s=contrib: torch.zeros(
                     (r, d), device=dev).index_add_(0, i, s),
-                bound=bound_ms(nbytes, 2.0 * contrib.numel()),
-                shape=f"g [{bp}, {g.num_columns}, {g.dim}], ids "
-                f"{list(ids.shape)} -> [{r}, {g.dim}]",
+                nbytes=nbytes, flops=2.0 * contrib.numel(),
+                large=r * g.dim > (1 << 27),
+                shape=f"group {g.gid}: g [{bp}, {g.num_columns}, {g.dim}], "
+                f"ids {list(ids.shape)} -> [{r}, {g.dim}]",
             ))
+        # X1b: every gather group in one launch, the second run into
+        # outputs filled with NaN
+        entries = [x["args"] for x in x1b]
+        recs["X1b"].append(dict(
+            what="X1b groups " + "+".join(str(x["gid"]) for x in x1b),
+            fn=lambda *e: groups_pooled_grad(e),
+            plain=lambda *e: [group_pooled_grad_plain(*a) for a in e],
+            args=tuple(entries), mag_args=tuple(x["mag"] for x in x1b),
+            into=lambda e: groups_pooled_grad(e, out=[torch.full(
+                (a[1], a[0].shape[2]), float("nan"), device=dev) for a in e]),
+            lib=lambda: [x["lib"]() for x in x1b],
+            bound=bound_ms(sum(x["nbytes"] for x in x1b),
+                           sum(x["flops"] for x in x1b)),
+            classes=[(name, [x for x in x1b if x["large"] == big])
+                     for name, big in (("small-vocab groups (dense tiles)",
+                                        False),
+                                       ("large-vocab group (sparse ranges)",
+                                        True))],
+            shape="; ".join(x["shape"] for x in x1b),
+        ))
         # K3b: the 880-column group, its raw plane with the special values
         prep_bz = eng_bz.prepare(make_random_batch(bz_model, 2048, seed=4))
         arrays_bz = unpack_blob(eng_bz.compiled,
@@ -1164,7 +1243,7 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
 
         # edge inputs: == plain on CPU copies, twice the same bits
         for cc, bb, d in ((45, 100, 1), (45, 100, 3), (45, 100, 32),
-                          (930, 2000, 8), (9, 5000, 8)):
+                          (45, 700, 8), (930, 2000, 8), (9, 5000, 8)):
             t3, ids_np, caps_np = k1_edge_case(cc, 300, d, bb, seed=d,
                                                specials=False)
             a = (cotangent(bb, cc, d), torch.from_numpy(ids_np).to(dev),
@@ -1172,24 +1251,27 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
             check_backward(torch, f"K3a edge C={cc} Bp={bb} d={d}",
                            onehot_lookup_grad, onehot_lookup_grad_plain, a,
                            (a[0].abs(),) + a[1:])
-        log("K3a edge cases (C 45 / 930 / 9, Bp up to 5000, V_pad 384, d 1 / "
-            "3 / 8 / 32; an all-missing column, ids past caps and below -1): "
-            "== plain on CPU copies, repeatable bit for bit")
-        for v_pad in (128, 256, 384):
-            for d in (1, 3, 8, 32):
-                bm, cn, t3, raw_np = k2_edge_case(45, v_pad, d, 100,
+        log("K3a edge cases (C 45 / 930 / 9, not a multiple of the columns "
+            "an item takes; Bp 100 to 5000, past a stage and a pass; V_pad "
+            "384; d 1 / 3 / 8 / 32; an all-missing column, ids past caps and "
+            "below -1): == plain on CPU copies, repeatable bit for bit")
+        for v_pad, d, bb in [(v, dd, 100) for v in (128, 256, 384)
+                             for dd in (1, 3, 8, 32)] + [(128, 8, 700),
+                                                         (384, 3, 700)]:
+                bm, cn, t3, raw_np = k2_edge_case(45, v_pad, d, bb,
                                                   seed=v_pad + d)
-                a = (cotangent(100, 45, d), torch.from_numpy(raw_np).to(dev),
+                a = (cotangent(bb, 45, d), torch.from_numpy(raw_np).to(dev),
                      *(torch.from_numpy(x).to(dev) for x in bucket_bounds(
                          bm, cn, v_pad, t3.shape[0])))
                 check_backward(torch, f"K3b edge V_pad={v_pad} d={d}",
                                onehot_bucketize_lookup_grad,
                                onehot_bucketize_lookup_grad_plain, a,
                                (a[0].abs(),) + a[1:])
-        log("K3b edge cases (K2's 12 edge planes: counts 0 and V_pad - 1, "
-            "repeated, -inf-only and merged boundaries; NaN, +-inf, +-0.0, "
-            "subnormals, boundaries and the floats below them): == plain on "
-            "CPU copies, repeatable bit for bit")
+        log("K3b edge cases (K2's 12 edge planes at Bp 100, two at Bp 700, "
+            "past a stage: counts 0 and V_pad - 1, repeated, -inf-only and "
+            "merged boundaries; NaN, +-inf, +-0.0, subnormals, boundaries and "
+            "the floats below them): == plain on CPU copies, repeatable bit "
+            "for bit")
         n_edge = 0
         for d in X1_EDGE_D:
             for ll in X1_EDGE_L:
@@ -1211,6 +1293,32 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
             f"{X1_EDGE_L}, unweighted and weighted; SUM, MEAN and SQRTN, "
             "all-missing and zero-weight bags, ids at and past caps): == "
             "plain on CPU copies, repeatable bit for bit")
+        # both member classes in one group, and a crowded sparse range;
+        # the second run into NaN-filled outputs
+        n_cls = 0
+        for d, weighted, crowded in ((8, False, False), (32, True, False),
+                                     (3, True, False), (8, False, True)):
+            gc_, r, ids_np, offs, caps_np, codes, w_np, wc = x1b_class_case(
+                d, seed=d + 100 * crowded, weighted=weighted, crowded=crowded)
+            ids_t = torch.from_numpy(ids_np).to(dev)
+            w = None if w_np is None else torch.from_numpy(w_np).to(dev)
+            cot = torch.from_numpy(gc_).to(dev)
+            a = ((cot, r, ids_t, offs, codes, w, wc, caps_np),)
+            check_backward(
+                torch, f"X1b class case d={d} weighted={weighted} "
+                f"crowded={crowded}", lambda *e: groups_pooled_grad(e),
+                lambda *e: [group_pooled_grad_plain(*x) for x in e], a,
+                ((cot.abs(), r, ids_t, offs, codes,
+                  None if w is None else w.abs(), wc, caps_np),),
+                into=lambda e: groups_pooled_grad(e, out=[torch.full(
+                    (x[1], x[0].shape[2]), float("nan"), device=dev)
+                    for x in e]))
+            n_cls += 1
+        log(f"X1b class cases ({n_cls}: small- and large-vocab members in "
+            "one group, slots spanning every range, in one range, a hot "
+            "row, a range crowded past a window; d 3 / 8 / 32): == plain on "
+            "CPU copies, repeatable bit for bit, NaN-filled outputs fully "
+            "written")
 
         results = {}
         for kid, rs in recs.items():
@@ -1220,7 +1328,7 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
             bound_by = {"bytes": 0.0, "operations": 0.0}
             for r in rs:
                 err = check_backward(torch, r["what"], r["fn"], r["plain"],
-                                     r["args"], r["mag_args"])
+                                     r["args"], r["mag_args"], r.get("into"))
                 kern = lambda r=r: r["fn"](*r["args"])
                 ms = time_ms(torch, kern)
                 cold = time_cold_ms(torch, kern)
@@ -1238,6 +1346,21 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
                     f"(torch.zeros + index_add_) {lms:.4f} ms, bound "
                     f"{bms:.4f} ms ({by}); == plain on CPU copies, max abs "
                     f"diff from the card's plain version {err:.3g}")
+                classes = []
+                for name, xs in r.get("classes", ()):
+                    args = [x["args"] for x in xs]
+                    c_ms = time_ms(torch, lambda a=args: r["fn"](*a))
+                    c_lib = time_ms(torch, lambda xs=xs: [x["lib"]()
+                                                          for x in xs])
+                    c_bound, _ = bound_ms(sum(x["nbytes"] for x in xs),
+                                          sum(x["flops"] for x in xs))
+                    classes.append(dict(name=name, ms=c_ms, bound_ms=c_bound,
+                                        library_ms=c_lib))
+                    log(f"  {kid}, {name} alone (one launch): kernel "
+                        f"{c_ms:.4f} ms warm, library {c_lib:.4f} ms, bound "
+                        f"{c_bound:.4f} ms")
+                if classes:
+                    tot["classes"] = classes
             log(f"{kid} summed over {len(rs)} launch(es): kernel "
                 f"{tot['ms']:.4f} ms warm, {tot['cold_ms']:.4f} ms cold, "
                 f"bound {tot['bound_ms']:.4f} ms (share of bound, warm: "
@@ -1245,6 +1368,9 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
             results[kid] = dict(tot, bound_by=max(bound_by, key=bound_by.get))
         del recs, arrays, arrays_bz
         torch.cuda.empty_cache()
+    log(f"peak device memory (the trainers and phase 8's kernel checks): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
 
     # ---- phase 9: training path 1, model E ---------------------------------
     # the first step (batch 512) against the oracle's logits on the same
@@ -1272,7 +1398,7 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
         f"{counts_train}")
     require_launches(counts_train, ("K1", "X1", "X2", "K3a", "X1b"),
                      "training, model E",
-                     exactly={"K1": 1, "X1": 1, "X2": 3, "K3a": 1})
+                     exactly={"K1": 1, "X1": 1, "X2": 3, "K3a": 1, "X1b": 1})
     losses += [tr.step(batch_big, lab_big) for _ in range(4)]
     require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
             f"model E losses on one batch do not decrease: {losses}")
@@ -1399,6 +1525,9 @@ def main() -> int:
             "bound_ms": results[kid]["bound_ms"],
             "bound_by": results[kid]["bound_by"],
             "library_ms": results[kid]["lib"],
+            "share": results[kid]["bound_ms"] / results[kid]["ms"],
+            **({"classes": results[kid]["classes"]}
+               if "classes" in results[kid] else {}),
         }
         for kid in KERNEL_META
     ]}

@@ -29,8 +29,10 @@
 namespace bucket {
 
 // pos[k] = #{j < v : hi[row[k] + j] <= x[k]} for finite x[k].
-// half: half of the smallest power of two >= v (0 for v == 1).
-template <int N, typename I>
+// half: half of the smallest power of two >= v (0 for v == 1).  kGlobal:
+// hi is in device memory (read through the read-only cache), else in
+// shared memory.
+template <int N, typename I, bool kGlobal = true>
 __device__ __forceinline__ void upper_bounds(const float* __restrict__ hi,
                                              const I (&row)[N],
                                              const float (&x)[N],
@@ -41,7 +43,9 @@ __device__ __forceinline__ void upper_bounds(const float* __restrict__ hi,
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       const int j = pos[k] + s - 1;
-      const float b = j < v ? __ldg(hi + row[k] + j) : CUDART_INF_F;
+      const float b = j >= v           ? CUDART_INF_F
+                      : kGlobal        ? __ldg(hi + row[k] + j)
+                                       : hi[row[k] + j];
       pos[k] += b <= x[k] ? s : 0;
     }
   }

@@ -27,52 +27,71 @@
 // MB) once and writes the [936, 128, 8] gradient (3.8 MB): about 72 MB,
 // 0.022 ms at 3.35 TB/s.
 //
-// Design: a block per column c (and per tile of vt vocab rows, where V x d
-// would not fit in shared memory), accumulators for the tile's rows in
-// shared memory.  The batch is taken a segment at a time (up to kSegment
-// entries, and kStageFloats of cotangent), its entries split into kWarps
-// contiguous ranges, one a warp:
-//   0. the block starts asynchronous copies (cp.async) of the segment's
-//      cotangent rows g[b, c, :] into shared memory, in batch order; they
-//      land while the next three steps run;
-//   1. each warp finds its entries' ids (K3a: read and clamped; K3b:
-//      kSearches interleaved searches a lane), their rows in the tile (or
-//      -1), and its own count per row;
-//   2. the rows' totals, their starts (a scan by warp 0), and each warp's
-//      first place in each row's run (the earlier warps' counts added);
-//   3. each warp places its entries, 32 at a time in batch order, into the
-//      rows' runs (a stable counting sort: an entry's rank among the
-//      chunk's lanes on its row comes from one ballot per bit of the row
-//      index);
-//   4. a thread per (row, element) adds its run's staged floats in order,
-//      kUnroll of them read ahead of the adds.
-// The tile is written once at the end, coalesced.  A row selected by many
-// entries is one long chain of dependent adds, the price of a sum in batch
-// order: model E's random batches put about 1950 of a bucketize column's
-// 2048 entries in one bucket.  Earlier versions on an H100 (model E's
-// group, batch 2048): each chain reading the cotangent from device memory
-// four floats at a time, 0.19 ms; the cotangent staged with plain loads and
-// the entries placed by warp 0 alone, 0.08-0.11 ms, of which the placement
-// and the staging's load latency took most (per-phase clock64 counts).
+// Design.  An item is a few adjacent columns (cb: as many as make a batch
+// row's slice of g at most 32 floats, 128 bytes, and whose keys and sums
+// fit; 4 at d = 8) and a tile of nv vocab rows; its keys are (column, row)
+// pairs, at most kMaxKeys.  Blocks are persistent, two an SM, each walking
+// its items.  The cotangent streams through a ring of two shared-memory
+// stages of seg batch rows each: the slices g[b, c0 : c0 + cb, :] of
+// consecutive rows, copied by cp.async 16 bytes a lane where g allows (4
+// otherwise), the rows padded to 36 floats so that lanes reading one
+// offset of different rows hit different banks.  The ring runs across
+// items, so while a block sums one stage the next is in flight.  A pass is
+// kWarps stages; for each pass:
+//   1. warp w takes stage w's entries: it loads all their ids (K3a, then
+//      clamped) or raw values (K3b, then kSearches interleaved searches a
+//      lane over the item's boundary rows, staged in shared memory where
+//      they fit) at once, and counts their keys with shared-memory atomics; the
+//      block's first stages go out only after these loads, so the ids are
+//      not queued behind the cotangent;
+//   2-3. the stable counting sort of ordered_runs.cuh orders the pass's
+//      batch rows by key, each key's run in batch order; as warp w placed
+//      stage w's entries, its places end where stage w's part of each run
+//      ends, so each stage's part of a run is known exactly;
+//   4. stage after stage, each thread adds the terms its units (float4
+//      where d % 4 == 0) have in the stage, in order, kUnroll read ahead.
+//      Units map to threads turned per column, so that one hot row of
+//      each column lands on another thread.
+// The item's sums stay in registers and are written once at its end.
+// Integer quotients by runtime sizes use an exact reciprocal
+// (runs::quot).  A row selected by many entries is one long chain of
+// dependent adds, the price of a sum in batch order: model E's random
+// batches put about 1950 of a bucketize column's 2048 entries in one
+// bucket, and that chain bounds the item.
+//
+// The first port (a block per column, one-float copies of the cotangent
+// rows, the phases one after another) read 0.0975 ms (K3a) and 0.0999 ms
+// (K3b) on an H100 (PERF.md).
 
 #include <cstdint>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "bucket_search.cuh"
+#include "ordered_runs.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMinBlocks = 4;      // blocks an SM holds: <= 64 registers
+using runs::kThreads;
+using runs::kWarps;
+constexpr int kMinBlocks = 2;      // blocks an SM holds (shared memory)
 constexpr int kSearches = 4;       // K3b: searches a thread interleaves
-constexpr int kSegment = 4096;     // batch entries a block sorts at a time
-constexpr int kStageFloats = 8192; // a segment's staged cotangent (32 KB)
-constexpr int kUnroll = 8;         // staged loads ahead of the ordered adds
-constexpr int kLoads = 8;          // device loads a thread keeps in flight
-constexpr int kAccFloats = 8192;   // accumulators of a block (32 KB)
-constexpr int kMaxTile = 512;      // vocab rows of a block
+constexpr int kRowFloats = 32;     // an item's slice of a batch row, at most
+constexpr int kMaxKeys = 512;      // (column, row) keys of an item
+constexpr int kAccFloats = 4096;   // an item's sums
+constexpr int kStages = 2;         // the ring's stages
+constexpr int kStageFloats = 8192; // a stage's cotangent rows (32 KB)
+constexpr int kStageEntries = 1024;  // a stage's (column, batch row) entries
+constexpr int kPassEntries = kWarps * kStageEntries;  // a pass: a stage a warp
+constexpr int kLaneEntries = kStageEntries / 32;   // a lane's, in a pass
+constexpr int kHiFloats = 1024;    // K3b: an item's boundary rows, staged
+constexpr int kRotate = 72;        // a thread's units, turned per slot
+
+constexpr size_t kSmemBytes =
+    sizeof(float) * kStages * kStageFloats +
+    sizeof(int) * 2 * kMaxKeys +
+    sizeof(uint16_t) * (kWarps * kMaxKeys + 2 * kPassEntries) +
+    sizeof(float) * kHiFloats;
 
 // Where a column's ids come from: K3a reads them (ids, caps), K3b finds
 // them (raw, hi, counts, half).
@@ -85,196 +104,309 @@ struct IdSource {
   int half;                // the search's first step
 };
 
+// The shapes, the items and the stage ring, set once by the host.
+struct Geometry {
+  int C, C_pad, Bp, V, d;
+  int64_t gs;              // g's batch stride in floats
+  int cb;                  // columns of an item
+  int nv;                  // vocab rows of an item
+  int v_tiles;             // vocab tiles of a column group
+  int items;
+  int seg;                 // batch rows of a stage
+  int seg_per_item;        // stages of an item (kWarps make a pass)
+  int vec;                 // g allows 16-byte copies (aligned, gs % 4 == 0)
+};
+
+struct Item {
+  int c0, nc_out, nc_in, v0, nvv;
+};
+
+__device__ __forceinline__ Item item_of(const Geometry& G, int it) {
+  Item m;
+  const int cg = it / G.v_tiles;
+  m.c0 = cg * G.cb;
+  m.nc_out = min(G.cb, G.C_pad - m.c0);
+  m.nc_in = max(0, min(m.nc_out, G.C - m.c0));
+  m.v0 = (it - cg * G.v_tiles) * G.nv;
+  m.nvv = min(G.nv, G.V - m.v0);
+  return m;
+}
+
+// The floats between two staged batch rows of w floats: a row whose width
+// is a multiple of 32 floats is padded by 4, so that the rows that a warp's
+// lanes read at one offset fall in 8 different groups of banks.
+__host__ __device__ __forceinline__ int stage_stride(int w) {
+  return w % 32 == 0 ? w + 4 : w;
+}
+
+// A 16-byte asynchronous copy that skips L1 (the rows are read once).
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+// Start the copies of stage number q of this block's sequence (its items'
+// stages, in order) into ring slot q % kStages, and commit them as one
+// group (an empty group past the block's last item): the cotangent rows
+// g[b, c0 : c0 + nc_in, :] of the stage's batch rows.
+__device__ __forceinline__ void issue(const float* __restrict__ g,
+                                      const Geometry& G, float* stage,
+                                      int q) {
+  if (G.seg_per_item > 0) {
+    const int iter = q / G.seg_per_item;
+    const int it = blockIdx.x + iter * gridDim.x;
+    if (it < G.items) {
+      const Item m = item_of(G, it);
+      const int b0 = (q - iter * G.seg_per_item) * G.seg;
+      const int rows = min(G.seg, G.Bp - b0);
+      const int w = m.nc_in * G.d;
+      const int ws = stage_stride(w);
+      float* st = stage + (q % kStages) * kStageFloats;
+      const float* src = g + static_cast<int64_t>(b0) * G.gs +
+                         static_cast<int64_t>(m.c0) * G.d;
+      if (G.vec && ws % 4 == 0 && (m.c0 * G.d) % 4 == 0) {
+        const int wq = w / 4;
+        const float inv = runs::recip(wq);
+        for (int t = threadIdx.x; t < rows * wq; t += kThreads) {
+          const int i = runs::quot(t, inv);
+          const int x = 4 * (t - i * wq);
+          copy16(st + i * ws + x, src + i * G.gs + x);
+        }
+      } else {
+        const float inv = runs::recip(w);
+        for (int t = threadIdx.x; t < rows * w; t += kThreads) {
+          const int i = runs::quot(t, inv);
+          const int x = t - i * w;
+          __pipeline_memcpy_async(st + i * ws + x, src + i * G.gs + x,
+                                  sizeof(float));
+        }
+      }
+    }
+  }
+  __pipeline_commit();
+}
+
 // The entry's row in the tile [v0, v0 + nv), or -1.
 __device__ __forceinline__ int tile_row(int32_t id, int v0, int nv) {
   const int lv = id - v0;
   return id >= 0 && lv >= 0 && lv < nv ? lv : -1;
 }
 
-// The lanes of the (converged) warp whose key equals this lane's: one
-// ballot per bit of keys in [0, 2^bits).
-__device__ __forceinline__ unsigned peers_of(int key, int bits) {
-  unsigned m = 0xffffffffu;
-  for (int bit = 0; bit < bits; ++bit) {
-    const bool on = (key >> bit) & 1;
-    const unsigned set = __ballot_sync(0xffffffffu, on);
-    m &= on ? set : ~set;
-  }
-  return m;
+__device__ __forceinline__ float fadd(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float4 fadd(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
 }
 
-// Count the chunk's entries in the warp's row counts: the lowest lane of
-// each group on one row adds the group's size.  All 32 lanes call it;
-// lv = -1 counts nowhere.
-__device__ __forceinline__ void count_rows(int* wcnt, int lv, int lane,
-                                           int bits) {
-  const unsigned peers = peers_of(lv + 1, bits);
-  if (lv >= 0 && (peers & ((1u << lane) - 1u)) == 0u) {
-    wcnt[lv] += __popc(peers);
+// The terms of a run from place js to je (all in the staged rows from
+// batch row r0 on) added to acc in order.  T: a unit of a row, float4 or
+// float; ws and off count units.  (A plain loop: reading rows ahead of the
+// adds measured slower on an H100, 22 against 15 cycles a float4 term.)
+template <typename T>
+__device__ __forceinline__ T add_run(const uint16_t* list, const T* st,
+                                     int js, int je, int r0, int ws, int off,
+                                     T acc) {
+  for (int j = js; j < je; ++j) {
+    acc = fadd(acc, st[(static_cast<int>(list[j]) - r0) * ws + off]);
   }
+  return acc;
 }
 
-template <bool kBucketize>
+// T: the unit of a row a thread sums, float4 where d % 4 == 0, else float.
+template <bool kBucketize, typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) onehot_grad_kernel(
     const float* __restrict__ g,        // [Bp, C, d], batch stride gs
-    IdSource src,
+    const IdSource src,
     float* __restrict__ dtable,         // [C_pad, V, d]
-    int C, int Bp, int V, int d, int64_t gs, int vt, int seg) {
-  extern __shared__ int smem[];
-  const int c = blockIdx.x;
-  const int v0 = blockIdx.y * vt;
-  const int nv = min(vt, V - v0);
-  const int np = nv * d;
-  const int bits = 32 - __clz(nv);               // keys lv + 1 in [0, nv]
-  float* acc = reinterpret_cast<float*>(smem);   // [nv * d]
-  int* total = smem + np;                         // [nv] entries per row
-  int* start = total + nv;                        // [nv] row's first place
-  int* wcnt = start + nv;                         // [kWarps][nv] counts,
-                                                  // then places
-  int* place = wcnt + kWarps * nv;                // [seg] entry's row
-  int* list = place + seg;                        // [seg] entries by row
-  float* stage = reinterpret_cast<float*>(list + seg);  // [seg * d]
+    const Geometry G) {
+  constexpr int kw = sizeof(T) / sizeof(float);
+  constexpr int kPer = kAccFloats / kThreads / kw;   // units a thread sums
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* stage = reinterpret_cast<float*>(smem);  // [kStages][kStageFloats]
+  int* total = reinterpret_cast<int*>(stage + kStages * kStageFloats);
+  int* start = total + kMaxKeys;          // [kMaxKeys] each run's first place
+  uint16_t* wcnt = reinterpret_cast<uint16_t*>(start + kMaxKeys);
+  uint16_t* place = wcnt + kWarps * kMaxKeys;  // [kPassEntries] key + 1
+  uint16_t* list = place + kPassEntries;  // a pass's batch rows, by key
+  float* hi_s = reinterpret_cast<float*>(list + kPassEntries);  // K3b
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  int* mine = wcnt + warp * nv;
-  for (int p = tid; p < np; p += kThreads) acc[p] = 0.0f;
+  const int d = G.d;
+  const int dq = d / kw;                  // units of a row
+  const int pass_rows = kWarps * G.seg;
 
-  if (c < C) {
-    const int64_t col = static_cast<int64_t>(c) * Bp;
-    const float* gc = g + static_cast<int64_t>(c) * d;
-    for (int base = 0; base < Bp; base += seg) {
-      const int n = min(seg, Bp - base);
-      // 0. the segment's cotangent rows, copied asynchronously
-      for (int t = tid; t < n * d; t += kThreads) {
-        const int i = t / d;
-        __pipeline_memcpy_async(stage + t, gc + (base + i) * gs + (t - i * d),
-                                sizeof(float));
+  int q = 0;                              // the block's stage number
+  for (int it = blockIdx.x; it < G.items; it += gridDim.x) {
+    const Item m = item_of(G, it);
+    const int nk = m.nc_in * m.nvv;
+    const int ws = stage_stride(m.nc_in * d) / kw;  // a staged row's units
+    uint16_t* mine = wcnt + warp * nk;
+    const float inv_nv = runs::recip(m.nvv);
+    const float inv_dq = runs::recip(dq);
+    // each slot's key and its unit's place in a staged row, once an item
+    int key_of[kPer], off_of[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int p = k * kThreads + (tid + k * kRotate) % kThreads;
+      const int key = runs::quot(p, inv_dq);
+      key_of[k] = p < nk * dq ? key : -1;
+      off_of[k] = runs::quot(key, inv_nv) * dq + (p - key * dq);
+    }
+    // slot k of this thread sums unit p = k * kThreads + (tid + k *
+    // kRotate) % kThreads of the item, (key, unit) = (p / dq, p % dq): a
+    // key's units on neighbouring lanes, and each column's turned, so that
+    // a hot row of every column lands on other threads
+    T a[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) a[k] = T{};
+    // K3b: the item's columns' boundary rows in shared memory, where they
+    // fit, so that each search step is a shared load
+    const bool hi_shared = kBucketize && m.nc_in * G.V <= kHiFloats;
+    if (hi_shared) {
+      for (int t = tid; t < m.nc_in * G.V; t += kThreads) {
+        hi_s[t] = __ldg(src.hi + static_cast<int64_t>(m.c0) * G.V + t);
       }
-      __pipeline_commit();
-      for (int j = tid; j < kWarps * nv; j += kThreads) wcnt[j] = 0;
-      // the warp's entries [lo, hi), whole chunks of 32
-      const int span = (n + kWarps * 32 - 1) / (kWarps * 32) * 32;
-      const int lo = min(warp * span, n);
-      const int hi = min(lo + span, n);
+    }
+    for (int pbase = 0; pbase < G.Bp; pbase += pass_rows) {
+      const int np = min(pass_rows, G.Bp - pbase);
+      const int nst = (np + G.seg - 1) / G.seg;
+      for (int j = tid; j < kWarps * nk; j += kThreads) wcnt[j] = 0;
       __syncthreads();
-      // 1. each entry's row in the tile (or -1), and the warp's row counts
+      // 1. warp w finds and counts the keys of stage w's entries: its
+      // batch rows [w seg, w seg + rows) of the pass, column after column
+      const int rows = warp < nst ? min(G.seg, np - warp * G.seg) : 0;
+      const int e0 = warp * kStageEntries;
+      const int n = m.nc_in * rows;
+      const int64_t b0 = pbase + warp * G.seg;
+      const float inv_rows = runs::recip(max(rows, 1));
+      // its entries' ids (K3a) or raw values (K3b), lane-strided, all in
+      // flight at once
+      uint32_t v[kLaneEntries];
+#pragma unroll
+      for (int k = 0; k < kLaneEntries; ++k) {
+        const int e = k * 32 + lane;
+        v[k] = 0u;
+        if (e < n) {
+          const int cl = runs::quot(e, inv_rows);
+          const int64_t at =
+              static_cast<int64_t>(m.c0 + cl) * G.Bp + b0 + e - cl * rows;
+          v[k] = kBucketize ? __float_as_uint(__ldg(src.raw + at))
+                            : static_cast<uint32_t>(__ldg(src.ids + at));
+        }
+      }
       if constexpr (kBucketize) {
-        for (int i0 = lo; i0 < hi; i0 += 32 * kSearches) {
+#pragma unroll
+        for (int k0 = 0; k0 < kLaneEntries; k0 += kSearches) {
+          if (k0 * 32 >= n) break;
           float x[kSearches];
           int64_t hrow[kSearches];
           int pos[kSearches];
+          int cl[kSearches];
 #pragma unroll
           for (int k = 0; k < kSearches; ++k) {
-            const int i = i0 + k * 32 + lane;
-            x[k] = i < hi ? __ldg(src.raw + col + base + i) : 0.0f;
-            hrow[k] = static_cast<int64_t>(c) * V;
+            const int e = (k0 + k) * 32 + lane;
+            cl[k] = e < n ? runs::quot(e, inv_rows) : 0;
+            x[k] = __uint_as_float(v[k0 + k]);
+            hrow[k] = static_cast<int64_t>(hi_shared ? cl[k] : m.c0 + cl[k]) *
+                      G.V;
           }
-          bucket::upper_bounds<kSearches, int64_t>(src.hi, hrow, x, pos, V,
-                                                   src.half);
+          if (hi_shared) {
+            bucket::upper_bounds<kSearches, int64_t, false>(hi_s, hrow, x,
+                                                            pos, G.V,
+                                                            src.half);
+          } else {
+            bucket::upper_bounds<kSearches, int64_t>(src.hi, hrow, x, pos,
+                                                     G.V, src.half);
+          }
 #pragma unroll
           for (int k = 0; k < kSearches; ++k) {
-            const int i = i0 + k * 32 + lane;
-            const int lv = i < hi ? tile_row(bucket::bucket_of(
-                                        x[k], pos[k], src.counts, c), v0, nv)
-                                  : -1;
-            if (i < hi) place[i] = lv;
-            count_rows(mine, lv, lane, bits);
-            __syncwarp();
+            const int e = (k0 + k) * 32 + lane;
+            const int lv =
+                e < n ? tile_row(bucket::bucket_of(x[k], pos[k], src.counts,
+                                                   m.c0 + cl[k]),
+                                 m.v0, m.nvv)
+                      : -1;
+            const int key = lv >= 0 ? cl[k] * m.nvv + lv : -1;
+            if (e < n) place[e0 + e] = static_cast<uint16_t>(key + 1);
+            runs::count_key(mine, key);
           }
         }
       } else {
-        const int32_t cap = __ldg(src.caps + c);
-        for (int i0 = lo; i0 < hi; i0 += 32 * kLoads) {
-          int32_t id[kLoads];
 #pragma unroll
-          for (int k = 0; k < kLoads; ++k) {
-            const int i = i0 + k * 32 + lane;
-            id[k] = i < hi ? __ldg(src.ids + col + base + i) : -1;
+        for (int k = 0; k < kLaneEntries; ++k) {
+          if (k * 32 >= n) break;
+          const int e = k * 32 + lane;
+          int key = -1;
+          if (e < n) {
+            const int cl = runs::quot(e, inv_rows);
+            const int32_t id = static_cast<int32_t>(v[k]);
+            const int lv = tile_row(min(id, __ldg(src.caps + m.c0 + cl)),
+                                    m.v0, m.nvv);
+            key = lv >= 0 ? cl * m.nvv + lv : -1;
+            place[e0 + e] = static_cast<uint16_t>(key + 1);
           }
+          runs::count_key(mine, key);
+        }
+      }
+      // the ring's first stages go out once the first ids are in, so that
+      // those are not queued behind the cotangent
+      if (q == 0 && pbase == 0 && it == static_cast<int>(blockIdx.x)) {
+        issue(g, G, stage, 0);
+        issue(g, G, stage, 1);
+      }
+      __syncthreads();
+      // 2. totals, starts, each warp's first places
+      runs::starts(total, start, wcnt, nk);
+      // 3. each warp places its entries' pass rows, in batch order; its
+      // places then end where its stage's part of each run ends
+      for (int i0 = 0; i0 < n; i0 += 32) {
+        const int e = i0 + lane;
+        const int key = e < n ? static_cast<int>(place[e0 + e]) - 1 : -1;
+        const int at = runs::place_of(mine, key, lane);
+        if (at >= 0) {
+          list[at] = static_cast<uint16_t>(
+              warp * G.seg + e - runs::quot(key, inv_nv) * rows);
+        }
+      }
+      __syncthreads();
+      // 4. stage after stage, each unit's terms in the stage, in order
+      for (int s = 0; s < nst; ++s, ++q) {
+        __pipeline_wait_prior(kStages - 1);
+        __syncthreads();
+        const T* st =
+            reinterpret_cast<const T*>(stage + (q % kStages) * kStageFloats);
 #pragma unroll
-          for (int k = 0; k < kLoads; ++k) {
-            const int i = i0 + k * 32 + lane;
-            const int lv = tile_row(id[k] < cap ? id[k] : cap, v0, nv);
-            if (i < hi) place[i] = lv;
-            count_rows(mine, lv, lane, bits);
-            __syncwarp();
+        for (int k = 0; k < kPer; ++k) {
+          const int key = key_of[k];
+          if (key < 0) continue;
+          const int js = s == 0 ? start[key] : wcnt[(s - 1) * nk + key];
+          const int je = wcnt[s * nk + key];
+          if (js < je) {
+            a[k] = add_run(list, st, js, je, s * G.seg, ws, off_of[k], a[k]);
           }
         }
+        __syncthreads();
+        issue(g, G, stage, q + kStages);
       }
-      __syncthreads();
-      // 2. totals; starts (warp 0); each warp's first place in each row
-      for (int v = tid; v < nv; v += kThreads) {
-        int t = 0;
-        for (int w = 0; w < kWarps; ++w) t += wcnt[w * nv + v];
-        total[v] = t;
-      }
-      __syncthreads();
-      if (warp == 0) {
-        const int per = (nv + 31) / 32;
-        const int jlo = min(lane * per, nv);
-        const int jhi = min(jlo + per, nv);
-        int s = 0;
-        for (int j = jlo; j < jhi; ++j) s += total[j];
-        int incl = s;
+    }
+    // the item's sums, each element once (planes >= C and untouched rows
+    // as +0.0)
+    const int nout = m.nc_out * m.nvv * dq;
 #pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const int t = __shfl_up_sync(0xffffffffu, incl, off);
-          if (lane >= off) incl += t;
-        }
-        int r = incl - s;
-        for (int j = jlo; j < jhi; ++j) {
-          start[j] = r;
-          r += total[j];
-        }
+    for (int k = 0; k < kPer; ++k) {
+      const int p = k * kThreads + (tid + k * kRotate) % kThreads;
+      if (p < nout) {
+        const int cl = runs::quot(p, runs::recip(m.nvv * dq));
+        reinterpret_cast<T*>(dtable)[(static_cast<int64_t>(m.c0 + cl) * G.V +
+                                      m.v0) * dq + (p - cl * m.nvv * dq)] =
+            a[k];
       }
-      __syncthreads();
-      for (int v = tid; v < nv; v += kThreads) {
-        int r = start[v];
-        for (int w = 0; w < kWarps; ++w) {
-          const int t = wcnt[w * nv + v];
-          wcnt[w * nv + v] = r;
-          r += t;
-        }
-      }
-      __syncthreads();
-      // 3. each warp places its entries, in batch order
-      for (int i0 = lo; i0 < hi; i0 += 32) {
-        const int i = i0 + lane;
-        const int lv = i < hi ? place[i] : -1;
-        const unsigned peers = peers_of(lv + 1, bits);
-        if (lv >= 0) list[mine[lv] + __popc(peers & ((1u << lane) - 1u))] = i;
-        __syncwarp();
-        // the highest lane of each group on one row moves the row on
-        if (lv >= 0 && (peers >> lane) == 1u) mine[lv] += __popc(peers);
-        __syncwarp();
-      }
-      __pipeline_wait_prior(0);
-      __syncthreads();
-      // 4. each (row, element) sum over its run, in batch order
-      for (int p = tid; p < np; p += kThreads) {
-        const int v = p / d;
-        const int e = p - v * d;
-        const int* run = list + start[v];
-        const int m = total[v];
-        float a = acc[p];
-        int j = 0;
-        for (; j + kUnroll <= m; j += kUnroll) {
-          float x[kUnroll];
-#pragma unroll
-          for (int k = 0; k < kUnroll; ++k) x[k] = stage[run[j + k] * d + e];
-#pragma unroll
-          for (int k = 0; k < kUnroll; ++k) a = __fadd_rn(a, x[k]);
-        }
-        for (; j < m; ++j) a = __fadd_rn(a, stage[run[j] * d + e]);
-        acc[p] = a;
-      }
-      __syncthreads();
     }
   }
-  // each thread writes the accumulators it zeroed and summed
-  float* o = dtable + (static_cast<int64_t>(c) * V + v0) * d;
-  for (int p = tid; p < np; p += kThreads) o[p] = acc[p];
 }
 
 template <bool kBucketize>
@@ -282,34 +414,74 @@ int launch(const void* g, const IdSource& src, void* dtable, int64_t C,
            int64_t C_pad, int64_t Bp, int64_t V, int64_t d, int64_t gs,
            void* stream) {
   if (C_pad == 0 || V == 0 || d == 0) return 0;
-  if (C > C_pad || C_pad > 2147483647 || Bp > 2147483647 || V > (1 << 30) ||
-      d > kAccFloats || gs < 0) {
+  if (C < 0 || C > C_pad || C_pad > (1 << 30) || Bp < 0 ||
+      Bp > 2147483647 || V > (1 << 30) || d > kAccFloats || gs < 0) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  int64_t vt = kAccFloats / d;
-  vt = vt < kMaxTile ? vt : kMaxTile;
-  vt = vt < V ? vt : V;
-  const int64_t v_tiles = (V + vt - 1) / vt;
-  if (v_tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  int64_t seg = kStageFloats / d;
-  seg = seg < kSegment ? seg : kSegment;
-  seg = seg < Bp ? seg : Bp;
-  seg = seg > 1 ? seg : 1;
-  const size_t smem =
-      sizeof(int) * static_cast<size_t>(vt * d + (2 + kWarps) * vt +
-                                        2 * seg + seg * d);
-  auto kernel = onehot_grad_kernel<kBucketize>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  Geometry G{};
+  G.C = static_cast<int>(C);
+  G.C_pad = static_cast<int>(C_pad);
+  G.Bp = static_cast<int>(Bp);
+  G.V = static_cast<int>(V);
+  G.d = static_cast<int>(d);
+  G.gs = gs;
+  // an item's keys: at most kMaxKeys, their sums at most kAccFloats
+  const int64_t keys = kMaxKeys < kAccFloats / d ? kMaxKeys : kAccFloats / d;
+  int64_t cb = kRowFloats / d;
+  cb = cb < keys / V ? cb : keys / V;
+  G.cb = static_cast<int>(cb > 1 ? cb : 1);
+  const int64_t nv = V < keys / G.cb ? V : keys / G.cb;
+  G.nv = static_cast<int>(nv);
+  G.v_tiles = static_cast<int>((V + nv - 1) / nv);
+  const int64_t items =
+      (C_pad + G.cb - 1) / G.cb * static_cast<int64_t>(G.v_tiles);
+  if (items > 2147483647) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  const dim3 grid(static_cast<unsigned>(C_pad), static_cast<unsigned>(v_tiles));
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), src, static_cast<float*>(dtable),
-      static_cast<int>(C), static_cast<int>(Bp), static_cast<int>(V),
-      static_cast<int>(d), gs, static_cast<int>(vt), static_cast<int>(seg));
+  G.items = static_cast<int>(items);
+  int64_t seg = kStageFloats / stage_stride(static_cast<int>(G.cb * d));
+  seg = seg < kStageEntries / G.cb ? seg : kStageEntries / G.cb;
+  seg = seg < Bp ? seg : Bp;
+  G.seg = static_cast<int>(seg > 1 ? seg : 1);
+  const int64_t spi = (Bp + G.seg - 1) / G.seg;
+  if (spi * (items + 1) > 2147483647) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  G.seg_per_item = static_cast<int>(spi);
+  G.vec = reinterpret_cast<uintptr_t>(g) % 16 == 0 && gs % 4 == 0;
+
+  // float4 units where rows and the output allow, else floats
+  const bool unit4 =
+      d % 4 == 0 && reinterpret_cast<uintptr_t>(dtable) % 16 == 0;
+  auto kernel = unit4 ? onehot_grad_kernel<kBucketize, float4>
+                      : onehot_grad_kernel<kBucketize, float>;
+  int dev = 0, optin = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (kSmemBytes > static_cast<size_t>(optin)) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemBytes));
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, kSmemBytes);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
+  const unsigned grid =
+      static_cast<unsigned>(items < resident ? items : resident);
+  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), src, static_cast<float*>(dtable), G);
   return static_cast<int>(cudaGetLastError());
 }
 

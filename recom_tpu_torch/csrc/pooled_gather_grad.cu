@@ -1,5 +1,5 @@
 // X1b: the backward pass of the gather + pooling X1 (pooled_gather.cu), by
-// hand for Hopper: the dense gradient of a stacked column group's table.
+// hand for Hopper: the dense gradient of each stacked column group's table.
 //
 // Replaces: XLA's autodiff of recom_tpu/ops/lookup_xla.py::group_pooled
 // (the transpose of gather_rows_f32's jnp.take, of pool_rows_inorder's
@@ -17,62 +17,122 @@
 // weight (1 for an unweighted column).  Each step is rounded on its own, as
 // XLA computes JAX's cotangents: the divide's f64 quotient narrowed to f32
 // (exact_div) is the correctly rounded f32 quotient.  A missing slot adds
-// nothing (the masked-slot convention of X1); rows no slot touches stay
+// nothing (the masked-slot convention of X1); rows no slot touches are
 // +0.0.
 //
-// Deterministic, with no float atomics.  The wrapper
-// (ops/lookup_gather.py) sorts the slots' destination rows with a stable
-// sort in [C, Bp, L] slot order, missing slots keyed past the table; here a
-// group of G lanes takes each run of equal rows, sums its slots' products
-// in slot order from +0.0 (__fmul_rn/__fadd_rn, -fmad=false) and writes the
-// row once.  So two runs give the same bits, equal to the plain version's
-// index_add_ in slot order.
+// Deterministic, with no float atomics: each row's sum is taken strictly in
+// [C, Bp, L] slot order from +0.0 (__fmul_rn/__fadd_rn, -fmad=false), so
+// two runs give the same bits, equal to the plain version's index_add_ in
+// slot order (ops/lookup_gather.py).
 //
-// What bounds it on the H100: bytes, and of those the dense fill.  JAX's
+// What bounds it on the H100: bytes, and of those the dense output.  JAX's
 // cotangent of a table is dense [R, d], and so is this one: model E's
-// large group (41.9 M rows x 32) is 5.37 GB to zero and write, 1.6 ms at
-// 3.35 TB/s, against under 10 MB of cotangent, ids and weights.  The fill
-// is the wrapper's torch.zeros; this kernel writes only the touched rows.
-// A row-sparse gradient would drop the fill (a later change: Adam's state
-// is dense).
+// large group (41.9 M rows x 32) is 5.37 GB to write, 1.6 ms at 3.35 TB/s,
+// against under 10 MB of cotangent, ids and weights.  This kernel writes
+// every element of each output exactly once, zeros included, so the
+// output needs no fill.
 //
-// Design: a thread group of G lanes (the smallest power of two >= d, at
-// most 32) per sorted slot position; a group whose key continues the run
-// before it returns at once, so one group walks each run.  Lane q moves
-// elements q, q + G, ... of the row, so a group's cotangent reads and its
-// row store are contiguous.  A MEAN or SQRTN slot re-sums its bag's L
-// weights (or masks) for the denominator, as the forward did; SUM slots
-// skip that.
+// Design.  One launch serves up to kMaxGroups groups.  Each member (column)
+// c of a group owns the rows [row_offsets[c], row_offsets[c] + caps[c] + 1)
+// of its table, disjoint from every other member's (the wrapper checks), so
+// a row's sum runs over its own member's Bp x L slots alone.  The host cuts
+// every group's rows into work items (ops/lookup_gather.py::x1b_plan), a
+// block each:
+// - dense: a tile of at most kMaxKeys rows of a member with a small vocab
+//   (model E: 10 000 rows x d 8, tiles of 512 rows), its sums in shared
+//   memory;
+// - sparse: a range of at most kRangeRows rows of a member with a large
+//   vocab (model E: 2^23 rows x d 32), whose touched rows a bitmap marks
+//   and a scan of the words' popcounts numbers;
+// - zero: rows that no member owns.
+// A block reads its member's ids once, 16 bytes a lane where they allow,
+// gathering its item's hits (shared-memory atomics, any order) while
+// kCompact hold them, and marking a sparse item's touched rows.  The hits
+// are then put in slot order (each one's rank among them), and the stable
+// counting sort of ordered_runs.cuh (K3's) orders them by key (the row in
+// the tile, or the touched row's number), a run per key in slot order; a
+// thread per (run, element) adds its run's terms in order.  A MEAN or
+// SQRTN slot's denominator is summed once a slot.  An item with more hits,
+// or a sparse range crowded past kMaxKeys touched rows, takes the same
+// sort over all its member's slots, kSeg at a time (and, crowded, window
+// by window).  Then the block streams its rows out once, in order, a
+// bitmap word's 32 rows a warp, 16 bytes a lane with the evict-first hint
+// (__stcs) where d % 4 == 0: each row its sum if touched, else +0.0.
+// Sparse blocks of the large group spend most of their time in that
+// stream; two blocks an SM let one's ordering overlap the other's writes,
+// and the work list puts sparse items first so that the short dense and
+// zero items fill the SMs that the last sparse ones leave.
+//
+// The first port (PERF.md) sorted each group's slots with a stable
+// torch.sort, zero-filled the output with torch.zeros, then wrote the
+// touched rows a second time, one launch per group: 1.9809 ms for model
+// E's three groups on an H100.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ordered_runs.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using runs::kThreads;
+using runs::kWarps;
+constexpr int kMinBlocks = 2;        // blocks an SM holds (shared memory)
+constexpr int kMaxGroups = 8;        // groups a launch
+constexpr int kMaxKeys = 512;        // rows a tile or window sums
+constexpr int kAccFloats = 4096;     // a tile's or window's sums (16 KB)
+constexpr int kSeg = 4096;           // slots a block orders at a time
+constexpr int kRangeRows = 32768;    // rows of a sparse item
+constexpr int kWords = kRangeRows / 32;
+constexpr int kLoads = 16;           // id loads a thread keeps in flight
+constexpr int kUnroll = 4;           // terms read ahead of the ordered adds
+constexpr int kCompact = 1024;       // hits an item gathers in one scan
 
-struct Group {
+constexpr size_t kSmemBytes =
+    sizeof(float) * kAccFloats +
+    sizeof(int) * (kWarps * kMaxKeys + 2 * kMaxKeys) +
+    (2 * sizeof(int16_t) + sizeof(float)) * kSeg +
+    sizeof(uint32_t) * kWords + sizeof(int) * (kWords + 1 + kCompact);
+
+// One group of a launch; the layout of ops/lookup_gather.py::X1B_DESC.
+struct X1bGroup {
   const float* g;          // [Bp, C, d], batch stride gs, inner contiguous
   const int32_t* ids;      // [C, Bp, L] member-local ids, < 0 = missing
   const float* weights;    // [C, Bp, L] or null (unweighted: w = 1)
   const int32_t* caps;     // [C] last valid row per member
   const int32_t* codes;    // [C] 0 sum / 1 mean / 2 sqrtn
   const uint8_t* weighted; // [C] 1: divide, 0: multiply by the reciprocal
-  const void* keys;        // [N] destination rows, sorted; R = none
-  const int64_t* order;    // [N] slot (c * Bp + b) * L + l of each key
-  float* out;              // [R, d], zero-filled
-  int64_t N, R, gs;
-  int C, Bp, L, d;
+  float* out;              // [R, d], every element written once
+  int64_t gs;
+  int64_t C, Bp, L, d;
 };
 
-// The cotangent of the bag's pooled sum, scaled as its combiner divides.
-__device__ __forceinline__ float bag_cotangent(const Group& a, float gv,
-                                               int64_t bag, int c) {
-  const int code = __ldg(a.codes + c);
-  if (code == 0) return gv;
-  const int32_t cap = __ldg(a.caps + c);
+struct X1bLaunch {
+  X1bGroup g[kMaxGroups];
+  int32_t n;
+};
+
+// A block's work: rows [row_lo, row_lo + nrows) of its group's output,
+// which are its member's local rows [local_lo, local_lo + nrows).  kind:
+// ((member + 1) << 4) | (group << 1) | dense, member -1 for a zero item.
+struct Work {
+  int64_t row_lo, local_lo, nrows, kind;
+};
+
+// A member's slot: its clamped id's row relative to the item, or -1.
+__device__ __forceinline__ int item_row(int32_t id, int32_t cap,
+                                        int64_t local_lo, int nrows) {
+  const int32_t i = id < cap ? id : cap;
+  const int64_t r = static_cast<int64_t>(i) - local_lo;
+  return i >= 0 && r >= 0 && r < nrows ? static_cast<int>(r) : -1;
+}
+
+// The combiner denominator of the bag whose slots start at ids[bag], as the
+// forward sums it.
+__device__ __forceinline__ float bag_den(const X1bGroup& a, int64_t bag,
+                                         int32_t cap, int code) {
   float ws = 0.0f, w2 = 0.0f;
-  for (int k = 0; k < a.L; ++k) {
+  for (int64_t k = 0; k < a.L; ++k) {
     int32_t id = __ldg(a.ids + bag + k);
     id = id < cap ? id : cap;
     const float m = id >= 0 ? 1.0f : 0.0f;
@@ -80,93 +140,425 @@ __device__ __forceinline__ float bag_cotangent(const Group& a, float gv,
     ws = __fadd_rn(ws, wl);
     w2 = __fadd_rn(w2, __fmul_rn(wl, wl));
   }
-  const float den = code == 1 ? ws : __fsqrt_rn(w2);
-  if (!(den > 0.0f)) return 0.0f;
-  return __ldg(a.weighted + c) ? __fdiv_rn(gv, den)
-                               : __fmul_rn(gv, __fdiv_rn(1.0f, den));
+  return code == 1 ? ws : __fsqrt_rn(w2);
 }
 
-// K: the keys' type, int32 where every row index fits, else int64.
-template <int G, typename K>
-__global__ void __launch_bounds__(kThreads) pooled_gather_grad_kernel(
-    const Group a) {
-  const K* keys = static_cast<const K*>(a.keys);
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t i = t / G;
-  const int q = static_cast<int>(t % G);
-  if (i >= a.N) return;
-  const int64_t row = __ldg(keys + i);
-  if (row >= a.R || (i > 0 && __ldg(keys + i - 1) == row)) return;
-  for (int e = q; e < a.d; e += G) {
-    float acc = 0.0f;
-    for (int64_t j = i; j < a.N && __ldg(keys + j) == row; ++j) {
-      const int64_t s = __ldg(a.order + j);
-      const int64_t bag = s / a.L;              // c * Bp + b
-      const int c = static_cast<int>(bag / a.Bp);
-      const int b = static_cast<int>(bag - static_cast<int64_t>(c) * a.Bp);
-      const float gv = __ldg(a.g + b * a.gs + static_cast<int64_t>(c) * a.d + e);
-      const float dacc = bag_cotangent(a, gv, bag * a.L, c);
-      const float w = a.weights ? __ldg(a.weights + s) : 1.0f;
-      acc = __fadd_rn(acc, __fmul_rn(dacc, w));
+struct Shared {
+  float* acc;       // [kAccFloats] sums of the tile or window's rows
+  int* wcnt;        // [kWarps][kMaxKeys] counts, then places
+  int* total;       // [kMaxKeys]
+  int* start;       // [kMaxKeys]
+  float* den;       // [kSeg] a slot's combiner denominator
+  int16_t* place;   // [kSeg] a segment slot's key
+  uint16_t* list;   // [kSeg] segment slots by key
+  uint32_t* bitmap; // [kWords] touched rows of a sparse item
+  int* wpre;        // [kWords + 1] touched rows before each word
+  int* hits;        // [kCompact] the item's slots in slot order
+};
+
+// The touched row's number among the item's touched rows.
+__device__ __forceinline__ int touched_rank(const Shared& sh, int r) {
+  const uint32_t bits = sh.bitmap[r >> 5];
+  return sh.wpre[r >> 5] + __popc(bits & ((1u << (r & 31)) - 1u));
+}
+
+// Sum member c's slots into acc[key * d + e], in slot order, for the keys
+// of rows [r_lo, r_hi) of the item: the row itself (dense) or its number
+// among the touched rows less k0 (sparse).  nk keys.  The slots: the
+// first nhits of sh.hits (the item's, in order) where nhits >= 0, else
+// all the member's Bp x L slots, kSeg at a time.
+template <bool kDense>
+__device__ void accumulate(const X1bGroup& a, const Shared& sh, int c,
+                           int64_t local_lo, int nrows, int r_lo, int r_hi,
+                           int k0, int nk, int nhits) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int d = static_cast<int>(a.d);
+  const int64_t S = a.Bp * a.L;
+  const int64_t mbase = static_cast<int64_t>(c) * S;
+  const int32_t cap = __ldg(a.caps + c);
+  const int code = __ldg(a.codes + c);
+  const bool divide = __ldg(a.weighted + c) != 0;
+  int* mine = sh.wcnt + warp * nk;
+  const int64_t entries = nhits >= 0 ? nhits : S;
+  // a slot's bag, s / L, by the reciprocal where S < 2^20
+  const bool small_s = S < (1 << 20);
+  const float inv_l = runs::recip(static_cast<int>(small_s ? a.L : 1));
+  auto bag_of = [&](int64_t s) -> int64_t {
+    return small_s ? runs::quot(static_cast<int>(s), inv_l) : s / a.L;
+  };
+  const int* hits = nhits >= 0 ? sh.hits : nullptr;
+  __syncthreads();
+  for (int p = tid; p < nk * d; p += kThreads) sh.acc[p] = 0.0f;
+  for (int64_t base = 0; base < entries; base += kSeg) {
+    const int n =
+        static_cast<int>(entries - base < kSeg ? entries - base : kSeg);
+    for (int j = tid; j < kWarps * nk; j += kThreads) sh.wcnt[j] = 0;
+    const int span = runs::warp_span(n);
+    const int lo = min(warp * span, n);
+    const int hi = min(lo + span, n);
+    __syncthreads();
+    // 1. each slot's key, counted; a MEAN / SQRTN slot's denominator
+    for (int i0 = lo; i0 < hi; i0 += 32 * kLoads) {
+      int32_t id[kLoads];
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k) {
+        const int i = i0 + k * 32 + lane;
+        id[k] = i < hi ? __ldg(a.ids + mbase +
+                               (hits ? hits[i] : base + i))
+                       : -1;
+      }
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k) {
+        const int i = i0 + k * 32 + lane;
+        int key = -1;
+        if (i < hi) {
+          const int r = item_row(id[k], cap, local_lo, nrows);
+          if (r >= r_lo && r < r_hi) {
+            key = kDense ? r : touched_rank(sh, r) - k0;
+          }
+          sh.place[i] = static_cast<int16_t>(key);
+          if (key >= 0 && code != 0) {
+            const int64_t s = hits ? hits[i] : base + i;
+            sh.den[i] = bag_den(a, mbase + bag_of(s) * a.L, cap, code);
+          }
+        }
+        runs::count_key(mine, key);
+      }
     }
-    a.out[row * a.d + e] = acc;
+    __syncthreads();
+    // 2. totals, starts, each warp's first places
+    runs::starts(sh.total, sh.start, sh.wcnt, nk);
+    // 3. each warp places its slots, in slot order
+    for (int i0 = lo; i0 < hi; i0 += 32) {
+      const int i = i0 + lane;
+      const int key = i < hi ? sh.place[i] : -1;
+      const int at = runs::place_of(mine, key, lane);
+      if (at >= 0) sh.list[at] = static_cast<uint16_t>(i);
+    }
+    __syncthreads();
+    // 4. a thread per (run, element) adds the run's terms in slot order:
+    // the thread of the run's first place walks it
+    const int nhit = sh.start[nk - 1] + sh.total[nk - 1];
+    const bool small_p = nhit * d < (1 << 20);
+    const float inv_d = runs::recip(small_p ? d : 1);
+    for (int p = tid; p < nhit * d; p += kThreads) {
+      const int j = small_p ? runs::quot(p, inv_d) : p / d;
+      const int e = p - j * d;
+      const int key = sh.place[sh.list[j]];
+      if (j != sh.start[key]) continue;
+      const uint16_t* run = sh.list + j;
+      const int m = sh.total[key];
+      const int q = key * d + e;
+      float acc = sh.acc[q];
+      for (int j0 = 0; j0 < m; j0 += kUnroll) {
+        float t[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          t[u] = 0.0f;
+          if (j0 + u < m) {
+            const int i = run[j0 + u];
+            const int64_t s = hits ? hits[i] : base + i;
+            const int64_t b = bag_of(s);
+            const float gv = __ldg(a.g + b * a.gs +
+                                   static_cast<int64_t>(c) * d + e);
+            float dacc = gv;
+            if (code != 0) {
+              const float den = sh.den[i];
+              dacc = !(den > 0.0f) ? 0.0f
+                     : divide      ? __fdiv_rn(gv, den)
+                                   : __fmul_rn(gv, __fdiv_rn(1.0f, den));
+            }
+            const float w = a.weights ? __ldg(a.weights + mbase + s) : 1.0f;
+            t[u] = __fmul_rn(dacc, w);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (j0 + u < m) acc = __fadd_rn(acc, t[u]);
+        }
+      }
+      sh.acc[q] = acc;
+    }
+    __syncthreads();
   }
 }
 
-template <int G>
-void launch(const Group& a, bool wide_keys, int64_t blocks, cudaStream_t s) {
-  const unsigned nb = static_cast<unsigned>(blocks);
-  if (wide_keys) {
-    pooled_gather_grad_kernel<G, int64_t><<<nb, kThreads, 0, s>>>(a);
+// Stream rows [r_lo, r_hi) of the item out, in order, a bitmap word's 32
+// rows a warp: a touched row's sum from acc (dense: every row, at its
+// index; sparse: at its number less k0), else +0.0.  kind: 0 zero rows,
+// 1 dense, 2 sparse.  r_lo is a multiple of 32.
+template <typename T>
+__device__ __forceinline__ void write_rows(const X1bGroup& a,
+                                           const Shared& sh, int64_t row_lo,
+                                           int r_lo, int r_hi, int kind,
+                                           int k0) {
+  constexpr int kw = sizeof(T) / sizeof(float);
+  const int dq = static_cast<int>(a.d) / kw;
+  const bool pow2 = (dq & (dq - 1)) == 0;
+  const int sh2 = __ffs(dq) - 1;
+  const float inv_dq = runs::recip(dq);
+  const int lane = threadIdx.x & 31;
+  T zero;
+  float* zf = reinterpret_cast<float*>(&zero);
+#pragma unroll
+  for (int k = 0; k < kw; ++k) zf[k] = 0.0f;
+  const T* acc = reinterpret_cast<const T*>(sh.acc);
+  for (int w = (r_lo >> 5) + (threadIdx.x >> 5); w * 32 < r_hi; w += kWarps) {
+    const uint32_t bits =
+        kind == 2 ? sh.bitmap[w] : (kind == 1 ? 0xffffffffu : 0u);
+    const int rank0 = kind == 2 ? sh.wpre[w] - k0 : w * 32;
+    const int rows = min(32, r_hi - w * 32);
+    T* o = reinterpret_cast<T*>(a.out) + (row_lo + w * 32) * dq;
+    if (bits == 0u && rows == 32) {
+      for (int t = lane; t < 32 * dq; t += 32) __stcs(o + t, zero);
+      continue;
+    }
+    for (int t = lane; t < rows * dq; t += 32) {
+      const int rr = pow2 ? t >> sh2 : runs::quot(t, inv_dq);
+      T v = zero;
+      if ((bits >> rr) & 1u) {
+        const int rank =
+            rank0 + (kind == 2 ? __popc(bits & ((1u << rr) - 1u)) : rr);
+        v = acc[rank * dq + (t - rr * dq)];
+      }
+      __stcs(o + t, v);
+    }
+  }
+}
+
+__device__ __forceinline__ void write_out(const X1bGroup& a, const Shared& sh,
+                                          int64_t row_lo, int r_lo, int r_hi,
+                                          int kind, int k0) {
+  if (a.d % 4 == 0 && reinterpret_cast<uintptr_t>(a.out) % 16 == 0) {
+    write_rows<float4>(a, sh, row_lo, r_lo, r_hi, kind, k0);
   } else {
-    pooled_gather_grad_kernel<G, int32_t><<<nb, kThreads, 0, s>>>(a);
+    write_rows<float>(a, sh, row_lo, r_lo, r_hi, kind, k0);
+  }
+}
+
+// wpre[w] = the touched rows in words [0, w), for w in [0, nw].
+__device__ __forceinline__ void number_words(const Shared& sh, int nw) {
+  __shared__ int warp_tot[kWarps];
+  constexpr int kPer = kWords / kThreads;   // words a thread counts
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int cnt[kPer];
+  int mine = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int w = tid * kPer + k;
+    cnt[k] = w < nw ? __popc(sh.bitmap[w]) : 0;
+    mine += cnt[k];
+  }
+  int incl = mine;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += t;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  int r = incl - mine;
+  for (int w = 0; w < warp; ++w) r += warp_tot[w];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int w = tid * kPer + k;
+    if (w < nw) sh.wpre[w] = r;
+    r += cnt[k];
+  }
+  if (tid == kThreads - 1) sh.wpre[nw] = r;
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    pooled_gather_grad_kernel(const __grid_constant__ X1bLaunch batch,
+                              const Work* __restrict__ work) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Shared sh;
+  sh.acc = reinterpret_cast<float*>(smem);
+  sh.wcnt = reinterpret_cast<int*>(sh.acc + kAccFloats);
+  sh.total = sh.wcnt + kWarps * kMaxKeys;
+  sh.start = sh.total + kMaxKeys;
+  sh.den = reinterpret_cast<float*>(sh.start + kMaxKeys);
+  sh.place = reinterpret_cast<int16_t*>(sh.den + kSeg);
+  sh.list = reinterpret_cast<uint16_t*>(sh.place + kSeg);
+  sh.bitmap = reinterpret_cast<uint32_t*>(sh.list + kSeg);
+  sh.wpre = reinterpret_cast<int*>(sh.bitmap + kWords);
+  sh.hits = sh.wpre + kWords + 1;
+
+  const Work wk = work[blockIdx.x];
+  const int64_t member = (wk.kind >> 4) - 1;
+  const X1bGroup& a = batch.g[(wk.kind >> 1) & 7];
+  const int nrows = static_cast<int>(wk.nrows);
+  if (member < 0) {
+    write_out(a, sh, wk.row_lo, 0, nrows, 0, 0);
+    return;
+  }
+  const int c = static_cast<int>(member);
+  const int d = static_cast<int>(a.d);
+  const bool dense = wk.kind & 1;
+  // the one pass over the member's ids: the item's hits, in any order,
+  // while kCompact hold them (in wcnt); a sparse item's touched rows
+  __shared__ int nhit;
+  const int nw = (nrows + 31) / 32;
+  if (!dense) {
+    for (int w = threadIdx.x; w < nw; w += kThreads) sh.bitmap[w] = 0u;
+  }
+  if (threadIdx.x == 0) nhit = 0;
+  __syncthreads();
+  const int64_t S = a.Bp * a.L;
+  const int64_t mbase = static_cast<int64_t>(c) * S;
+  const int32_t cap = __ldg(a.caps + c);
+  // note one slot: a sparse item's touched row, and the hit while kCompact
+  // hold the hits (in wcnt, in any order)
+  auto note = [&](int32_t id, int64_t slot) {
+    const int r = item_row(id, cap, wk.local_lo, nrows);
+    if (r >= 0) {
+      if (!dense) atomicOr(sh.bitmap + (r >> 5), 1u << (r & 31));
+      const int at = atomicAdd(&nhit, 1);
+      if (at < kCompact) sh.wcnt[at] = static_cast<int>(slot);
+    }
+  };
+  const int32_t* mids = a.ids + mbase;
+  if (S % 4 == 0 && reinterpret_cast<uintptr_t>(mids) % 16 == 0) {
+    const int4* ids4 = reinterpret_cast<const int4*>(mids);
+    constexpr int kVec = kLoads / 4;
+    for (int64_t q0 = threadIdx.x; q0 < S / 4; q0 += kThreads * kVec) {
+      int4 v[kVec];
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const int64_t q = q0 + k * kThreads;
+        v[k] = q < S / 4 ? __ldg(ids4 + q) : make_int4(-1, -1, -1, -1);
+      }
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const int64_t s4 = 4 * (q0 + k * kThreads);
+        note(v[k].x, s4);
+        note(v[k].y, s4 + 1);
+        note(v[k].z, s4 + 2);
+        note(v[k].w, s4 + 3);
+      }
+    }
+  } else {
+    for (int64_t s0 = threadIdx.x; s0 < S; s0 += kThreads * kLoads) {
+      int32_t id[kLoads];
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k) {
+        const int64_t s = s0 + k * kThreads;
+        id[k] = s < S ? __ldg(mids + s) : -1;
+      }
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k) note(id[k], s0 + k * kThreads);
+    }
+  }
+  __syncthreads();
+  const int n = nhit;
+  if (!dense) number_words(sh, nw);
+  const int runs_max = min(kMaxKeys, kAccFloats / d);
+  if (n <= kCompact && S <= 2147483647 &&
+      (dense || sh.wpre[nw] <= runs_max)) {
+    // the hits in slot order (each one's rank among them), then one pass
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const int si = sh.wcnt[i];
+      int rank = 0;
+      for (int j = 0; j < n; ++j) rank += sh.wcnt[j] < si;
+      sh.hits[rank] = si;
+    }
+    __syncthreads();
+    const int nk = dense ? nrows : sh.wpre[nw];
+    if (nk > 0) {
+      if (dense) {
+        accumulate<true>(a, sh, c, wk.local_lo, nrows, 0, nrows, 0, nk, n);
+      } else {
+        accumulate<false>(a, sh, c, wk.local_lo, nrows, 0, nrows, 0, nk, n);
+      }
+    }
+    write_out(a, sh, wk.row_lo, 0, nrows, nk > 0 ? (dense ? 1 : 2) : 0, 0);
+    return;
+  }
+  if (dense) {
+    accumulate<true>(a, sh, c, wk.local_lo, nrows, 0, nrows, 0, nrows, -1);
+    write_out(a, sh, wk.row_lo, 0, nrows, 1, 0);
+    return;
+  }
+  // a crowded sparse item: window by window, each a pass over all slots
+  for (int w0 = 0; w0 < nw;) {
+    // the last word w1 whose touched rows since w0 fit the window
+    int lo = w0 + 1, hi = nw;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (sh.wpre[mid] - sh.wpre[w0] <= runs_max) lo = mid; else hi = mid - 1;
+    }
+    const int w1 = lo;
+    const int k0 = sh.wpre[w0];
+    const int nk = sh.wpre[w1] - k0;
+    const int r_lo = w0 * 32, r_hi = min(w1 * 32, nrows);
+    if (nk > 0) {
+      accumulate<false>(a, sh, c, wk.local_lo, nrows, r_lo, r_hi, k0, nk,
+                        -1);
+    }
+    write_out(a, sh, wk.row_lo, r_lo, r_hi, nk > 0 ? 2 : 0, k0);
+    __syncthreads();
+    w0 = w1;
   }
 }
 
 }  // namespace
 
-// One group.  keys/order: the stable sort of the slots' destination rows
-// (key_bytes 4: int32, 8: int64; order int64), missing slots keyed R; out:
-// [R, d] f32, zero-filled by the caller.  Returns the launch's cudaError_t.
-extern "C" int rt_pooled_gather_grad_f32(
-    const void* g, const void* ids, const void* weights, const void* caps,
-    const void* codes, const void* weighted, const void* keys,
-    const void* order, void* out, int64_t N, int64_t R, int64_t C,
-    int64_t Bp, int64_t L, int64_t d, int64_t gs, int64_t key_bytes,
-    void* stream) {
-  if (N == 0 || R == 0 || d == 0) return 0;
-  if (C > 2147483647 || Bp > 2147483647 || L > 2147483647 ||
-      d > 2147483647 || L < 1 || gs < 0 ||
-      (key_bytes != 4 && key_bytes != 8) ||
-      (key_bytes == 4 && R > 2147483647)) {
+// Launch X1b over n <= kMaxGroups groups described by the host array
+// `groups` (X1bGroup records) and the device array `work` of n_work Work
+// records, a block each (ops/lookup_gather.py::x1b_plan).  Returns the
+// launch's cudaError_t.
+extern "C" int rt_pooled_gather_grad_f32(const void* groups, int64_t n,
+                                         const void* work, int64_t n_work,
+                                         void* stream) {
+  if (n < 1 || n > kMaxGroups || n_work < 0 || n_work > 2147483647) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  X1bLaunch batch = {};
+  const X1bGroup* src = static_cast<const X1bGroup*>(groups);
+  for (int64_t i = 0; i < n; ++i) {
+    batch.g[i] = src[i];
+    const int64_t d = src[i].d;
+    if (d < 1 || d > kAccFloats || src[i].L < 1 || src[i].gs < 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  batch.n = static_cast<int32_t>(n);
+  if (n_work == 0) return 0;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (kSmemBytes > static_cast<size_t>(optin)) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  Group a{static_cast<const float*>(g), static_cast<const int32_t*>(ids),
-          static_cast<const float*>(weights),
-          static_cast<const int32_t*>(caps),
-          static_cast<const int32_t*>(codes),
-          static_cast<const uint8_t*>(weighted),
-          keys,
-          static_cast<const int64_t*>(order), static_cast<float*>(out), N, R,
-          gs, static_cast<int>(C), static_cast<int>(Bp), static_cast<int>(L),
-          static_cast<int>(d)};
-  int lanes = 1;
-  while (lanes < d && lanes < 32) lanes *= 2;
-  const int64_t blocks = (N * lanes + kThreads - 1) / kThreads;
-  if (blocks > 2147483647) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wide = key_bytes == 8;
-  switch (lanes) {
-    case 1: launch<1>(a, wide, blocks, s); break;
-    case 2: launch<2>(a, wide, blocks, s); break;
-    case 4: launch<4>(a, wide, blocks, s); break;
-    case 8: launch<8>(a, wide, blocks, s); break;
-    case 16: launch<16>(a, wide, blocks, s); break;
-    default: launch<32>(a, wide, blocks, s); break;
-  }
+  err = cudaFuncSetAttribute(pooled_gather_grad_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pooled_gather_grad_kernel<<<static_cast<unsigned>(n_work), kThreads,
+                              kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      batch, static_cast<const Work*>(work));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel's constants the host plans with, in the order of
+// ops/lookup_gather.py::X1B_LIMITS: kMaxGroups, kMaxKeys, kAccFloats,
+// kRangeRows, sizeof(X1bGroup), sizeof(Work).
+extern "C" void rt_pooled_gather_grad_limits(int64_t* out) {
+  out[0] = kMaxGroups;
+  out[1] = kMaxKeys;
+  out[2] = kAccFloats;
+  out[3] = kRangeRows;
+  out[4] = sizeof(X1bGroup);
+  out[5] = sizeof(Work);
 }
 
 extern "C" const char* rt_cuda_error_string(int err) {

@@ -64,7 +64,7 @@ KERNELS = {
     "K3b": ("onehot_grad", "rt_onehot_bucketize_grad_f32",
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "X1b": ("pooled_gather_grad", "rt_pooled_gather_grad_f32",
-            [_P] * 9 + [_I] * 8 + [_P]),
+            [_P, _I, _P, _I, _P]),
 }
 
 launches: Dict[str, int] = {kid: 0 for kid in KERNELS}

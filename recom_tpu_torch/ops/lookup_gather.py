@@ -27,7 +27,8 @@ member times 0, as the reference does: the two agree with ``==`` while
 no member's row 0 holds NaN or inf (csrc/pooled_gather.cu says why).
 
 Gradient (training): ``groups_pooled`` is differentiable in each group's
-table.  X1b (``group_pooled_grad``, csrc/pooled_gather_grad.cu) is the
+table.  X1b (``groups_pooled_grad``, one launch for every group of a
+backward; csrc/pooled_gather_grad.cu) is the
 transpose of the reference's arithmetic, each step rounded on its own: the
 pooled cotangent scaled as the combiner divided (times the rounded
 reciprocal, or divided, by the bag's denominator; 0 where it is not > 0),
@@ -41,8 +42,10 @@ slots.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import struct
+import weakref
 from typing import List, Optional
 
 import numpy as np
@@ -356,7 +359,8 @@ def groups_pooled(groups) -> List[torch.Tensor]:
     row_offsets, combiner_code[, weights, weighted_cols, vocab_caps]), all
     on one device.  CPU tensors take the plain version; on CUDA one launch
     of kernel X1 serves up to X1_MAX_GROUPS groups.  Differentiable in
-    each table (backward: ``group_pooled_grad`` per group)."""
+    each table (backward: ``groups_pooled_grad``, one launch of X1b for
+    every group)."""
     groups = [tuple(g) for g in groups]
     for g in groups:
         _check_group(g[0], g[1], g[4] if len(g) > 4 else None)
@@ -479,18 +483,264 @@ def group_pooled_grad_plain(
     return out.index_add_(0, rows, contrib)
 
 
-def _slot_rows(num_rows: int, ids: torch.Tensor, row_offsets, vocab_caps):
-    """[C * Bp * L] int64: each slot's destination row in the stacked table,
-    ``num_rows`` for a missing slot, in [C, Bp, L] order."""
-    dev = ids.device
-    c = ids.shape[0]
-    if vocab_caps is None:
-        vocab_caps = np.full(c, np.iinfo(np.int32).max, np.int32)
-    caps = as_device(vocab_caps, torch.int32, dev)[:, None, None]
-    offs = as_device(row_offsets, torch.int64, dev)[:, None, None]
-    clamped = torch.minimum(ids, caps)
-    full = torch.full_like(clamped, num_rows, dtype=torch.int64)
-    return torch.where(clamped >= 0, clamped.long() + offs, full).reshape(-1)
+
+
+# The host side of kernel X1b's launch (csrc/pooled_gather_grad.cu): one
+# launch serves up to X1B_MAX_GROUPS groups, each described by one
+# X1B_DESC record (the kernel's struct X1bGroup, field for field), and a
+# device array of work items, a block each, that cut every group's rows
+# (x1b_plan).  The kernel's constants: a dense tile or a sparse window sums
+# at most X1B_MAX_KEYS rows and X1B_ACC_FLOATS floats in shared memory,
+# and a sparse item spans at most X1B_RANGE_ROWS rows (its bitmap).
+X1B_MAX_GROUPS = 8
+X1B_DESC = struct.Struct("<7Q5q")
+X1B_MAX_KEYS = 512
+X1B_ACC_FLOATS = 4096
+X1B_RANGE_ROWS = 32768
+# what rt_pooled_gather_grad_limits reports, in its order (32: the bytes
+# of a work item, the kernel's struct Work)
+X1B_LIMITS = (X1B_MAX_GROUPS, X1B_MAX_KEYS, X1B_ACC_FLOATS, X1B_RANGE_ROWS,
+              X1B_DESC.size, 32)
+
+
+def x1b_tile_rows(d: int) -> int:
+    """Rows of a dense tile (and the touched rows of a sparse window) at
+    row length d: as many as the shared sums hold."""
+    return min(X1B_MAX_KEYS, X1B_ACC_FLOATS // d)
+
+
+def x1b_sparse(extent: int, d: int) -> bool:
+    """Whether a member of ``extent`` rows takes sparse ranges (a large
+    vocab) rather than dense tiles: its rows outnumber one range's bitmap,
+    and a window holds a bitmap word's 32 rows."""
+    return extent > X1B_RANGE_ROWS and x1b_tile_rows(d) >= 32
+
+
+def x1b_plan(num_rows: int, d: int, row_offsets,
+             vocab_caps=None) -> np.ndarray:
+    """X1b's work items for one group's [R, d] gradient: [n, 5] int64 rows
+    (row_lo, local_lo, nrows, member, dense), every row of [0, R) in exactly
+    one item.
+
+    Member c owns its rows [row_offsets[c], row_offsets[c] + caps[c] + 1)
+    (without caps: up to the next member's offset, or R), where its clamped
+    ids land; raises ValueError where two members' rows overlap or a
+    member's run past R.  A member with a small vocab takes dense tiles of
+    ``x1b_tile_rows(d)`` rows; one with a large vocab (``x1b_sparse``)
+    sparse ranges of X1B_RANGE_ROWS rows; rows no member owns, zero items
+    (member -1).  Dense items come first, then sparse, then zero ones."""
+    offs = np.asarray(row_offsets, np.int64).reshape(-1)
+    c = offs.size
+    caps = (np.full(c, np.iinfo(np.int32).max, np.int64) if vocab_caps is None
+            else np.asarray(vocab_caps, np.int64).reshape(-1))
+    if caps.size != c:
+        raise ValueError(f"vocab_caps must have {c} entries, got {caps.size}")
+    tile = x1b_tile_rows(d)
+    dense, sparse, zero = [], [], []
+
+    def zeros(lo, hi):
+        for r in range(lo, hi, X1B_RANGE_ROWS):
+            zero.append((r, 0, min(X1B_RANGE_ROWS, hi - r), -1, 0))
+
+    order = np.argsort(offs, kind="stable")
+    row = 0
+    for k, m in enumerate(order):
+        lo = int(offs[m])
+        end = int(offs[order[k + 1]]) if k + 1 < c else num_rows
+        if lo < row or lo > num_rows:
+            raise ValueError(
+                f"X1b: member {m}'s rows start at {lo}, inside another "
+                f"member's rows or past R = {num_rows}")
+        extent = end - lo
+        if caps[m] < np.iinfo(np.int32).max:
+            if caps[m] + 1 > extent:
+                raise ValueError(
+                    f"X1b: member {m}'s rows [{lo}, {lo + int(caps[m]) + 1})"
+                    f" overlap the next member's or run past R = {num_rows}")
+            extent = max(int(caps[m]) + 1, 0)
+        zeros(row, lo)
+        if x1b_sparse(extent, d):
+            for r in range(0, extent, X1B_RANGE_ROWS):
+                sparse.append((lo + r, r, min(X1B_RANGE_ROWS, extent - r),
+                               m, 0))
+        else:
+            for r in range(0, extent, tile):
+                dense.append((lo + r, r, min(tile, extent - r), m, 1))
+        row = lo + extent
+    zeros(row, num_rows)
+    items = dense + sparse + zero
+    return np.asarray(items, np.int64).reshape(-1, 5)
+
+
+@functools.lru_cache(maxsize=64)
+def _x1b_plan_cached(num_rows, d, offs_bytes, caps_bytes):
+    offs = np.frombuffer(offs_bytes, np.int64)
+    caps = None if caps_bytes is None else np.frombuffer(caps_bytes, np.int64)
+    return x1b_plan(num_rows, d, offs, caps)
+
+
+def x1b_work(plans) -> np.ndarray:
+    """One launch's work items, [n, 4] int64 (the kernel's struct Work):
+    each group's plan (``plans``, in group order), packed as (row_lo,
+    local_lo, nrows, ((member + 1) << 4) | (group << 1) | dense); all
+    groups' sparse items first (long, bound by their writes), then dense,
+    then zero ones, which fill the SMs that the last sparse items leave.
+    (Dense items spread evenly among the sparse ones measured slower on an
+    H100.)"""
+    if not 1 <= len(plans) <= X1B_MAX_GROUPS:
+        raise ValueError(f"1 to {X1B_MAX_GROUPS} groups per launch, got "
+                         f"{len(plans)}")
+    packed, cls = [], []
+    for gi, p in enumerate(plans):
+        kind = ((p[:, 3] + 1) << 4) | (gi << 1) | p[:, 4]
+        packed.append(np.stack([p[:, 0], p[:, 1], p[:, 2], kind], axis=1))
+        cls.append(np.where(p[:, 3] < 0, 2, p[:, 4]))   # sparse 0, dense 1
+    packed = np.concatenate(packed).reshape(-1, 4)
+    return packed[np.argsort(np.concatenate(cls), kind="stable")]
+
+
+@functools.lru_cache(maxsize=64)
+def _x1b_work_on(keys, device) -> torch.Tensor:
+    """The work array of one launch on the card, made once per set of
+    group plans."""
+    work = x1b_work([_x1b_plan_cached(*k) for k in keys])
+    return torch.from_numpy(np.ascontiguousarray(work)).to(device)
+
+
+_host_copies: dict = {}
+
+
+def _host_array(x) -> Optional[np.ndarray]:
+    """A per-column argument's values on the host.  A device tensor is
+    copied once and the copy kept while the tensor lives and is not
+    changed in place (its version counter), so a backward over the Engine's
+    constants reads them from the card only the first time."""
+    if x is None or not isinstance(x, torch.Tensor):
+        return None if x is None else np.asarray(x)
+    if x.device.type == "cpu":
+        return x.numpy()
+    try:
+        version = x._version
+    except RuntimeError:            # an inference tensor: not tracked
+        return x.cpu().numpy()
+    key = id(x)
+    hit = _host_copies.get(key)
+    if hit is not None and hit[0] == version:
+        return hit[1]
+    arr = x.cpu().numpy()
+    if hit is None:
+        weakref.finalize(x, _host_copies.pop, key, None)
+    _host_copies[key] = (version, arr)
+    return arr
+
+
+@functools.lru_cache(maxsize=None)
+def _x1b_library() -> None:
+    """Load X1b's library and check, once, that its constants and record
+    sizes are the ones this module plans with."""
+    lib = kernels.library("pooled_gather_grad")
+    got = (ctypes.c_int64 * len(X1B_LIMITS))()
+    lib.rt_pooled_gather_grad_limits(got)
+    for name, want, have in zip(
+            ("groups", "keys", "acc floats", "range rows", "X1bGroup size",
+             "Work size"), X1B_LIMITS, got):
+        if want != have:
+            raise RuntimeError(f"csrc/pooled_gather_grad.cu's {name} is "
+                               f"{have}, ops/lookup_gather.py plans with "
+                               f"{want}")
+
+
+def _x1b_check(g, num_rows, ids, row_offsets, combiner_code, weights=None,
+               weighted_cols=None, vocab_caps=None):
+    """One group's arguments, checked: (g, batch stride) as the kernel
+    reads it, and the rest as given."""
+    from recom_tpu_torch.ops.lookup_onehot import cotangent_rows
+
+    if ids.dtype != torch.int32 or ids.dim() != 3:
+        raise ValueError(f"ids must be int32 [C, Bp, L], got {ids.dtype} "
+                         f"{tuple(ids.shape)}")
+    c, bp, l = ids.shape
+    d = g.shape[2] if g.dim() == 3 else -1
+    g, gs = cotangent_rows(g, bp, c, d)
+    if ids.device != g.device:
+        raise ValueError(f"ids must be int32 on {g.device}")
+    if weights is not None and (weights.dtype != torch.float32 or
+                                tuple(weights.shape) != (c, bp, l) or
+                                weights.device != g.device):
+        raise ValueError(f"weights must be f32 {(c, bp, l)} on {g.device}")
+    return (g, gs, int(num_rows), ids, row_offsets, combiner_code, weights,
+            weighted_cols, vocab_caps)
+
+
+def _x1b_group(gi_args, out=None):
+    """One group's X1B_DESC record, its plan key, its output (``out``, or a
+    new one), and the tensors its pointers refer to (held until the launch
+    is queued)."""
+    (g, gs, num_rows, ids, row_offsets, combiner_code, weights,
+     weighted_cols, vocab_caps) = gi_args
+    c, bp, l = ids.shape
+    d = g.shape[2]
+    if d > X1B_ACC_FLOATS:
+        raise ValueError(f"X1b takes rows of at most {X1B_ACC_FLOATS} "
+                         f"floats, got d={d}")
+    dev = g.device
+    _, caps, codes, wcols = _column_args(c, dev, row_offsets, combiner_code,
+                                         weights, weighted_cols, vocab_caps)
+    ids = ids.contiguous()
+    weights = None if weights is None else weights.contiguous()
+    offs = np.ascontiguousarray(_host_array(row_offsets), np.int64)
+    caps_h = _host_array(vocab_caps)
+    key = (num_rows, d, offs.tobytes(),
+           None if caps_h is None else
+           np.ascontiguousarray(caps_h, np.int64).tobytes())
+    if out is None:
+        out = torch.empty((num_rows, d), dtype=torch.float32, device=dev)
+    elif (out.dtype != torch.float32 or tuple(out.shape) != (num_rows, d)
+          or out.device != dev or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous f32 {(num_rows, d)} on "
+                         f"{dev}")
+    desc = X1B_DESC.pack(
+        g.data_ptr(), ids.data_ptr(),
+        0 if weights is None else weights.data_ptr(), caps.data_ptr(),
+        codes.data_ptr(), wcols.data_ptr(), out.data_ptr(), gs, c, bp, l, d,
+    )
+    return desc, key, out, (g, ids, weights, caps, codes, wcols)
+
+
+def groups_pooled_grad(groups, out=None) -> List[torch.Tensor]:
+    """d(table) [R, d] f32 of several groups: one argument tuple of
+    ``group_pooled_grad`` per group, (g, num_rows, ids, row_offsets,
+    combiner_code[, weights, weighted_cols, vocab_caps]), all on one
+    device.  CPU tensors take the plain version; on CUDA one launch of
+    kernel X1b serves up to X1B_MAX_GROUPS groups, with no sort and no fill:
+    the kernel writes every element once, into ``out`` (one [R, d] tensor a
+    group) where given."""
+    checked = [_x1b_check(*grp) for grp in groups]
+    if not checked:
+        return []
+    dev = checked[0][0].device
+    if any(a[0].device != dev for a in checked):
+        raise ValueError("groups on more than one device")
+    if dev.type == "cpu":
+        got = [group_pooled_grad_plain(a[0], *a[2:]) for a in checked]
+        if out is not None:
+            for o, x in zip(out, got):
+                o.copy_(x)
+            return list(out)
+        return got
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _x1b_library()
+    outs = []
+    for i in range(0, len(checked), X1B_MAX_GROUPS):
+        made = [_x1b_group(a, None if out is None else out[i + k])
+                for k, a in enumerate(checked[i: i + X1B_MAX_GROUPS])]
+        work = _x1b_work_on(tuple(k for _, k, _, _ in made), dev)
+        kernels.launch("X1b", b"".join(m[0] for m in made), len(made),
+                       work.data_ptr(), work.shape[0],
+                       kernels.stream_of(checked[i][0]))
+        outs += [o for _, _, o, _ in made]
+    return outs
 
 
 def group_pooled_grad(
@@ -507,48 +757,15 @@ def group_pooled_grad(
     combiner_code, weights, weighted_cols, vocab_caps)`` for the cotangent
     g [Bp, C, d]: dense, as the reference's cotangent is, with +0.0 in
     every row no slot touches.  CPU tensors take the plain version; CUDA
-    tensors launch kernel X1b after a stable sort of the slots' rows."""
-    from recom_tpu_torch.ops.lookup_onehot import cotangent_rows
-
-    c, bp, l = ids.shape
-    d = g.shape[2] if g.dim() == 3 else -1
-    g, gs = cotangent_rows(g, bp, c, d)
-    if ids.dtype != torch.int32 or ids.device != g.device:
-        raise ValueError(f"ids must be int32 on {g.device}")
-    if weights is not None and (weights.dtype != torch.float32 or
-                                tuple(weights.shape) != (c, bp, l) or
-                                weights.device != g.device):
-        raise ValueError(f"weights must be f32 {(c, bp, l)} on {g.device}")
-    if g.device.type == "cpu":
-        return group_pooled_grad_plain(g, num_rows, ids, row_offsets,
-                                       combiner_code, weights, weighted_cols,
-                                       vocab_caps)
-    if g.device.type != "cuda":
-        raise ValueError(f"unsupported device {g.device}")
-    offs, caps, codes, wcols = _column_args(c, g.device, row_offsets,
-                                            combiner_code, weights,
-                                            weighted_cols, vocab_caps)
-    ids = ids.contiguous()
-    weights = None if weights is None else weights.contiguous()
-    keys = _slot_rows(num_rows, ids, offs, caps)
-    if num_rows < 2**31:
-        keys = keys.int()       # a radix sort of half the passes
-    keys, order = torch.sort(keys, stable=True)
-    out = torch.zeros((num_rows, d), dtype=torch.float32, device=g.device)
-    kernels.launch(
-        "X1b", kernels.ptr(g), kernels.ptr(ids), kernels.ptr(weights),
-        kernels.ptr(caps), kernels.ptr(codes), kernels.ptr(wcols),
-        kernels.ptr(keys), kernels.ptr(order), kernels.ptr(out),
-        keys.numel(), num_rows, c, bp, l, d, gs, keys.element_size(),
-        kernels.stream_of(g),
-    )
-    return out
+    tensors launch kernel X1b (``groups_pooled_grad``)."""
+    return groups_pooled_grad([(g, num_rows, ids, row_offsets, combiner_code,
+                                weights, weighted_cols, vocab_caps)])[0]
 
 
 class _GroupsPooled(torch.autograd.Function):
-    """X1 forward (one launch for every group), X1b backward (one launch a
-    group).  Saves the groups' ids, weights and per-column arguments, not
-    their outputs."""
+    """X1 forward and X1b backward, each one launch for every group (the
+    backward skips groups whose table needs no gradient).  Saves the
+    groups' ids, weights and per-column arguments, not their outputs."""
 
     @staticmethod
     def forward(ctx, groups, *tables):
@@ -558,9 +775,10 @@ class _GroupsPooled(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        out = [None]
-        for i, (grp, gr) in enumerate(zip(ctx.groups, grads)):
-            need = ctx.needs_input_grad[1 + i]
-            out.append(group_pooled_grad(gr, *grp) if need and gr is not None
-                       else None)
+        need = [i for i, gr in enumerate(grads)
+                if ctx.needs_input_grad[1 + i] and gr is not None]
+        got = groups_pooled_grad([(grads[i],) + ctx.groups[i] for i in need])
+        out = [None] * (1 + len(grads))
+        for i, gr in zip(need, got):
+            out[1 + i] = gr
         return tuple(out)

@@ -55,6 +55,15 @@ def _act(name: Optional[str], x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown activation {name}")
 
 
+def folds_emb_perm(tower, total_emb_dim: int) -> bool:
+    """Whether the model-order embedding permutation folds into the first
+    top matmul's rows: only for an MLP tower with top layers and some
+    embedding width (recom_tpu/runtime/executor.py:163-167).  An identity
+    tower (no top layers) and an order-sensitive tower such as
+    ``dlrm_dot`` keep the explicit permutation."""
+    return tower.arch == "mlp" and bool(tower.top_mlp) and total_emb_dim > 0
+
+
 def mlp_apply(layers, x, activation: str, final_activation):
     """Dense layers in full f32 (the Engine turns TF32 off)."""
     for i, layer in enumerate(layers):
@@ -107,14 +116,18 @@ class Engine:
         self.model, self.pass_report = run_passes(model, cfg)
         self.compiled: CompiledModel = lower_model(self.model, cfg)
         self._check_slice()
-        self._fold_emb_perm = (
-            bool(self.model.tower.top_mlp) and self.compiled.total_emb_dim > 0
-        )
+        self._fold_emb_perm = folds_emb_perm(self.model.tower,
+                                             self.compiled.total_emb_dim)
         self._wire = bool(cfg.wire_pack)
 
         np_params = params if params is not None else init_model_params(model)
         self.device_params = self._build_device_params(np_params)
         self._consts = self._build_group_consts()
+        # the model-order permutation of the grouped embeddings, on the
+        # device once (_model_order)
+        self._emb_perm = torch.as_tensor(self.compiled.emb_perm,
+                                         dtype=torch.int64,
+                                         device=self.device)
         self._rowlen_hints: Dict[int, int] = {}
         self._programs = set()      # (signature, mode) keys served
         self._programs_lock = threading.Lock()
@@ -308,9 +321,7 @@ class Engine:
     def _model_order(self, grouped: torch.Tensor) -> torch.Tensor:
         if grouped.shape[1] == 0:
             return grouped
-        perm = torch.as_tensor(self.compiled.emb_perm, dtype=torch.int64,
-                               device=grouped.device)
-        return grouped.index_select(1, perm)
+        return grouped.index_select(1, self._emb_perm)
 
     def _tower_forward(self, dense, emb, logits_only: bool = False):
         """emb: GROUPED order when _fold_emb_perm, else model order.

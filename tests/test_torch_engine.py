@@ -212,3 +212,62 @@ def test_mini_model_e_on_card_matches_oracle_and_launches_kernels():
         np.testing.assert_array_equal(out["pooled"][col], r, err_msg=col)
     np.testing.assert_allclose(out["output"], ref["output"], rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,top,folds", [("mlp", (16, 1), True),
+                                            ("dlrm_dot", (16, 1), False),
+                                            ("mlp", (), False)])
+def test_emb_perm_folds_only_into_an_mlp_tower(arch, top, folds):
+    """The reference's rule (recom_tpu/runtime/executor.py:163-167): the
+    permutation folds into an MLP tower with top layers, never into the
+    order-sensitive dlrm_dot tower or an identity tower."""
+    from recom_tpu_torch.runtime.executor import folds_emb_perm
+
+    tower = ts.TowerSpec(arch=arch, bottom_mlp=(8,), top_mlp=top)
+    assert folds_emb_perm(tower, 40) is folds
+    assert folds_emb_perm(tower, 0) is False
+    if arch == "mlp":
+        tm = t_make_dlrm(*MINI_E, name="mini", large_rows=20_000)
+        tm.tower = tower
+        assert Engine(tm, device="cpu")._fold_emb_perm is folds
+
+
+def test_return_concat_builds_its_permutation_once(monkeypatch):
+    """``_model_order`` reads the Engine's device copy of emb_perm: no
+    index tensor is built from numpy per forward, and the concat stays
+    what it was (== the JAX engine on model E at scale 0.02, == the
+    oracle on micro-1000, whose identity tower always takes
+    _model_order)."""
+    from recom_tpu.models.synthetic import make_microbenchmark_model as j_micro
+    from recom_tpu.models.synthetic import make_model_e as j_model_e
+    from recom_tpu_torch.models import make_model_e as t_model_e
+    from recom_tpu_torch.models.synthetic import (
+        make_microbenchmark_model as t_micro,
+    )
+
+    real = torch.as_tensor
+    for jm, tm, seed in ((j_model_e(scale=0.02), t_model_e(scale=0.02), 3),
+                         (j_micro(1000, random_boundary=True, seed=0),
+                          t_micro(1000, random_boundary=True, seed=0), 4)):
+        batch = make_random_batch(jm, 33, seed=seed)
+        jeng = JEngine(jm, JConfig())
+        params = export_params(jeng)
+        eng = Engine(tm, EngineConfig(), params=params, device="cpu")
+        perm = eng.compiled.emb_perm
+        built = []
+
+        def counting(x, *a, **k):
+            if x is perm:
+                built.append(1)
+            return real(x, *a, **k)
+
+        monkeypatch.setattr(torch, "as_tensor", counting)
+        outs = [eng.predict(batch, return_concat=True) for _ in range(2)]
+        monkeypatch.setattr(torch, "as_tensor", real)
+        assert built == []
+        np.testing.assert_array_equal(outs[0]["concat"], outs[1]["concat"])
+        if tm.tower.top_mlp:
+            want = jeng.predict(batch, return_concat=True)["concat"]
+        else:
+            want = OracleModel(jm, params).forward(batch)["concat"]
+        np.testing.assert_array_equal(outs[0]["concat"], want)

@@ -299,3 +299,247 @@ def test_x1b_kernel_matches_plain_on_card(cuda, d, l, weighted):
     got = [tg.group_pooled_grad(*dev) for _ in range(2)]
     torch.cuda.synchronize()
     assert _equal_bits(got[0], want) and _equal_bits(got[1], want)
+
+
+# ---------------------------------------------------------------------------
+# X1b's host side: the work plan, the launch records, one call a backward
+# ---------------------------------------------------------------------------
+
+
+def _plan_rows(plan, num_rows):
+    """How many items cover each row of [0, R)."""
+    cover = np.zeros(num_rows, np.int64)
+    for row_lo, _, nrows, _, _ in plan:
+        cover[row_lo: row_lo + nrows] += 1
+    return cover
+
+
+@pytest.mark.parametrize("vocab,d,caps_less", [
+    ([10_000] * 3, 8, 0),                       # model E's small groups
+    ([1 << 20, 1 << 19], 32, 0),                # large vocabs
+    ([300, 200_000, 150_000, 90_000], 8, 0),    # both classes in a group
+    ([40, 33_000, 7], 3, 2),                    # caps below the vocab: gaps
+    ([70_000], 512, 0),                         # d past a window's words
+])
+def test_x1b_plan_covers_every_row_once(vocab, d, caps_less):
+    vocab = np.asarray(vocab, np.int64)
+    offs = np.concatenate([[0], np.cumsum(vocab)[:-1]])
+    caps = vocab - 1 - caps_less
+    r = int(vocab.sum()) + 5                    # rows past the last member
+    plan = tg.x1b_plan(r, d, offs, caps)
+    assert (_plan_rows(plan, r) == 1).all()
+    tile = tg.x1b_tile_rows(d)
+    for row_lo, local_lo, nrows, member, dense in plan:
+        if member < 0:
+            assert nrows <= tg.X1B_RANGE_ROWS
+            continue
+        assert row_lo == offs[member] + local_lo
+        assert local_lo + nrows <= caps[member] + 1
+        sparse = tg.x1b_sparse(int(caps[member]) + 1, d)
+        assert bool(dense) != sparse
+        assert nrows <= (tg.X1B_RANGE_ROWS if sparse else tile)
+    kinds = plan[:, 4][plan[:, 3] >= 0]
+    small = (caps + 1 <= tg.X1B_RANGE_ROWS) | (tile < 32)
+    assert (kinds == 1).sum() == sum(-(-int(c + 1) // tile)
+                                     for c, s in zip(caps, small) if s)
+
+
+@pytest.mark.parametrize("offs,caps,r", [
+    ([0, 40], [50, 10], 100),        # member 0's rows run into member 1's
+    ([0, 0], [9, 9], 100),           # two members at one offset
+    ([0, 60], [9, 50], 100),         # the last member runs past R
+    ([0, 120], [9, 9], 100),         # a member starts past R
+])
+def test_x1b_plan_raises_on_overlapping_members(offs, caps, r):
+    with pytest.raises(ValueError, match="X1b"):
+        tg.x1b_plan(r, 8, offs, caps)
+
+
+def test_x1b_work_packs_every_group_sparse_first():
+    plans = [tg.x1b_plan(300_000, 8, [0, 100], [99, 299_899]),
+             tg.x1b_plan(50, 3, [0, 20], [9, 9])]
+    work = tg.x1b_work(plans)
+    assert work.shape == (sum(len(p) for p in plans), 4)
+    kind = work[:, 3]
+    member, group, dense = (kind >> 4) - 1, (kind >> 1) & 7, kind & 1
+    cls = np.where(member < 0, 2, np.where(dense == 1, 1, 0))
+    assert (np.diff(cls) >= 0).all()            # sparse, dense, then zero
+    assert set(cls) == {0, 1, 2}
+    for gi, p in enumerate(plans):
+        mine = work[group == gi]
+        assert sorted(map(tuple, mine[:, :3])) == sorted(map(tuple, p[:, :3]))
+    with pytest.raises(ValueError, match="groups per launch"):
+        tg.x1b_work(plans * 5)
+
+
+def _x1b_groups(seed):
+    """Three groups as a backward sees them: model E's kinds at small
+    sizes (a MEAN group of one id a bag, a SUM list group, and a group
+    whose large-vocab members take sparse ranges, one with every slot in
+    one range), with their cotangents."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for c, vocab, d, l, code, weighted in (
+            (5, [300] * 5, 8, 1, 1, False), (3, [500] * 3, 8, 6, 0, True),
+            (3, [40_000, 70_000, 50], 4, 3, 0, False)):
+        vocab = np.asarray(vocab, np.int64)
+        offs = np.concatenate([[0], np.cumsum(vocab)[:-1]]).astype(np.int32)
+        bp = 40
+        ids = np.stack([rng.integers(-2, v + 3, (bp, l)) for v in vocab])
+        ids = ids.astype(np.int32)
+        if len(vocab) == 3 and vocab[0] > 1000:
+            ids[0] = rng.integers(0, 100, (bp, l))      # all in one range
+        w = rng.uniform(0.1, 2.0, (c, bp, l)).astype(np.float32)
+        g = rng.standard_normal((bp, c, d)).astype(np.float32)
+        out.append(dict(
+            g=torch.from_numpy(g), rows=int(vocab.sum()),
+            ids=torch.from_numpy(ids), offs=offs,
+            codes=np.full(c, code, np.int32),
+            w=torch.from_numpy(w) if weighted else None,
+            wc=np.full(c, weighted), caps=(vocab - 1).astype(np.int32)))
+    return out
+
+
+def _x1b_args(x):
+    return (x["g"], x["rows"], x["ids"], x["offs"], x["codes"], x["w"],
+            x["wc"], x["caps"])
+
+
+def test_groups_pooled_grad_matches_plain_and_jax():
+    """All groups of a backward in one call equal each group's plain
+    version, and the JAX VJP of the one-id group exactly."""
+    groups = _x1b_groups(11)
+    got = tg.groups_pooled_grad([_x1b_args(x) for x in groups])
+    for x, gr in zip(groups, got):
+        want = tg.group_pooled_grad_plain(*_x1b_args(x))
+        np.testing.assert_array_equal(gr.numpy(), want.numpy())
+    x = groups[0]
+    clamped = np.minimum(x["ids"].numpy(), x["caps"][:, None, None])
+
+    def f(t):
+        return lookup_xla.group_pooled(
+            t, jnp.asarray(clamped.transpose(1, 0, 2)), x["offs"],
+            x["codes"], None, exact_math=True, weighted_cols=x["wc"])
+
+    table = np.zeros((x["rows"], 8), np.float32)
+    _, vjp = jax.vjp(f, jnp.asarray(table))
+    (want,) = vjp(jnp.asarray(x["g"].numpy()))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
+    outs = [torch.full((x["rows"], x["g"].shape[2]), float("nan"))
+            for x in groups]
+    back = tg.groups_pooled_grad([_x1b_args(x) for x in groups], out=outs)
+    assert all(b is o for b, o in zip(back, outs))
+    for b, gr in zip(back, got):
+        np.testing.assert_array_equal(b.numpy(), gr.numpy())
+
+
+def test_x1b_descriptors_describe_each_group():
+    """The X1B_DESC record of a group holds its pointers and sizes, its
+    plan key the group's constants (the plan made once per key)."""
+    x = _x1b_groups(12)[1]
+    checked = tg._x1b_check(*_x1b_args(x))
+    desc, key, out, keep = tg._x1b_group(checked)
+    f = tg.X1B_DESC.unpack(desc)
+    g, ids, w, caps, codes, wcols, o = f[:7]
+    assert (g, ids, w, o) == (x["g"].data_ptr(), x["ids"].data_ptr(),
+                              x["w"].data_ptr(), out.data_ptr())
+    assert (caps, codes, wcols) == tuple(t.data_ptr() for t in keep[3:])
+    assert f[7:] == (x["g"].stride(0), 3, 40, 6, 8)
+    assert tuple(out.shape) == (x["rows"], 8)
+    assert key[:2] == (x["rows"], 8)
+    plan = tg._x1b_plan_cached(*key)
+    assert plan is tg._x1b_plan_cached(*key)
+    np.testing.assert_array_equal(plan, tg.x1b_plan(x["rows"], 8, x["offs"],
+                                                    x["caps"]))
+
+
+def test_groups_pooled_backward_is_one_call(monkeypatch):
+    """Autograd through groups_pooled calls the X1b wrapper once for all
+    groups whose tables need a gradient (one launch on the card)."""
+    groups = _x1b_groups(13)
+    calls = []
+    real = tg.groups_pooled_grad
+
+    def spy(entries, out=None):
+        calls.append(len(entries))
+        return real(entries, out)
+
+    monkeypatch.setattr(tg, "groups_pooled_grad", spy)
+    tables = [torch.zeros((x["rows"], x["g"].shape[2]),
+                          requires_grad=i != 1)
+              for i, x in enumerate(groups)]
+    outs = tg.groups_pooled([(t, x["ids"], x["offs"], x["codes"], x["w"],
+                              x["wc"], x["caps"])
+                             for t, x in zip(tables, groups)])
+    loss = sum((o * x["g"]).sum() for o, x in zip(outs, groups))
+    loss.backward()
+    assert calls == [2]
+    assert tables[1].grad is None
+    for t, x in ((tables[0], groups[0]), (tables[2], groups[2])):
+        np.testing.assert_array_equal(
+            t.grad.numpy(), tg.group_pooled_grad_plain(*_x1b_args(x)).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,weighted,crowded", [(8, False, False),
+                                                (32, True, False),
+                                                (3, True, False),
+                                                (8, False, True)])
+def test_x1b_classes_into_nan_outputs_on_card(cuda, d, weighted, crowded):
+    """Small- and large-vocab members in one group (slots spanning every
+    range, in one range, a hot row), or a range crowded past a window: the
+    kernel writes every element of a NaN-filled output, twice the same
+    bits, == the plain version."""
+    g, r, ids, offs, caps, codes, w, wc = chip_smoke.x1b_class_case(
+        d, seed=d + 100 * crowded, weighted=weighted, crowded=crowded)
+    args = [torch.from_numpy(g), r, torch.from_numpy(ids), offs, codes,
+            None if w is None else torch.from_numpy(w), wc, caps]
+    want = tg.group_pooled_grad(*args)
+    dev = [x.to(cuda) if isinstance(x, torch.Tensor) else x for x in args]
+    outs = [torch.full((r, d), float("nan"), device=cuda) for _ in range(2)]
+    before = kernels.launches["X1b"]
+    got = [tg.groups_pooled_grad([dev], out=[o])[0] for o in outs]
+    torch.cuda.synchronize()
+    assert kernels.launches["X1b"] == before + 2
+    assert all(gr is o for gr, o in zip(got, outs))
+    assert _equal_bits(got[0], want) and _equal_bits(got[1], want)
+
+
+@pytest.mark.cuda
+def test_x1b_one_launch_for_every_group_on_card(cuda):
+    groups = _x1b_groups(14)
+    want = [tg.group_pooled_grad_plain(*_x1b_args(x)) for x in groups]
+    dev = [tuple(a.to(cuda) if isinstance(a, torch.Tensor) else a
+                 for a in _x1b_args(x)) for x in groups]
+    before = kernels.launches["X1b"]
+    got = tg.groups_pooled_grad(dev)
+    torch.cuda.synchronize()
+    assert kernels.launches["X1b"] == before + 1
+    for gr, w in zip(got, want):
+        assert _equal_bits(gr, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 8, 32])
+@pytest.mark.parametrize("kernel", ["K3a", "K3b"])
+def test_k3_edge_shapes_on_card(cuda, kernel, d):
+    """C = 45, not a multiple of the columns an item takes; Bp = 700, past
+    a stage of the ring."""
+    b = 700
+    g = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (b, 45, d)).astype(np.float32))
+    if kernel == "K3a":
+        t3, ids, caps = chip_smoke.k1_edge_case(45, 101, d, b, seed=d,
+                                                specials=False)
+        a = [g, torch.from_numpy(ids), torch.from_numpy(caps)]
+        fn = lambda *x: tk.onehot_lookup_grad(*x, *t3.shape[:2])
+    else:
+        bmat, cnts, t3, raw = chip_smoke.k2_edge_case(45, 128, d, b, seed=d)
+        a = [g, torch.from_numpy(raw),
+             *map(torch.from_numpy, tk.bucket_bounds(bmat, cnts, 128,
+                                                     t3.shape[0]))]
+        fn = tk.onehot_bucketize_lookup_grad
+    want = fn(*a)
+    got = [fn(*(x.to(cuda) for x in a)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _equal_bits(got[0], want) and _equal_bits(got[1], want)
