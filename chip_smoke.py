@@ -8,6 +8,11 @@ Run from the repository root, with no arguments:
 It builds the port's CUDA kernels from recom_tpu_torch/csrc/ and serves,
 through ``Engine(..., device="cuda")``, random weights from a seed:
 
+* the post-lookup (PostPool) models: tests/test_postlookup.py's three
+  (reduce_sum, affine, reduce_mean; softmax and mul_column with a hidden
+  operand across groups; a matmul chain) and one with every post op and
+  hidden operands in a one-hot and a gather group, each also trained one
+  step;
 * full-size model E (1000 embedding columns, five 2^23 x 32 tables) with
   the default ``EngineConfig()`` (kernels K1, X1, X2) and with
   ``host_bucketize=False`` (its 880 bucketize columns bucketized on the
@@ -27,6 +32,16 @@ optimizer=dlrm_optimizer())`` on the card:
   (``make_dlrm_model(880, 0, 0, 0, 0, 32, [32], [1024, 1024, 128])``) with
   ``host_bucketize=False`` (forward K2, backward K3b), three steps.
 
+Last, the Criteo DLRM (``make_criteo_dlrm()``: 26 columns at d = 64, 1.90
+GB of tables, a ``dlrm_dot`` tower) at full width, on batches shaped as
+``read_criteo_tsv`` gives them (``criteo_batch``: each cat id a uniform
+32-bit token, spread by HashBucket over its whole vocab; the ints
+log(1 + x)): served at batch 512 and 2048 (K1 once for each of its five
+one-hot groups, X1 once), its
+four kernels held against their plain versions and timed at batch 2048,
+and trained (backward K3a once a one-hot group, X1b once), a step at 512
+and four at 2048.
+
 It checks:
 
 1. each forward kernel (K1 one-id lookup, K2 fused bucketize + lookup, X1
@@ -35,9 +50,10 @@ It checks:
    shapes its path gives it at batch 2048 (K2 also on planes holding NaN,
    +-inf, -0.0 and exact boundary values, and on ragged tiles with d in
    {1, 3, 8, 32}, V_pad 128 / 256 / 384 and edge boundary sets; K1 also on
-   ragged tiles, d in {1, 3, 8, 32}, missing and out-of-range ids and -0.0
-   / NaN rows; X1 also on d in {1, 3, 8, 32} x L in {1, 2, 12, 33},
-   all-missing and zero-weight bags, -0.0 / NaN / +-inf rows; X2 also on
+   ragged tiles, d in {1, 3, 8, 32, 64}, V_pad 128 and 2304, missing and
+   out-of-range ids and -0.0 / NaN rows; X1 also on d in {1, 3, 8, 32, 64}
+   x L in {1, 2, 12, 33}, all-missing and zero-weight bags, -0.0 / NaN /
+   +-inf rows; X2 also on
    512-byte rows with more than L = 128 pieces, delimiters first, last,
    everywhere and >= 0x80, odd itemsizes, every FarmHash length and bucket
    counts 1 .. 2^31): exact equality (``==``, so +0 == -0, with NaN where
@@ -48,13 +64,14 @@ It checks:
    +-0.0 and exact boundaries; X1b also into outputs filled with NaN, so
    that every element must be written) and on edge inputs (K3a: C not a
    multiple of the columns an item takes, Bp past a stage and past a pass,
-   V_pad 384, d 1 to 32; K3b: K2's 12 edge planes, and Bp past a stage;
-   X1b: d in {1, 3, 8, 32} x L in {1, 2, 12, 33}, weighted MEAN / SQRTN,
-   all-missing and zero-weight bags, ids at and past caps, and groups that
-   mix small-vocab members (dense tiles) with large-vocab ones (sparse
-   ranges), one with all its slots in one range, one hot row, one range
-   crowded past a window): two runs give the same bits, equal to the plain
-   version on CPU copies (``index_add_`` in slot order), and within 1e-5
+   V_pad 384 and 2304, d 1 to 64; K3b: K2's 12 edge planes, and Bp past a
+   stage; X1b: d in {1, 3, 8, 32, 64} x L in {1, 2, 12, 33}, weighted MEAN
+   / SQRTN, all-missing and zero-weight bags, ids at and past caps, and
+   groups that mix small-vocab members (dense tiles) with large-vocab ones
+   (sparse ranges), one with all its slots in one range, one hot row, one
+   range crowded past a window, at d 3, 8, 32 and 64): two runs give the
+   same bits, equal to the plain version on CPU copies (``index_add_`` in
+   slot order), and within 1e-5
    of the terms' magnitudes of the plain version on the card (whose
    ``index_add_`` adds with atomics);
 3. for every kernel, its time (warm, and with L2 flushed before each call),
@@ -63,25 +80,34 @@ It checks:
    for the backward kernels ``torch.zeros`` + ``index_add_`` of
    precomputed contributions), and the least time the card could take (X2:
    bytes, or integer operations counted from this batch's pieces over the
-   INT32 rate, whichever is larger); X1b also per class of member (the
-   small-vocab groups alone, the large-vocab group alone);
+   INT32 rate, whichever is larger); X1b also per class of member (model
+   E: the small-vocab groups alone, the large-vocab group alone; Criteo:
+   its one gather group with no ids, with only its members of <= 32768
+   rows, with only the larger ones);
 4. that each ``predict`` and training step went through its path's
    kernels and no other (model E: one launch of X1 a predict; a training
    step K1 1, X1 1, X2 3, K3a 1 and X1b 1; the bucketize path K2 1 and K3b
-   1 a step): the launch counts are zeroed just before and read just
-   after;
-5. pooled outputs of all 1000 columns against the port's NumPy oracle
-   exactly, and the model output at rtol 1e-4 / atol 1e-5 (model E) or
-   exactly (the microbenchmark's identity tower); the first training
-   step's loss against the masked BCE of the oracle's logits at rtol 1e-4,
-   finite losses falling on a fixed batch, and ``predict`` serving the
-   updated params;
+   1 a step; Criteo: K1 5 and X1 1 a predict, and K3a 5 and X1b 1 more a
+   step; each PostPool model: K1 a one-hot group, X1 once, X2 a group of
+   strings hashed on the card, and K3a and X1b to match a step): the
+   launch counts are zeroed just before and read just after;
+5. pooled outputs of every column against the port's NumPy oracle
+   exactly, and the model output at rtol 1e-4 / atol 1e-5 (model E,
+   Criteo), at rtol 1e-5 / atol 1e-6 with the concat at rtol 1e-6 / atol
+   1e-6 (the PostPool models) or exactly (the microbenchmark's identity
+   tower); the first training step's loss against the masked BCE of the
+   oracle's logits at rtol 1e-4, finite losses falling on a fixed batch,
+   ``predict`` serving the updated params, and the PostPool models'
+   training step against the same step on the CPU (pooled outputs'
+   cotangents and tower gradients within 1e-5, table gradients equal to
+   the bit to the CPU's backward of the card's cotangents);
 6. median ``predict`` latency of each path, ``Engine.benchmark``'s step
    time on the microbenchmark, and the median training step time with its
    forward / backward / optimizer split (CUDA events) and peak memory.
 
-The last lines of stdout are one JSON object for the kernels, the card's
-name and power limit as nvidia-smi reports them, and ``{"ok": true,
+The last lines of stdout are one JSON object for the kernels (each also
+under ``criteo`` where the Criteo DLRM's path runs it), the card's name
+and power limit as nvidia-smi reports them, and ``{"ok": true,
 "device": {...}}``.  Any failed check raises: the script then exits non-zero
 and prints no result.  Without a CUDA device it exits non-zero at once.
 """
@@ -376,10 +402,25 @@ def k1_edge_case(c: int, v: int, d: int, b: int, seed: int,
     return t3, ids, caps
 
 
-# X1's edge shapes: row lengths off (1, 3) and on (8, 32) the float4 path,
-# and bag lengths 1 (its own path), 2, 12 (model E's lists) and 33 (past
-# four chunks of 8)
-X1_EDGE_D = (1, 3, 8, 32)
+# K1's edge shapes (C, V, Bp, d): tiles that do not divide C and Bp, d off
+# (1, 3) and on (8, 32, 64) the float4 path, model E's 930 columns, and
+# the Criteo DLRM's d = 64 at its largest one-hot vocab (2209, V_pad 2304)
+K1_EDGES = ((45, 101, 100, 1), (45, 101, 100, 3), (45, 101, 100, 8),
+            (45, 101, 100, 32), (45, 101, 100, 64), (930, 101, 2000, 8),
+            (9, 2209, 700, 64))
+
+# K3a's edge shapes (C, V, Bp, d): C not a multiple of the columns an item
+# takes; Bp past a stage of its ring (700; at d = 64 a stage is 120 batch
+# rows) and past a pass (2000, 5000; at d = 64 a pass is 960 rows); V_pad
+# 384 and the Criteo DLRM's 2304 at d = 64, 36 items a column
+K3A_EDGES = ((45, 300, 100, 1), (45, 300, 100, 3), (45, 300, 100, 32),
+             (45, 300, 700, 8), (930, 300, 2000, 8), (9, 300, 5000, 8),
+             (45, 300, 700, 64), (9, 2209, 2048, 64))
+
+# X1's edge shapes: row lengths off (1, 3) and on (8, 32, 64) the float4
+# path (64: the Criteo DLRM's, 16 lanes a bag), and bag lengths 1 (its own
+# path), 2, 12 (model E's lists) and 33 (past four chunks of 8)
+X1_EDGE_D = (1, 3, 8, 32, 64)
 X1_EDGE_L = (1, 2, 12, 33)
 
 
@@ -422,6 +463,13 @@ def x1_edge_case(d: int, l: int, seed: int, specials: bool = True):
     weights[:, 9] = 0.0                             # zero-weight bags
     wcols = np.asarray([True, False, True, False, True, False])
     return table, ids, offs, caps, codes, weights, wcols
+
+
+# X1b's class cases (d, weighted, crowded); at d = 64 (the Criteo DLRM's) a
+# dense tile and a window are 64 rows
+X1B_CLASS_CASES = ((8, False, False), (32, True, False), (3, True, False),
+                   (8, False, True), (64, False, False), (64, True, False),
+                   (64, False, True))
 
 
 def x1b_class_case(d: int, seed: int, weighted: bool, crowded: bool = False):
@@ -517,6 +565,168 @@ KERNEL_META = {
 }
 
 
+def k1_call(torch, eng, g, ids, bp: int):
+    """K1's record for one-hot group ``g`` of ``eng`` on its [C, Bp, 1]
+    ids: the kernel, its plain version, the library yardstick
+    (``F.embedding`` over the flattened table3, missing ids pointed at a
+    zero padding plane) and the bound (ids, caps, the distinct rows
+    selected and the output, each once)."""
+    import torch.nn.functional as F
+
+    from recom_tpu_torch.ops.lookup_onehot import (
+        onehot_lookup,
+        onehot_lookup_plain,
+    )
+
+    dev = ids.device
+    c = eng._consts[g.gid]
+    table = eng.device_params["stacked"][str(g.gid)]
+    ids2 = ids[:, :, 0].contiguous()
+    caps = c["caps"]
+    cc, v, d = g.num_columns, table.shape[1], table.shape[2]
+    zero_row = (table.shape[0] - 1) * v
+    require(table.shape[0] > cc and bool((table[-1] == 0).all()),
+            "zero padding plane")
+    clamped = torch.minimum(ids2, caps[:, None]).long()
+    flat = torch.where(
+        clamped >= 0,
+        clamped + torch.arange(cc, device=dev)[:, None] * v,
+        torch.full_like(clamped, zero_row),
+    ).T.contiguous()
+    t2 = table.reshape(-1, d)
+    valid = clamped >= 0
+    uniq = torch.unique(flat[valid.T]).numel()
+    nbytes = ids2.numel() * 4 + cc * 4 + uniq * d * 4 + bp * cc * d * 4
+    return dict(
+        group=g.gid, kern=lambda: onehot_lookup(table, ids2, caps),
+        plain=lambda: onehot_lookup_plain(table, ids2, caps),
+        lib=lambda: F.embedding(flat, t2), bound=bound_ms(nbytes),
+        shape=f"ids [{cc}, {bp}], V_pad {v} -> [{bp}, {cc}, {d}]",
+    )
+
+
+def x1_member(torch, eng, g, ids, weights, bp: int):
+    """One gather group's share of X1's launch: its arguments, plain
+    version, library yardstick (``F.embedding_bag`` with per-sample
+    weights, missing slots at weight 0), bytes (ids, weights, the distinct
+    rows read and the output, each once) and operations."""
+    import torch.nn.functional as F
+
+    from recom_tpu_torch.ops.lookup_gather import group_pooled_plain
+
+    c = eng._consts[g.gid]
+    table = eng.device_params["stacked"][str(g.gid)]
+    args = (table, ids, c["row_offsets"], c["codes"], weights,
+            c["weighted"], c["caps"])
+    cc, _, ll = ids.shape
+    d = table.shape[1]
+    clamped = torch.minimum(ids, c["caps"][:, None, None]).long()
+    valid = clamped >= 0
+    rows = clamped + c["row_offsets"].long()[:, None, None]
+    safe = torch.where(valid, rows, torch.zeros_like(rows))
+    w = valid.float() if weights is None else weights * valid
+    bag_in = safe.permute(1, 0, 2).reshape(bp * cc, ll).contiguous()
+    bag_w = w.permute(1, 0, 2).reshape(bp * cc, ll).contiguous()
+    nvalid = int(valid.sum())
+    uniq = torch.unique(rows[valid]).numel()
+    nbytes = (ids.numel() * 4 + uniq * d * 4 + bp * cc * d * 4
+              + (0 if weights is None else weights.numel() * 4))
+    return dict(
+        group=g.gid, args=args,
+        plain=lambda: group_pooled_plain(
+            table, ids, g.row_offsets, g.combiner_code, weights,
+            g.weighted_cols, g.vocab_caps),
+        lib=lambda: F.embedding_bag(bag_in, table, mode="sum",
+                                    per_sample_weights=bag_w),
+        nbytes=nbytes, flops=2.0 * nvalid * d,
+        shape=f"ids [{cc}, {bp}, {ll}], table [{table.shape[0]}, {d}] -> "
+        f"[{bp}, {cc}, {d}]",
+    )
+
+
+def x1_call(members):
+    """X1's record: one launch for every gather group in ``members``."""
+    from recom_tpu_torch.ops.lookup_gather import groups_pooled
+
+    args = [x["args"] for x in members]
+    return dict(
+        group="+".join(str(x["group"]) for x in members),
+        kern=lambda: groups_pooled(args),
+        plain=lambda: [x["plain"]() for x in members],
+        lib=lambda: [x["lib"]() for x in members],
+        bound=bound_ms(sum(x["nbytes"] for x in members),
+                       sum(x["flops"] for x in members)),
+        shape="; ".join(x["shape"] for x in members),
+    )
+
+
+def measure_forward(torch, calls):
+    """Each forward kernel's records (``calls``: {kernel id: [record]}) held
+    against their plain versions on the card (exactly; as bits for K1 and
+    K2) and the library yardstick, then timed: warm, cold L2, host-paced,
+    plain and library.  Returns {kernel id: summed results}."""
+    results = {}
+    as_list = lambda x: x if isinstance(x, list) else [x]
+    with torch.inference_mode():
+        for kid, recs in calls.items():
+            require(bool(recs), f"no main-path call of {kid}")
+            err = 0.0
+            tot = dict(ms=0.0, cold_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                       library_ms=0.0)
+            bound_by = {"bytes": 0.0, "operations": 0.0}
+            for r in recs:
+                outs, wants = as_list(r["kern"]()), as_list(r["plain"]())
+                torch.cuda.synchronize()
+                require(len(outs) == len(wants), f"{kid}: output count")
+                for a, b in zip(outs, wants):
+                    require(a.shape == b.shape and a.dtype == b.dtype,
+                            f"{kid} group {r['group']}: shape/dtype mismatch")
+                    e = float((a.double() - b.double()).abs().max()) \
+                        if a.numel() else 0.0
+                    require(bool((a == b).all()),
+                            f"{kid} group {r['group']}: kernel != plain "
+                            f"(max abs err {e})")
+                    if kid in ("K1", "K2"):
+                        require(bool((a.view(torch.int32)
+                                      == b.view(torch.int32)).all()),
+                                f"{kid}: kernel != plain as bits")
+                    err = max(err, e)
+                ms = time_ms(torch, r["kern"])
+                cold = time_cold_ms(torch, r["kern"])
+                paced = time_ms(torch, r["kern"], queued=False)
+                pms = time_ms(torch, r["plain"], iters=5, warmup=1)
+                lms = None
+                if r["lib"] is not None:
+                    for ref, a in zip(as_list(r["lib"]()), outs):
+                        require(torch.allclose(ref.reshape(a.shape), a,
+                                               rtol=1e-5, atol=1e-6),
+                                f"{kid} group {r['group']}: library "
+                                "yardstick computes another function")
+                    lms = time_ms(torch, r["lib"])
+                    tot["library_ms"] += lms
+                bms, by = r["bound"]
+                bound_by[by] += bms
+                tot["ms"] += ms
+                tot["cold_ms"] += cold
+                tot["plain_ms"] += pms
+                tot["bound_ms"] += bms
+                log(f"{kid} group {r['group']} ({r['shape']}): kernel "
+                    f"{ms:.4f} ms warm, {cold:.4f} ms cold L2 (host-paced "
+                    f"{paced:.4f} ms), plain {pms:.4f} ms, library "
+                    f"{'-' if lms is None else f'{lms:.4f} ms'}, bound "
+                    f"{bms:.4f} ms ({by}), exact")
+            log(f"{kid} summed over {len(recs)} launch(es): kernel "
+                f"{tot['ms']:.4f} ms warm, {tot['cold_ms']:.4f} ms cold, "
+                f"bound {tot['bound_ms']:.4f} ms (share of bound, cold: "
+                f"{tot['bound_ms'] / tot['cold_ms']:.0%})")
+            has_lib = any(r["lib"] is not None for r in recs)
+            results[kid] = dict(
+                err=err, bound_by=max(bound_by, key=bound_by.get),
+                lib=tot["library_ms"] if has_lib else None, **tot,
+            )
+    return results
+
+
 def serve_phases(torch, model, np_params, int_rate: float):
     """Phases 2-6: serve model E and micro-1000, hold the forward kernels
     against their plain versions, and time them.  Returns the kernels'
@@ -524,7 +734,6 @@ def serve_phases(torch, model, np_params, int_rate: float):
     forward of the 512 batch and the two model E batches; the engines are
     freed when it returns."""
     import numpy as np
-    import torch.nn.functional as F
 
     from recom_tpu_torch import EngineConfig
     from recom_tpu_torch.models import make_random_batch
@@ -592,66 +801,11 @@ def serve_phases(torch, model, np_params, int_rate: float):
     calls = {"K1": [], "K2": [], "X1": [], "X2": []}   # per-call records
     x1_groups = []          # model E's gather groups, one launch of X1
     for g, packed in zip(eng.compiled.groups, arrays["groups"]):
-        c = eng._consts[g.gid]
-        table = eng.device_params["stacked"][str(g.gid)]
         ids, weights = eng.group_ids(g, packed)
         if g.pallas_vocab is not None:
-            ids2 = ids[:, :, 0].contiguous()
-            caps = c["caps"]
-            kern = lambda a=(table, ids2, caps): onehot_lookup(*a)
-            plain = lambda a=(table, ids2, caps): onehot_lookup_plain(*a)
-            # yardstick: F.embedding over the flattened table3, missing ids
-            # pointed at a zero padding plane
-            cc, v, d = g.num_columns, table.shape[1], table.shape[2]
-            zero_row = (table.shape[0] - 1) * v
-            require(table.shape[0] > cc and
-                    bool((table[-1] == 0).all()), "zero padding plane")
-            clamped = torch.minimum(ids2, caps[:, None]).long()
-            flat = torch.where(
-                clamped >= 0,
-                clamped + torch.arange(cc, device=dev)[:, None] * v,
-                torch.full_like(clamped, zero_row),
-            ).T.contiguous()
-            t2 = table.reshape(-1, d)
-            lib = lambda a=(flat, t2): F.embedding(*a)
-            valid = clamped >= 0
-            uniq = torch.unique(flat[valid.T]).numel()
-            nbytes = ids2.numel() * 4 + cc * 4 + uniq * d * 4 + bp * cc * d * 4
-            calls["K1"].append(dict(
-                group=g.gid, kern=kern, plain=plain, lib=lib,
-                bound=bound_ms(nbytes), shape=f"ids [{cc}, {bp}] -> "
-                f"[{bp}, {cc}, {d}]",
-            ))
+            calls["K1"].append(k1_call(torch, eng, g, ids, bp))
         else:
-            args = (table, ids, c["row_offsets"], c["codes"], weights,
-                    c["weighted"], c["caps"])
-            plain = lambda table=table, ids=ids, weights=weights, g=g: (
-                group_pooled_plain(table, ids, g.row_offsets,
-                                   g.combiner_code, weights,
-                                   g.weighted_cols, g.vocab_caps))
-            cc, _, ll = ids.shape
-            d = table.shape[1]
-            clamped = torch.minimum(ids, c["caps"][:, None, None]).long()
-            valid = clamped >= 0
-            rows = clamped + c["row_offsets"].long()[:, None, None]
-            safe = torch.where(valid, rows, torch.zeros_like(rows))
-            w = valid.float() if weights is None else weights * valid
-            bag_in = safe.permute(1, 0, 2).reshape(bp * cc, ll).contiguous()
-            bag_w = w.permute(1, 0, 2).reshape(bp * cc, ll).contiguous()
-            lib = lambda table=table, bag_in=bag_in, bag_w=bag_w: (
-                F.embedding_bag(bag_in, table, mode="sum",
-                                per_sample_weights=bag_w))
-            nvalid = int(valid.sum())
-            uniq = torch.unique(rows[valid]).numel()
-            nbytes = (ids.numel() * 4 + uniq * d * 4 + bp * cc * d * 4
-                      + (0 if weights is None else weights.numel() * 4))
-            x1_groups.append(dict(
-                group=g.gid, args=args, plain=plain, lib=lib,
-                bound=bound_ms(nbytes, 2.0 * nvalid * d),
-                nbytes=nbytes, flops=2.0 * nvalid * d,
-                shape=f"ids [{cc}, {bp}, {ll}], table [{table.shape[0]}, "
-                f"{d}] -> [{bp}, {cc}, {d}]",
-            ))
+            x1_groups.append(x1_member(torch, eng, g, ids, weights, bp))
         gi = g.gid
         ws, wd = wsig[gi]
         p = plans[gi]
@@ -682,16 +836,7 @@ def serve_phases(torch, model, np_params, int_rate: float):
             ))
 
     # X1's one launch serves every gather group of the path
-    x1_args = [x["args"] for x in x1_groups]
-    calls["X1"].append(dict(
-        group="+".join(str(x["group"]) for x in x1_groups),
-        kern=lambda: groups_pooled(x1_args),
-        plain=lambda: [x["plain"]() for x in x1_groups],
-        lib=lambda: [x["lib"]() for x in x1_groups],
-        bound=bound_ms(sum(x["nbytes"] for x in x1_groups),
-                       sum(x["flops"] for x in x1_groups)),
-        shape="; ".join(x["shape"] for x in x1_groups),
-    ))
+    calls["X1"].append(x1_call(x1_groups))
 
     # K1 and X2 on their edge inputs (exact, as bits for K1)
     with torch.inference_mode():
@@ -711,19 +856,19 @@ def serve_phases(torch, model, np_params, int_rate: float):
                     f"X2 edge case ({case['name']}): kernel != plain")
             log(f"X2 edge case ({case['name']}; width bucket {case['wbk']}, "
                 f"itemsizes {case['widths'].tolist()}): kernel == plain")
-        for cc, bb, d in ((45, 100, 1), (45, 100, 3), (45, 100, 8),
-                          (45, 100, 32), (930, 2000, 8)):
-            t3, ids_np, caps_np = k1_edge_case(cc, 101, d, bb, seed=d)
+        for cc, v, bb, d in K1_EDGES:
+            t3, ids_np, caps_np = k1_edge_case(cc, v, d, bb, seed=d)
             a = (torch.from_numpy(t3).to(dev), torch.from_numpy(ids_np).to(dev),
                  torch.from_numpy(caps_np).to(dev))
             got, want = onehot_lookup(*a), onehot_lookup_plain(*a)
             torch.cuda.synchronize()
             require(got.shape == want.shape == (bb, cc, d) and bool(
                 (got.view(torch.int32) == want.view(torch.int32)).all()),
-                f"K1 edge case C={cc} Bp={bb} d={d}: kernel != plain")
-            log(f"K1 edge case C={cc} Bp={bb} d={d} (an all-missing column, "
-                "ids past caps and below -1, -0.0 and NaN rows): kernel == "
-                "plain bit for bit")
+                f"K1 edge case C={cc} V_pad={t3.shape[1]} Bp={bb} d={d}: "
+                "kernel != plain")
+        log(f"K1 edge cases ((C, V, Bp, d) in {K1_EDGES}: ragged tiles, V_pad "
+            "128 and 2304, an all-missing column, ids past caps and below "
+            "-1, -0.0 and NaN rows): kernel == plain bit for bit")
         # X1: every (d, L) pair, unweighted and weighted, through launches
         # of 8 groups each (float and float4 rows, 1 to 32 lanes a bag,
         # mixed in one launch); == with NaN where the plain version has it
@@ -844,65 +989,7 @@ def serve_phases(torch, model, np_params, int_rate: float):
             shape=f"raw [{cc}, {bp_mb}], V_pad {v} -> [{bp_mb}, {cc}, {d}]",
         ))
 
-    results = {}
-    as_list = lambda x: x if isinstance(x, list) else [x]
-    with torch.inference_mode():
-        for kid, recs in calls.items():
-            require(bool(recs), f"no main-path call of {kid}")
-            err = 0.0
-            tot = dict(ms=0.0, cold_ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                       library_ms=0.0)
-            bound_by = {"bytes": 0.0, "operations": 0.0}
-            for r in recs:
-                outs, wants = as_list(r["kern"]()), as_list(r["plain"]())
-                torch.cuda.synchronize()
-                require(len(outs) == len(wants), f"{kid}: output count")
-                for a, b in zip(outs, wants):
-                    require(a.shape == b.shape and a.dtype == b.dtype,
-                            f"{kid} group {r['group']}: shape/dtype mismatch")
-                    e = float((a.double() - b.double()).abs().max()) \
-                        if a.numel() else 0.0
-                    require(bool((a == b).all()),
-                            f"{kid} group {r['group']}: kernel != plain "
-                            f"(max abs err {e})")
-                    if kid in ("K1", "K2"):
-                        require(bool((a.view(torch.int32)
-                                      == b.view(torch.int32)).all()),
-                                f"{kid}: kernel != plain as bits")
-                    err = max(err, e)
-                ms = time_ms(torch, r["kern"])
-                cold = time_cold_ms(torch, r["kern"])
-                paced = time_ms(torch, r["kern"], queued=False)
-                pms = time_ms(torch, r["plain"], iters=5, warmup=1)
-                lms = None
-                if r["lib"] is not None:
-                    for ref, a in zip(as_list(r["lib"]()), outs):
-                        require(torch.allclose(ref.reshape(a.shape), a,
-                                               rtol=1e-5, atol=1e-6),
-                                f"{kid} group {r['group']}: library "
-                                "yardstick computes another function")
-                    lms = time_ms(torch, r["lib"])
-                    tot["library_ms"] += lms
-                bms, by = r["bound"]
-                bound_by[by] += bms
-                tot["ms"] += ms
-                tot["cold_ms"] += cold
-                tot["plain_ms"] += pms
-                tot["bound_ms"] += bms
-                log(f"{kid} group {r['group']} ({r['shape']}): kernel "
-                    f"{ms:.4f} ms warm, {cold:.4f} ms cold L2 (host-paced "
-                    f"{paced:.4f} ms), plain {pms:.4f} ms, library "
-                    f"{'-' if lms is None else f'{lms:.4f} ms'}, bound "
-                    f"{bms:.4f} ms ({by}), exact")
-            log(f"{kid} summed over {len(recs)} launch(es): kernel "
-                f"{tot['ms']:.4f} ms warm, {tot['cold_ms']:.4f} ms cold, "
-                f"bound {tot['bound_ms']:.4f} ms (share of bound, cold: "
-                f"{tot['bound_ms'] / tot['cold_ms']:.0%})")
-            has_lib = any(r["lib"] is not None for r in recs)
-            results[kid] = dict(
-                err=err, bound_by=max(bound_by, key=bound_by.get),
-                lib=tot["library_ms"] if has_lib else None, **tot,
-            )
+    results = measure_forward(torch, calls)
 
     # ---- phase 3: the main path, counted --------------------------------
     batch_small = make_random_batch(model, 512, seed=2)
@@ -1031,6 +1118,99 @@ def _on_cpu(torch, x):
     return x
 
 
+def backward_calls(torch, eng, arrays, bp: int, cotangent):
+    """The backward kernels' records for ``eng``'s groups on one unpacked
+    batch: K3a for each one-hot group (the batch's ids, with missing ids
+    and ids past each cap added), X1b one launch for every gather group
+    (its second run into outputs filled with NaN), each with a random
+    cotangent ``cotangent(bp, C, d)``, the terms' magnitudes, the library
+    yardstick (``torch.zeros`` + ``index_add_`` of precomputed
+    contributions) and the bound (cotangent, ids and the whole gradient,
+    each once).  Returns {"K3a": [...], "X1b": [...]}."""
+    from recom_tpu_torch.ops.lookup_gather import (
+        group_pooled_grad_plain,
+        groups_pooled_grad,
+        slot_contributions,
+    )
+    from recom_tpu_torch.ops.lookup_onehot import (
+        onehot_lookup_grad,
+        onehot_lookup_grad_plain,
+    )
+
+    dev = torch.device("cuda")
+    recs = {"K3a": [], "X1b": []}
+    x1b = []                # the gather groups: X1b's one launch
+    for g, packed in zip(eng.compiled.groups, arrays["groups"]):
+        c = eng._consts[g.gid]
+        table = eng.device_params["stacked"][str(g.gid)]
+        ids, weights = eng.group_ids(g, packed)
+        cot = cotangent(bp, g.num_columns, g.dim)
+        if g.pallas_vocab is not None:
+            # the batch's ids, with missing ids and ids past each cap
+            ids2 = ids[:, :, 0].clone()
+            ids2[:, ::17] = -1
+            ids2[:, 5::19] = c["caps"][:, None] + 3
+            c_pad, v = table.shape[0], table.shape[1]
+            a = (cot, ids2, c["caps"], c_pad, v)
+            clamped = torch.minimum(ids2, c["caps"][:, None])
+            valid = clamped >= 0
+            cols = torch.arange(g.num_columns, device=dev)[:, None] * v
+            flat = (cols + clamped.long())[valid]
+            src = cot.transpose(0, 1)[valid]
+            nbytes = (cot.numel() + ids2.numel() + g.num_columns
+                      + table.numel()) * 4
+            recs["K3a"].append(dict(
+                what=f"K3a group {g.gid}", fn=onehot_lookup_grad,
+                plain=onehot_lookup_grad_plain, args=a,
+                mag_args=(cot.abs(),) + a[1:],
+                lib=lambda n=table.numel() // g.dim, d=g.dim, f=flat,
+                s=src: torch.zeros((n, d), device=dev).index_add_(0, f, s),
+                bound=bound_ms(nbytes, float(src.numel())),
+                shape=f"g [{bp}, {g.num_columns}, {g.dim}] -> "
+                f"[{c_pad}, {v}, {g.dim}]",
+            ))
+            continue
+        r = table.shape[0]
+        cols = (c["row_offsets"], c["codes"])
+        tail = (c["weighted"], c["caps"])
+        rows, contrib = slot_contributions(cot, ids, *cols, weights,
+                                           *tail)
+        nbytes = (r * g.dim + cot.numel() + ids.numel() + 4 * g.num_columns
+                  + (0 if weights is None else weights.numel())) * 4
+        x1b.append(dict(
+            gid=g.gid, args=(cot, r, ids) + cols + (weights,) + tail,
+            mag=(cot.abs(), r, ids) + cols + (
+                None if weights is None else weights.abs(),) + tail,
+            lib=lambda r=r, d=g.dim, i=rows, s=contrib: torch.zeros(
+                (r, d), device=dev).index_add_(0, i, s),
+            nbytes=nbytes, flops=2.0 * contrib.numel(),
+            large=r * g.dim > (1 << 27),
+            shape=f"group {g.gid}: g [{bp}, {g.num_columns}, {g.dim}], "
+            f"ids {list(ids.shape)} -> [{r}, {g.dim}]",
+        ))
+    # X1b: every gather group in one launch, the second run into
+    # outputs filled with NaN
+    entries = [x["args"] for x in x1b]
+    recs["X1b"].append(dict(
+        what="X1b groups " + "+".join(str(x["gid"]) for x in x1b),
+        fn=lambda *e: groups_pooled_grad(e),
+        plain=lambda *e: [group_pooled_grad_plain(*a) for a in e],
+        args=tuple(entries), mag_args=tuple(x["mag"] for x in x1b),
+        into=lambda e: groups_pooled_grad(e, out=[torch.full(
+            (a[1], a[0].shape[2]), float("nan"), device=dev) for a in e]),
+        lib=lambda: [x["lib"]() for x in x1b],
+        bound=bound_ms(sum(x["nbytes"] for x in x1b),
+                       sum(x["flops"] for x in x1b)),
+        classes=[(name, xs) for name, xs in (
+            ("small-vocab groups (dense tiles)",
+             [x for x in x1b if not x["large"]]),
+            ("large-vocab groups (sparse ranges)",
+             [x for x in x1b if x["large"]])) if xs],
+        shape="; ".join(x["shape"] for x in x1b),
+    ))
+    return recs
+
+
 def check_backward(torch, what: str, fn, plain, args, mag_args,
                    into=None) -> float:
     """A backward kernel's wrapper ``fn`` on the card (one output, or a
@@ -1068,6 +1248,60 @@ def check_backward(torch, what: str, fn, plain, args, mag_args,
     return max((float(e.max()) for e in errs if e.numel()), default=0.0)
 
 
+def measure_backward(torch, recs):
+    """Each backward kernel's records (``recs``: {kernel id: [record]})
+    checked by ``check_backward``, then timed: warm, cold L2, plain and
+    library; X1b also per class of member where a record has classes.
+    Returns {kernel id: summed results}."""
+    results = {}
+    for kid, rs in recs.items():
+        require(bool(rs), f"no main-path call of {kid}")
+        tot = dict(err=0.0, ms=0.0, cold_ms=0.0, plain_ms=0.0,
+                   bound_ms=0.0, lib=0.0)
+        bound_by = {"bytes": 0.0, "operations": 0.0}
+        for r in rs:
+            err = check_backward(torch, r["what"], r["fn"], r["plain"],
+                                 r["args"], r["mag_args"], r.get("into"))
+            kern = lambda r=r: r["fn"](*r["args"])
+            ms = time_ms(torch, kern)
+            cold = time_cold_ms(torch, kern)
+            pms = time_ms(torch, lambda r=r: r["plain"](*r["args"]),
+                          iters=5, warmup=1)
+            lms = time_ms(torch, r["lib"])
+            bms, by = r["bound"]
+            bound_by[by] += bms
+            for k, v in (("ms", ms), ("cold_ms", cold), ("plain_ms", pms),
+                         ("bound_ms", bms), ("lib", lms)):
+                tot[k] += v
+            tot["err"] = max(tot["err"], err)
+            log(f"{r['what']} ({r['shape']}): kernel {ms:.4f} ms warm, "
+                f"{cold:.4f} ms cold L2, plain {pms:.4f} ms, library "
+                f"(torch.zeros + index_add_) {lms:.4f} ms, bound "
+                f"{bms:.4f} ms ({by}); == plain on CPU copies, max abs "
+                f"diff from the card's plain version {err:.3g}")
+            classes = []
+            for name, xs in r.get("classes", ()):
+                args = [x["args"] for x in xs]
+                c_ms = time_ms(torch, lambda a=args: r["fn"](*a))
+                c_lib = time_ms(torch, lambda xs=xs: [x["lib"]()
+                                                      for x in xs])
+                c_bound, _ = bound_ms(sum(x["nbytes"] for x in xs),
+                                      sum(x["flops"] for x in xs))
+                classes.append(dict(name=name, ms=c_ms, bound_ms=c_bound,
+                                    library_ms=c_lib))
+                log(f"  {kid}, {name} alone (one launch): kernel "
+                    f"{c_ms:.4f} ms warm, library {c_lib:.4f} ms, bound "
+                    f"{c_bound:.4f} ms")
+            if classes:
+                tot["classes"] = classes
+        log(f"{kid} summed over {len(rs)} launch(es): kernel "
+            f"{tot['ms']:.4f} ms warm, {tot['cold_ms']:.4f} ms cold, "
+            f"bound {tot['bound_ms']:.4f} ms (share of bound, warm: "
+            f"{tot['bound_ms'] / tot['ms']:.0%})")
+        results[kid] = dict(tot, bound_by=max(bound_by, key=bound_by.get))
+    return results
+
+
 def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     """Phases 7-10: train model E (default config, dlrm_optimizer) and the
     880-column bucketize model (host_bucketize=False) on the card; hold
@@ -1084,7 +1318,6 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
         group_pooled_grad,
         group_pooled_grad_plain,
         groups_pooled_grad,
-        slot_contributions,
     )
     from recom_tpu_torch.ops.lookup_onehot import (
         bucket_bounds,
@@ -1129,80 +1362,12 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
 
     # ---- phase 8: the backward kernels against their plain versions -------
     recs = {"K3a": [], "K3b": [], "X1b": []}
-    x1b = []                # model E's gather groups: X1b's one launch
     with torch.no_grad():
         prep = eng.prepare(batch_big)
         bp = prep.batch_padded
         arrays = unpack_blob(eng.compiled, eng.to_device(prep)["blob"], bp,
                              prep.rowlens, prep.wsig)
-        for g, packed in zip(eng.compiled.groups, arrays["groups"]):
-            c = eng._consts[g.gid]
-            table = eng.device_params["stacked"][str(g.gid)]
-            ids, weights = eng.group_ids(g, packed)
-            cot = cotangent(bp, g.num_columns, g.dim)
-            if g.pallas_vocab is not None:
-                # the batch's ids, with missing ids and ids past each cap
-                ids2 = ids[:, :, 0].clone()
-                ids2[:, ::17] = -1
-                ids2[:, 5::19] = c["caps"][:, None] + 3
-                c_pad, v = table.shape[0], table.shape[1]
-                a = (cot, ids2, c["caps"], c_pad, v)
-                clamped = torch.minimum(ids2, c["caps"][:, None])
-                valid = clamped >= 0
-                cols = torch.arange(g.num_columns, device=dev)[:, None] * v
-                flat = (cols + clamped.long())[valid]
-                src = cot.transpose(0, 1)[valid]
-                nbytes = (cot.numel() + ids2.numel() + g.num_columns
-                          + table.numel()) * 4
-                recs["K3a"].append(dict(
-                    what=f"K3a group {g.gid}", fn=onehot_lookup_grad,
-                    plain=onehot_lookup_grad_plain, args=a,
-                    mag_args=(cot.abs(),) + a[1:],
-                    lib=lambda n=table.numel() // g.dim, d=g.dim, f=flat,
-                    s=src: torch.zeros((n, d), device=dev).index_add_(0, f, s),
-                    bound=bound_ms(nbytes, float(src.numel())),
-                    shape=f"g [{bp}, {g.num_columns}, {g.dim}] -> "
-                    f"[{c_pad}, {v}, {g.dim}]",
-                ))
-                continue
-            r = table.shape[0]
-            cols = (c["row_offsets"], c["codes"])
-            tail = (c["weighted"], c["caps"])
-            rows, contrib = slot_contributions(cot, ids, *cols, weights,
-                                               *tail)
-            nbytes = (r * g.dim + cot.numel() + ids.numel() + 4 * g.num_columns
-                      + (0 if weights is None else weights.numel())) * 4
-            x1b.append(dict(
-                gid=g.gid, args=(cot, r, ids) + cols + (weights,) + tail,
-                mag=(cot.abs(), r, ids) + cols + (
-                    None if weights is None else weights.abs(),) + tail,
-                lib=lambda r=r, d=g.dim, i=rows, s=contrib: torch.zeros(
-                    (r, d), device=dev).index_add_(0, i, s),
-                nbytes=nbytes, flops=2.0 * contrib.numel(),
-                large=r * g.dim > (1 << 27),
-                shape=f"group {g.gid}: g [{bp}, {g.num_columns}, {g.dim}], "
-                f"ids {list(ids.shape)} -> [{r}, {g.dim}]",
-            ))
-        # X1b: every gather group in one launch, the second run into
-        # outputs filled with NaN
-        entries = [x["args"] for x in x1b]
-        recs["X1b"].append(dict(
-            what="X1b groups " + "+".join(str(x["gid"]) for x in x1b),
-            fn=lambda *e: groups_pooled_grad(e),
-            plain=lambda *e: [group_pooled_grad_plain(*a) for a in e],
-            args=tuple(entries), mag_args=tuple(x["mag"] for x in x1b),
-            into=lambda e: groups_pooled_grad(e, out=[torch.full(
-                (a[1], a[0].shape[2]), float("nan"), device=dev) for a in e]),
-            lib=lambda: [x["lib"]() for x in x1b],
-            bound=bound_ms(sum(x["nbytes"] for x in x1b),
-                           sum(x["flops"] for x in x1b)),
-            classes=[(name, [x for x in x1b if x["large"] == big])
-                     for name, big in (("small-vocab groups (dense tiles)",
-                                        False),
-                                       ("large-vocab group (sparse ranges)",
-                                        True))],
-            shape="; ".join(x["shape"] for x in x1b),
-        ))
+        recs.update(backward_calls(torch, eng, arrays, bp, cotangent))
         # K3b: the 880-column group, its raw plane with the special values
         prep_bz = eng_bz.prepare(make_random_batch(bz_model, 2048, seed=4))
         arrays_bz = unpack_blob(eng_bz.compiled,
@@ -1242,19 +1407,18 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
             ))
 
         # edge inputs: == plain on CPU copies, twice the same bits
-        for cc, bb, d in ((45, 100, 1), (45, 100, 3), (45, 100, 32),
-                          (45, 700, 8), (930, 2000, 8), (9, 5000, 8)):
-            t3, ids_np, caps_np = k1_edge_case(cc, 300, d, bb, seed=d,
+        for cc, v, bb, d in K3A_EDGES:
+            t3, ids_np, caps_np = k1_edge_case(cc, v, d, bb, seed=d,
                                                specials=False)
             a = (cotangent(bb, cc, d), torch.from_numpy(ids_np).to(dev),
                  torch.from_numpy(caps_np).to(dev), t3.shape[0], t3.shape[1])
-            check_backward(torch, f"K3a edge C={cc} Bp={bb} d={d}",
-                           onehot_lookup_grad, onehot_lookup_grad_plain, a,
-                           (a[0].abs(),) + a[1:])
-        log("K3a edge cases (C 45 / 930 / 9, not a multiple of the columns "
-            "an item takes; Bp 100 to 5000, past a stage and a pass; V_pad "
-            "384; d 1 / 3 / 8 / 32; an all-missing column, ids past caps and "
-            "below -1): == plain on CPU copies, repeatable bit for bit")
+            check_backward(torch, f"K3a edge C={cc} V_pad={t3.shape[1]} "
+                           f"Bp={bb} d={d}", onehot_lookup_grad,
+                           onehot_lookup_grad_plain, a, (a[0].abs(),) + a[1:])
+        log(f"K3a edge cases ((C, V, Bp, d) in {K3A_EDGES}: C not a multiple "
+            "of the columns an item takes; Bp past a stage and a pass; V_pad "
+            "384 and 2304; an all-missing column, ids past caps and below "
+            "-1): == plain on CPU copies, repeatable bit for bit")
         for v_pad, d, bb in [(v, dd, 100) for v in (128, 256, 384)
                              for dd in (1, 3, 8, 32)] + [(128, 8, 700),
                                                          (384, 3, 700)]:
@@ -1296,8 +1460,7 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
         # both member classes in one group, and a crowded sparse range;
         # the second run into NaN-filled outputs
         n_cls = 0
-        for d, weighted, crowded in ((8, False, False), (32, True, False),
-                                     (3, True, False), (8, False, True)):
+        for d, weighted, crowded in X1B_CLASS_CASES:
             gc_, r, ids_np, offs, caps_np, codes, w_np, wc = x1b_class_case(
                 d, seed=d + 100 * crowded, weighted=weighted, crowded=crowded)
             ids_t = torch.from_numpy(ids_np).to(dev)
@@ -1314,58 +1477,13 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
                     (x[1], x[0].shape[2]), float("nan"), device=dev)
                     for x in e]))
             n_cls += 1
-        log(f"X1b class cases ({n_cls}: small- and large-vocab members in "
-            "one group, slots spanning every range, in one range, a hot "
-            "row, a range crowded past a window; d 3 / 8 / 32): == plain on "
-            "CPU copies, repeatable bit for bit, NaN-filled outputs fully "
-            "written")
+        log(f"X1b class cases ({n_cls}, (d, weighted, crowded) in "
+            f"{X1B_CLASS_CASES}: small- and large-vocab members in one "
+            "group, slots spanning every range, in one range, a hot row, a "
+            "range crowded past a window): == plain on CPU copies, "
+            "repeatable bit for bit, NaN-filled outputs fully written")
 
-        results = {}
-        for kid, rs in recs.items():
-            require(bool(rs), f"no main-path call of {kid}")
-            tot = dict(err=0.0, ms=0.0, cold_ms=0.0, plain_ms=0.0,
-                       bound_ms=0.0, lib=0.0)
-            bound_by = {"bytes": 0.0, "operations": 0.0}
-            for r in rs:
-                err = check_backward(torch, r["what"], r["fn"], r["plain"],
-                                     r["args"], r["mag_args"], r.get("into"))
-                kern = lambda r=r: r["fn"](*r["args"])
-                ms = time_ms(torch, kern)
-                cold = time_cold_ms(torch, kern)
-                pms = time_ms(torch, lambda r=r: r["plain"](*r["args"]),
-                              iters=5, warmup=1)
-                lms = time_ms(torch, r["lib"])
-                bms, by = r["bound"]
-                bound_by[by] += bms
-                for k, v in (("ms", ms), ("cold_ms", cold), ("plain_ms", pms),
-                             ("bound_ms", bms), ("lib", lms)):
-                    tot[k] += v
-                tot["err"] = max(tot["err"], err)
-                log(f"{r['what']} ({r['shape']}): kernel {ms:.4f} ms warm, "
-                    f"{cold:.4f} ms cold L2, plain {pms:.4f} ms, library "
-                    f"(torch.zeros + index_add_) {lms:.4f} ms, bound "
-                    f"{bms:.4f} ms ({by}); == plain on CPU copies, max abs "
-                    f"diff from the card's plain version {err:.3g}")
-                classes = []
-                for name, xs in r.get("classes", ()):
-                    args = [x["args"] for x in xs]
-                    c_ms = time_ms(torch, lambda a=args: r["fn"](*a))
-                    c_lib = time_ms(torch, lambda xs=xs: [x["lib"]()
-                                                          for x in xs])
-                    c_bound, _ = bound_ms(sum(x["nbytes"] for x in xs),
-                                          sum(x["flops"] for x in xs))
-                    classes.append(dict(name=name, ms=c_ms, bound_ms=c_bound,
-                                        library_ms=c_lib))
-                    log(f"  {kid}, {name} alone (one launch): kernel "
-                        f"{c_ms:.4f} ms warm, library {c_lib:.4f} ms, bound "
-                        f"{c_bound:.4f} ms")
-                if classes:
-                    tot["classes"] = classes
-            log(f"{kid} summed over {len(rs)} launch(es): kernel "
-                f"{tot['ms']:.4f} ms warm, {tot['cold_ms']:.4f} ms cold, "
-                f"bound {tot['bound_ms']:.4f} ms (share of bound, warm: "
-                f"{tot['bound_ms'] / tot['ms']:.0%})")
-            results[kid] = dict(tot, bound_by=max(bound_by, key=bound_by.get))
+        results = measure_backward(torch, recs)
         del recs, arrays, arrays_bz
         torch.cuda.empty_cache()
     log(f"peak device memory (the trainers and phase 8's kernel checks): "
@@ -1432,6 +1550,389 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
                 counts_bz=counts_bz)
 
 
+def _with_pooled(tr, batch, labels):
+    """``tr.loss`` (``Trainer.loss``) on one batch, keeping each group's
+    pooled output (the output of its K1 or X1 launch) with ``retain_grad``:
+    (loss, [pooled [Bp, C, d] per group]).  The Engine's
+    ``_embedding_forward`` is wrapped on the instance for this call only."""
+    eng = tr.engine
+    kept = []
+    inner = eng._embedding_forward
+
+    def keep(arrays):
+        grouped, pooled = inner(arrays)
+        for p in pooled:
+            p.retain_grad()
+        kept[:] = pooled
+        return grouped, pooled
+
+    eng._embedding_forward = keep
+    try:
+        loss = tr.loss(eng.prepare(batch), labels)
+    finally:
+        del eng._embedding_forward
+    return loss, kept
+
+
+def step_grads(torch, tr, batch, labels):
+    """One step's backward without the update: (loss, {name: gradient of
+    each param}, [cotangent of each group's pooled output])."""
+    from recom_tpu_torch.train import param_leaves
+
+    tr.optimizer.zero_grad(set_to_none=True)
+    loss, pooled = _with_pooled(tr, batch, labels)
+    loss.backward()
+    names = [f"table {k}" for k in tr.params["stacked"]] + [
+        f"tower {k}[{i}].{wb}" for k, layers in tr.params["tower"].items()
+        for i in range(len(layers)) for wb in ("w", "b")]
+    leaves = param_leaves(tr.params)
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             .detach() for n, p in zip(names, leaves)}
+    cots = [p.grad.detach() for p in pooled]
+    tr.optimizer.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads, cots
+
+
+def grads_close(torch, card, cpu, batch, labels, what: str) -> tuple:
+    """One training step's backward on the card (Trainer ``card``) against
+    the same step on CPU copies (Trainer ``cpu``), in three parts:
+
+    * each group's pooled-output cotangent (the tower and the post-lookup
+      ops' backward, torch ops that sum in other orders on the card) within
+      1e-5 of each element's magnitude plus its column's largest over the
+      batch (no example is hot: they share one tower);
+    * each table's gradient, the backward kernels' work, equal to the bit
+      to the CPU's backward of its pooled outputs with the card's
+      cotangents: every row, small or hot, exact;
+    * the tower's gradients within 1e-5 of each element's magnitude plus
+      the tensor's largest.
+
+    Returns (the card's loss, the CPU's, the largest absolute difference
+    of a cotangent or a tower gradient from the CPU's)."""
+    loss, grads, cots = step_grads(torch, card, batch, labels)
+    want, wgrads, wcots = step_grads(torch, cpu, batch, labels)
+    require(abs(loss - want) <= 1e-5 * abs(want),
+            f"{what}: loss {loss} != the CPU's {want}")
+    err = 0.0
+
+    def close(name, a, b, scale):
+        nonlocal err
+        require(bool(torch.isfinite(a).all()), f"{what}: {name} not finite")
+        diff = (a - b).abs()
+        require(bool((diff <= 1e-5 * (b.abs() + scale)).all()),
+                f"{what}: {name} differs from the CPU's by "
+                f"{float(diff.max()):.3g}")
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+
+    for gi, (a, b) in enumerate(zip(cots, wcots)):
+        close(f"pooled cotangent of group {gi}", a.cpu(), b,
+              b.abs().amax(dim=(0, 2), keepdim=True))
+    # the CPU's table gradients from the card's cotangents
+    _, pooled = _with_pooled(cpu, batch, labels)
+    tables = list(cpu.params["stacked"].values())
+    again = torch.autograd.grad(pooled, tables, [c.cpu() for c in cots],
+                                allow_unused=True)
+    for k, t, g in zip(cpu.params["stacked"], tables, again):
+        a = grads[f"table {k}"].cpu()
+        g = torch.zeros_like(t) if g is None else g
+        require(bool(torch.isfinite(a).all()), f"{what}: table {k} not "
+                "finite")
+        require(_equal_bits(torch, a, g), f"{what}: table {k}'s gradient "
+                "!= the CPU's backward of the card's cotangents")
+    for name, b in wgrads.items():
+        if name.startswith("tower"):
+            close(name, grads[name].cpu(), b,
+                  b.abs().max() if b.numel() else 0.0)
+    return loss, want, err
+
+
+def post_launches(eng, prep) -> dict:
+    """The kernels one forward of ``eng`` on the prepared batch ``prep``
+    launches, by its lowering: K1 once for each one-hot group (the config
+    bucketizes on the host, so no K2), X1 once for every gather group
+    together, X2 once for each group that stages strings for the card to
+    hash (``prep.wsig``)."""
+    groups = eng.compiled.groups
+    return {"K1": sum(g.pallas_vocab is not None for g in groups),
+            "X1": int(any(g.pallas_vocab is None for g in groups)),
+            "X2": sum(1 for w in prep.wsig if any(w))}
+
+
+def postpool_phases(torch) -> None:
+    """Phase 11: the PostPool models (models/postpool.py) served on the
+    card and held to the oracle at the reference's tolerances (pooled
+    outputs ==, concat at rtol 1e-6 / atol 1e-6, output at rtol 1e-5 /
+    atol 1e-6, tests/test_postlookup.py's), each forward and training step
+    launching exactly the kernels its lowering implies; then one training
+    step's loss and gradients against the same step on CPU copies."""
+    import numpy as np
+
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.models import (
+        make_every_post_model,
+        make_matmul_model,
+        make_post_model,
+        make_random_batch,
+        make_softmax_mul_model,
+    )
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.oracle import OracleModel
+    from recom_tpu_torch.runtime.executor import Engine
+    from recom_tpu_torch.train import Trainer, dlrm_optimizer
+    from recom_tpu_torch.utils.params import init_model_params
+
+    rng = np.random.default_rng(11)
+    cfg = EngineConfig(batch_buckets=(64,))
+    for make, bs in ((make_post_model, 33), (make_softmax_mul_model, 29),
+                     (make_matmul_model, 21), (make_every_post_model, 40)):
+        model = make()
+        params = init_model_params(model)
+        batch = make_random_batch(model, bs, seed=bs)
+        eng = Engine(model, cfg, params=params, device="cuda")
+        fwd = post_launches(eng, eng.prepare(batch))
+        kernels.reset_launches()
+        out = eng.predict(batch, return_pooled=True, return_concat=True)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        require_launches(counts, [k for k, n in fwd.items() if n],
+                         f"PostPool {model.name}", exactly=fwd)
+        counts = {k: n for k, n in counts.items() if n}
+        ref = OracleModel(model, params).forward(batch)
+        require(set(out["pooled"]) == set(ref["pooled"]),
+                f"{model.name}: pooled columns")
+        bad = [c for c, r in ref["pooled"].items()
+               if not np.array_equal(out["pooled"][c], r)]
+        require(not bad, f"{model.name}: pooled outputs differ from the "
+                f"oracle: {bad}")
+        require(out["concat"].shape == ref["concat"].shape,
+                f"{model.name}: concat shape")
+        np.testing.assert_allclose(out["concat"], ref["concat"], rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(out["output"], ref["output"], rtol=1e-5,
+                                   atol=1e-6)
+        hidden = [c.name for c in model.embedding_columns if not c.in_concat]
+        log(f"PostPool model {model.name!r} (batch {bs}, hidden {hidden}): "
+            f"launches {counts}; pooled outputs of all "
+            f"{len(ref['pooled'])} columns == oracle, concat "
+            f"{out['concat'].shape} within rtol 1e-6 / atol 1e-6, output "
+            "within rtol 1e-5 / atol 1e-6 (max abs diff "
+            f"{float(np.abs(out['output'] - ref['output']).max()):.3g})")
+        labels = rng.integers(0, 2, bs).astype(np.float32)
+        card = Trainer(model, cfg, optimizer=dlrm_optimizer(), params=params)
+        cpu = Trainer(model, cfg, optimizer=dlrm_optimizer(), params=params,
+                      device="cpu")
+        loss, want, err = grads_close(torch, card, cpu, batch, labels,
+                                      model.name)
+        kernels.reset_launches()
+        step = card.step(batch, labels)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        train = dict(fwd, K3a=fwd["K1"], X1b=fwd["X1"])
+        require_launches(counts, [k for k, n in train.items() if n],
+                         f"training, PostPool {model.name}", exactly=train)
+        counts = {k: n for k, n in counts.items() if n}
+        require(np.isfinite(step) and all(
+            bool(torch.isfinite(p).all()) for g in card.optimizer.param_groups
+            for p in g["params"]), f"{model.name}: step not finite")
+        log(f"  training step: loss {loss:.6f} (CPU {want:.6f}); gradients "
+            "finite; pooled cotangents and tower gradients within 1e-5 of "
+            f"the CPU's (max abs diff {err:.3g}); table gradients == the "
+            f"CPU's backward of the card's cotangents; launches {counts}")
+        del eng, card, cpu
+
+
+def criteo_batch(model, bs: int, seed: int):
+    """A Criteo-format batch as ``models/criteo.read_criteo_tsv`` gives it:
+    each cat column's id a uniform 32-bit token (the TSV's hex ids), so
+    that HashBucket spreads it over the whole vocab (a 1M-row column sees
+    about ``bs`` distinct rows); each int column log(1 + x) of an integer
+    in [0, 100)."""
+    import numpy as np
+
+    from recom_tpu_torch.ir.spec import FeatureKind
+    from recom_tpu_torch.models import make_random_batch
+
+    batch = make_random_batch(model, bs, seed=seed)
+    rng = np.random.default_rng(seed)
+    for col in model.columns:
+        f = col.source.field
+        if col.source.kind == FeatureKind.DENSE_INT:
+            batch[f] = rng.integers(0, 2**32, bs, dtype=np.int64)
+        else:
+            batch[f] = np.log1p(batch[f]).astype(np.float32)
+    return batch
+
+
+def x1b_member_classes(torch, rec) -> list:
+    """X1b at one gather group's shapes (``rec``: the group's X1b record
+    from ``backward_calls``) timed with only some of its members' ids, the
+    other members' slots missing (-1): none (each row of the dense
+    gradient written as a zero), the members of at most 32768 rows (dense
+    tiles), and the larger members (sparse ranges).  One launch each; the
+    dense output is the same size in all three."""
+    from recom_tpu_torch.ops.lookup_gather import groups_pooled_grad
+
+    (entry,) = rec["args"]
+    cot, r, ids, offs, codes, w, wt, caps = entry
+    big = (caps.long() + 1) > 32768
+    out = []
+    for name, keep in (("no ids (the zero stream alone)", big & ~big),
+                       (f"{int((~big).sum())} members of <= 32768 rows "
+                        "(dense tiles)", ~big),
+                       (f"{int(big.sum())} members past 32768 rows (sparse "
+                        "ranges)", big)):
+        ids_k = torch.where(keep[:, None, None], ids, torch.full_like(ids, -1))
+        ms = time_ms(torch, lambda e=(cot, r, ids_k, offs, codes, w, wt, caps):
+                     groups_pooled_grad([e]))
+        out.append(dict(name=name, ms=ms))
+        log(f"  X1b at Criteo, {name} alone: kernel {ms:.4f} ms warm")
+    return out
+
+
+def criteo_phases(torch):
+    """Phases 12-14: the Criteo DLRM (models/criteo.py at full width: 26
+    columns at d = 64, 1.90 GB of tables, bottom [512, 256, 64], top [512,
+    256, 1]) served at batch 512 and 2048 and held to the oracle, its
+    kernels (K1, X1; K3a, X1b) against their plain versions and timed at
+    batch 2048, and trained.  Returns the kernels' results and launches."""
+    import numpy as np
+
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.models import make_criteo_dlrm
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.oracle import OracleModel
+    from recom_tpu_torch.oracle.reference import run_mlp
+    from recom_tpu_torch.runtime.executor import Engine
+    from recom_tpu_torch.runtime.wire import unpack_blob
+    from recom_tpu_torch.train import Trainer, dlrm_optimizer
+    from recom_tpu_torch.utils.params import init_model_params
+
+    rng = np.random.default_rng(13)
+
+    def cotangent(bp, c, d):
+        return torch.from_numpy(
+            rng.standard_normal((bp, c, d), dtype=np.float32)).to("cuda")
+
+    # ---- phase 12: serving ---------------------------------------------
+    t = time.perf_counter()
+    model = make_criteo_dlrm(seed=0)
+    params = init_model_params(model)
+    table_bytes = sum(a.nbytes for a in params["tables"].values())
+    log(f"Criteo DLRM params on host: {time.perf_counter() - t:.1f} s, "
+        f"{table_bytes / 1e9:.3f} GB of tables")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    eng = Engine(model, EngineConfig(), params=params, device="cuda")
+    torch.cuda.synchronize()
+    groups = eng.compiled.groups
+    n_onehot = sum(g.pallas_vocab is not None for g in groups)
+    log(f"Engine(Criteo DLRM, EngineConfig()): {time.perf_counter() - t:.1f} "
+        "s, groups " + "; ".join(
+            f"gid {g.gid}: {g.num_columns} cols d={g.dim} "
+            f"V_pad={g.pallas_vocab} rows={g.stacked_rows}" for g in groups))
+    require(len(groups) - n_onehot == 1 and all(g.dim == 64 for g in groups)
+            and table_bytes > 1.8e9, "Criteo: one gather group, d = 64")
+    batches = {512: criteo_batch(model, 512, seed=2),
+               2048: criteo_batch(model, 2048, seed=1)}
+    oracle = OracleModel(model, params)
+    refs = {}
+    for bs, batch in batches.items():
+        kernels.reset_launches()
+        out = eng.predict(batch, return_pooled=True)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        log(f"launches in predict(Criteo, batch {bs}): {counts}")
+        require_launches(counts, ("K1", "X1"), f"Criteo, batch {bs}",
+                         exactly={"K1": n_onehot, "X1": 1})
+        t = time.perf_counter()
+        refs[bs] = ref = oracle.forward(batch)
+        require(len(ref["pooled"]) == 26, "26 pooled columns")
+        bad = [c for c, r in ref["pooled"].items()
+               if not np.array_equal(out["pooled"][c], r)]
+        require(not bad, f"Criteo pooled outputs differ from the oracle: "
+                f"{bad[:5]}")
+        np.testing.assert_allclose(out["output"], ref["output"], rtol=1e-4,
+                                   atol=1e-5)
+        log(f"Criteo batch {bs}: pooled outputs of all 26 columns == oracle "
+            f"(oracle {time.perf_counter() - t:.1f} s); output within rtol "
+            "1e-4 / atol 1e-5 (max abs diff "
+            f"{float(np.abs(out['output'] - ref['output']).max()):.3g})")
+    serve_counts = counts
+    latency(torch, eng, "Criteo DLRM", tuple(batches.items()))
+    log(f"peak device memory (Criteo serving): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # ---- phase 13: K1 and X1 at Criteo's shapes, batch 2048 ----------------
+    prep = eng.prepare(batches[2048])
+    bp = prep.batch_padded
+    with torch.inference_mode():
+        arrays = unpack_blob(eng.compiled, eng.to_device(prep)["blob"], bp,
+                             prep.rowlens, prep.wsig)
+    calls = {"K1": [], "X1": []}
+    members = []
+    for g, packed in zip(groups, arrays["groups"]):
+        ids, weights = eng.group_ids(g, packed)
+        if g.pallas_vocab is not None:
+            calls["K1"].append(k1_call(torch, eng, g, ids, bp))
+        else:
+            members.append(x1_member(torch, eng, g, ids, weights, bp))
+    calls["X1"].append(x1_call(members))
+    results = measure_forward(torch, calls)
+    del calls, members, arrays, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: training ----------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    # dlrm_optimizer()'s tower rate 1e-3 overshoots on this random tower as
+    # on model E's (ROADMAP Queue 3): the loss jumps on the second step of
+    # a batch of 2048 (on the CPU too); at 1e-5 it falls step after step
+    tr = Trainer(model, EngineConfig(),
+                 optimizer=dlrm_optimizer(tower_lr=1e-5), params=params)
+    with torch.no_grad():
+        prep = tr.engine.prepare(batches[2048])
+        arrays = unpack_blob(tr.engine.compiled,
+                             tr.engine.to_device(prep)["blob"], bp,
+                             prep.rowlens, prep.wsig)
+        recs = backward_calls(torch, tr.engine, arrays, bp, cotangent)
+        results.update(measure_backward(torch, recs))
+        results["X1b"]["classes"] = x1b_member_classes(torch,
+                                                       recs["X1b"][0])
+        del recs, arrays
+        torch.cuda.empty_cache()
+    lab_small = rng.integers(0, 2, 512).astype(np.float32)
+    x = run_mlp(params["tower"]["top"], refs[512]["tower_input"],
+                model.tower.activation, None)[:, 0].astype(np.float64)
+    want = float(np.mean(lab_small * np.logaddexp(0.0, -x)
+                         + (1 - lab_small) * np.logaddexp(0.0, x)))
+    loss0 = tr.step(batches[512], lab_small)
+    require(abs(loss0 - want) <= 1e-4 * abs(want),
+            f"Criteo first step's loss {loss0} != the oracle's BCE {want}")
+    log(f"Criteo, step 1 (batch 512): loss {loss0:.6f}, the oracle's BCE "
+        f"{want:.6f} (within rtol 1e-4)")
+    lab_big = rng.integers(0, 2, 2048).astype(np.float32)
+    kernels.reset_launches()
+    losses = [tr.step(batches[2048], lab_big)]
+    torch.cuda.synchronize()
+    train_counts = dict(kernels.launches)
+    log(f"launches in one training step (Criteo, batch 2048): "
+        f"{train_counts}")
+    require_launches(train_counts, ("K1", "X1", "K3a", "X1b"),
+                     "training, Criteo", exactly={
+                         "K1": n_onehot, "X1": 1, "K3a": n_onehot, "X1b": 1})
+    losses += [tr.step(batches[2048], lab_big) for _ in range(3)]
+    require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+            f"Criteo losses on one batch do not decrease: {losses}")
+    log(f"Criteo, 4 steps on one batch of 2048: losses {losses}")
+    step_times(torch, tr, "Criteo DLRM", ((512, batches[512], lab_small),
+                                          (2048, batches[2048], lab_big)))
+    log(f"peak device memory (Criteo training and its kernel checks): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = {"K1": serve_counts["K1"], "X1": serve_counts["X1"],
+                "K3a": train_counts["K3a"], "X1b": train_counts["X1b"]}
+    return {k: dict(results[k], launches=launches[k]) for k in launches}
+
+
 def step_times(torch, tr, name: str, cases) -> None:
     """Median training step time (host clock around ``Trainer.step``,
     which ends in a device sync) over 6 steps, and the device time of its
@@ -1494,6 +1995,9 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t:.2f} s "
         f"({', '.join(sorted(paths))}; {nvcc})")
 
+    # ---- the PostPool models, small, first -------------------------------
+    postpool_phases(torch)
+
     # ---- full-size model E on the card ------------------------------------
     t = time.perf_counter()
     model = make_model_e(seed=0)
@@ -1506,6 +2010,12 @@ def main() -> int:
         "GiB left on the card")
     trained = train_phases(torch, model, np_params, served["batch_small"],
                            served["batch_big"], served["ref"])
+    del model, np_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the Criteo DLRM at full width -------------------------------------
+    criteo = criteo_phases(torch)
     results = {**served["results"], **trained["results"]}
     launches = {
         "K1": served["counts_2048"]["K1"], "K2": served["counts_mb"]["K2"],
@@ -1514,20 +2024,24 @@ def main() -> int:
         "K3b": trained["counts_bz"]["K3b"],
         "X1b": trained["counts_train"]["X1b"],
     }
+
+    def entry(r, n):
+        return {
+            "launches": n, "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "cold_ms": r["cold_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["lib"], "share": r["bound_ms"] / r["ms"],
+            **({"classes": r["classes"]} if "classes" in r else {}),
+        }
+
     line = {"kernels": [
         {
             "name": kid, "route": "cuda",
             "source": KERNEL_META[kid][0], "replaces": KERNEL_META[kid][1],
-            "launches": launches[kid],
-            "max_abs_err": results[kid]["err"],
-            "ms": results[kid]["ms"], "plain_ms": results[kid]["plain_ms"],
-            "cold_ms": results[kid]["cold_ms"],
-            "bound_ms": results[kid]["bound_ms"],
-            "bound_by": results[kid]["bound_by"],
-            "library_ms": results[kid]["lib"],
-            "share": results[kid]["bound_ms"] / results[kid]["ms"],
-            **({"classes": results[kid]["classes"]}
-               if "classes" in results[kid] else {}),
+            **entry(results[kid], launches[kid]),
+            # the same kernel on the Criteo DLRM's path (d = 64)
+            **({"criteo": entry(criteo[kid], criteo[kid]["launches"])}
+               if kid in criteo else {}),
         }
         for kid in KERNEL_META
     ]}

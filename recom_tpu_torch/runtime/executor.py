@@ -4,10 +4,11 @@ The port of recom_tpu/runtime/executor.py::Engine for the single-device
 serving path: host prep (the copied wire/host_prep modules) -> one H2D copy
 -> the grouped lookups through the hand-written kernels (K1 for one-hot
 groups, K2 for pure-bucketize one-hot groups fed raw floats, X1 for gather
-groups, X2 for device string hashing) -> the MLP tower -> outputs.  It runs
-eagerly: a "program" is a shape signature, and ``stats["compiles"]`` counts
-the distinct ones served (CUDA graphs per signature are ROADMAP Queue 1
-item 6).
+groups, X2 for device string hashing) -> each group's concat, with its
+members' post-lookup ops (PostPool) -> the tower (an MLP, or DLRM's
+``dlrm_dot`` interaction) -> outputs.  It runs eagerly: a "program" is a
+shape signature, and ``stats["compiles"]`` counts the distinct ones served
+(CUDA graphs per signature are ROADMAP Queue 1 item 6).
 
 Entry points run on CUDA unless the caller names another device; asking for
 CUDA where there is none raises.  Features of the JAX Engine outside this
@@ -64,6 +65,48 @@ def folds_emb_perm(tower, total_emb_dim: int) -> bool:
     return tower.arch == "mlp" and bool(tower.top_mlp) and total_emb_dim > 0
 
 
+def group_concat(g, pooled: torch.Tensor, col_pooled=None,
+                 post_consts=None) -> torch.Tensor:
+    """Group output concat [Bp, out_width] from pooled [Bp, C, d], applying
+    each member's post-lookup chain (the port of
+    recom_tpu/runtime/executor.py::_group_concat).  The no-post case is one
+    reshape.  ``col_pooled``: {column name: RAW pooled [Bp, d]} across all
+    groups, read by mul_column; ``post_consts``: {(gid, member, op index):
+    device tensors} of the frozen matmul weights and affine scales and
+    biases.  Hidden members (``in_concat=False``) pool but take no slot."""
+    if not g.any_post and all(m.column.in_concat for m in g.members):
+        return pooled.reshape(pooled.shape[0], -1)
+    parts = []
+    for idx, m in enumerate(g.members):
+        if not m.column.in_concat:
+            continue
+        x = pooled[:, idx, :]
+        for i, p in enumerate(m.column.post):
+            if p.op == "reduce_sum":
+                x = x.sum(dim=1, keepdim=True)
+            elif p.op == "reduce_mean":
+                x = x.mean(dim=1, keepdim=True)
+            elif p.op == "softmax":
+                x = torch.softmax(x, dim=1)
+            elif p.op == "mul_column":
+                # operand = the other column's RAW pooled output
+                x = x * col_pooled[p.other]
+            else:
+                # matmul (a frozen projection; f32, TF32 off) or affine
+                c = post_consts.get((g.gid, idx, i), {})
+                if p.op == "matmul":
+                    x = torch.matmul(x, c["weight"])
+                else:
+                    if "scale" in c:
+                        x = x * c["scale"]
+                    if "bias" in c:
+                        x = x + c["bias"]
+        parts.append(x)
+    if not parts:
+        return pooled[:, :0, 0]        # all-hidden group: width-0 concat
+    return torch.cat(parts, dim=1)
+
+
 def mlp_apply(layers, x, activation: str, final_activation):
     """Dense layers in full f32 (the Engine turns TF32 off)."""
     for i, layer in enumerate(layers):
@@ -115,7 +158,6 @@ class Engine:
         torch.backends.cudnn.allow_tf32 = False
         self.model, self.pass_report = run_passes(model, cfg)
         self.compiled: CompiledModel = lower_model(self.model, cfg)
-        self._check_slice()
         self._fold_emb_perm = folds_emb_perm(self.model.tower,
                                              self.compiled.total_emb_dim)
         self._wire = bool(cfg.wire_pack)
@@ -123,11 +165,16 @@ class Engine:
         np_params = params if params is not None else init_model_params(model)
         self.device_params = self._build_device_params(np_params)
         self._consts = self._build_group_consts()
+        self._post_consts = self._build_post_consts()
+        self._has_mul_column = any(
+            p.op == "mul_column" for g in self.compiled.groups
+            for m in g.members for p in m.column.post)
         # the model-order permutation of the grouped embeddings, on the
         # device once (_model_order)
         self._emb_perm = torch.as_tensor(self.compiled.emb_perm,
                                          dtype=torch.int64,
                                          device=self.device)
+        self._triu = self._build_triu()
         self._rowlen_hints: Dict[int, int] = {}
         self._programs = set()      # (signature, mode) keys served
         self._programs_lock = threading.Lock()
@@ -138,14 +185,6 @@ class Engine:
         self.timers = StageTimer()
         for s in self.pass_report.stages:
             self.log.vlog(f"pass {s}")
-
-    def _check_slice(self) -> None:
-        """Raise for model features outside this slice of the port."""
-        if self.model.tower.arch != "mlp":
-            raise _unported(f"tower arch {self.model.tower.arch!r}", "item 8")
-        for g in self.compiled.groups:
-            if g.any_post or not all(m.column.in_concat for m in g.members):
-                raise _unported("post-pool ops (PostPool)", "item 8")
 
     @staticmethod
     def _fused_bucketize(g) -> bool:
@@ -254,6 +293,38 @@ class Engine:
             out.append(c)
         return out
 
+    def _build_post_consts(self) -> Dict[Tuple[int, int, int],
+                                         Dict[str, torch.Tensor]]:
+        """The frozen matmul weights and affine scales and biases of every
+        member's post chain, on the device once (constants, never leaves:
+        they live in the spec, not the params)."""
+        out = {}
+        for g in self.compiled.groups:
+            for idx, m in enumerate(g.members):
+                for i, p in enumerate(m.column.post):
+                    fields = {"matmul": ("weight",),
+                              "affine": ("scale", "bias")}.get(p.op, ())
+                    c = {
+                        f: torch.as_tensor(np.asarray(getattr(p, f),
+                                                      np.float32),
+                                           device=self.device)
+                        for f in fields if getattr(p, f) is not None
+                    }
+                    if c:
+                        out[(g.gid, idx, i)] = c
+        return out
+
+    def _build_triu(self) -> Optional[torch.Tensor]:
+        """dlrm_dot: the strict upper triangle of the [n_vec, n_vec] Gram
+        matrix as a flat index, on the device once
+        (recom_tpu/runtime/executor.py:614)."""
+        if self.model.tower.arch != "dlrm_dot":
+            return None
+        n_vec = 1 + len(self.model.embedding_columns)
+        iu = np.triu_indices(n_vec, k=1)
+        return torch.as_tensor(iu[0] * n_vec + iu[1], dtype=torch.int64,
+                               device=self.device)
+
     # ------------------------------------------------------------------
     def group_ids(self, g, packed: Dict) -> Tuple[torch.Tensor,
                                                   Optional[torch.Tensor]]:
@@ -309,7 +380,18 @@ class Engine:
         for (slot, _), pooled in zip(
                 gathers, groups_pooled([a for _, a in gathers])):
             pooled_list[slot] = pooled
-        group_out = [p.reshape(p.shape[0], -1) for p in pooled_list]
+        # the concats only once every group has pooled: a mul_column post
+        # reads another column's raw pooled output, from any group
+        col_pooled = None
+        if self._has_mul_column:
+            col_pooled = {
+                col: pooled_list[gid][:, idx, :]
+                for col, (gid, idx) in self.compiled.column_slot.items()
+            }
+        group_out = [
+            group_concat(g, p, col_pooled, self._post_consts)
+            for g, p in zip(self.compiled.groups, pooled_list)
+        ]
         if group_out:
             grouped = torch.cat(group_out, dim=1)
         else:
@@ -324,16 +406,37 @@ class Engine:
         return grouped.index_select(1, self._emb_perm)
 
     def _tower_forward(self, dense, emb, logits_only: bool = False):
-        """emb: GROUPED order when _fold_emb_perm, else model order.
-        ``logits_only`` strips the final activation (losses want logits).
-        Returns (out, front)."""
+        """emb: GROUPED order when _fold_emb_perm, else model order (always
+        for ``dlrm_dot``).  ``logits_only`` strips the final activation
+        (losses want logits).  Returns (out, front): ``front`` is the
+        dense-side prefix of the concat (the raw dense inputs under
+        ``dlrm_dot``, as in the reference)."""
         tower = self.model.tower
         params = self.device_params["tower"]
         front = dense
-        if tower.bottom_mlp and dense.shape[1]:
-            front = mlp_apply(params["bottom"], dense, tower.activation,
-                              tower.activation)
-        tower_in = torch.cat([front, emb], dim=1)
+        if tower.arch == "dlrm_dot":
+            # DLRM's dot interaction (recom_tpu/runtime/executor.py:597-617):
+            # the Gram matrix of [bottom output, model-order embeddings] in
+            # f32 (TF32 off), its strict upper triangle beside the bottom
+            bottom = mlp_apply(params["bottom"], dense, tower.activation,
+                               tower.activation)
+            # every embedding column, hidden ones included, as the
+            # reference counts them: a hidden column fails this reshape there
+            n_emb = len(self.model.embedding_columns)
+            d = bottom.shape[1]
+            vecs = torch.cat([bottom[:, None, :],
+                              emb.reshape(emb.shape[0], n_emb, d)], dim=1)
+            gram = torch.bmm(vecs, vecs.transpose(1, 2))
+            inter = gram.reshape(gram.shape[0], -1).index_select(
+                1, self._triu)
+            tower_in = torch.cat([bottom, inter], dim=1)
+        elif tower.arch == "mlp":
+            if tower.bottom_mlp and dense.shape[1]:
+                front = mlp_apply(params["bottom"], dense, tower.activation,
+                                  tower.activation)
+            tower_in = torch.cat([front, emb], dim=1)
+        else:
+            raise ValueError(tower.arch)
         out = mlp_apply(params["top"], tower_in, tower.activation,
                         None if logits_only else tower.final_activation)
         return out, front

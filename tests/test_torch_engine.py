@@ -164,16 +164,6 @@ def test_unported_features_raise():
                {"table_dtype": "int8"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(tm, EngineConfig(**kw), device="cpu")
-    K, C = ts.FeatureKind, ts.Combiner
-    post = ts.ModelSpec(
-        "post", {"t": ts.TableSpec("t", 10, 4)},
-        [ts.FeatureColumn("c", ts.FeatureSource("x", K.INT_LIST),
-                          (ts.NumToId(10),), ts.LookupSpec("t", C.SUM),
-                          post=(ts.PostPool("reduce_sum"),))],
-        ts.TowerSpec(arch="mlp", top_mlp=(1,)),
-    )
-    with pytest.raises(NotImplementedError, match="PostPool"):
-        Engine(post, device="cpu")
     eng = Engine(tm, device="cpu")
     for call in (lambda: eng.reload_params({}),
                  lambda: eng.update_table_rows("emb_sparse0", [0],

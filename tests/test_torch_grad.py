@@ -61,7 +61,7 @@ def _k3a_case(seed, c, v, d, b):
 
 
 @pytest.mark.parametrize("c,v,d,b", [(13, 101, 8, 48), (9, 200, 4, 64),
-                                     (3, 128, 3, 37)])
+                                     (3, 128, 3, 37), (7, 2209, 64, 150)])
 def test_k3a_plain_matches_jax_grad(c, v, d, b):
     t3, ids, caps, g = _k3a_case(c + v + d, c, v, d, b)
     c_pad = t3.shape[0]
@@ -183,7 +183,8 @@ def _x1b_case(d, l, weighted, seed):
 
 
 @pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("d,l", [(8, 1), (3, 1), (8, 12), (32, 2), (1, 5)])
+@pytest.mark.parametrize("d,l", [(8, 1), (3, 1), (8, 12), (32, 2), (1, 5),
+                                 (64, 1), (64, 3)])
 def test_x1b_plain_matches_jax_vjp(d, l, weighted):
     """SUM, MEAN and SQRTN columns (codes 0, 1, 2, 1, 2, 0), all-missing
     and zero-weight bags, ids past their caps."""
@@ -258,7 +259,8 @@ def _equal_bits(a, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,v,d,b", [(930, 101, 8, 2048), (45, 300, 3, 100),
-                                     (13, 2000, 32, 70), (9, 128, 1, 5000)])
+                                     (13, 2000, 32, 70), (9, 128, 1, 5000),
+                                     (7, 2209, 64, 2048), (1, 976, 64, 700)])
 def test_k3a_kernel_matches_plain_on_card(cuda, c, v, d, b):
     t3, ids, caps, g = _k3a_case(c + v, c, v, d, b)
     a = [torch.from_numpy(x) for x in (g, ids, caps)]
@@ -289,7 +291,8 @@ def test_k3b_kernel_matches_plain_on_card(cuda, v_pad, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("d,l", [(1, 1), (3, 2), (8, 12), (32, 33)])
+@pytest.mark.parametrize("d,l", [(1, 1), (3, 2), (8, 12), (32, 33), (64, 1),
+                                 (64, 12)])
 def test_x1b_kernel_matches_plain_on_card(cuda, d, l, weighted):
     table, ids, offs, caps, codes, w, wc, g = _x1b_case(d, l, weighted, 3)
     args = [torch.from_numpy(g), table.shape[0], torch.from_numpy(ids), offs,
@@ -481,10 +484,7 @@ def test_groups_pooled_backward_is_one_call(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,weighted,crowded", [(8, False, False),
-                                                (32, True, False),
-                                                (3, True, False),
-                                                (8, False, True)])
+@pytest.mark.parametrize("d,weighted,crowded", chip_smoke.X1B_CLASS_CASES)
 def test_x1b_classes_into_nan_outputs_on_card(cuda, d, weighted, crowded):
     """Small- and large-vocab members in one group (slots spanning every
     range, in one range, a hot row), or a range crowded past a window: the
@@ -520,7 +520,7 @@ def test_x1b_one_launch_for_every_group_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 3, 8, 32])
+@pytest.mark.parametrize("d", [1, 3, 8, 32, 64])
 @pytest.mark.parametrize("kernel", ["K3a", "K3b"])
 def test_k3_edge_shapes_on_card(cuda, kernel, d):
     """C = 45, not a multiple of the columns an item takes; Bp = 700, past

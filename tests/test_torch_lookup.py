@@ -36,7 +36,8 @@ def _table3(rng, c, v, d):
 
 
 @pytest.mark.parametrize("c,v,d,b", [(13, 200, 8, 48), (8, 128, 4, 64),
-                                     (3, 101, 16, 37)])
+                                     (3, 101, 16, 37), (7, 2209, 64, 40),
+                                     (1, 1543, 64, 30)])
 def test_k1_plain_matches_pallas_interpret(c, v, d, b):
     rng = np.random.default_rng(c * 1000 + v)
     t3 = _table3(rng, c, v, d)
@@ -74,7 +75,7 @@ def test_k1_clamp_and_combiners_match_group_pooled_onehot():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("d", [1, 3, 8, 32])
+@pytest.mark.parametrize("d", [1, 3, 8, 32, 64])
 def test_k1_plain_matches_pallas_on_ragged_tiles(d):
     c, v, b = 45, 101, 100
     # NaN rows would spread through the reference's one-hot product
@@ -262,7 +263,7 @@ def test_x1_kernel_matches_plain_on_card(cuda, l, d, weighted):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 3, 8, 32])
+@pytest.mark.parametrize("d", [1, 3, 8, 32, 64])
 def test_k1_kernel_edges_match_plain_on_card(cuda, d):
     """Ragged tiles (C = 45, Bp = 100), d off the float4 path (1, 3) and on
     it (8, 32), an all-missing column, ids past their caps and below -1,
