@@ -22,7 +22,25 @@ through ``Engine(..., device="cuda")``, random weights from a seed:
   ``host_bucketize=False`` and with ``wire_pack=False``: raw floats reach
   the card, and K2 bucketizes and looks them up in one pass.
 
-Then it frees the serving engines and trains, through ``Trainer(...,
+Then it frees the serving engines and serves model E three more ways,
+one engine at a time, from the same params:
+
+* imported: ``model_graphdef`` writes model E as a frozen TF
+  feature-column GraphDef (``VariableV2`` tables: shapes, no values) and
+  the port's ``import_tf_graphdef`` imports it, strict; it must lower to
+  model E's four groups and serve, at 512 and 2048, outputs ``==`` the
+  native engine's (K1, X1, X2);
+* ``EngineConfig(table_dtype="bfloat16")``: 2.68 GB of tables (K1-bf16
+  once, X1-bf16 once, X2 three times a predict);
+* ``EngineConfig(table_dtype="int8")``: 1.34 GB of int8 rows and 168 MB
+  of row scales, every group on the gather path (X1-int8 once, X2 three
+  times);
+
+and micro-1000 with bf16 tables under ``host_bucketize=False`` (K2-bf16
+twice), and holds the four stored-dtype variants against their plain
+versions on edge inputs.
+
+Then it trains, through ``Trainer(...,
 optimizer=dlrm_optimizer())`` on the card:
 
 * model E with the default config (forward K1, X1, X2; backward K3a, and
@@ -84,6 +102,13 @@ It checks:
    E: the small-vocab groups alone, the large-vocab group alone; Criteo:
    its one gather group with no ids, with only its members of <= 32768
    rows, with only the larger ones);
+   The stored-dtype variants K1-bf16, K2-bf16, X1-bf16 and X1-int8 at
+   their paths' shapes and on edge inputs: ragged tiles, bf16 rows of
+   -0.0, NaN, +-inf, subnormals and rounding ties, int8 rows at -127,
+   zero rows (scale 0) and scales over 12 orders of magnitude, d in {1,
+   3, 8, 12, 32, 64}, L in {1, 2, 33, 128}, weighted and unweighted
+   columns under every combiner (K1-bf16 and K2-bf16 as bits, X1's with
+   ==);
 4. that each ``predict`` and training step went through its path's
    kernels and no other (model E: one launch of X1 a predict; a training
    step K1 1, X1 1, X2 3, K3a 1 and X1b 1; the bucketize path K2 1 and K3b
@@ -92,7 +117,9 @@ It checks:
    strings hashed on the card, and K3a and X1b to match a step): the
    launch counts are zeroed just before and read just after;
 5. pooled outputs of every column against the port's NumPy oracle
-   exactly, and the model output at rtol 1e-4 / atol 1e-5 (model E,
+   exactly (for bf16 and int8 tables, the oracle on the engine's own
+   export: the stored values as f32), and the model output at rtol 1e-4
+   / atol 1e-5 (model E,
    Criteo), at rtol 1e-5 / atol 1e-6 with the concat at rtol 1e-6 / atol
    1e-6 (the PostPool models) or exactly (the microbenchmark's identity
    tower); the first training step's loss against the masked BCE of the
@@ -117,6 +144,7 @@ from __future__ import annotations
 import gc
 import json
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -305,6 +333,112 @@ def bound_ms(nbytes: float, flops: float = 0.0, int_ops: float = 0.0,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(flops / F32_FLOPS_PER_S, int_ops / int_rate) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# TF DataType enum values and the TF ops of each feature-column idiom the
+# GraphDef writer emits
+DT_FLOAT, DT_STRING, DT_INT64 = 1, 7, 9
+TF_POOL = {"MEAN": "SparseSegmentMean", "SUM": "SparseSegmentSum"}
+
+
+def model_graphdef(model) -> bytes:
+    """A frozen TF feature-column GraphDef of a ``make_dlrm_model`` model
+    (model E at full width), as ``tf.feature_column.input_layer`` emits its
+    columns, written with the port's protobuf wire writer
+    (``importers/protowire``):
+
+    * bucketized: ``Placeholder`` (f32) -> ``Bucketize``;
+    * int hash: ``Placeholder`` (int64) -> ``AsString`` ->
+      ``StringToHashBucketFast``;
+    * string hash: ``Placeholder`` (string) -> ``StringToHashBucketFast``;
+    * delimited lists: ``StringSplit`` on a ``Const`` delimiter ->
+      ``StringToHashBucketFast`` of its values;
+    * each table a ``VariableV2`` with its ``shape`` attr (the weights are
+      not in the graph: a few MB of graph for model E's 5.37 GB of
+      tables), pooled by ``SparseSegmentMean`` or ``SparseSegmentSum``;
+    * dense inputs as ``Placeholder``s; one ``ConcatV2`` of every slot in
+      model order.
+
+    Node names are the model's fields and tables, so the import gives back
+    its columns and tables."""
+    from recom_tpu_torch.importers.protowire import field_bytes, field_varint
+    from recom_tpu_torch.ir.spec import Bucketize, FeatureKind, HashBucket
+
+    def shape(dims):
+        return field_bytes(7, b"".join(
+            field_bytes(2, field_varint(1, d)) for d in dims))
+
+    def attr(key, value):
+        return field_bytes(5, field_bytes(1, key.encode())
+                           + field_bytes(2, value))
+
+    def node(name, op, inputs=(), **attrs):
+        body = field_bytes(1, name.encode()) + field_bytes(2, op.encode())
+        body += b"".join(field_bytes(3, i.encode()) for i in inputs)
+        body += b"".join(attr(k, v) for k, v in attrs.items())
+        return field_bytes(1, body)
+
+    def dtype(t):
+        return field_varint(6, t)
+
+    parts, slots = [], []
+    for col in model.columns:
+        f = col.source.field
+        if col.lookup is None:
+            parts.append(node(f, "Placeholder", dtype=dtype(DT_FLOAT)))
+            slots.append(f)
+            continue
+        kind, (tf_,) = col.source.kind, col.transforms
+        if kind == FeatureKind.DENSE_FLOAT and isinstance(tf_, Bucketize):
+            floats = b"".join(struct.pack("<f", b) for b in tf_.boundaries)
+            parts += [
+                node(f, "Placeholder", dtype=dtype(DT_FLOAT)),
+                node(f"{f}/Bucketize", "Bucketize", [f], boundaries=(
+                    field_bytes(1, field_bytes(4, floats)))),
+            ]
+            ids = f"{f}/Bucketize"
+        else:
+            require(isinstance(tf_, HashBucket), f"{f}: no writer for "
+                    f"{type(tf_).__name__}")
+            src = f
+            if kind == FeatureKind.DENSE_INT:
+                parts += [node(f, "Placeholder", dtype=dtype(DT_INT64)),
+                          node(f"{f}/AsString", "AsString", [f])]
+                src = f"{f}/AsString"
+            elif kind == FeatureKind.STRING:
+                parts.append(node(f, "Placeholder", dtype=dtype(DT_STRING)))
+            else:
+                require(kind == FeatureKind.STRING_LIST, f"{f}: {kind}")
+                delim = field_bytes(8, field_varint(1, DT_STRING)
+                                    + field_bytes(2, b"")
+                                    + field_bytes(8, col.source.delimiter
+                                                  .encode()))
+                parts += [
+                    node(f, "Placeholder", dtype=dtype(DT_STRING)),
+                    node(f"{f}/delimiter", "Const", value=delim),
+                    node(f"{f}/StringSplit", "StringSplit",
+                         [f, f"{f}/delimiter"]),
+                ]
+                src = f"{f}/StringSplit:1"
+            parts.append(node(f"{f}/Hash", "StringToHashBucketFast", [src],
+                              num_buckets=field_varint(3, tf_.num_buckets)))
+            ids = f"{f}/Hash"
+        t = model.tables[col.lookup.table]
+        pool = f"{f}/{TF_POOL[col.lookup.combiner.name]}"
+        parts += [
+            node(t.name, "VariableV2", dtype=dtype(DT_FLOAT),
+                 shape=shape((t.vocab_size, t.dim))),
+            node(pool, TF_POOL[col.lookup.combiner.name],
+                 [t.name, ids, f"{f}/segment_ids"]),
+        ]
+        slots.append(pool)
+    parts += [
+        node("input_layer/concat/axis", "Const"),
+        node("input_layer/concat", "ConcatV2",
+             slots + ["input_layer/concat/axis"],
+             N=field_varint(3, len(slots))),
+    ]
+    return b"".join(parts)
 
 
 EDGE_BUCKETS = (1, 7, (1 << 31) - 5, (1 << 31) - 1, 1 << 31)
@@ -546,7 +680,9 @@ def k2_edge_case(c: int, v_pad: int, d: int, b: int, seed: int):
     return bmat, cnts, table3, raw
 
 
-# each kernel's source and the TPU-side function it replaces
+# each kernel's source and the TPU-side function it replaces (the
+# stored-dtype variants: the reference's upcast or dequantize after the
+# row load)
 KERNEL_META = {
     "K1": ("recom_tpu_torch/csrc/onehot_lookup.cu",
            "recom_tpu/ops/lookup_pallas.py:36"),
@@ -554,6 +690,14 @@ KERNEL_META = {
            "recom_tpu/ops/lookup_pallas.py:92"),
     "X1": ("recom_tpu_torch/csrc/pooled_gather.cu",
            "recom_tpu/ops/lookup_xla.py:185"),
+    "K1-bf16": ("recom_tpu_torch/csrc/onehot_lookup.cu",
+                "recom_tpu/ops/lookup_pallas.py:49"),
+    "K2-bf16": ("recom_tpu_torch/csrc/onehot_bucketize.cu",
+                "recom_tpu/ops/lookup_pallas.py:128"),
+    "X1-bf16": ("recom_tpu_torch/csrc/pooled_gather.cu",
+                "recom_tpu/ops/lookup_xla.py:61"),
+    "X1-int8": ("recom_tpu_torch/csrc/pooled_gather.cu",
+                "recom_tpu/ops/quant.py:47"),
     "X2": ("recom_tpu_torch/csrc/hash_device.cu",
            "recom_tpu/ops/hash_device.py:234"),
     "K3a": ("recom_tpu_torch/csrc/onehot_grad.cu",
@@ -567,10 +711,12 @@ KERNEL_META = {
 
 def k1_call(torch, eng, g, ids, bp: int):
     """K1's record for one-hot group ``g`` of ``eng`` on its [C, Bp, 1]
-    ids: the kernel, its plain version, the library yardstick
-    (``F.embedding`` over the flattened table3, missing ids pointed at a
-    zero padding plane) and the bound (ids, caps, the distinct rows
-    selected and the output, each once)."""
+    ids (K1-bf16's for a bf16 table3): the kernel, its plain version, the
+    library yardstick (``F.embedding`` over the flattened table3, missing
+    ids pointed at a zero padding plane; then ``.float()`` for bf16, the
+    same function, since the rows are copies) and the bound (ids, caps,
+    the distinct rows selected at their stored width and the f32 output,
+    each once)."""
     import torch.nn.functional as F
 
     from recom_tpu_torch.ops.lookup_onehot import (
@@ -596,30 +742,79 @@ def k1_call(torch, eng, g, ids, bp: int):
     t2 = table.reshape(-1, d)
     valid = clamped >= 0
     uniq = torch.unique(flat[valid.T]).numel()
-    nbytes = ids2.numel() * 4 + cc * 4 + uniq * d * 4 + bp * cc * d * 4
+    nbytes = (ids2.numel() * 4 + cc * 4 + uniq * d * table.element_size()
+              + bp * cc * d * 4)
     return dict(
         group=g.gid, kern=lambda: onehot_lookup(table, ids2, caps),
         plain=lambda: onehot_lookup_plain(table, ids2, caps),
-        lib=lambda: F.embedding(flat, t2), bound=bound_ms(nbytes),
+        lib=lambda: F.embedding(flat, t2).float(), bound=bound_ms(nbytes),
         shape=f"ids [{cc}, {bp}], V_pad {v} -> [{bp}, {cc}, {d}]",
     )
 
 
+def k2_call(torch, eng, g, raw):
+    """K2's record (K2-bf16's for a bf16 table3) for pure-bucketize group
+    ``g`` of ``eng`` on its raw [C, Bp] plane: the kernel, its plain
+    version and the bound (raw values, counts and boundaries read, the
+    distinct rows selected at their stored width, the f32 output written).
+    Library yardstick: none for f32 (no one call bucketizes and looks up);
+    for bf16, ``F.embedding`` + ``.float()`` on ids found beforehand, the
+    lookup alone."""
+    import torch.nn.functional as F
+
+    from recom_tpu_torch.ops.lookup_onehot import (
+        onehot_bucketize_lookup,
+        onehot_bucketize_lookup_plain,
+    )
+
+    c = eng._consts[g.gid]
+    table = eng.device_params["stacked"][str(g.gid)]
+    a = (table, raw, c["bz_lo"], c["bz_hi"], c["bz_counts"])
+    cc, bp = raw.shape
+    v, d = table.shape[1], table.shape[2]
+    cnt = c["bz_counts"][:cc, 0].long()
+    ids = torch.searchsorted(c["bz_hi"][:cc], raw, right=True)
+    ids = torch.where(raw < float("inf"), torch.minimum(ids, cnt[:, None]),
+                      cnt[:, None])
+    flat = (ids + torch.arange(cc, device=raw.device)[:, None] * v).T
+    uniq = torch.unique(flat).numel()
+    nbytes = (raw.numel() * 4 + cc * 4 + int(cnt.sum()) * 4
+              + uniq * d * table.element_size() + bp * cc * d * 4)
+    lib = None
+    if table.dtype == torch.bfloat16:
+        flat, t2 = flat.contiguous(), table.reshape(-1, d)
+        lib = lambda: F.embedding(flat, t2).float()
+    return dict(
+        group=g.gid, args=a, kern=lambda: onehot_bucketize_lookup(*a),
+        plain=lambda: onehot_bucketize_lookup_plain(*a), lib=lib,
+        bound=bound_ms(nbytes),
+        shape=f"raw [{cc}, {bp}], V_pad {v}, {str(table.dtype)[6:]} -> "
+        f"[{bp}, {cc}, {d}]",
+    )
+
+
 def x1_member(torch, eng, g, ids, weights, bp: int):
-    """One gather group's share of X1's launch: its arguments, plain
-    version, library yardstick (``F.embedding_bag`` with per-sample
-    weights, missing slots at weight 0), bytes (ids, weights, the distinct
-    rows read and the output, each once) and operations."""
+    """One gather group's share of X1's launch (or of X1-bf16's, or
+    X1-int8's): its arguments, plain version, library yardstick
+    (``F.embedding_bag`` with per-sample weights, missing slots at weight
+    0; none for a bf16 or int8 table, since no PyTorch call pools their
+    rows in f32), bytes (ids, weights, the distinct rows read at their
+    stored width with an int8 row's scale, and the f32 output, each once)
+    and operations (an int8 element's dequantizing product besides)."""
     import torch.nn.functional as F
 
     from recom_tpu_torch.ops.lookup_gather import group_pooled_plain
+    from recom_tpu_torch.ops.quant import QuantizedTable
 
     c = eng._consts[g.gid]
     table = eng.device_params["stacked"][str(g.gid)]
     args = (table, ids, c["row_offsets"], c["codes"], weights,
             c["weighted"], c["caps"])
+    quant = isinstance(table, QuantizedTable)
+    rows_t = table.q if quant else table
+    row_bytes = rows_t.shape[1] * rows_t.element_size() + 4 * quant
     cc, _, ll = ids.shape
-    d = table.shape[1]
+    d = rows_t.shape[1]
     clamped = torch.minimum(ids, c["caps"][:, None, None]).long()
     valid = clamped >= 0
     rows = clamped + c["row_offsets"].long()[:, None, None]
@@ -629,18 +824,21 @@ def x1_member(torch, eng, g, ids, weights, bp: int):
     bag_w = w.permute(1, 0, 2).reshape(bp * cc, ll).contiguous()
     nvalid = int(valid.sum())
     uniq = torch.unique(rows[valid]).numel()
-    nbytes = (ids.numel() * 4 + uniq * d * 4 + bp * cc * d * 4
+    nbytes = (ids.numel() * 4 + uniq * row_bytes + bp * cc * d * 4
               + (0 if weights is None else weights.numel() * 4))
+    lib = None
+    if rows_t.dtype == torch.float32:
+        lib = lambda: F.embedding_bag(bag_in, table, mode="sum",
+                                      per_sample_weights=bag_w)
     return dict(
         group=g.gid, args=args,
         plain=lambda: group_pooled_plain(
             table, ids, g.row_offsets, g.combiner_code, weights,
             g.weighted_cols, g.vocab_caps),
-        lib=lambda: F.embedding_bag(bag_in, table, mode="sum",
-                                    per_sample_weights=bag_w),
-        nbytes=nbytes, flops=2.0 * nvalid * d,
-        shape=f"ids [{cc}, {bp}, {ll}], table [{table.shape[0]}, {d}] -> "
-        f"[{bp}, {cc}, {d}]",
+        lib=lib, nbytes=nbytes, flops=(2.0 + quant) * nvalid * d,
+        rows=rows_t.shape[0],
+        shape=f"ids [{cc}, {bp}, {ll}], table [{rows_t.shape[0]}, {d}] "
+        f"{str(rows_t.dtype)[6:]} -> [{bp}, {cc}, {d}]",
     )
 
 
@@ -649,15 +847,33 @@ def x1_call(members):
     from recom_tpu_torch.ops.lookup_gather import groups_pooled
 
     args = [x["args"] for x in members]
+    has_lib = all(x["lib"] is not None for x in members)
     return dict(
+        members=members,
         group="+".join(str(x["group"]) for x in members),
         kern=lambda: groups_pooled(args),
         plain=lambda: [x["plain"]() for x in members],
-        lib=lambda: [x["lib"]() for x in members],
+        lib=(lambda: [x["lib"]() for x in members]) if has_lib else None,
         bound=bound_ms(sum(x["nbytes"] for x in members),
                        sum(x["flops"] for x in members)),
         shape="; ".join(x["shape"] for x in members),
     )
+
+
+def x1_largest_alone(torch, rec) -> list:
+    """X1's record ``rec``'s largest-table group (model E's 2^23-row lists)
+    alone in one launch: its warm and cold times and its bound, the part of
+    X1 a stored dtype shrinks most.  Returns a one-entry "classes" list."""
+    member = max(rec["members"], key=lambda x: x["rows"])
+    alone = x1_call([member])
+    with torch.inference_mode():
+        ms = time_ms(torch, alone["kern"])
+        cold = time_cold_ms(torch, alone["kern"])
+    bms, by = alone["bound"]
+    log(f"  X1, group {member['group']} alone ({member['shape']}): kernel "
+        f"{ms:.4f} ms warm, {cold:.4f} ms cold L2, bound {bms:.4f} ms ({by})")
+    return [dict(name=f"group {member['group']} alone ({member['shape']})",
+                 ms=ms, cold_ms=cold, bound_ms=bms)]
 
 
 def measure_forward(torch, calls):
@@ -686,7 +902,7 @@ def measure_forward(torch, calls):
                     require(bool((a == b).all()),
                             f"{kid} group {r['group']}: kernel != plain "
                             f"(max abs err {e})")
-                    if kid in ("K1", "K2"):
+                    if kid.startswith(("K1", "K2")):
                         require(bool((a.view(torch.int32)
                                       == b.view(torch.int32)).all()),
                                 f"{kid}: kernel != plain as bits")
@@ -948,7 +1164,6 @@ def serve_phases(torch, model, np_params, int_rate: float):
         raw = packed["raw_bz"].contiguous()
         a = (table, raw, c["bz_lo"], c["bz_hi"], c["bz_counts"])
         cc, bp_mb = raw.shape
-        v, d = table.shape[1], table.shape[2]
         require(raw.dtype == torch.float32 and bp_mb == 2048
                 and cc == g.num_columns, "raw_bz is f32 [n_bz, Bp]")
         # the specials, in a copy: NaN, +-inf, -0.0, +0.0, each column's
@@ -973,23 +1188,10 @@ def serve_phases(torch, model, np_params, int_rate: float):
         log(f"K2 group {g.gid}: kernel == plain bit for bit on NaN, +-inf, "
             "-0.0, +0.0, 64 boundary values per column and the floats "
             "below them")
-        # bytes this run's data needs: raw, counts and boundaries read, the
-        # distinct rows selected, the output written
-        ids = torch.searchsorted(hi, raw, right=True)
-        ids = torch.where(raw < float("inf"), torch.minimum(ids, cnt[:, None]),
-                          cnt[:, None])
-        uniq = torch.unique(
-            ids + torch.arange(cc, device=dev)[:, None] * v).numel()
-        nbytes = (raw.numel() * 4 + cc * 4 + int(cnt.sum()) * 4
-                  + uniq * d * 4 + bp_mb * cc * d * 4)
-        calls["K2"].append(dict(
-            group=g.gid, args=a, kern=lambda a=a: onehot_bucketize_lookup(*a),
-            plain=lambda a=a: onehot_bucketize_lookup_plain(*a), lib=None,
-            bound=bound_ms(nbytes),
-            shape=f"raw [{cc}, {bp_mb}], V_pad {v} -> [{bp_mb}, {cc}, {d}]",
-        ))
+        calls["K2"].append(k2_call(torch, eng_mb, g, raw))
 
     results = measure_forward(torch, calls)
+    results["X1"]["classes"] = x1_largest_alone(torch, calls["X1"][0])
 
     # ---- phase 3: the main path, counted --------------------------------
     batch_small = make_random_batch(model, 512, seed=2)
@@ -1006,15 +1208,7 @@ def serve_phases(torch, model, np_params, int_rate: float):
     t = time.perf_counter()
     ref = OracleModel(model, np_params).forward(batch_small)
     log(f"oracle forward (batch 512): {time.perf_counter() - t:.1f} s")
-    require(len(ref["pooled"]) == 1000, "1000 pooled columns")
-    bad = [c for c, r in ref["pooled"].items()
-           if not np.array_equal(out["pooled"][c], r)]
-    require(not bad, f"pooled outputs differ from the oracle: {bad[:5]}")
-    np.testing.assert_allclose(out["output"], ref["output"], rtol=1e-4,
-                               atol=1e-5)
-    log("pooled outputs of all 1000 columns == oracle; output within "
-        "rtol 1e-4 / atol 1e-5 "
-        f"(max abs diff {float(np.abs(out['output'] - ref['output']).max()):.3g})")
+    check_pooled(ref, out, "model E, batch 512")
 
     kernels.reset_launches()
     out_big = eng.predict(batch_big)
@@ -1044,15 +1238,7 @@ def serve_phases(torch, model, np_params, int_rate: float):
     log(f"launches in predict(batch 512), host_bucketize=False: {counts_bz}")
     require_launches(counts_bz, ("K1", "X1", "X2"), "model E, device bz",
                      exactly={"X1": 1})
-    bad = [c for c, r in ref["pooled"].items()
-           if not np.array_equal(out_bz["pooled"][c], r)]
-    require(not bad, f"device-bucketize pooled outputs differ from the "
-            f"oracle: {bad[:5]}")
-    np.testing.assert_allclose(out_bz["output"], ref["output"], rtol=1e-4,
-                               atol=1e-5)
-    log("host_bucketize=False: pooled outputs of all 1000 columns == oracle; "
-        "output within rtol 1e-4 / atol 1e-5 (max abs diff "
-        f"{float(np.abs(out_bz['output'] - ref['output']).max()):.3g})")
+    check_pooled(ref, out_bz, "model E, host_bucketize=False, batch 512")
     latency(torch, eng_bz, "model E, host_bucketize=False",
             ((512, batch_small), (2048, batch_big)))
     log(f"peak device memory (two model E engines): "
@@ -1100,7 +1286,370 @@ def serve_phases(torch, model, np_params, int_rate: float):
 
     return dict(results=results, counts_2048=counts_2048,
                 counts_mb=counts_mb, ref=ref, batch_small=batch_small,
-                batch_big=batch_big)
+                batch_big=batch_big, out_512=out, out_2048=out_big,
+                groups=group_layout(eng.compiled))
+
+
+def group_layout(compiled):
+    """Each group's layout: (dim, ragged, one-hot vocab, stacked rows, its
+    members' tables and row offsets)."""
+    return [(g.dim, g.ragged, g.pallas_vocab, g.stacked_rows,
+             tuple((m.table, m.row_offset) for m in g.members))
+            for g in compiled.groups]
+
+
+def free_engines() -> None:
+    gc.collect()
+    import torch
+
+    torch.cuda.empty_cache()
+
+
+def stored_records(torch, eng, batch, k1_kid: str, x1_kid: str):
+    """The lookup kernels' records at ``eng``'s path shapes for ``batch``:
+    ``k1_kid`` for each one-hot group (None: the engine has none),
+    ``x1_kid`` once for every gather group (one launch)."""
+    from recom_tpu_torch.runtime.wire import unpack_blob
+
+    prepared = eng.prepare(batch)
+    bp = prepared.batch_padded
+    with torch.inference_mode():
+        arrays = unpack_blob(eng.compiled, eng.to_device(prepared)["blob"],
+                             bp, prepared.rowlens, prepared.wsig)
+    calls, members = {}, []
+    for g, packed in zip(eng.compiled.groups, arrays["groups"]):
+        ids, weights = eng.group_ids(g, packed)
+        if g.pallas_vocab is not None:
+            require(k1_kid is not None, f"unexpected one-hot group {g.gid}")
+            calls.setdefault(k1_kid, []).append(k1_call(torch, eng, g, ids,
+                                                        bp))
+        else:
+            members.append(x1_member(torch, eng, g, ids, weights, bp))
+    calls[x1_kid] = [x1_call(members)]
+    return calls
+
+
+def check_pooled(ref, out, what: str, cols: int = 1000) -> None:
+    """Every pooled column == the oracle's, the output within rtol 1e-4 /
+    atol 1e-5."""
+    import numpy as np
+
+    require(len(ref["pooled"]) == cols, f"{cols} pooled columns")
+    bad = [c for c, r in ref["pooled"].items()
+           if not np.array_equal(out["pooled"][c], r)]
+    require(not bad, f"{what}: pooled outputs differ from the oracle: "
+            f"{bad[:5]}")
+    np.testing.assert_allclose(out["output"], ref["output"], rtol=1e-4,
+                               atol=1e-5)
+    log(f"{what}: pooled outputs of all {cols} columns == oracle; output "
+        "within rtol 1e-4 / atol 1e-5 (max abs diff "
+        f"{float(np.abs(out['output'] - ref['output']).max()):.3g})")
+
+
+def imported_phase(torch, model, np_params, served) -> None:
+    """Model E written as a feature-column GraphDef (``model_graphdef``),
+    imported by the port's importer (strict), served at 512 and 2048 with
+    model E's params: model E's four groups, K1 1, X1 1 and X2 3 a
+    predict, pooled == the oracle and outputs == the native engine's."""
+    import numpy as np
+
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.importers import import_tf_graphdef
+    from recom_tpu_torch.ir.serde import model_to_json
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.runtime.executor import Engine
+
+    t = time.perf_counter()
+    data = model_graphdef(model)
+    t_write = time.perf_counter() - t
+    t = time.perf_counter()
+    imported, weights = import_tf_graphdef(data, tower=model.tower,
+                                           name=model.name)
+    t_import = time.perf_counter() - t
+    log(f"model E as a GraphDef: {len(data) / 2**20:.2f} MiB written in "
+        f"{t_write:.3f} s, imported (strict) in {t_import:.3f} s on the "
+        f"host; {len(imported.embedding_columns)} embedding columns, "
+        f"{len(imported.tables)} VariableV2 tables (no values in the graph)")
+    require(not weights and model_to_json(imported) == model_to_json(model),
+            "the imported spec is not model E's")
+    t = time.perf_counter()
+    eng = Engine(imported, EngineConfig(), params=np_params, device="cuda")
+    torch.cuda.synchronize()
+    log(f"Engine(imported model E, EngineConfig()): "
+        f"{time.perf_counter() - t:.1f} s")
+    require(group_layout(eng.compiled) == served["groups"]
+            and len(served["groups"]) == 4,
+            "imported model E does not lower to model E's four groups")
+    for bs, batch, want in ((512, served["batch_small"], served["out_512"]),
+                            (2048, served["batch_big"], served["out_2048"])):
+        kernels.reset_launches()
+        out = eng.predict(batch, return_pooled=bs == 512)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        require_launches(counts, ("K1", "X1", "X2"),
+                         f"imported model E, batch {bs}",
+                         exactly={"K1": 1, "X1": 1, "X2": 3})
+        require(np.array_equal(out["output"], want["output"]),
+                f"imported model E, batch {bs}: output != the native "
+                "engine's")
+        if bs == 512:
+            check_pooled(served["ref"], out, "imported model E, batch 512")
+        log(f"imported model E, batch {bs}: launches {counts}; output == "
+            "the native model E engine's")
+    latency(torch, eng, "imported model E",
+            ((512, served["batch_small"]), (2048, served["batch_big"])))
+    del eng
+    free_engines()
+
+
+def stored_phases(torch, model, np_params, served):
+    """Model E with bf16 and with int8 tables, and micro-1000 with bf16
+    tables under host_bucketize=False: launch counts, pooled == the
+    oracle on each engine's export (the stored values as f32), latency,
+    and each variant against its plain version and timed at the path's
+    shapes at batch 2048.  Returns {variant: results}, with launches."""
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.models import make_random_batch
+    from recom_tpu_torch.models.synthetic import make_microbenchmark_model
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.ops.quant import QuantizedTable
+    from recom_tpu_torch.oracle import OracleModel
+    from recom_tpu_torch.runtime.checkpoint import export_params
+    from recom_tpu_torch.runtime.executor import Engine
+    from recom_tpu_torch.runtime.wire import unpack_blob
+    from recom_tpu_torch.utils.params import init_model_params
+
+    small, big = served["batch_small"], served["batch_big"]
+    results = {}
+    for dtype, k1, x1, want in (
+            ("bfloat16", "K1-bf16", "X1-bf16",
+             {"K1-bf16": 1, "X1-bf16": 1, "X2": 3}),
+            ("int8", None, "X1-int8", {"X1-int8": 1, "X2": 3})):
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(model, EngineConfig(table_dtype=dtype), params=np_params,
+                     device="cuda")
+        torch.cuda.synchronize()
+        stored = 0
+        for v in eng.device_params["stacked"].values():
+            for x in (v if isinstance(v, QuantizedTable) else (v,)):
+                stored += x.numel() * x.element_size()
+        log(f"Engine(model E, table_dtype={dtype!r}): "
+            f"{time.perf_counter() - t:.1f} s, {stored / 1e9:.3f} GB of "
+            "tables on the card, groups " + "; ".join(
+                f"gid {g.gid}: {g.num_columns} cols d={g.dim} "
+                f"onehot={g.pallas_vocab is not None}"
+                for g in eng.compiled.groups))
+        counted = {}
+        for bs, batch in ((512, small), (2048, big)):
+            kernels.reset_launches()
+            out = eng.predict(batch, return_pooled=bs == 512)
+            torch.cuda.synchronize()
+            counted[bs] = dict(kernels.launches)
+            log(f"launches in predict(batch {bs}), {dtype}: {counted[bs]}")
+            require_launches(counted[bs], tuple(want), f"model E {dtype}",
+                             exactly=want)
+            if bs == 512:
+                t = time.perf_counter()
+                ref = OracleModel(model, export_params(eng)).forward(small)
+                log(f"export_params + oracle forward (batch 512): "
+                    f"{time.perf_counter() - t:.1f} s")
+                check_pooled(ref, out, f"model E {dtype}, batch 512, against "
+                             "the oracle on the engine's export")
+        latency(torch, eng, f"model E, {dtype}", ((512, small), (2048, big)))
+        recs = stored_records(torch, eng, big, k1, x1)
+        res = measure_forward(torch, recs)
+        res[x1]["classes"] = x1_largest_alone(torch, recs[x1][0])
+        for kid in res:
+            results[kid] = dict(res[kid], launches=counted[2048][kid])
+        log(f"peak device memory (model E, {dtype}): "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del eng, out, ref
+        free_engines()
+
+    # micro-1000 with bf16 tables, raw floats on the card: K2-bf16
+    micro = make_microbenchmark_model(1000, random_boundary=True, seed=0)
+    eng = Engine(micro, EngineConfig(table_dtype="bfloat16",
+                                     host_bucketize=False),
+                 params=init_model_params(micro), device="cuda")
+    mb = make_random_batch(micro, 2048, seed=1)
+    kernels.reset_launches()
+    out = eng.predict(mb, return_pooled=True)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    log(f"launches in predict(micro-1000, bf16, batch 2048): {counts}")
+    require_launches(counts, ("K2-bf16",), "micro-1000 bf16",
+                     exactly={"K2-bf16": 2})
+    check_micro(OracleModel(micro, export_params(eng)).forward(mb), out, 2048)
+    prep = eng.prepare(mb)
+    with torch.inference_mode():
+        arrays = unpack_blob(eng.compiled, eng.to_device(prep)["blob"], 2048,
+                             prep.rowlens, prep.wsig)
+    recs = []
+    for g, packed in zip(eng.compiled.groups, arrays["groups"]):
+        require(eng.device_params["stacked"][str(g.gid)].dtype
+                == torch.bfloat16, "micro-1000 tables in bf16")
+        recs.append(k2_call(torch, eng, g, packed["raw_bz"].contiguous()))
+    res = measure_forward(torch, {"K2-bf16": recs})
+    results["K2-bf16"] = dict(res["K2-bf16"], launches=counts["K2-bf16"])
+    del eng, out
+    free_engines()
+    return results
+
+
+def bf16_specials(torch, t, seed: int):
+    """An f32 table as bf16 (rounded to nearest even), a tenth of its
+    elements first set to ties at bf16's rounding point (low half 0x8000)
+    and some elements then set to bf16's -0.0 and subnormals (0x8000,
+    0x0001, 0x807F).  NaN and +-inf stay where the f32 table has them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.array(t, np.float32)
+    bits = t.view(np.uint32)
+    tie = rng.random(t.shape) < 0.1
+    bits[tie] = (bits[tie] & np.uint32(0xFFFF0000)) | np.uint32(0x8000)
+    out = torch.from_numpy(t).to(torch.bfloat16)
+    b16 = out.view(torch.int16).view(-1)
+    n = b16.numel()
+    for k, pat in enumerate((-32768, 0x0001, -32641)):
+        b16[k:n:11 + 2 * k] = pat
+    return out
+
+
+def int8_edges(torch, t, seed: int):
+    """An f32 table with its rows scaled over 12 orders of magnitude
+    (e^-14 .. e^14), row 1 zero (scale 0) and row 2 of one value (every q
+    at -127), as a QuantizedTable."""
+    import numpy as np
+
+    from recom_tpu_torch.ops.quant import QuantizedTable, quantize_rows_int8
+
+    rng = np.random.default_rng(seed)
+    t = np.array(t, np.float32) * np.exp(
+        rng.uniform(-14, 14, (t.shape[0], 1))).astype(np.float32)
+    t[1] = 0.0
+    t[2] = -0.75
+    q, s = quantize_rows_int8(t)
+    return QuantizedTable(torch.from_numpy(q), torch.from_numpy(s))
+
+
+# the variants' edge widths and bag lengths: d off (1, 3) and on (8, 12,
+# 32, 64) the four-element path, L = 1 (its own path) to 128
+VARIANT_EDGE_D = (1, 3, 8, 12, 32, 64)
+VARIANT_EDGE_L = (1, 2, 33, 128)
+
+
+def variant_edges(torch) -> None:
+    """K1-bf16, K2-bf16, X1-bf16 and X1-int8 against their plain versions
+    on edge inputs: ragged tiles, bf16 rows holding -0.0, NaN, +-inf,
+    subnormals and rounding ties, int8 rows at +-127, zero rows with scale
+    0 and scales over 12 orders of magnitude, d in VARIANT_EDGE_D, L in
+    VARIANT_EDGE_L, weighted and unweighted columns under all three
+    combiners.  K1 and K2 bit for bit; X1 with ==, NaN where the plain
+    version has it."""
+    import numpy as np
+
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.ops.lookup_gather import (
+        group_pooled_plain,
+        groups_pooled,
+    )
+    from recom_tpu_torch.ops.lookup_onehot import (
+        bucket_bounds,
+        onehot_bucketize_lookup,
+        onehot_bucketize_lookup_plain,
+        onehot_lookup,
+        onehot_lookup_plain,
+    )
+    from recom_tpu_torch.ops.quant import QuantizedTable
+
+    dev = torch.device("cuda")
+    bits = lambda x: x.view(torch.int32)
+    with torch.inference_mode():
+        for cc, v, bb, d in K1_EDGES + ((45, 101, 100, 12),):
+            t3, ids_np, caps_np = k1_edge_case(cc, v, d, bb, seed=d,
+                                               specials=False)
+            t3b = bf16_specials(torch, t3, seed=d)
+            # whole vocab rows of NaN, +inf and -inf
+            t3b.view(torch.int16)[:, 0::15] = 0x7FC1
+            t3b.view(torch.int16)[:, 5::15] = 0x7F80
+            t3b.view(torch.int16)[:, 10::15] = -128
+            a = (t3b.to(dev), torch.from_numpy(ids_np).to(dev),
+                 torch.from_numpy(caps_np).to(dev))
+            before = kernels.launches["K1-bf16"]
+            got, want = onehot_lookup(*a), onehot_lookup_plain(*a)
+            torch.cuda.synchronize()
+            require(kernels.launches["K1-bf16"] == before + 1
+                    and got.dtype == torch.float32
+                    and bool((bits(got) == bits(want)).all()),
+                    f"K1-bf16 edge case C={cc} V_pad={t3.shape[1]} Bp={bb} "
+                    f"d={d}: kernel != plain")
+        log(f"K1-bf16 edge cases ((C, V, Bp, d) in {K1_EDGES} and (45, 101, "
+            "100, 12); bf16 rows of -0.0, NaN, +-inf, subnormals, rounding "
+            "ties): kernel == plain bit for bit")
+        for v_pad in (128, 256, 384):
+            for d in VARIANT_EDGE_D:
+                bm, cn, t3, raw_np = k2_edge_case(45, v_pad, d, 100,
+                                                  seed=v_pad + d)
+                t3b = bf16_specials(torch, t3, seed=v_pad + d)
+                t3b.view(torch.int16)[:, 3::7] = 0x7FC1
+                t3b.view(torch.int16)[:, 4::7] = -128
+                a = (t3b.to(dev), torch.from_numpy(raw_np).to(dev),
+                     *(torch.from_numpy(x).to(dev) for x in bucket_bounds(
+                         bm, cn, v_pad, t3.shape[0])))
+                got = onehot_bucketize_lookup(*a)
+                want = onehot_bucketize_lookup_plain(*a)
+                torch.cuda.synchronize()
+                require(bool((bits(got) == bits(want)).all()),
+                        f"K2-bf16 edge case V_pad={v_pad} d={d}: kernel != "
+                        "plain")
+        log(f"K2-bf16 edge cases (C = 45, Bp = 100, V_pad 128 / 256 / 384, d "
+            f"in {VARIANT_EDGE_D}; K2's edge boundary sets and raw values; "
+            "bf16 rows of -0.0, NaN, -inf, subnormals, ties): kernel == "
+            "plain bit for bit")
+        for dtype, kid in (("bf16", "X1-bf16"), ("int8", "X1-int8")):
+            cases = []
+            for d in VARIANT_EDGE_D:
+                for ll in VARIANT_EDGE_L:
+                    for weighted in (False, True):
+                        seed = 10 * d + ll
+                        tb, ids_np, offs, caps_np, codes, w_np, wc = \
+                            x1_edge_case(d, ll, seed=seed,
+                                         specials=dtype == "bf16")
+                        if dtype == "bf16":
+                            table = bf16_specials(torch, tb, seed).to(dev)
+                        else:
+                            qt = int8_edges(torch, tb, seed)
+                            table = QuantizedTable(qt.q.to(dev),
+                                                   qt.scale.to(dev))
+                        cases.append(((d, ll, weighted), (
+                            table, torch.from_numpy(ids_np).to(dev), offs,
+                            codes,
+                            torch.from_numpy(w_np).to(dev) if weighted
+                            else None,
+                            wc if weighted else np.zeros(len(wc), bool),
+                            caps_np)))
+            before = kernels.launches[kid]
+            got_all = groups_pooled([a for _, a in cases])
+            require(kernels.launches[kid] - before == -(-len(cases) // 8),
+                    f"{kid} edge cases: one launch per 8 groups")
+            for (key, a), got in zip(cases, got_all):
+                want = group_pooled_plain(*a)
+                torch.cuda.synchronize()
+                same = (got == want) | (got.isnan() & want.isnan())
+                require(got.shape == want.shape and bool(same.all()),
+                        f"{kid} edge case (d, L, weighted) = {key}: kernel "
+                        "!= plain")
+            log(f"{kid} edge cases (d in {VARIANT_EDGE_D} x L in "
+                f"{VARIANT_EDGE_L}, unweighted and weighted, SUM / MEAN / "
+                "SQRTN columns; C = 6, Bp = 100; "
+                + ("-0.0 / NaN / +-inf / subnormal rows and rounding ties"
+                   if dtype == "bf16" else
+                   "rows scaled over 12 orders of magnitude, a zero row "
+                   "(scale 0) and a row at -127")
+                + f"): kernel == plain, {len(cases)} groups in "
+                f"{kernels.launches[kid] - before} launches")
 
 
 def _equal_bits(torch, a, b) -> bool:
@@ -2004,10 +2553,16 @@ def main() -> int:
     np_params = init_model_params(model)
     log(f"model E params on host: {time.perf_counter() - t:.1f} s")
     served = serve_phases(torch, model, np_params, int_rate)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_engines()
     log(f"serving engines freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
         "GiB left on the card")
+
+    # ---- model E imported from its GraphDef; bf16 and int8 tables ---------
+    imported_phase(torch, model, np_params, served)
+    stored = stored_phases(torch, model, np_params, served)
+    variant_edges(torch)
+    log(f"stored-dtype engines freed: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB left on the card")
     trained = train_phases(torch, model, np_params, served["batch_small"],
                            served["batch_big"], served["ref"])
     del model, np_params
@@ -2016,13 +2571,14 @@ def main() -> int:
 
     # ---- the Criteo DLRM at full width -------------------------------------
     criteo = criteo_phases(torch)
-    results = {**served["results"], **trained["results"]}
+    results = {**served["results"], **trained["results"], **stored}
     launches = {
         "K1": served["counts_2048"]["K1"], "K2": served["counts_mb"]["K2"],
         "X1": served["counts_2048"]["X1"], "X2": served["counts_2048"]["X2"],
         "K3a": trained["counts_train"]["K3a"],
         "K3b": trained["counts_bz"]["K3b"],
         "X1b": trained["counts_train"]["X1b"],
+        **{kid: r["launches"] for kid, r in stored.items()},
     }
 
     def entry(r, n):

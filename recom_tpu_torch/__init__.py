@@ -16,6 +16,11 @@ package name of their imports.  What runs on the device is rewritten:
   train.py              Trainer, optax-rule optimizers; the backward kernels
                         K3a (of K1), K3b (of K2) and X1b (of X1)
   runtime/checkpoint.py export/save/load in the JAX package's npz layout
+  ops/quant.py          bf16 and int8 (per-row scale) table storage; K1, K2
+                        and X1 read them as stored (K1-bf16, K2-bf16,
+                        X1-bf16, X1-int8)
+  importers/            frozen TF feature-column graphs and SavedModels ->
+                        ModelSpec + weights (copies of recom_tpu/importers)
   csrc/*.cu             the kernels, built by nvcc at first use (ops/kernels.py)
 
 Entry points run on CUDA unless the caller asks for the CPU, where every

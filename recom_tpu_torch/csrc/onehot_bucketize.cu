@@ -25,7 +25,8 @@
 // test ahead of the search.
 //
 // One id per entry: the row is copied, no arithmetic touches it, and the
-// output is bit-exact by construction.
+// output is bit-exact by construction.  K2-bf16 reads a bf16 table3 and
+// upcasts each element as it is read, exactly (onehot_write.cuh).
 //
 // What bounds it on the H100: bytes.  At the microbenchmark model's 1000
 // columns and batch 2048 it reads 8.2 MB of raw floats and writes 65.5 MB
@@ -71,11 +72,13 @@ using onehot::kThreads;
 
 constexpr int kPerThread = kCols * kRows / kThreads;   // searches a thread runs
 
-// T: float, or float4 with d counted in float4s (dq = d or d / 4).
-// half: half of the smallest power of two >= V (0 for V == 1).
-template <typename I, typename T>
-__global__ void __launch_bounds__(kThreads) onehot_bucketize_f32_kernel(
-    const T* __restrict__ table3,        // [C_pad, V, d]
+// S: the stored unit of table3 (float / float4 for f32, unsigned short /
+// uint2 for bf16); T: the output unit, float or float4 with d counted in
+// float4s (dq = d or d / 4).  half: half of the smallest power of two >= V
+// (0 for V == 1).
+template <typename I, typename S, typename T>
+__global__ void __launch_bounds__(kThreads) onehot_bucketize_kernel(
+    const S* __restrict__ table3,        // [C_pad, V, d]
     const float* __restrict__ raw,       // [C, Bp] raw feature values
     const float* __restrict__ hi,        // [C_pad, V] upper interval bounds
     const int32_t* __restrict__ counts,  // [C_pad] boundary counts
@@ -112,10 +115,12 @@ __global__ void __launch_bounds__(kThreads) onehot_bucketize_f32_kernel(
     }
   }
   __syncthreads();
-  onehot::write_tile_rows<I, T>(table3, rows, out, C, c0, b0, nc, nb, dq);
+  onehot::write_tile_rows<I, S, T>(table3, rows, out, C, c0, b0, nc, nb,
+                                   dq);
 }
 
-template <typename I>
+// S1 / S4: the stored unit of one element / of four
+template <typename I, typename S1, typename S4>
 void launch(const void* table3, const void* raw, const void* hi,
             const void* counts, void* out, I C, I Bp, I V, int d, bool vec,
             int half, dim3 grid, cudaStream_t s) {
@@ -123,21 +128,20 @@ void launch(const void* table3, const void* raw, const void* hi,
   const float* h = static_cast<const float*>(hi);
   const int32_t* n = static_cast<const int32_t*>(counts);
   if (vec) {
-    onehot_bucketize_f32_kernel<I, float4><<<grid, kThreads, 0, s>>>(
-        static_cast<const float4*>(table3), r, h, n,
+    onehot_bucketize_kernel<I, S4, float4><<<grid, kThreads, 0, s>>>(
+        static_cast<const S4*>(table3), r, h, n,
         static_cast<float4*>(out), C, Bp, V, d / 4, half);
   } else {
-    onehot_bucketize_f32_kernel<I, float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(table3), r, h, n,
+    onehot_bucketize_kernel<I, S1, float><<<grid, kThreads, 0, s>>>(
+        static_cast<const S1*>(table3), r, h, n,
         static_cast<float*>(out), C, Bp, V, d, half);
   }
 }
 
-}  // namespace
-
-extern "C" int rt_onehot_bucketize_f32(
-    const void* table3, const void* raw, const void* hi, const void* counts,
-    void* out, int64_t C, int64_t Bp, int64_t V, int64_t d, void* stream) {
+template <typename S1, typename S4>
+int run(const void* table3, const void* raw, const void* hi,
+        const void* counts, void* out, int64_t C, int64_t Bp, int64_t V,
+        int64_t d, void* stream) {
   if (C == 0 || Bp == 0 || d == 0) return 0;
   const int64_t col_tiles = (C + kCols - 1) / kCols;
   const int64_t row_tiles = (Bp + kRows - 1) / kRows;
@@ -153,17 +157,36 @@ extern "C" int rt_onehot_bucketize_f32(
   const int64_t out_n = C * Bp * d;
   const int64_t tab_n = C * V * d;
   const bool vec = d % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(table3) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(table3) % sizeof(S4) == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (out_n < (int64_t{1} << 31) && tab_n < (int64_t{1} << 31)) {
-    launch<int32_t>(table3, raw, hi, counts, out, static_cast<int32_t>(C),
-                    static_cast<int32_t>(Bp), static_cast<int32_t>(V),
-                    static_cast<int>(d), vec, half, grid, s);
+    launch<int32_t, S1, S4>(table3, raw, hi, counts, out,
+                            static_cast<int32_t>(C), static_cast<int32_t>(Bp),
+                            static_cast<int32_t>(V), static_cast<int>(d), vec,
+                            half, grid, s);
   } else {
-    launch<int64_t>(table3, raw, hi, counts, out, C, Bp, V,
-                    static_cast<int>(d), vec, half, grid, s);
+    launch<int64_t, S1, S4>(table3, raw, hi, counts, out, C, Bp, V,
+                            static_cast<int>(d), vec, half, grid, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int rt_onehot_bucketize_f32(
+    const void* table3, const void* raw, const void* hi, const void* counts,
+    void* out, int64_t C, int64_t Bp, int64_t V, int64_t d, void* stream) {
+  return run<float, float4>(table3, raw, hi, counts, out, C, Bp, V, d,
+                            stream);
+}
+
+// K2-bf16: table3 holds bf16 rows (16-bit patterns), upcast as they are
+// read by K1's write phase (onehot_write.cuh); the output is f32 as K2's
+extern "C" int rt_onehot_bucketize_bf16(
+    const void* table3, const void* raw, const void* hi, const void* counts,
+    void* out, int64_t C, int64_t Bp, int64_t V, int64_t d, void* stream) {
+  return run<unsigned short, uint2>(table3, raw, hi, counts, out, C, Bp, V,
+                                    d, stream);
 }
 
 extern "C" const char* rt_cuda_error_string(int err) {

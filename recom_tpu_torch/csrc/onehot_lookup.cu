@@ -14,6 +14,12 @@
 // missing id, so the result is the row itself: no arithmetic touches it and
 // the output is bit-exact by construction.
 //
+// K1-bf16 (rt_onehot_lookup_bf16) is the same kernel over a bf16 table3:
+// the reference upcasts each vocab tile to f32 before its one-hot product
+// (lookup_pallas.py:49-53); here each element is upcast, exactly, as it is
+// read (onehot_write.cuh), so the f32 output holds the stored values.  Its
+// reads halve; the f32 output it writes, most of its bytes, does not.
+//
 // What bounds it on the H100: bytes.  The TPU streams vocab tiles through
 // VMEM into the MXU; here that one-hot GEMM would be pure waste.  The whole
 // table3 of model E (936 x 128 x 8 x 4 B = 3.8 MB) sits in the 50 MB L2, so
@@ -52,10 +58,12 @@ using onehot::kCols;
 using onehot::kRows;
 using onehot::kThreads;
 
-// T: float, or float4 with d counted in float4s (dq = d or d / 4).
-template <typename I, typename T>
+// S: the stored unit of table3 (float / float4 for f32, unsigned short /
+// uint2 for bf16); T: the output unit, float or float4 with d counted in
+// float4s (dq = d or d / 4).
+template <typename I, typename S, typename T>
 __global__ void __launch_bounds__(kThreads) onehot_lookup_kernel(
-    const T* __restrict__ table3,       // [C_pad, V, d]
+    const S* __restrict__ table3,       // [C_pad, V, d]
     const int32_t* __restrict__ ids,    // [C, Bp] local ids, < 0 = missing
     const int32_t* __restrict__ caps,   // [C] last valid row per column
     T* __restrict__ out,                // [Bp, C, d]
@@ -78,30 +86,30 @@ __global__ void __launch_bounds__(kThreads) onehot_lookup_kernel(
     }
   }
   __syncthreads();
-  onehot::write_tile_rows<I, T>(table3, rows, out, C, c0, b0, nc, nb, dq);
+  onehot::write_tile_rows<I, S, T>(table3, rows, out, C, c0, b0, nc, nb,
+                                   dq);
 }
 
-template <typename I>
+// S1 / S4: the stored unit of one element / of four
+template <typename I, typename S1, typename S4>
 void launch(const void* table3, const void* ids, const void* caps, void* out,
             I C, I Bp, I V, int d, bool vec, dim3 grid, cudaStream_t s) {
   const int32_t* i = static_cast<const int32_t*>(ids);
   const int32_t* k = static_cast<const int32_t*>(caps);
   if (vec) {
-    onehot_lookup_kernel<I, float4><<<grid, kThreads, 0, s>>>(
-        static_cast<const float4*>(table3), i, k, static_cast<float4*>(out),
+    onehot_lookup_kernel<I, S4, float4><<<grid, kThreads, 0, s>>>(
+        static_cast<const S4*>(table3), i, k, static_cast<float4*>(out),
         C, Bp, V, d / 4);
   } else {
-    onehot_lookup_kernel<I, float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(table3), i, k, static_cast<float*>(out),
+    onehot_lookup_kernel<I, S1, float><<<grid, kThreads, 0, s>>>(
+        static_cast<const S1*>(table3), i, k, static_cast<float*>(out),
         C, Bp, V, d);
   }
 }
 
-}  // namespace
-
-extern "C" int rt_onehot_lookup_f32(
-    const void* table3, const void* ids, const void* caps, void* out,
-    int64_t C, int64_t Bp, int64_t V, int64_t d, void* stream) {
+template <typename S1, typename S4>
+int run(const void* table3, const void* ids, const void* caps, void* out,
+        int64_t C, int64_t Bp, int64_t V, int64_t d, void* stream) {
   if (C == 0 || Bp == 0 || d == 0) return 0;
   const int64_t col_tiles = (C + kCols - 1) / kCols;
   const int64_t row_tiles = (Bp + kRows - 1) / kRows;
@@ -115,17 +123,34 @@ extern "C" int rt_onehot_lookup_f32(
   const int64_t out_n = C * Bp * d;
   const int64_t tab_n = C * V * d;
   const bool vec = d % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(table3) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(table3) % sizeof(S4) == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (out_n < (int64_t{1} << 31) && tab_n < (int64_t{1} << 31)) {
-    launch<int32_t>(table3, ids, caps, out, static_cast<int32_t>(C),
-                    static_cast<int32_t>(Bp), static_cast<int32_t>(V),
-                    static_cast<int>(d), vec, grid, s);
+    launch<int32_t, S1, S4>(table3, ids, caps, out, static_cast<int32_t>(C),
+                            static_cast<int32_t>(Bp), static_cast<int32_t>(V),
+                            static_cast<int>(d), vec, grid, s);
   } else {
-    launch<int64_t>(table3, ids, caps, out, C, Bp, V, static_cast<int>(d),
-                    vec, grid, s);
+    launch<int64_t, S1, S4>(table3, ids, caps, out, C, Bp, V,
+                            static_cast<int>(d), vec, grid, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int rt_onehot_lookup_f32(
+    const void* table3, const void* ids, const void* caps, void* out,
+    int64_t C, int64_t Bp, int64_t V, int64_t d, void* stream) {
+  return run<float, float4>(table3, ids, caps, out, C, Bp, V, d, stream);
+}
+
+// K1-bf16: table3 holds bf16 rows (16-bit patterns), upcast as they are
+// read; the output is f32 as K1's
+extern "C" int rt_onehot_lookup_bf16(
+    const void* table3, const void* ids, const void* caps, void* out,
+    int64_t C, int64_t Bp, int64_t V, int64_t d, void* stream) {
+  return run<unsigned short, uint2>(table3, ids, caps, out, C, Bp, V, d,
+                                    stream);
 }
 
 extern "C" const char* rt_cuda_error_string(int err) {

@@ -13,6 +13,17 @@
 // element, so no element divides by a runtime size.  Stores carry the
 // evict-first hint (__stcs): the streamed output is larger than L2 at
 // serving batch sizes and would otherwise push the tables out of it.
+//
+// Stored dtypes: table3 holds f32 rows, or bf16 rows (the bf16 variants
+// K1-bf16 and K2-bf16).  A bf16 element is the top half of an f32, so it
+// is upcast exactly, as it is read, by a shift into the high 16 bits:
+// -0.0, NaN payloads, infinities and subnormals keep their bits, and the
+// f32 output holds the same value the stored row does.  The load type S
+// and the store type T then differ: a float4 of output is four bf16, one
+// 8-byte load (uint2); a float, one 2-byte load.  Offsets count units of
+// T in the output and units of S in table3, one S per T, so the
+// bookkeeping (dq = d or d / 4, the rows[][] offsets) is the same for
+// both dtypes.
 
 #pragma once
 
@@ -32,11 +43,27 @@ template <> __device__ __forceinline__ float4 Zero<float4>() {
   return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-// T: float, or float4 with d counted in float4s (dq = d or d / 4).
-// Call after a __syncthreads() that publishes rows.
-template <typename I, typename T>
+// A stored unit as f32: f32 as it is; bf16 (16-bit patterns) shifted
+// into the top half of an f32, which is exact.
+__device__ __forceinline__ float Upcast(float v) { return v; }
+__device__ __forceinline__ float4 Upcast(float4 v) { return v; }
+__device__ __forceinline__ float Upcast(unsigned short v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+__device__ __forceinline__ float4 Upcast(uint2 v) {   // four bf16, in order
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xFFFF0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xFFFF0000u));
+}
+
+// S: the stored unit (float or float4 for f32 tables, unsigned short or
+// uint2 for bf16); T: the output unit, float or float4 with d counted in
+// float4s (dq = d or d / 4).  Call after a __syncthreads() that publishes
+// rows.
+template <typename I, typename S, typename T>
 __device__ __forceinline__ void write_tile_rows(
-    const T* __restrict__ table3,       // [C_pad, V, dq]
+    const S* __restrict__ table3,       // [C_pad, V, dq]
     I (*rows)[kCols + 1],               // [kRows][kCols + 1] offsets, -1 = 0
     T* __restrict__ out,                // [Bp, C, dq]
     I C, I c0, I b0, int nc, int nb, int dq) {
@@ -51,7 +78,7 @@ __device__ __forceinline__ void write_tile_rows(
 #pragma unroll 2
     for (int e = lane; e < span; e += 32) {
       const I row = r[cl];
-      __stcs(o + e, row >= 0 ? __ldg(table3 + row + q) : Zero<T>());
+      __stcs(o + e, row >= 0 ? Upcast(__ldg(table3 + row + q)) : Zero<T>());
       q += q_step;
       cl += cl_step;
       if (q >= dq) {

@@ -71,6 +71,31 @@
 //   per group (ops/lookup_gather.py::x1_descriptors), passed by value as
 //   the kernel's argument; each block finds its group by its index.
 //
+// Stored dtypes (the variants X1-bf16 and X1-int8, one kernel each, so
+// that the f32 kernel keeps its own registers): the reference gathers rows
+// in the stored dtype and converts them after the gather
+// (lookup_xla.py:61-76, quant.py:47-49); here each lane converts the unit
+// it loaded, in registers, before the pooling sees it.
+// - bf16: a unit of four elements is one 8-byte load (uint2), upcast
+//   exactly by a shift into the top half of an f32 (-0.0, NaN, infinities
+//   and subnormals keep their values).
+// - int8: a unit of four is one 4-byte load (char4), and each element is
+//   dequantized as __fmul_rn(__int2float_rn(q), scale[row]): the
+//   conversion is exact and the product is rounded once, before it meets
+//   the weight's __fmul_rn or the pool's __fadd_rn.  Written as
+//   acc + f32(q) * s, an unweighted column would be the pattern nvcc
+//   contracts into an FMA, one rounding fewer than the reference takes.
+//   Each slot reads its row's scale once, beside the row.  An all-zero row
+//   has scale 0.0 and q = 0, so it reads +0.0 * 0.0 = +0.0, as numpy's
+//   dequantize_table gives.
+// Units stay four elements (or one) for every dtype, so the lane, tile and
+// descriptor bookkeeping (dq, G, TB, TC) is the f32 kernel's; only the
+// load width differs (16, 8 or 4 bytes a unit), and the host's vector test
+// asks for the stored unit's alignment (ops/lookup_gather.py::_x1_group).
+// What bounds the variants: the same latency as the f32 kernel at model
+// E's sizes; the stored rows' bytes shrink by 2x or 4x, the ids, weights
+// and the f32 output do not.
+//
 // Tried on the H100 and dropped (experiment builds, not kept): one launch
 // per group (the three launches' tails and gaps cost more than the shared
 // kernel's extra registers); staging each tile's output in shared memory to
@@ -92,7 +117,8 @@ constexpr int kMaxGroups = 8;   // groups per launch
 
 // One group of a launch; the layout of ops/lookup_gather.py::X1_DESC.
 struct X1Group {
-  const void* table;            // [R, d] f32 stacked rows
+  const void* table;            // [R, d] stacked rows: f32, bf16 or int8
+  const float* scales;          // [R] an int8 table's row scales, else null
   const int32_t* ids;           // [C, Bp, L] member-local ids
   const float* weights;         // [C, Bp, L] or nullptr
   const int32_t* row_offsets;   // [C]
@@ -132,6 +158,40 @@ template <> __device__ __forceinline__ float4 zero<float4>() {
   return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
+// The stored dtypes, and the unit a lane loads for one output unit T.
+enum Stored { kF32, kBF16, kInt8 };
+template <int S, typename T> struct Unit;
+template <> struct Unit<kF32, float> { using type = float; };
+template <> struct Unit<kF32, float4> { using type = float4; };
+template <> struct Unit<kBF16, float> { using type = unsigned short; };
+template <> struct Unit<kBF16, float4> { using type = uint2; };
+template <> struct Unit<kInt8, float> { using type = signed char; };
+template <> struct Unit<kInt8, float4> { using type = char4; };
+
+// A loaded unit as f32: f32 as it is; bf16 shifted into the top half of an
+// f32 (exact); int8 converted (exact) and times the row's scale, one
+// rounded product.
+__device__ __forceinline__ float to_f32(float v, float) { return v; }
+__device__ __forceinline__ float4 to_f32(float4 v, float) { return v; }
+__device__ __forceinline__ float to_f32(unsigned short v, float) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+__device__ __forceinline__ float4 to_f32(uint2 v, float) {
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xFFFF0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xFFFF0000u));
+}
+__device__ __forceinline__ float to_f32(signed char v, float s) {
+  return __fmul_rn(__int2float_rn(v), s);
+}
+__device__ __forceinline__ float4 to_f32(char4 v, float s) {
+  return make_float4(__fmul_rn(__int2float_rn(v.x), s),
+                     __fmul_rn(__int2float_rn(v.y), s),
+                     __fmul_rn(__int2float_rn(v.z), s),
+                     __fmul_rn(__int2float_rn(v.w), s));
+}
+
 // The combiner on a finished sum: divide (weighted column) or multiply by
 // the rounded reciprocal; 0 where the denominator is not > 0.
 template <typename T>
@@ -152,10 +212,12 @@ __device__ __forceinline__ T finish(T acc, int32_t code, bool divide,
 }
 
 // Slots 0 .. L-1 of one bag, K at a time: a chunk's ids, then all its
-// row loads, then the adds in slot order.
-template <typename T, int K>
+// row loads (each converted to f32 units as it arrives), then the adds in
+// slot order.
+template <int S, typename T, int K>
 __device__ __forceinline__ void pool_slots(
-    const T* __restrict__ table, const int32_t* __restrict__ id_row,
+    const typename Unit<S, T>::type* __restrict__ table,
+    const float* __restrict__ scales, const int32_t* __restrict__ id_row,
     const float* __restrict__ w_row, int L, int32_t cap, int64_t off,
     int64_t dq, int64_t q, T& acc, float& wsum, float& w2sum) {
   for (int l0 = 0; l0 < L; l0 += K) {
@@ -171,8 +233,13 @@ __device__ __forceinline__ void pool_slots(
     for (int k = 0; k < K; ++k) {
       const int32_t i = id[k] < cap ? id[k] : cap;
       ok[k] = i >= 0;
-      const int64_t row = (static_cast<int64_t>(i) + off) * dq + q;
-      r[k] = ok[k] ? __ldg(table + row) : zero<T>();
+      const int64_t row = static_cast<int64_t>(i) + off;
+      if (ok[k]) {
+        const float sc = S == kInt8 ? __ldg(scales + row) : 1.0f;
+        r[k] = to_f32(__ldg(table + row * dq + q), sc);
+      } else {
+        r[k] = zero<T>();
+      }
       w[k] = ok[k] && w_row ? __ldg(w_row + l0 + k) : 1.0f;
     }
 #pragma unroll
@@ -187,7 +254,7 @@ __device__ __forceinline__ void pool_slots(
 }
 
 // One block of group g: its tile's bags, G lanes a bag.
-template <typename T, int G>
+template <int S, typename T, int G>
 __device__ __forceinline__ void pool_tile(const X1Group& g, int64_t local) {
   constexpr int kBags = kThreads / G;
   constexpr int TB = kBags < 32 ? kBags : 32;    // batch rows a tile
@@ -209,36 +276,38 @@ __device__ __forceinline__ void pool_tile(const X1Group& g, int64_t local) {
   const int64_t off = __ldg(g.row_offsets + c);
   const int32_t code = __ldg(g.codes + c);
   const bool divide = __ldg(g.weighted + c) != 0;
-  const T* table = static_cast<const T*>(g.table);
+  const auto* table = static_cast<const typename Unit<S, T>::type*>(g.table);
   T* out = static_cast<T*>(g.out) + (b * g.C + c) * dq;
   for (int64_t q = sub; q < dq; q += G) {
     T acc = zero<T>();
     float wsum = 0.0f, w2sum = 0.0f;
     if (L == 1) {
-      pool_slots<T, 1>(table, id_row, w_row, 1, cap, off, dq, q, acc, wsum,
-                       w2sum);
+      pool_slots<S, T, 1>(table, g.scales, id_row, w_row, 1, cap, off, dq, q,
+                          acc, wsum, w2sum);
     } else {
-      pool_slots<T, kChunk>(table, id_row, w_row, L, cap, off, dq, q, acc,
-                            wsum, w2sum);
+      pool_slots<S, T, kChunk>(table, g.scales, id_row, w_row, L, cap, off,
+                               dq, q, acc, wsum, w2sum);
     }
     __stcs(out + q, finish(acc, code, divide, wsum, w2sum));
   }
 }
 
-template <typename T>
+template <int S, typename T>
 __device__ __forceinline__ void pool_tile_g(const X1Group& g, int lg,
                                             int64_t local) {
   switch (lg) {
-    case 0: pool_tile<T, 1>(g, local); break;
-    case 1: pool_tile<T, 2>(g, local); break;
-    case 2: pool_tile<T, 4>(g, local); break;
-    case 3: pool_tile<T, 8>(g, local); break;
-    case 4: pool_tile<T, 16>(g, local); break;
-    default: pool_tile<T, 32>(g, local); break;
+    case 0: pool_tile<S, T, 1>(g, local); break;
+    case 1: pool_tile<S, T, 2>(g, local); break;
+    case 2: pool_tile<S, T, 4>(g, local); break;
+    case 3: pool_tile<S, T, 8>(g, local); break;
+    case 4: pool_tile<S, T, 16>(g, local); break;
+    default: pool_tile<S, T, 32>(g, local); break;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) pooled_gather_f32_kernel(
+// S: the stored dtype of every group of the launch
+template <int S>
+__global__ void __launch_bounds__(kThreads) pooled_gather_kernel(
     const __grid_constant__ X1Launch batch) {
   const int64_t blk = blockIdx.x;
   int i = 0;
@@ -246,29 +315,54 @@ __global__ void __launch_bounds__(kThreads) pooled_gather_f32_kernel(
   const X1Group& g = batch.g[i];
   const int64_t local = blk - g.block_begin;
   if (g.kind >= 8) {
-    pool_tile_g<float4>(g, g.kind - 8, local);
+    pool_tile_g<S, float4>(g, g.kind - 8, local);
   } else {
-    pool_tile_g<float>(g, g.kind, local);
+    pool_tile_g<S, float>(g, g.kind, local);
   }
 }
 
-}  // namespace
-
-// Launch X1 over n <= kMaxGroups groups described by the host array
-// `groups` (block_begin ascending from 0), `blocks` blocks in all.
-extern "C" int rt_pooled_gather_f32(const void* groups, int64_t n,
-                                    int64_t blocks, void* stream) {
+// Launch X1 (of stored dtype S) over n <= kMaxGroups groups described by
+// the host array `groups` (block_begin ascending from 0), `blocks` blocks
+// in all.
+template <int S>
+int launch_groups(const void* groups, int64_t n, int64_t blocks,
+                  void* stream) {
   if (n < 1 || n > kMaxGroups || blocks < 0 || blocks > 2147483647) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (blocks == 0) return 0;
   X1Launch batch = {};
   const X1Group* src = static_cast<const X1Group*>(groups);
-  for (int64_t i = 0; i < n; ++i) batch.g[i] = src[i];
+  for (int64_t i = 0; i < n; ++i) {
+    batch.g[i] = src[i];
+    if (S == kInt8 && src[i].scales == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   batch.n = static_cast<int32_t>(n);
-  pooled_gather_f32_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(batch);
+  pooled_gather_kernel<S><<<static_cast<unsigned>(blocks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(batch);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// X1: f32 tables
+extern "C" int rt_pooled_gather_f32(const void* groups, int64_t n,
+                                    int64_t blocks, void* stream) {
+  return launch_groups<kF32>(groups, n, blocks, stream);
+}
+
+// X1-bf16: bf16 tables (16-bit patterns), upcast as they are read
+extern "C" int rt_pooled_gather_bf16(const void* groups, int64_t n,
+                                     int64_t blocks, void* stream) {
+  return launch_groups<kBF16>(groups, n, blocks, stream);
+}
+
+// X1-int8: int8 tables with per-row f32 scales, dequantized as read
+extern "C" int rt_pooled_gather_int8(const void* groups, int64_t n,
+                                     int64_t blocks, void* stream) {
+  return launch_groups<kInt8>(groups, n, blocks, stream);
 }
 
 extern "C" int rt_pooled_gather_desc_size() {

@@ -14,7 +14,8 @@ the kernels spell the rounding out with ``__fmul_rn``/``__fadd_rn`` besides.
 
 Every entry point returns the ``cudaError_t`` of its launch, which
 ``launch`` turns into an exception.  ``launches`` counts the launches of each
-kernel (the forwards K1, K2, X1, X2 and the backwards K3a, K3b, X1b): a
+kernel (the forwards K1, K2, X1, X2, the stored-dtype variants K1-bf16,
+K2-bf16, X1-bf16 and X1-int8, and the backwards K3a, K3b, X1b): a
 wrapper adds one where it launches, and nowhere else, so a run can show that
 a path went through its kernels.
 """
@@ -57,6 +58,14 @@ KERNELS = {
     "K2": ("onehot_bucketize", "rt_onehot_bucketize_f32",
            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "X1": ("pooled_gather", "rt_pooled_gather_f32", [_P, _I, _I, _P]),
+    # the stored-dtype variants: bf16 rows (K1, K2, X1) and int8 rows with
+    # per-row f32 scales (X1), read as stored and pooled in f32
+    "K1-bf16": ("onehot_lookup", "rt_onehot_lookup_bf16",
+                [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "K2-bf16": ("onehot_bucketize", "rt_onehot_bucketize_bf16",
+                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "X1-bf16": ("pooled_gather", "rt_pooled_gather_bf16", [_P, _I, _I, _P]),
+    "X1-int8": ("pooled_gather", "rt_pooled_gather_int8", [_P, _I, _I, _P]),
     "X2": ("hash_device", "rt_hash_rows",
            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "K3a": ("onehot_grad", "rt_onehot_lookup_grad_f32",

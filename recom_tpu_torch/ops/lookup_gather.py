@@ -26,8 +26,16 @@ kernel skips a missing slot where the plain version adds row 0 of the
 member times 0, as the reference does: the two agree with ``==`` while
 no member's row 0 holds NaN or inf (csrc/pooled_gather.cu says why).
 
+Stored dtypes: a table is f32, bf16, or an int8 ``ops/quant.QuantizedTable``
+(rows and per-row f32 scales), as ``EngineConfig.table_dtype`` stores it.
+Rows are gathered as stored and made f32 before the pooling: bf16 upcast
+(exact), int8 dequantized as ``f32(q) * scale``, one rounded product
+(``gather_rows_f32``, the reference's lookup_xla.py:61-76).  On the card
+each stored dtype has its own kernel (X1, X1-bf16, X1-int8 in
+csrc/pooled_gather.cu).
+
 Gradient (training): ``groups_pooled`` is differentiable in each group's
-table.  X1b (``groups_pooled_grad``, one launch for every group of a
+f32 table.  X1b (``groups_pooled_grad``, one launch for every group of a
 backward; csrc/pooled_gather_grad.cu) is the
 transpose of the reference's arithmetic, each step rounded on its own: the
 pooled cotangent scaled as the combiner divided (times the rounded
@@ -52,6 +60,7 @@ import numpy as np
 import torch
 
 from recom_tpu_torch.ops import kernels
+from recom_tpu_torch.ops.quant import QuantizedTable, dequantize_rows
 
 
 def as_device(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -77,14 +86,16 @@ def device_bucketize(x: torch.Tensor, boundaries: torch.Tensor,
     return torch.minimum(torch.clamp(ids, min=0), counts[:, None])
 
 
-def gather_rows_f32(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows of an f32 ``[R, d]`` table at int64 ``idx`` (any shape)."""
-    if table.dtype != torch.float32:
-        raise NotImplementedError(
-            "only float32 tables are ported (bf16/int8 storage: ROADMAP "
-            "Queue 1 item 9)"
-        )
-    return table[idx]
+def gather_rows_f32(table, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of an ``[R, d]`` table at int64 ``idx`` (any shape), as f32
+    (recom_tpu/ops/lookup_xla.py:61-76): an f32 table's rows as they are;
+    a bf16 table's upcast after the gather; a ``QuantizedTable``'s int8
+    rows and their scales gathered, then dequantized (one rounded
+    product)."""
+    if isinstance(table, QuantizedTable):
+        return dequantize_rows(table.q[idx], table.scale[idx])
+    rows = table[idx]
+    return rows if rows.dtype == torch.float32 else rows.float()
 
 
 def combiner_denominators(wsum: torch.Tensor, w2sum: torch.Tensor,
@@ -163,7 +174,7 @@ def pool_rows_inorder(
 
 
 def group_pooled_plain(
-    table: torch.Tensor,            # [R, d] stacked group table, f32
+    table,                          # [R, d] stacked table: f32, bf16 or int8
     ids: torch.Tensor,              # [C, Bp, L] int32, -1 = missing/pad
     row_offsets: np.ndarray,        # [C]
     combiner_code: np.ndarray,      # [C]
@@ -203,21 +214,27 @@ def group_pooled_plain(
 
 # The host side of kernel X1's launch (csrc/pooled_gather.cu): a block of
 # X1_THREADS lanes takes a tile of columns x batch rows of one group, and
-# one launch serves up to X1_MAX_GROUPS groups, each described by one
-# X1_DESC record (the kernel's struct X1Group, field for field: X1_FIELDS).
+# one launch serves up to X1_MAX_GROUPS groups of one stored dtype, each
+# described by one X1_DESC record (the kernel's struct X1Group, field for
+# field: X1_FIELDS).  Each stored dtype has its own kernel and launch
+# count: X1 (f32 rows), X1-bf16 and X1-int8 (int8 rows and f32 scales).
 X1_THREADS = 256
 X1_MAX_GROUPS = 8
-X1_FIELDS = ("table", "ids", "weights", "row_offsets", "caps", "codes",
-             "weighted", "out", "C", "Bp", "L", "dq", "block_begin",
+X1_FIELDS = ("table", "scales", "ids", "weights", "row_offsets", "caps",
+             "codes", "weighted", "out", "C", "Bp", "L", "dq", "block_begin",
              "tiles_b", "kind")
-X1_DESC = struct.Struct("<8Q5q2i")
+X1_DESC = struct.Struct("<9Q5q2i")
+X1_KERNEL = {torch.float32: "X1", torch.bfloat16: "X1-bf16",
+             torch.int8: "X1-int8"}
 
 
 def x1_tile(d: int, vec: bool):
     """(dq, lanes, tile_rows, tile_cols) of a group with row length d:
-    dq row elements (float4s when ``vec``, else floats), ``lanes`` (G) a
-    bag, the smallest power of two >= dq up to 32, and a block tile of
-    tile_cols columns x tile_rows batch rows."""
+    dq row units (runs of four elements when ``vec``, one stored load and
+    one float4 of output each, else single elements), ``lanes`` (G) a bag,
+    the smallest power of two >= dq up to 32, and a block tile of tile_cols
+    columns x tile_rows batch rows.  The same for every stored dtype: a
+    unit is 16, 8 or 4 stored bytes (f32, bf16, int8)."""
     dq = d // 4 if vec else d
     lanes = 1
     while lanes < min(dq, 32):
@@ -231,9 +248,10 @@ def x1_descriptors(groups):
     """The X1_DESC records of one launch, packed, and its block count.
 
     groups: one dict per group, with the device pointers ``table``,
-    ``ids``, ``weights`` (0 for none), ``row_offsets``, ``caps``, ``codes``,
-    ``weighted`` and ``out``, the sizes ``C``, ``Bp``, ``L``, ``d``, and
-    ``vec`` (rows move as float4).  Blocks are numbered group after group;
+    ``scales`` (an int8 table's; 0 for none), ``ids``, ``weights`` (0 for
+    none), ``row_offsets``, ``caps``, ``codes``, ``weighted`` and ``out``,
+    the sizes ``C``, ``Bp``, ``L``, ``d``, and ``vec`` (rows move four
+    elements a load).  Blocks are numbered group after group;
     each group's first block is its ``block_begin``."""
     if not 1 <= len(groups) <= X1_MAX_GROUPS:
         raise ValueError(f"1 to {X1_MAX_GROUPS} groups per launch, got "
@@ -246,9 +264,10 @@ def x1_descriptors(groups):
         dq, lanes, rows, cols = x1_tile(g["d"], g["vec"])
         tiles_b = -(-g["Bp"] // rows)
         records.append(X1_DESC.pack(
-            g["table"], g["ids"], g["weights"], g["row_offsets"], g["caps"],
-            g["codes"], g["weighted"], g["out"], g["C"], g["Bp"], g["L"], dq,
-            blocks, tiles_b, 8 * bool(g["vec"]) + lanes.bit_length() - 1,
+            g["table"], g["scales"], g["ids"], g["weights"], g["row_offsets"],
+            g["caps"], g["codes"], g["weighted"], g["out"], g["C"], g["Bp"],
+            g["L"], dq, blocks, tiles_b,
+            8 * bool(g["vec"]) + lanes.bit_length() - 1,
         ))
         blocks += -(-g["C"] // cols) * tiles_b
     if blocks >= 1 << 31:
@@ -266,9 +285,27 @@ def _weighted_mask(weighted_cols, weights, c: int) -> np.ndarray:
     return np.asarray(weighted_cols, bool)
 
 
+def _rows(table) -> torch.Tensor:
+    """The stored ``[R, d]`` rows of a table: itself, or a QuantizedTable's
+    int8 ``q``."""
+    return table.q if isinstance(table, QuantizedTable) else table
+
+
 def _check_group(table, ids, weights):
-    if table.dtype != torch.float32 or table.dim() != 2:
-        raise ValueError(f"table must be f32 [R, d], got {table.dtype} "
+    if isinstance(table, QuantizedTable):
+        q, sc = table
+        if q.dtype != torch.int8 or q.dim() != 2 or \
+                sc.dtype != torch.float32 or tuple(sc.shape) != q.shape[:1] \
+                or sc.device != q.device:
+            raise ValueError(f"a QuantizedTable holds int8 [R, d] rows and "
+                             f"f32 [R] scales on one device, got {q.dtype} "
+                             f"{tuple(q.shape)} and {sc.dtype} "
+                             f"{tuple(sc.shape)} on {sc.device}")
+        table = q
+    elif table.dtype not in (torch.float32, torch.bfloat16) or \
+            table.dim() != 2:
+        raise ValueError(f"table must be f32 or bf16 [R, d], or a "
+                         f"QuantizedTable, got {table.dtype} "
                          f"{tuple(table.shape)}")
     if ids.dtype != torch.int32 or ids.dim() != 3:
         raise ValueError(f"ids must be int32 [C, Bp, L], got {ids.dtype} "
@@ -321,19 +358,27 @@ def _x1_group(table, ids, row_offsets, combiner_code, weights=None,
               weighted_cols=None, vocab_caps=None):
     """One group's descriptor fields on the card, its output, and the
     tensors its pointers refer to (held until the launch is queued)."""
-    dev = table.device
+    rows = _rows(table)
+    scales = table.scale if isinstance(table, QuantizedTable) else None
+    dev = rows.device
     c, bp, l = ids.shape
     offs, caps, codes, wcols = _column_args(c, dev, row_offsets,
                                             combiner_code, weights,
                                             weighted_cols, vocab_caps)
-    for name, t in (("table", table), ("ids", ids), ("weights", weights)):
+    for name, t in (("table", rows), ("scales", scales), ("ids", ids),
+                    ("weights", weights)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    d = table.shape[1]
+    d = rows.shape[1]
     out = torch.empty((bp, c, d), dtype=torch.float32, device=dev)
-    vec = d % 4 == 0 and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    # a unit of four elements loads 4 x the stored itemsize (16, 8 or 4
+    # bytes) and stores one float4
+    vec = (d % 4 == 0 and rows.data_ptr() % (4 * rows.element_size()) == 0
+           and out.data_ptr() % 16 == 0)
     fields = dict(
-        table=table.data_ptr(), ids=ids.data_ptr(),
+        table=rows.data_ptr(),
+        scales=0 if scales is None else scales.data_ptr(),
+        ids=ids.data_ptr(),
         weights=0 if weights is None else weights.data_ptr(),
         row_offsets=offs.data_ptr(), caps=caps.data_ptr(),
         codes=codes.data_ptr(), weighted=wcols.data_ptr(),
@@ -358,35 +403,44 @@ def groups_pooled(groups) -> List[torch.Tensor]:
     groups: one argument tuple of ``group_pooled`` per group (table, ids,
     row_offsets, combiner_code[, weights, weighted_cols, vocab_caps]), all
     on one device.  CPU tensors take the plain version; on CUDA one launch
-    of kernel X1 serves up to X1_MAX_GROUPS groups.  Differentiable in
-    each table (backward: ``groups_pooled_grad``, one launch of X1b for
-    every group)."""
+    of kernel X1 (X1-bf16, X1-int8 for those stored dtypes) serves up to
+    X1_MAX_GROUPS groups of one stored dtype.  Differentiable in each f32
+    table (backward: ``groups_pooled_grad``, one launch of X1b for every
+    group)."""
     groups = [tuple(g) for g in groups]
     for g in groups:
         _check_group(g[0], g[1], g[4] if len(g) > 4 else None)
     if not groups:
         return []
-    if torch.is_grad_enabled() and any(g[0].requires_grad for g in groups):
+    if torch.is_grad_enabled() and any(
+            isinstance(g[0], torch.Tensor) and g[0].requires_grad
+            for g in groups):
         return list(_GroupsPooled.apply(groups, *(g[0] for g in groups)))
     return _groups_pooled(groups)
 
 
 def _groups_pooled(groups) -> List[torch.Tensor]:
-    dev = groups[0][0].device
-    if any(g[0].device != dev for g in groups):
+    dev = _rows(groups[0][0]).device
+    if any(_rows(g[0]).device != dev for g in groups):
         raise ValueError("groups on more than one device")
     if dev.type == "cpu":
         return [_plain(*g) for g in groups]
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _x1_library()
-    outs = []
-    for i in range(0, len(groups), X1_MAX_GROUPS):
-        made = [_x1_group(*g) for g in groups[i: i + X1_MAX_GROUPS]]
-        desc, blocks = x1_descriptors([f for f, _, _ in made])
-        kernels.launch("X1", desc, len(made), blocks,
-                       kernels.stream_of(groups[i][0]))
-        outs += [o for _, o, _ in made]
+    outs: List[Optional[torch.Tensor]] = [None] * len(groups)
+    by_kernel: dict = {}
+    for i, g in enumerate(groups):
+        by_kernel.setdefault(X1_KERNEL[_rows(g[0]).dtype], []).append(i)
+    stream = kernels.stream_of(_rows(groups[0][0]))
+    for kid, idx in by_kernel.items():
+        for i in range(0, len(idx), X1_MAX_GROUPS):
+            part = idx[i: i + X1_MAX_GROUPS]
+            made = [_x1_group(*groups[j]) for j in part]
+            desc, blocks = x1_descriptors([f for f, _, _ in made])
+            kernels.launch(kid, desc, len(made), blocks, stream)
+            for j, (_, o, _) in zip(part, made):
+                outs[j] = o
     return outs
 
 
@@ -401,8 +455,10 @@ def group_pooled(
 ) -> torch.Tensor:
     """Pooled group lookups [Bp, C, d] f32.
 
-    table: [R, d] f32 stacked rows; ids: [C, Bp, L] int32 member-local ids
-    (< 0 = missing), clamped to ``vocab_caps`` then offset by
+    table: [R, d] stacked rows, f32 or bf16, or an int8 ``QuantizedTable``
+    of rows and per-row scales (pooled in f32 all the same: each row is
+    upcast or dequantized after its load); ids: [C, Bp, L] int32
+    member-local ids (< 0 = missing), clamped to ``vocab_caps`` then offset by
     ``row_offsets``; weights: optional [C, Bp, L] f32; combiner_code: [C]
     0 sum / 1 mean / 2 sqrtn; weighted_cols: per-column divide-vs-reciprocal
     rounding (default: weights given).  The per-column arguments may be

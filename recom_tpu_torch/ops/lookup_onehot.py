@@ -6,6 +6,11 @@ of raw floats (the port of ``_bz_kernel`` through
 ``_onehot_bucketize_impl``/``onehot_bucketize_lookup``, with its interval
 arrays from ``bucket_bounds``).
 
+Stored dtypes: table3 is f32 or bf16 (``EngineConfig(table_dtype=
+"bfloat16")``); a bf16 row is upcast exactly as it is read (the reference's
+per-tile upcast, lookup_pallas.py:49-53 and :128-129), so the output is f32
+and K1-bf16 and K2-bf16 copy each stored value's bits as K1 and K2 do.
+
 The TPU kernel one-hot-multiplies vocab tiles on the MXU.  On Hopper the
 same function is a row gather: the group's ``[C_pad, V_pad, d]`` table
 (model E: 3.8 MB) sits in L2 and the kernel is bound by writing its
@@ -45,10 +50,19 @@ import torch
 from recom_tpu_torch.ops import kernels
 
 
+# the kernel of each stored dtype of table3; the output is f32 in both
+K1_KERNEL = {torch.float32: "K1", torch.bfloat16: "K1-bf16"}
+K2_KERNEL = {torch.float32: "K2", torch.bfloat16: "K2-bf16"}
+
+
+def _check_table3(table3):
+    if table3.dtype not in K1_KERNEL or table3.dim() != 3:
+        raise ValueError(f"table3 must be f32 or bf16 [C_pad, V_pad, d], "
+                         f"got {table3.dtype} {tuple(table3.shape)}")
+
+
 def _check(table3, ids, caps):
-    if table3.dtype != torch.float32 or table3.dim() != 3:
-        raise ValueError(f"table3 must be f32 [C_pad, V_pad, d], got "
-                         f"{table3.dtype} {tuple(table3.shape)}")
+    _check_table3(table3)
     if ids.dtype != torch.int32 or ids.dim() != 2:
         raise ValueError(f"ids must be int32 [C, Bp], got {ids.dtype} "
                          f"{tuple(ids.shape)}")
@@ -69,13 +83,14 @@ def _check(table3, ids, caps):
 
 def onehot_lookup_plain(table3: torch.Tensor, ids: torch.Tensor,
                         caps: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of K1: same function, torch ops."""
+    """The plain PyTorch version of K1: same function, torch ops (a bf16
+    table's rows upcast after the gather)."""
     c = ids.shape[0]
     ids = torch.minimum(ids, caps[:, None])
     valid = ids >= 0
     safe = torch.where(valid, ids, torch.zeros_like(ids)).long()
     cols = torch.arange(c, device=ids.device)[:, None]
-    rows = table3[cols, safe]                              # [C, Bp, d]
+    rows = table3[cols, safe].float()                      # [C, Bp, d]
     rows = torch.where(valid[:, :, None], rows, torch.zeros_like(rows))
     return rows.transpose(0, 1).contiguous()               # [Bp, C, d]
 
@@ -85,10 +100,12 @@ def onehot_lookup(table3: torch.Tensor, ids: torch.Tensor,
     """rows [Bp, C, d] f32: ``table3[c, min(ids[c, b], caps[c])]`` for ids
     >= 0, else 0.
 
-    table3: [C_pad, V_pad, d] f32 (zero-padded planes); ids: [C, Bp] int32
-    local ids, < 0 = missing; caps: [C] int32 last valid row per column.
-    CPU tensors take the plain version; CUDA tensors launch kernel K1.
-    Differentiable in table3 (backward: ``onehot_lookup_grad``)."""
+    table3: [C_pad, V_pad, d] f32 or bf16 (zero-padded planes; bf16 rows
+    are upcast, exactly, as they are read); ids: [C, Bp] int32 local ids,
+    < 0 = missing; caps: [C] int32 last valid row per column.  CPU tensors
+    take the plain version; CUDA tensors launch kernel K1 (K1-bf16 for a
+    bf16 table3).  Differentiable in an f32 table3 (backward:
+    ``onehot_lookup_grad``)."""
     _check(table3, ids, caps)
     if table3.requires_grad and torch.is_grad_enabled():
         return _OnehotLookup.apply(table3, ids, caps)
@@ -104,7 +121,7 @@ def _onehot_lookup(table3, ids, caps):
     v, d = table3.shape[1], table3.shape[2]
     out = torch.empty((bp, c, d), dtype=torch.float32, device=table3.device)
     kernels.launch(
-        "K1",
+        K1_KERNEL[table3.dtype],
         kernels.ptr(table3), kernels.ptr(ids), kernels.ptr(caps),
         kernels.ptr(out), c, bp, v, d, kernels.stream_of(table3),
     )
@@ -141,9 +158,7 @@ def bucket_bounds(
 
 
 def _check_bz(table3, raw, lo, hi, counts):
-    if table3.dtype != torch.float32 or table3.dim() != 3:
-        raise ValueError(f"table3 must be f32 [C_pad, V_pad, d], got "
-                         f"{table3.dtype} {tuple(table3.shape)}")
+    _check_table3(table3)
     if not table3.is_contiguous():
         raise ValueError("table3 must be contiguous")
     _check_bounds(raw, lo, hi, counts, table3.shape[0], table3.shape[1],
@@ -187,7 +202,7 @@ def onehot_bucketize_lookup_plain(table3: torch.Tensor, raw: torch.Tensor,
     onehot |= special & (vids == counts[:c, :, None])      # [C, Bp, V]
     ids = onehot.to(torch.uint8).argmax(dim=2)             # [C, Bp]
     cols = torch.arange(c, device=raw.device)[:, None]
-    rows = table3[cols, ids]                               # [C, Bp, d]
+    rows = table3[cols, ids].float()                       # [C, Bp, d]
     rows = torch.where(onehot.any(dim=2)[:, :, None], rows,
                        torch.zeros_like(rows))
     return rows.transpose(0, 1).contiguous()               # [Bp, C, d]
@@ -200,12 +215,13 @@ def onehot_bucketize_lookup(table3: torch.Tensor, raw: torch.Tensor,
     being the count of column c's boundaries <= x (NaN and +inf: all of
     them).
 
-    table3: [C_pad, V_pad, d] f32; raw: [C, Bp] f32, column-major as the
-    host staged it (C <= C_pad: padded planes are never read); lo, hi,
-    counts: ``bucket_bounds(boundary_matrix, boundary_counts, V_pad,
-    C_pad)`` on table3's device.  CPU tensors take the plain version; CUDA
-    tensors launch kernel K2.  Differentiable in table3 (backward:
-    ``onehot_bucketize_lookup_grad``)."""
+    table3: [C_pad, V_pad, d] f32 or bf16 (rows upcast as they are read);
+    raw: [C, Bp] f32, column-major as the host staged it (C <= C_pad:
+    padded planes are never read); lo, hi, counts: ``bucket_bounds(
+    boundary_matrix, boundary_counts, V_pad, C_pad)`` on table3's device.
+    CPU tensors take the plain version; CUDA tensors launch kernel K2
+    (K2-bf16 for a bf16 table3).  Differentiable in an f32 table3
+    (backward: ``onehot_bucketize_lookup_grad``)."""
     _check_bz(table3, raw, lo, hi, counts)
     if table3.requires_grad and torch.is_grad_enabled():
         return _OnehotBucketizeLookup.apply(table3, raw, lo, hi, counts)
@@ -221,7 +237,7 @@ def _onehot_bucketize_lookup(table3, raw, lo, hi, counts):
     v, d = table3.shape[1], table3.shape[2]
     out = torch.empty((bp, c, d), dtype=torch.float32, device=table3.device)
     kernels.launch(
-        "K2",
+        K2_KERNEL[table3.dtype],
         kernels.ptr(table3), kernels.ptr(raw), kernels.ptr(hi),
         kernels.ptr(counts), kernels.ptr(out), c, bp, v, d,
         kernels.stream_of(table3),

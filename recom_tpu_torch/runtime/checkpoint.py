@@ -2,8 +2,9 @@
 
 Copied from recom_tpu/runtime/checkpoint.py (``export_params``,
 ``save_checkpoint``, ``load_checkpoint``) for the port's single-device
-float32 engine: no quantized or row-sharded tables, and always the npz
-layout, never orbax.  A checkpoint directory holds ``model_spec.json``
+engine: tables stored as f32, bf16 or int8 (exported as the f32 values the
+engine serves), no row-sharded tables, and always the npz layout, never
+orbax.  A checkpoint directory holds ``model_spec.json``
 (ir/serde.py, the format both packages write) and ``params.npz`` with keys
 ``tables/<name>`` and ``tower/<key>/<layer>/<w|b>``, so the JAX package's
 ``load_checkpoint`` reads what this module writes.  The JAX package saves
@@ -20,17 +21,25 @@ import numpy as np
 
 from recom_tpu_torch.ir.serde import model_from_json, model_to_json
 from recom_tpu_torch.ir.spec import ModelSpec
+from recom_tpu_torch.ops.quant import QuantizedTable, dequantize_table
 
 
 def export_params(engine) -> Dict:
     """Engine device params -> the portable numpy pytree ``{"tables":
     {name: [vocab, d]}, "tower": {key: [{"w", "b"}, ...]}}``: stacked group
     tables sliced back into per-table arrays, and the first top matmul
-    unfolded back into model order."""
+    unfolded back into model order.  Tables are the f32 values the engine
+    serves: a bf16 table upcast (numpy has no bf16), an int8 one
+    dequantized (``dequantize_table``), as recom_tpu/runtime/checkpoint.py:
+    30-59 exports them."""
     out: Dict = {"tables": {}, "tower": {}}
     for g in engine.compiled.groups:
-        stacked = engine.device_params["stacked"][str(g.gid)]
-        stacked = stacked.detach().cpu().numpy()
+        val = engine.device_params["stacked"][str(g.gid)]
+        if isinstance(val, QuantizedTable):
+            stacked = dequantize_table(val.q.cpu().numpy(),
+                                       val.scale.cpu().numpy())
+        else:
+            stacked = val.detach().cpu().float().numpy()
         if stacked.ndim == 3:  # one-hot layout [C_pad, V_pad, d]
             for i, m in enumerate(g.members):
                 out["tables"][m.table] = stacked[i, : m.vocab_size].astype(

@@ -34,6 +34,7 @@ from recom_tpu_torch.ops.lookup_onehot import (
     onehot_bucketize_lookup,
     onehot_lookup,
 )
+from recom_tpu_torch.ops.quant import QuantizedTable, quantize_rows_chunked
 from recom_tpu_torch.runtime.host_prep import PreparedBatch, prepare_batch
 from recom_tpu_torch.utils.device import resolve_device
 from recom_tpu_torch.utils.params import init_model_params
@@ -54,6 +55,14 @@ def _act(name: Optional[str], x: torch.Tensor) -> torch.Tensor:
     if name is None or name == "none":
         return x
     raise ValueError(f"unknown activation {name}")
+
+
+def _stored(table: np.ndarray, table_dtype: str) -> torch.Tensor:
+    """An f32 host table as a host tensor of the stored dtype: as is for
+    float32, rounded to nearest even for bfloat16 (as ``jnp.asarray(...,
+    dtype=bfloat16)`` rounds)."""
+    t = torch.from_numpy(np.ascontiguousarray(table, np.float32))
+    return t.to(torch.bfloat16) if table_dtype == "bfloat16" else t
 
 
 def folds_emb_perm(tower, total_emb_dim: int) -> bool:
@@ -131,8 +140,10 @@ class Engine:
     ``"cuda"``; ``"cpu"`` runs every kernel's plain PyTorch version.
 
     ``device_params`` holds leaf tensors: the stacked group tables under
-    ``"stacked"`` (one-hot groups as ``[C_pad, V_pad, d]``) and the tower's
-    layers under ``"tower"``.  ``predict`` runs under
+    ``"stacked"`` (one-hot groups as ``[C_pad, V_pad, d]``), in the stored
+    dtype ``config.table_dtype`` names (f32, bf16, or an int8
+    ``QuantizedTable`` of rows and per-row scales), and the tower's layers
+    under ``"tower"``.  ``predict`` runs under
     ``torch.inference_mode``; ``train.Trainer`` makes the leaves require
     grad and updates them in place, and the same Engine goes on serving
     the updated values."""
@@ -149,8 +160,6 @@ class Engine:
         cfg = self.config
         if cfg.mesh_shape is not None:
             raise _unported("mesh_shape (multi-device serving)", "item 13")
-        if cfg.table_dtype != "float32":
-            raise _unported(f"table_dtype={cfg.table_dtype!r}", "item 9")
         # TF32 would round the tower's f32 matmul inputs to 10 mantissa
         # bits, far outside the rtol 1e-4 the outputs are held to against
         # the f32 oracle; both switches off (cuDNN's is on by default)
@@ -198,7 +207,13 @@ class Engine:
 
     # ------------------------------------------------------------------
     def _build_device_params(self, np_params: Dict) -> Dict:
+        """The tables in their stored dtype (recom_tpu/runtime/executor.py:
+        218-268): f32; bf16, rounded to nearest even from the f32 values
+        (the kernels upcast each row after its load); or int8 with per-row
+        scales (``ops/quant.QuantizedTable``; the lowering sends every
+        group of an int8 engine down the gather path)."""
         dev = self.device
+        tdtype = self.config.table_dtype
         dp: Dict = {"stacked": {}, "tower": {}}
         for g in self.compiled.groups:
             if g.pallas_vocab is not None:
@@ -209,10 +224,16 @@ class Engine:
                 for i, m in enumerate(g.members):
                     tbl = np.asarray(np_params["tables"][m.table], np.float32)
                     t3[i, : tbl.shape[0]] = tbl
-                dp["stacked"][str(g.gid)] = torch.from_numpy(t3).to(dev)
+                dp["stacked"][str(g.gid)] = _stored(t3, tdtype).to(dev)
                 continue
             stacked = self.compiled.stacked_table(g, np_params["tables"])
-            dp["stacked"][str(g.gid)] = torch.from_numpy(stacked).to(dev)
+            if tdtype == "int8":
+                q, scale = quantize_rows_chunked(stacked)
+                dp["stacked"][str(g.gid)] = QuantizedTable(
+                    torch.from_numpy(q).to(dev),
+                    torch.from_numpy(scale).to(dev))
+            else:
+                dp["stacked"][str(g.gid)] = _stored(stacked, tdtype).to(dev)
             del stacked
         for key, layers in np_params["tower"].items():
             dp["tower"][key] = [

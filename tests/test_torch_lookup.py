@@ -335,9 +335,10 @@ def test_x1_descriptors_cover_every_bag_once():
               (5, 2048, 7, 32, True), (6, 100, 33, 3, False),
               (3, 37, 2, 1, False), (2, 9, 1, 200, True),
               (4, 70, 5, 33, False), (1, 1, 1, 4, False)]
-    groups = [dict(table=1 + i, ids=2, weights=0, row_offsets=3, caps=4,
-                   codes=5, weighted=6, out=7 + i, C=c, Bp=bp, L=l, d=d,
-                   vec=vec) for i, (c, bp, l, d, vec) in enumerate(shapes)]
+    groups = [dict(table=1 + i, scales=i % 2, ids=2, weights=0,
+                   row_offsets=3, caps=4, codes=5, weighted=6, out=7 + i,
+                   C=c, Bp=bp, L=l, d=d, vec=vec)
+              for i, (c, bp, l, d, vec) in enumerate(shapes)]
     # (dq, lanes, tile rows, tile cols) as csrc/pooled_gather.cu has them
     assert [tg.x1_tile(d, vec) for d, vec in ((8, True), (32, True),
                                               (1, False), (3, False),
@@ -345,9 +346,11 @@ def test_x1_descriptors_cover_every_bag_once():
         (2, 2, 32, 4), (8, 8, 32, 1), (1, 1, 32, 8), (3, 4, 32, 2),
         (50, 32, 8, 1)]
     packed, blocks = tg.x1_descriptors(groups)
-    assert tg.X1_DESC.size == 112 and len(packed) == 112 * len(shapes)
+    assert tg.X1_DESC.size == 120 and len(packed) == 120 * len(shapes)
     desc = [dict(zip(tg.X1_FIELDS, r)) for r in tg.X1_DESC.iter_unpack(packed)]
     field = lambda k: [g[k] for g in desc]
+    assert field("table") == [1 + i for i in range(len(shapes))]
+    assert field("scales") == [i % 2 for i in range(len(shapes))]
     assert field("kind") == [8 + 1, 8 + 1, 8 + 3, 2, 0, 8 + 5, 5, 2]
     assert field("dq") == [2, 2, 8, 3, 1, 50, 33, 4]
     assert field("out") == [7 + i for i in range(len(shapes))]
