@@ -40,6 +40,33 @@ and micro-1000 with bf16 tables under ``host_bucketize=False`` (K2-bf16
 twice), and holds the four stored-dtype variants against their plain
 versions on edge inputs.
 
+Then the serving runtime and the parameter lifecycle, on model E at full
+width, one engine at a time (``runtime_phases``):
+
+* a ``ServingPipeline(prep_workers=4, max_inflight=4)`` fed 24 distinct
+  batches (8 at 512, 12 at 2048, 4 at 1500) from two submitting threads:
+  each output ``==`` the same batch's sequential ``predict``, launches
+  exactly K1 24, X1 24, X2 72; each row's output at batch 100, 512 and 1500
+  ``==`` the same row's at 2048; a warmed ``Engine.dispatch`` under
+  ``torch.cuda.set_sync_debug_mode("error")``; the pipeline's examples/s,
+  p50 and p99 against sequential ``predict`` at 2048, and
+  ``throughput_under_sla`` at 2048 with the SLA at four times that p50;
+* ``MicroBatcher(max_delay_ms=2.0)``: 64 requests of 1-64 rows, each
+  request's rows ``==`` the request served alone, in fewer flushes;
+* the device forward with the tower's row tiles against the earlier
+  ``matmul`` + bias and a plain ``addmm``, in turns, and how many rows the
+  earlier tower gave other bits at batch 100, 512 and 1500 than at 2048;
+* ``update_table_rows`` while a thread serves ``predict`` (every row of a
+  K1 plane's table and of a string hash table, 4096 rows of a 2^23 x 32
+  table with repeated ids), with f32, bf16 and int8 tables: every served
+  column ``==`` the old table's or a fresh engine's on the updated params,
+  the export ``==`` the stored dtype's rule, the new rows served through
+  K1 / K1-bf16, X1 / X1-bf16 / X1-int8;
+* ``reload_params`` of seed 1's params: outputs ``==`` a fresh engine's, no
+  new program, every tensor in place; and a ``Trainer`` reloaded after a
+  step steps on (its loss ``==`` a fresh Trainer's at rtol 1e-6; K3a 1 and
+  X1b 1).
+
 Then it trains, through ``Trainer(...,
 optimizer=dlrm_optimizer())`` on the card:
 
@@ -109,8 +136,8 @@ It checks:
    3, 8, 12, 32, 64}, L in {1, 2, 33, 128}, weighted and unweighted
    columns under every combiner (K1-bf16 and K2-bf16 as bits, X1's with
    ==);
-4. that each ``predict`` and training step went through its path's
-   kernels and no other (model E: one launch of X1 a predict; a training
+4. that each ``predict``, pipelined request and training step went
+   through its path's kernels and no other (model E: one launch of X1 a predict; a training
    step K1 1, X1 1, X2 3, K3a 1 and X1b 1; the bucketize path K2 1 and K3b
    1 a step; Criteo: K1 5 and X1 1 a predict, and K3a 5 and X1b 1 more a
    step; each PostPool model: K1 a one-hot group, X1 once, X2 a group of
@@ -133,7 +160,8 @@ It checks:
    forward / backward / optimizer split (CUDA events) and peak memory.
 
 The last lines of stdout are one JSON object for the kernels (each also
-under ``criteo`` where the Criteo DLRM's path runs it), the card's name
+under ``criteo`` where the Criteo DLRM's path runs it, and with its
+``runtime_launches`` in the serving-runtime phases), the card's name
 and power limit as nvidia-smi reports them, and ``{"ok": true,
 "device": {...}}``.  Any failed check raises: the script then exits non-zero
 and prints no result.  Without a CUDA device it exits non-zero at once.
@@ -147,6 +175,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import threading
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and f32 FLOP/s
@@ -2482,6 +2511,511 @@ def criteo_phases(torch):
     return {k: dict(results[k], launches=launches[k]) for k in launches}
 
 
+def shuffled(batch, n: int, seed: int):
+    """``n`` rows of ``batch`` in a random order of ``seed``: a distinct
+    batch for milliseconds of host time (``make_random_batch`` takes
+    seconds for 2048 rows of model E)."""
+    import numpy as np
+
+    rows = len(next(iter(batch.values())))
+    idx = np.random.default_rng(seed).permutation(rows)[:n]
+    out = {}
+    for k, v in batch.items():
+        require(isinstance(v, np.ndarray) and len(v) == rows,
+                f"field {k} is not an array of one entry per example")
+        out[k] = v[idx]
+    return out
+
+
+def pipeline_phase(torch, eng, base):
+    """Model E through a ServingPipeline: 24 distinct batches (8 at 512, 12
+    at 2048, 4 at 1500) from two submitting threads, each output == the
+    same batch's sequential predict, launches exactly K1 24, X1 24, X2 72;
+    a warmed dispatch under torch.cuda.set_sync_debug_mode("error"); each
+    row's output the same bits at batch 100, 512 and 1500 as at 2048; the
+    pipeline's throughput and latency against sequential predict at 2048,
+    and throughput_under_sla.  Returns the counted launches."""
+    import numpy as np
+
+    from recom_tpu_torch import ServingPipeline
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.runtime.server import throughput_under_sla
+
+    sizes = [512] * 8 + [2048] * 12 + [1500] * 4
+    batches = [shuffled(base[i % len(base)], n, seed=100 + i)
+               for i, n in enumerate(sizes)]
+    want = [eng.predict(b)["output"] for b in batches]
+    got = [None] * len(batches)
+    kernels.reset_launches()
+    with ServingPipeline(eng, prep_workers=4, max_inflight=4) as pipe:
+        def submitter(k):
+            futs = [(i, pipe.submit(batches[i]))
+                    for i in range(k, len(batches), 2)]
+            for i, f in futs:
+                got[i] = f.result(timeout=300)
+
+        threads = [threading.Thread(target=submitter, args=(k,))
+                   for k in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        require(not any(th.is_alive() for th in threads),
+                "pipeline submitters did not finish")
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    log(f"launches in the pipeline's 24 requests: {counts}")
+    require_launches(counts, ("K1", "X1", "X2"), "pipeline",
+                     exactly={"K1": 24, "X1": 24, "X2": 72})
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if g is None or g.shape != w.shape or not np.array_equal(g, w)]
+    require(not bad, f"pipeline outputs != sequential predict: requests "
+            f"{bad}")
+    require(pipe.stats["completed"] == 24, f"pipeline stats {pipe.stats}")
+    log(f"pipeline (4 prep workers, max_inflight 4, two submitting "
+        f"threads): 24 requests (8 x 512, 12 x 2048, 4 x 1500 padded to "
+        f"2048) == sequential predict, in FIFO order; stats {pipe.stats}")
+
+    # the tower's rows do not depend on the batch bucket
+    full = eng.predict(base[0])["output"]
+    for n in (100, 512, 1500):
+        sub = {k: v[:n] for k, v in base[0].items()}
+        require(np.array_equal(eng.predict(sub)["output"], full[:n]),
+                f"rows at batch {n} != the same rows at batch 2048")
+    log("model E: each row's output at batch 100, 512 and 1500 (buckets "
+        "128, 512, 2048) == the same row's at batch 2048")
+
+    # no host sync inside a warmed dispatch
+    prep = eng.prepare(batches[10])
+    eng.dispatch(prep).result()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rec = eng.dispatch(prep)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    require(np.array_equal(rec.result()["output"], want[10]),
+            "dispatch under sync debug mode")
+    log("Engine.dispatch (warmed, batch 2048) under "
+        "torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+    # throughput and latency at 2048: sequential predict, then the pipeline
+    big = [b for b, n in zip(batches, sizes) if n == 2048] * 2
+    seq = []
+    t0 = time.perf_counter()
+    for b in big:
+        t = time.perf_counter()
+        eng.predict(b)
+        seq.append((time.perf_counter() - t) * 1e3)
+    seq_wall = time.perf_counter() - t0
+    lat = []
+    with ServingPipeline(eng, prep_workers=4, max_inflight=4) as pipe:
+        t0 = time.perf_counter()
+        futs = []
+        for b in big:
+            ts = time.perf_counter()
+            f = pipe.submit(b)
+            f.add_done_callback(lambda _, ts=ts: lat.append(
+                (time.perf_counter() - ts) * 1e3))
+            futs.append(f)
+        for f in futs:
+            f.result(timeout=300)
+        wall = time.perf_counter() - t0
+    rows = 2048 * len(big)
+    seq_p50 = statistics.median(seq)
+    log(f"batch 2048, {len(big)} requests: sequential predict "
+        f"{rows / seq_wall:.0f} examples/s, p50 {seq_p50:.3f} ms, p99 "
+        f"{float(np.percentile(seq, 99)):.3f} ms; ServingPipeline (4 prep "
+        f"workers, max_inflight 4, all submitted at once) "
+        f"{rows / wall:.0f} examples/s, p50 "
+        f"{statistics.median(lat):.3f} ms, p99 "
+        f"{float(np.percentile(lat, 99)):.3f} ms (host clock, submit to "
+        "result, queueing included)")
+    # a distinct batch for every timed request of the ladder, made before
+    # it: the ladder's examples/s divides by a wall clock that holds the
+    # factory's calls
+    ladder, iters = (1, 2, 4, 8), 8
+    pool = [shuffled(base[k % len(base)], 2048, seed=10_000 + k)
+            for k in range(iters * sum(ladder))]
+    rep = throughput_under_sla(
+        eng, big[:3], sla_ms=4 * seq_p50, num_iterations=iters,
+        worker_ladder=ladder, prep_workers=4, batch_factory=pool.__getitem__)
+    del pool
+    log(f"throughput_under_sla(batch 2048, sla_ms = 4 x sequential p50 = "
+        f"{4 * seq_p50:.3f}, {iters} requests a worker, a distinct batch "
+        f"each): {json.dumps(rep)}")
+    return counts
+
+
+def microbatch_phase(torch, eng, base) -> None:
+    """64 requests of 1-64 rows through MicroBatcher(max_delay_ms=2.0) on
+    the default bucket ladder: each request's rows == the request served
+    alone (which pads to 32 or 64), in fewer flushes than requests."""
+    import numpy as np
+
+    from recom_tpu_torch import MicroBatcher
+
+    sizes = np.random.default_rng(5).integers(1, 65, 64)
+    reqs = [shuffled(base[i % len(base)], int(n), seed=2000 + i)
+            for i, n in enumerate(sizes)]
+    alone = [eng.predict(r)["output"] for r in reqs]
+    t = time.perf_counter()
+    with MicroBatcher(eng, max_delay_ms=2.0) as mb:
+        futs = [mb.submit(r) for r in reqs]
+        got = [f.result(timeout=300) for f in futs]
+    dt = time.perf_counter() - t
+    bad = [i for i, (g, w) in enumerate(zip(got, alone))
+           if not np.array_equal(g, w)]
+    require(not bad, f"MicroBatcher rows != the request served alone: "
+            f"requests {bad}")
+    require(mb.stats["flushes"] < 64, f"MicroBatcher stats {mb.stats}")
+    log(f"MicroBatcher(max_delay_ms=2.0): 64 requests of 1-64 rows "
+        f"({int(sizes.sum())} rows) in {mb.stats['flushes']} flushes, "
+        f"{dt * 1e3:.1f} ms; each request's rows == the request served "
+        "alone (bucket 32 or 64 alone, a larger one coalesced)")
+
+
+def tower_cost(torch, eng, cases) -> None:
+    """Model E's device forward with the tower's products on fixed row
+    tiles (executor.row_linear, the Engine's) against two plain products
+    in their place: ``matmul`` then ``+ b`` (the tower before the row
+    tiles) and ``addmm``; in turns, CUDA events, queued.  Then, with the
+    earlier tower, how many rows of a smaller batch differ from the same
+    rows at 2048."""
+    from recom_tpu_torch.runtime import executor
+
+    tiled = executor.row_linear
+
+    def matmul_b(x, w, b=None):
+        y = torch.matmul(x, w)
+        return y if b is None else y + b
+
+    def addmm(x, w, b=None):
+        return x @ w if b is None else torch.addmm(b, x, w)
+
+    forms = {"row tiles": tiled, "matmul + b": matmul_b, "addmm": addmm}
+    order = ["matmul + b", "addmm", "row tiles", "row tiles", "addmm",
+             "matmul + b"]
+    for bs, batch in cases:
+        prep = eng.prepare(batch)
+        on_dev = eng.to_device(prep)
+        fwd = lambda: eng._forward(on_dev, prep.signature)
+        res = {k: [] for k in forms}
+        with torch.inference_mode():
+            for name in order:
+                executor.row_linear = forms[name]
+                try:
+                    res[name].append(time_ms(torch, fwd, iters=10))
+                finally:
+                    executor.row_linear = tiled
+        mean = {k: statistics.mean(v) for k, v in res.items()}
+        log(f"model E device forward, batch {bs}: " + ", ".join(
+            f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in res.items())
+            + f" (queued, 10 forwards each, in turns; row tiles / matmul + "
+            f"b {mean['row tiles'] / mean['matmul + b']:.3f}, row tiles / "
+            f"addmm {mean['row tiles'] / mean['addmm']:.3f})")
+    # what the row tiles are for: with the earlier tower, how many rows of
+    # a smaller batch differ from the same rows at 2048
+    big = cases[-1][1]
+    executor.row_linear = matmul_b
+    try:
+        full = eng.predict(big)["output"]
+        differ = {n: int((eng.predict({k: v[:n] for k, v in big.items()})
+                          ["output"] != full[:n]).any(axis=1).sum())
+                  for n in (100, 512, 1500)}
+    finally:
+        executor.row_linear = tiled
+    log(f"with the tower of matmul + b, rows of batch n differing from the "
+        f"same rows at batch 2048: {differ} (with the row tiles: none)")
+
+
+UPDATE_TABLES = ("emb_bucketize0", "emb_hash_str0", "emb_large_sparse0")
+
+
+def update_rows(torch, eng, model, batch):
+    """The updates of the update phases: every row of a bucketize column's
+    table (a K1 plane), every row of a string hash table (stacked X1 rows),
+    and 4096 rows of a 2^23 x 32 table (the ones ``batch`` reads first,
+    then random ones), 512 of them given twice with a different last
+    value.  Returns [(table, row ids, values)]."""
+    import numpy as np
+
+    from recom_tpu_torch.runtime.wire import unpack_blob
+
+    rng = np.random.default_rng(50)
+    out = []
+    for t in UPDATE_TABLES[:2]:
+        spec = model.tables[t]
+        out.append((t, rng.permutation(spec.vocab_size),
+                    rng.standard_normal((spec.vocab_size, spec.dim),
+                                        dtype=np.float32)))
+    t = UPDATE_TABLES[2]
+    prep = eng.prepare(batch)
+    with torch.inference_mode():
+        arrays = unpack_blob(eng.compiled, eng.to_device(prep)["blob"],
+                             prep.batch_padded, prep.rowlens, prep.wsig)
+    (gi, mi), = [(gi, mi) for gi, g in enumerate(eng.compiled.groups)
+                 for mi, m in enumerate(g.members) if m.table == t]
+    ids, _ = eng.group_ids(eng.compiled.groups[gi], arrays["groups"][gi])
+    col = ids[mi]
+    read = col[col >= 0].unique().cpu().numpy()[:2048]
+    extra = rng.integers(0, model.tables[t].vocab_size, 3584 - len(read))
+    rows = np.concatenate([read, extra, read[:512]])
+    rng.shuffle(rows[:-512])
+    out.append((t, rows, rng.standard_normal((len(rows), 32),
+                                             dtype=np.float32)))
+    return out
+
+
+def update_phase(torch, model, np_params, dtype, eng, batch, updates):
+    """While a thread serves ``predict(batch, return_pooled=True)`` in a
+    loop, the main thread calls update_table_rows for ``updates``: every
+    served column == the pre-update predict's or a fresh engine's on the
+    updated params (made on the host, last value wins).  Then the export
+    of the updated rows == the stored dtype's rule (f32: the values; bf16:
+    rounded to nearest even; int8: dequantize(quantize_rows_int8)), and a
+    counted predict serves the new rows through the dtype's kernels.
+    Returns that predict's launch counts."""
+    import numpy as np
+
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.ops.quant import dequantize_table, quantize_rows_int8
+    from recom_tpu_torch.runtime.checkpoint import export_params
+    from recom_tpu_torch.runtime.executor import Engine
+
+    tables = dict(np_params["tables"])
+    for t, rows, vals in updates:
+        tbl = tables[t].copy()
+        for r, v in zip(rows, vals):      # in order: the last value wins
+            tbl[r] = v
+        tables[t] = tbl
+    host_upd = {"tables": tables, "tower": np_params["tower"]}
+    old = eng.predict(batch, return_pooled=True)["pooled"]
+    t = time.perf_counter()
+    fresh = Engine(model, EngineConfig(table_dtype=dtype), params=host_upd)
+    new = fresh.predict(batch, return_pooled=True)["pooled"]
+    log(f"{dtype}: fresh engine on the updated params: "
+        f"{time.perf_counter() - t:.1f} s")
+    del fresh
+    free_engines()
+    cols = {c for c, (gid, idx) in eng.compiled.column_slot.items()
+            if eng.compiled.groups[gid].members[idx].table in UPDATE_TABLES}
+    changed = {c for c in new if not np.array_equal(old[c], new[c])}
+    require(changed == cols, f"{dtype}: the update changed columns "
+            f"{sorted(changed)}, its tables feed {sorted(cols)}")
+
+    state = {"n": 0, "torn": [], "mixed": 0}
+    stop = threading.Event()
+
+    def serve():
+        try:
+            while not stop.is_set():
+                pooled = eng.predict(batch, return_pooled=True)["pooled"]
+                seen = set()
+                for c, x in pooled.items():
+                    if np.array_equal(x, old[c]):
+                        continue
+                    if np.array_equal(x, new[c]):
+                        seen.add(c)
+                    else:
+                        state["torn"].append(c)
+                state["mixed"] += bool(seen) and seen != cols
+                state["n"] += 1
+        except Exception as e:     # surfaced by the main thread
+            state["error"] = e
+
+    th = threading.Thread(target=serve)
+    th.start()
+    while state["n"] < 1 and th.is_alive():
+        time.sleep(0.005)
+    t = time.perf_counter()
+    for tname, rows, vals in updates:
+        require(eng.update_table_rows(tname, rows, vals) == 1,
+                f"{tname}: one member slot")
+        time.sleep(0.1)
+    t_upd = time.perf_counter() - t
+    n_at = state["n"]
+    while state["n"] < n_at + 2 and th.is_alive():
+        time.sleep(0.005)
+    stop.set()
+    th.join(timeout=300)
+    require(not th.is_alive() and "error" not in state,
+            f"{dtype}: serving thread failed: {state.get('error')!r}")
+    require(not state["torn"], f"{dtype}: torn columns under serving: "
+            f"{sorted(set(state['torn']))[:5]}")
+    log(f"{dtype}: {state['n']} predicts (batch 2048, pooled) served while "
+        f"update_table_rows wrote {UPDATE_TABLES} ({t_upd:.3f} s with "
+        f"100 ms pauses); every column == the old or the new table's "
+        f"({state['mixed']} predicts saw some updated tables and not others)")
+
+    exported = export_params(eng)
+    for tname, rows, _ in updates:
+        uniq = np.unique(rows)
+        vals = host_upd["tables"][tname][uniq]
+        if dtype == "bfloat16":
+            vals = torch.from_numpy(vals).to(torch.bfloat16).float().numpy()
+        elif dtype == "int8":
+            vals = dequantize_table(*quantize_rows_int8(vals))
+        require(np.array_equal(exported["tables"][tname][uniq], vals),
+                f"{dtype}: export of {tname}'s updated rows != the rule")
+    del exported
+    kernels.reset_launches()
+    final = eng.predict(batch, return_pooled=True)["pooled"]
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    want = {"float32": {"K1": 1, "X1": 1, "X2": 3},
+            "bfloat16": {"K1-bf16": 1, "X1-bf16": 1, "X2": 3},
+            "int8": {"X1-int8": 1, "X2": 3}}[dtype]
+    require_launches(counts, tuple(want), f"model E {dtype} after updates",
+                     exactly=want)
+    bad = [c for c in new if not np.array_equal(final[c], new[c])]
+    require(not bad, f"{dtype}: after the updates, columns {bad[:5]} != the "
+            "fresh engine's")
+    log(f"{dtype}: export of the updated rows == the rule; predict after "
+        f"the updates == the fresh engine's on every column; launches "
+        f"{counts}")
+    return counts
+
+
+def reload_phase(torch, model, np_params, served, eng):
+    """reload_params of a second seed's params into the live engine:
+    outputs == a fresh engine's on them, no new program, every tensor's
+    data_ptr() unchanged.  Returns those params."""
+    import numpy as np
+
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.models import make_model_e
+    from recom_tpu_torch.runtime.executor import Engine
+    from recom_tpu_torch.train import param_leaves
+    from recom_tpu_torch.utils.params import init_model_params
+
+    small, big = served["batch_small"], served["batch_big"]
+    t = time.perf_counter()
+    p2 = init_model_params(make_model_e(seed=1))
+    log(f"model E params of seed 1 on host: {time.perf_counter() - t:.1f} s")
+    before = eng.predict(small, return_pooled=True)     # both signatures
+    eng.predict(big)                                    # served already
+    ptrs = [x.data_ptr() for x in param_leaves(eng.device_params)]
+    compiles = eng.stats["compiles"]
+    t = time.perf_counter()
+    eng.reload_params(p2)
+    torch.cuda.synchronize()
+    t_reload = time.perf_counter() - t
+    out_s = eng.predict(small, return_pooled=True)
+    out_b = eng.predict(big)
+    require(eng.stats["compiles"] == compiles, "reload_params compiled")
+    require([x.data_ptr() for x in param_leaves(eng.device_params)] == ptrs,
+            "reload_params moved a tensor")
+    fresh = Engine(model, EngineConfig(), params=p2)
+    want_s = fresh.predict(small, return_pooled=True)
+    want_b = fresh.predict(big)
+    del fresh
+    require(np.array_equal(out_s["output"], want_s["output"])
+            and np.array_equal(out_b["output"], want_b["output"])
+            and all(np.array_equal(out_s["pooled"][c], p)
+                    for c, p in want_s["pooled"].items()),
+            "after reload_params, outputs != a fresh engine's on the params")
+    require(not np.array_equal(before["output"], out_s["output"]),
+            "reload_params changed no output")
+    log(f"reload_params(seed 1's params) into the live engine: "
+        f"{t_reload:.1f} s; outputs at 512 (pooled too) and 2048 == a fresh "
+        f"engine's; compiles {compiles} unchanged; all {len(ptrs)} tensors "
+        "in place")
+    return p2
+
+
+def reload_trainer_phase(torch, model, np_params, p2, served):
+    """A Trainer steps, then ``trainer.engine.reload_params(p2)``: its
+    tensors stay the same objects, and the next step's loss == a fresh
+    Trainer's first loss on p2 at rtol 1e-6, launching K3a 1 and X1b 1.
+    Returns that step's launch counts."""
+    import numpy as np
+
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.train import Trainer, dlrm_optimizer, param_leaves
+
+    small = served["batch_small"]
+    labels = np.random.default_rng(9).integers(0, 2, 512).astype(np.float32)
+    tr = Trainer(model, EngineConfig(), optimizer=dlrm_optimizer(),
+                 params=np_params)
+    tr.step(small, labels)
+    leaves = param_leaves(tr.params)
+    t = time.perf_counter()
+    tr.engine.reload_params(p2)
+    torch.cuda.synchronize()
+    t_reload = time.perf_counter() - t
+    require(all(a is b for a, b in zip(param_leaves(tr.params), leaves)),
+            "reload_params replaced a Trainer tensor")
+    kernels.reset_launches()
+    loss = tr.step(small, labels)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    require_launches(counts, ("K1", "X1", "X2", "K3a", "X1b"),
+                     "Trainer step after reload_params",
+                     exactly={"K1": 1, "X1": 1, "X2": 3, "K3a": 1, "X1b": 1})
+    del tr, leaves
+    free_engines()
+    tr2 = Trainer(model, EngineConfig(), optimizer=dlrm_optimizer(),
+                  params=p2)
+    loss2 = tr2.step(small, labels)
+    del tr2
+    free_engines()
+    require(np.isfinite(loss) and abs(loss - loss2) <= 1e-6 * abs(loss2),
+            f"loss after reload_params {loss} != a fresh Trainer's {loss2}")
+    log(f"Trainer(model E, dlrm_optimizer()): a step, reload_params(seed 1) "
+        f"in {t_reload:.1f} s, the next step's loss {loss:.7f} == a fresh "
+        f"Trainer's first {loss2:.7f} (rtol 1e-6); launches {counts}")
+    return counts
+
+
+def runtime_phases(torch, model, np_params, served):
+    """The serving runtime and the parameter lifecycle at model E's full
+    width, one engine at a time: pipeline, MicroBatcher, the tower's row
+    tiles against a plain addmm, updates under serving (f32, bf16, int8)
+    and reloads.  Returns the launch counts of each counted run."""
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.models import make_random_batch
+    from recom_tpu_torch.runtime.executor import Engine
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    base = [served["batch_big"]] + [make_random_batch(model, 2048, seed=s)
+                                    for s in (40, 41)]
+    log(f"two more model E batches of 2048: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    eng = Engine(model, EngineConfig(), params=np_params)
+    torch.cuda.synchronize()
+    log(f"Engine(model E, EngineConfig()): {time.perf_counter() - t:.1f} s")
+    counts = {"pipeline": pipeline_phase(torch, eng, base)}
+    microbatch_phase(torch, eng, base)
+    tower_cost(torch, eng, ((512, served["batch_small"]),
+                            (2048, served["batch_big"])))
+    big = served["batch_big"]
+    updates = update_rows(torch, eng, model, big)
+    counts["float32"] = update_phase(torch, model, np_params, "float32", eng,
+                                     big, updates)
+    p2 = reload_phase(torch, model, np_params, served, eng)
+    del eng
+    free_engines()
+    for dtype in ("bfloat16", "int8"):
+        t = time.perf_counter()
+        eng = Engine(model, EngineConfig(table_dtype=dtype), params=np_params)
+        log(f"Engine(model E, table_dtype={dtype!r}): "
+            f"{time.perf_counter() - t:.1f} s")
+        counts[dtype] = update_phase(torch, model, np_params, dtype, eng, big,
+                                     updates)
+        del eng
+        free_engines()
+    counts["trainer"] = reload_trainer_phase(torch, model, np_params, p2,
+                                             served)
+    del p2
+    log(f"peak device memory (serving runtime and parameter lifecycle): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts
+
+
 def step_times(torch, tr, name: str, cases) -> None:
     """Median training step time (host clock around ``Trainer.step``,
     which ends in a device sync) over 6 steps, and the device time of its
@@ -2563,6 +3097,9 @@ def main() -> int:
     variant_edges(torch)
     log(f"stored-dtype engines freed: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB left on the card")
+
+    # ---- the serving runtime and the parameter lifecycle --------------------
+    runtime = runtime_phases(torch, model, np_params, served)
     trained = train_phases(torch, model, np_params, served["batch_small"],
                            served["batch_big"], served["ref"])
     del model, np_params
@@ -2590,11 +3127,21 @@ def main() -> int:
             **({"classes": r["classes"]} if "classes" in r else {}),
         }
 
+    # each kernel's launches in the serving-runtime phases: the pipeline's
+    # 24 requests, the predict after each dtype's updates, and the Trainer
+    # step after reload_params
+    runtime_launches = {}
+    for counts in runtime.values():
+        for kid, n in counts.items():
+            if n:
+                runtime_launches.setdefault(kid, []).append(n)
+
     line = {"kernels": [
         {
             "name": kid, "route": "cuda",
             "source": KERNEL_META[kid][0], "replaces": KERNEL_META[kid][1],
             **entry(results[kid], launches[kid]),
+            "runtime_launches": runtime_launches.get(kid, []),
             # the same kernel on the Criteo DLRM's path (d = 64)
             **({"criteo": entry(criteo[kid], criteo[kid]["launches"])}
                if kid in criteo else {}),

@@ -6,7 +6,12 @@ it needs (ir, compiler, config, oracle, models, native host ops, host prep
 and the host half of the wire) are its own copies, differing only in the
 package name of their imports.  What runs on the device is rewritten:
 
-  runtime/executor.py   Engine: host prep -> one H2D copy -> lookups -> tower
+  runtime/executor.py   Engine: host prep -> one H2D copy -> lookups -> tower;
+                        dispatch (asynchronous, pinned copies),
+                        update_table_rows, reload_params
+  runtime/server.py     ServingPipeline, throughput_under_sla
+  runtime/batcher.py    MicroBatcher (a copy)
+  tools/serve_loops.py  loop_windows, on Engine.dispatch
   runtime/wire.py       unpack_blob: blob views + device string hashing
   ops/lookup_onehot.py  K1  one-id lookup of one-hot groups (Pallas _kernel)
                         K2  fused bucketize + lookup of pure-bucketize
@@ -15,7 +20,8 @@ package name of their imports.  What runs on the device is rewritten:
   ops/hash_device.py    X2  split + FarmHash + mod (ops/hash_device.py)
   train.py              Trainer, optax-rule optimizers; the backward kernels
                         K3a (of K1), K3b (of K2) and X1b (of X1)
-  runtime/checkpoint.py export/save/load in the JAX package's npz layout
+  runtime/checkpoint.py export/save/load in the JAX package's npz layout;
+                        load also reads its orbax params/ (tensorstore)
   ops/quant.py          bf16 and int8 (per-row scale) table storage; K1, K2
                         and X1 read them as stored (K1-bf16, K2-bf16,
                         X1-bf16, X1-int8)
@@ -64,4 +70,12 @@ def __getattr__(name):
         from recom_tpu_torch.train import Trainer
 
         return Trainer
+    if name == "ServingPipeline":
+        from recom_tpu_torch.runtime.server import ServingPipeline
+
+        return ServingPipeline
+    if name == "MicroBatcher":
+        from recom_tpu_torch.runtime.batcher import MicroBatcher
+
+        return MicroBatcher
     raise AttributeError(f"module 'recom_tpu_torch' has no attribute {name!r}")

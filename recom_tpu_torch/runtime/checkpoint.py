@@ -8,12 +8,14 @@ orbax.  A checkpoint directory holds ``model_spec.json``
 (ir/serde.py, the format both packages write) and ``params.npz`` with keys
 ``tables/<name>`` and ``tower/<key>/<layer>/<w|b>``, so the JAX package's
 ``load_checkpoint`` reads what this module writes.  The JAX package saves
-through orbax where it is installed (a ``params/`` directory); reading that
-is ROADMAP Queue 1 item 10, and ``load_checkpoint`` says so.
+through orbax where it is installed (a ``params/`` directory):
+``load_checkpoint`` reads that too, with ``tensorstore`` (orbax itself
+imports jax).
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Dict, Tuple
 
@@ -94,12 +96,9 @@ def load_checkpoint(path: str) -> Tuple[ModelSpec, Dict]:
     """Restore (model spec, numpy params pytree) from ``path``."""
     with open(os.path.join(path, "model_spec.json")) as f:
         model = model_from_json(f.read())
-    if os.path.exists(os.path.join(os.path.abspath(path), "params")):
-        raise NotImplementedError(
-            f"{path} holds an orbax params/ directory: reading orbax "
-            "checkpoints is not ported to recom_tpu_torch yet (ROADMAP.md "
-            "Queue 1 item 10); save it in the npz layout (params.npz)"
-        )
+    params_dir = os.path.join(os.path.abspath(path), "params")
+    if os.path.exists(params_dir):
+        return model, load_orbax_params(params_dir)
     npz = np.load(os.path.join(path, "params.npz"))
     params: Dict = {"tables": {}, "tower": {}}
     for key in npz.files:
@@ -116,3 +115,55 @@ def load_checkpoint(path: str) -> Tuple[ModelSpec, Dict]:
                 layers.append({})
             layers[int(idx)][wb] = npz[key]
     return model, params
+
+
+def load_orbax_params(params_dir: str) -> Dict:
+    """The params pytree of the JAX package's orbax checkpoint directory
+    (``<ckpt>/params``, recom_tpu/runtime/checkpoint.py:84-97), read with
+    ``tensorstore``: the leaf keys come from ``_METADATA``'s
+    ``tree_metadata``, and each leaf is a zarr array in the directory's
+    OCDBT key-value store at its keys joined by ".", so "tables.<name>/"
+    for a table (a name may hold "/" or ".") and
+    "tower.<key>.<layer>.<w|b>/" for a tower leaf."""
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(
+            f"{params_dir} is an orbax checkpoint, which recom_tpu_torch "
+            "reads with the tensorstore package, and it is not installed "
+            "(ROADMAP.md Queue 1 item 10); save the checkpoint in the npz "
+            "layout (params.npz, recom_tpu_torch.runtime.checkpoint."
+            "save_checkpoint), which needs nothing else"
+        ) from e
+    meta_path = os.path.join(params_dir, "_METADATA")
+    if not os.path.exists(meta_path):
+        raise FileNotFoundError(
+            f"{params_dir} has no _METADATA: not an orbax checkpoint, or "
+            "one whose save did not finish")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    if not meta.get("use_ocdbt", False) or meta.get("use_zarr3", False):
+        raise ValueError(
+            f"{params_dir}: only orbax's OCDBT store of zarr arrays is read "
+            f"(use_ocdbt true, use_zarr3 false), got {meta_path} with "
+            f"use_ocdbt {meta.get('use_ocdbt')}, use_zarr3 "
+            f"{meta.get('use_zarr3')}")
+    base = "file://" + os.path.abspath(params_dir)
+    params: Dict = {"tables": {}, "tower": {}}
+    for leaf in meta["tree_metadata"].values():
+        keys = [str(k["key"]) for k in leaf["key_metadata"]]
+        store = ts.open({"driver": "zarr", "kvstore": {
+            "driver": "ocdbt", "base": base, "path": ".".join(keys) + "/"}},
+            open=True).result()
+        arr = np.asarray(store.read().result())
+        if keys[0] == "tables":
+            params["tables"][keys[1]] = arr
+        elif keys[0] == "tower":
+            # ("tower", key, layer index, "w" | "b")
+            layers = params["tower"].setdefault(keys[1], [])
+            while len(layers) <= int(keys[2]):
+                layers.append({})
+            layers[int(keys[2])][keys[3]] = arr
+        else:
+            raise ValueError(f"unexpected leaf {keys} in {params_dir}")
+    return params

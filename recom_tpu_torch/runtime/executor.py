@@ -8,7 +8,10 @@ groups, X2 for device string hashing) -> each group's concat, with its
 members' post-lookup ops (PostPool) -> the tower (an MLP, or DLRM's
 ``dlrm_dot`` interaction) -> outputs.  It runs eagerly: a "program" is a
 shape signature, and ``stats["compiles"]`` counts the distinct ones served
-(CUDA graphs per signature are ROADMAP Queue 1 item 6).
+(CUDA graphs per signature are ROADMAP Queue 1 item 6).  ``dispatch`` queues
+a forward and returns before the card finishes (the serving runtime's
+building block, runtime/server.py); ``update_table_rows`` and
+``reload_params`` write the live tensors in place.
 
 Entry points run on CUDA unless the caller names another device; asking for
 CUDA where there is none raises.  Features of the JAX Engine outside this
@@ -17,6 +20,7 @@ slice raise NotImplementedError naming their ROADMAP item.
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -45,6 +49,89 @@ def _unported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to recom_tpu_torch yet (ROADMAP.md Queue 1 "
         f"{item})"
     )
+
+
+_MALLOC_TUNED = False
+
+
+def _tune_malloc_for_serving() -> None:
+    """Raise glibc's mmap threshold so per-request wire blobs (1-4 MB at
+    production column counts) are served from the reused heap arena
+    instead of a fresh mmap each request, which pays a page fault per page
+    (recom_tpu/runtime/executor.py:34-53).  One-shot, best-effort
+    (non-glibc hosts no-op), and disabled with RECOM_TPU_MALLOPT=0."""
+    global _MALLOC_TUNED
+    if _MALLOC_TUNED or os.environ.get("RECOM_TPU_MALLOPT", "1") == "0":
+        _MALLOC_TUNED = True
+        return
+    _MALLOC_TUNED = True
+    try:
+        import ctypes
+
+        libc = ctypes.CDLL("libc.so.6")
+        libc.mallopt(-3, 64 * 1024 * 1024)    # M_MMAP_THRESHOLD
+        libc.mallopt(-1, 128 * 1024 * 1024)   # M_TRIM_THRESHOLD
+    except Exception:
+        pass
+
+
+# Row-wise products (the tower's layers, a post chain's frozen matmul) run
+# on whole tiles of ROW_TILE rows, at least two: cuBLAS and the CPU's BLAS
+# pick a kernel, and so a summation order, by the row count M, and a single
+# matrix takes another route than a batch of them.  One strided-batched
+# product over [n, ROW_TILE, K] tiles with the weights broadcast gives every
+# row the same bits whatever the padded batch it sits in, which
+# MicroBatcher's promise needs (coalesced rows == the same request served
+# alone; the XLA reference keeps it by itself).  The tower pads its inputs
+# once to those rows (Engine._tower_forward), so dlrm_dot's Gram products
+# and the element-wise ops also see the same shapes in every small bucket.
+ROW_TILE = 64
+
+
+def tiled_rows(m: int) -> int:
+    """The rows a row-wise product runs on for ``m`` rows: whole tiles of
+    ROW_TILE, at least two."""
+    return max(-(-m // ROW_TILE), 2) * ROW_TILE
+
+
+def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` with zero rows appended up to ``rows``."""
+    if x.shape[0] == rows:
+        return x
+    return torch.cat([x, x.new_zeros((rows - x.shape[0],) + x.shape[1:])])
+
+
+class _TiledLinear(torch.autograd.Function):
+    """``x @ w (+ b)`` for x [n * ROW_TILE, K] as one batched product over
+    its row tiles.  The backward is the plain product's (``g @ w.T``,
+    ``x.T @ g``, ``g.sum(0)``): autograd of the broadcast weights would
+    materialize an [n, K, N] gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        n = x.shape[0] // ROW_TILE
+        xt = x.reshape(n, ROW_TILE, x.shape[1])
+        wt = w.expand(n, *w.shape)
+        out = torch.bmm(xt, wt) if b is None else torch.baddbmm(b, xt, wt)
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        return out.reshape(x.shape[0], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = g @ w.T if ctx.needs_input_grad[0] else None
+        gw = x.T @ g if ctx.needs_input_grad[1] else None
+        gb = g.sum(0) if ctx.has_bias and ctx.needs_input_grad[2] else None
+        return gx, gw, gb
+
+
+def row_linear(x: torch.Tensor, w: torch.Tensor,
+               b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w + b`` (f32, TF32 off) whose row results do not depend on the
+    number of rows of ``x`` (see ROW_TILE)."""
+    m = x.shape[0]
+    return _TiledLinear.apply(pad_rows(x, tiled_rows(m)), w, b)[:m]
 
 
 def _act(name: Optional[str], x: torch.Tensor) -> torch.Tensor:
@@ -104,7 +191,7 @@ def group_concat(g, pooled: torch.Tensor, col_pooled=None,
                 # matmul (a frozen projection; f32, TF32 off) or affine
                 c = post_consts.get((g.gid, idx, i), {})
                 if p.op == "matmul":
-                    x = torch.matmul(x, c["weight"])
+                    x = row_linear(x, c["weight"])
                 else:
                     if "scale" in c:
                         x = x * c["scale"]
@@ -117,15 +204,76 @@ def group_concat(g, pooled: torch.Tensor, col_pooled=None,
 
 
 def mlp_apply(layers, x, activation: str, final_activation):
-    """Dense layers in full f32 (the Engine turns TF32 off)."""
+    """Dense layers in full f32 (the Engine turns TF32 off), each row's
+    result independent of the batch (``row_linear``)."""
     for i, layer in enumerate(layers):
-        x = torch.matmul(x, layer["w"]) + layer["b"]
+        x = row_linear(x, layer["w"], layer["b"])
         last = i == len(layers) - 1
         if not last:
             x = _act(activation, x)
         elif final_activation:
             x = _act(final_activation, x)
     return x
+
+
+def _pinned_copy(x):
+    """A non-blocking copy of device tensor(s) ``x`` (a tensor or a list of
+    them) into pinned host memory."""
+    if isinstance(x, list):
+        return [_pinned_copy(t) for t in x]
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return host.copy_(x, non_blocking=True)
+
+
+class InFlight:
+    """A forward queued by ``Engine.dispatch``.
+
+    ``outputs``: the device outputs sliced to the batch's size (``"output"``
+    and, where asked, ``"concat"`` and ``"pooled_groups"``); ``host``: the
+    host tensors that receive them (None for ``fetch=False``); ``event``:
+    recorded on the current stream after the forward and the copies (None
+    on the CPU); ``seq``: the dispatch's place in the engine's order, which
+    the events follow.  The staged input tensors are held until
+    ``result()`` returns."""
+
+    def __init__(self, engine, outputs, host, event, staged, seq, t0):
+        self.engine = engine
+        self.outputs = outputs
+        self.host = host
+        self.event = event
+        self.staged = staged
+        self.seq = seq
+        self._t0 = t0
+
+    def wait(self) -> None:
+        """Block until the forward and its copies are done."""
+        if self.event is not None:
+            self.event.synchronize()
+
+    def result(self) -> Dict[str, np.ndarray]:
+        """Wait, then the numpy outputs ``predict_prepared`` returns:
+        ``output`` (and ``concat``, and ``pooled`` by column, where
+        dispatched) of the batch's true rows, and ``a2a_overflow`` 0."""
+        if self.host is None:
+            raise RuntimeError("dispatched with fetch=False: the outputs stay "
+                               "on the device (InFlight.outputs)")
+        self.wait()
+        eng = self.engine
+        host = self.host
+        result: Dict = {"output": host["output"].numpy(), "a2a_overflow": 0}
+        if "concat" in host:
+            result["concat"] = host["concat"].numpy()
+        if "pooled_groups" in host:
+            groups = [p.numpy() for p in host["pooled_groups"]]
+            result["pooled"] = {
+                col: groups[gid][:, idx, :]
+                for col, (gid, idx) in eng.compiled.column_slot.items()
+            }
+        if self._t0 is not None:
+            eng.timers.add("device_step", time.perf_counter() - self._t0)
+            self._t0 = None
+        self.staged = None
+        return result
 
 
 class Engine:
@@ -170,6 +318,12 @@ class Engine:
         self._fold_emb_perm = folds_emb_perm(self.model.tower,
                                              self.compiled.total_emb_dim)
         self._wire = bool(cfg.wire_pack)
+        _tune_malloc_for_serving()
+        # held around every enqueue of a forward and every write of the
+        # params: on the CPU an update and a forward exclude each other; on
+        # the card a forward is enqueued wholly before or after a write, all
+        # on the one current stream
+        self._dispatch_lock = threading.Lock()
 
         np_params = params if params is not None else init_model_params(model)
         self.device_params = self._build_device_params(np_params)
@@ -211,40 +365,98 @@ class Engine:
         218-268): f32; bf16, rounded to nearest even from the f32 values
         (the kernels upcast each row after its load); or int8 with per-row
         scales (``ops/quant.QuantizedTable``; the lowering sends every
-        group of an int8 engine down the gather path)."""
+        group of an int8 engine down the gather path).  Each group's leaf
+        is made as zeros on the device and each member table written into
+        it (``_write_tables``), so no stacked copy is made on the host."""
+        self._check_tables(np_params)
         dev = self.device
         tdtype = self.config.table_dtype
+        dtype = torch.bfloat16 if tdtype == "bfloat16" else torch.float32
         dp: Dict = {"stacked": {}, "tower": {}}
         for g in self.compiled.groups:
             if g.pallas_vocab is not None:
                 # one-hot group layout [C_pad, V_pad, d] (the reference's
                 # Pallas layout; K1 reads planes c < C only)
                 c_pad = ((g.num_columns + 7) // 8) * 8
-                t3 = np.zeros((c_pad, g.pallas_vocab, g.dim), np.float32)
-                for i, m in enumerate(g.members):
-                    tbl = np.asarray(np_params["tables"][m.table], np.float32)
-                    t3[i, : tbl.shape[0]] = tbl
-                dp["stacked"][str(g.gid)] = _stored(t3, tdtype).to(dev)
-                continue
-            stacked = self.compiled.stacked_table(g, np_params["tables"])
-            if tdtype == "int8":
-                q, scale = quantize_rows_chunked(stacked)
-                dp["stacked"][str(g.gid)] = QuantizedTable(
-                    torch.from_numpy(q).to(dev),
-                    torch.from_numpy(scale).to(dev))
+                leaf = torch.zeros((c_pad, g.pallas_vocab, g.dim),
+                                   dtype=dtype, device=dev)
+            elif tdtype == "int8":
+                leaf = QuantizedTable(
+                    torch.zeros((g.stacked_rows, g.dim), dtype=torch.int8,
+                                device=dev),
+                    torch.zeros((g.stacked_rows,), dtype=torch.float32,
+                                device=dev))
             else:
-                dp["stacked"][str(g.gid)] = _stored(stacked, tdtype).to(dev)
-            del stacked
-        for key, layers in np_params["tower"].items():
-            dp["tower"][key] = [
-                {
-                    "w": torch.tensor(np.asarray(l["w"], np.float32),
-                                      device=dev),
-                    "b": torch.tensor(np.asarray(l["b"], np.float32),
-                                      device=dev),
-                }
-                for l in layers
-            ]
+                leaf = torch.zeros((g.stacked_rows, g.dim), dtype=dtype,
+                                   device=dev)
+            dp["stacked"][str(g.gid)] = leaf
+        self._write_tables(dp["stacked"], np_params)
+        dp["tower"] = {
+            key: [{k: t.to(dev) for k, t in layer.items()}
+                  for layer in layers]
+            for key, layers in self._tower_host(np_params).items()
+        }
+        return dp
+
+    def _check_tables(self, np_params: Dict) -> None:
+        """Every member's table is in ``np_params`` as [vocab, dim]."""
+        tables = np_params.get("tables", {})
+        for g in self.compiled.groups:
+            for m in g.members:
+                if m.table not in tables:
+                    raise ValueError(f"params hold no table {m.table!r}")
+                shape = tuple(np.shape(tables[m.table]))
+                if shape != (m.vocab_size, g.dim):
+                    raise ValueError(
+                        f"table {m.table!r} is {shape}, the model's is "
+                        f"{(m.vocab_size, g.dim)}")
+
+    def _stored_values(self, leaf, values: np.ndarray) -> List[torch.Tensor]:
+        """f32 host rows [n, d] on the device as ``leaf`` stores them: one
+        tensor, f32 or bf16 (rounded to nearest even), or an int8 table's
+        rows re-quantized with fresh per-row scales and those scales."""
+        if isinstance(leaf, QuantizedTable):
+            q, scale = quantize_rows_chunked(np.asarray(values, np.float32))
+            return [torch.from_numpy(q).to(self.device),
+                    torch.from_numpy(scale).to(self.device)]
+        return [_stored(values, self.config.table_dtype).to(self.device)]
+
+    @staticmethod
+    def _slot_targets(leaf, i: int, m) -> Tuple[List[torch.Tensor], int]:
+        """The tensors member ``m`` (slot ``i`` of its group) is stored in,
+        and the row its table starts at in them: the int8 rows and scales
+        or the stacked ``[R, d]`` rows at the member's row offset, or plane
+        ``i`` of a one-hot ``[C_pad, V_pad, d]`` table at row 0."""
+        if isinstance(leaf, QuantizedTable):
+            return [leaf.q, leaf.scale], m.row_offset
+        if leaf.dim() == 3:
+            return [leaf[i]], 0
+        return [leaf], m.row_offset
+
+    def _write_tables(self, stacked: Dict, np_params: Dict) -> None:
+        """Copy every member table of ``np_params`` into the leaves of
+        ``stacked`` in place, one member at a time: the device holds at most
+        one member table's stored values besides the leaves (model E: one
+        2^23 x 32 table, 1.07 GB in f32), and each copy holds the lock."""
+        for g in self.compiled.groups:
+            leaf = stacked[str(g.gid)]
+            for i, m in enumerate(g.members):
+                vals = self._stored_values(leaf, np_params["tables"][m.table])
+                targets, base = self._slot_targets(leaf, i, m)
+                with self._dispatch_lock, torch.no_grad():
+                    for t, v in zip(targets, vals):
+                        t[base: base + m.vocab_size].copy_(v)
+                del vals
+
+    def _tower_host(self, np_params: Dict) -> Dict:
+        """The tower's layers as host f32 tensors, the first top matmul's
+        rows in grouped order where the emb-perm folds into it."""
+        tower = {
+            key: [{"w": torch.tensor(np.asarray(l["w"], np.float32)),
+                   "b": torch.tensor(np.asarray(l["b"], np.float32))}
+                  for l in layers]
+            for key, layers in np_params["tower"].items()
+        }
         if self._fold_emb_perm:
             # fold the model-order embedding permutation into the first top
             # matmul's rows; scatter-ADD, since with dedup_subcolumns
@@ -252,14 +464,18 @@ class Engine:
             # (recom_tpu/runtime/executor.py:304-323)
             w_m = np.asarray(np_params["tower"]["top"][0]["w"], np.float32)
             perm_full = self._fold_perm_full()
+            if w_m.shape[0] != len(perm_full):
+                raise ValueError(
+                    f"the first top layer has {w_m.shape[0]} rows, the "
+                    f"model's tower input is {len(perm_full)} wide")
             rows_g = (
                 len(perm_full) - self.compiled.total_emb_dim
                 + self.compiled.grouped_emb_dim
             )
             w_g = np.zeros((rows_g,) + w_m.shape[1:], w_m.dtype)
             np.add.at(w_g, perm_full, w_m)
-            dp["tower"]["top"][0]["w"] = torch.from_numpy(w_g).to(dev)
-        return dp
+            tower["top"][0]["w"] = torch.from_numpy(w_g)
+        return tower
 
     def _fold_perm_full(self) -> np.ndarray:
         """Row permutation of the first top-MLP matmul under emb-perm
@@ -431,9 +647,17 @@ class Engine:
         for ``dlrm_dot``).  ``logits_only`` strips the final activation
         (losses want logits).  Returns (out, front): ``front`` is the
         dense-side prefix of the concat (the raw dense inputs under
-        ``dlrm_dot``, as in the reference)."""
+        ``dlrm_dot``, as in the reference).
+
+        The tower runs on its inputs padded to ``tiled_rows`` rows (zero
+        rows at the end, sliced off its results): every product and
+        element-wise op then sees the same shapes for a row whatever the
+        batch bucket, and each row's result is the same bits (ROW_TILE)."""
         tower = self.model.tower
         params = self.device_params["tower"]
+        bp = dense.shape[0]
+        dense = pad_rows(dense, tiled_rows(bp))
+        emb = pad_rows(emb, tiled_rows(bp))
         front = dense
         if tower.arch == "dlrm_dot":
             # DLRM's dot interaction (recom_tpu/runtime/executor.py:597-617):
@@ -460,7 +684,7 @@ class Engine:
             raise ValueError(tower.arch)
         out = mlp_apply(params["top"], tower_in, tower.activation,
                         None if logits_only else tower.final_activation)
-        return out, front
+        return out[:bp], front[:bp]
 
     def _forward(self, arrays, signature, mode=(), logits_only: bool = False):
         """The device forward of one prepared batch.  Differentiable in the
@@ -489,19 +713,36 @@ class Engine:
         return result
 
     def to_device(self, prepared: PreparedBatch) -> Dict:
-        """The prepared host arrays as device tensors: the wire blob crosses
-        as ONE copy, structured arrays one copy each."""
-        dev = self.device
+        """The prepared host arrays as device tensors (``_stage``)."""
+        return self._stage(prepared)[0]
+
+    def _stage(self, prepared: PreparedBatch) -> Tuple[Dict, List]:
+        """(device arrays, staged host tensors) of a prepared batch: the
+        wire blob crosses as ONE copy, structured arrays one copy each.  On
+        the card each array is first copied into pinned host memory and
+        crosses with ``non_blocking=True``, so the call returns once the
+        copy is queued; PyTorch's caching host allocator keeps a staged
+        block until its copy is done.  On the CPU the arrays are used as
+        they are."""
+        staged: List[torch.Tensor] = []
+
+        def put(x: np.ndarray) -> torch.Tensor:
+            t = torch.from_numpy(x)
+            if self.device.type != "cuda":
+                return t.to(self.device)
+            pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            pinned.copy_(t)
+            staged.append(pinned)
+            return pinned.to(self.device, non_blocking=True)
+
         a = prepared.arrays
         if "blob" in a:
-            return {"blob": torch.from_numpy(a["blob"]).to(dev)}
+            return {"blob": put(a["blob"])}, staged
         return {
-            "dense": torch.from_numpy(a["dense"]).to(dev),
-            "groups": [
-                {k: torch.from_numpy(v).to(dev) for k, v in g.items()}
-                for g in a["groups"]
-            ],
-        }
+            "dense": put(a["dense"]),
+            "groups": [{k: put(v) for k, v in g.items()}
+                       for g in a["groups"]],
+        }, staged
 
     # ------------------------------------------------------------------
     def prepare(self, batch: Dict, batch_size: Optional[int] = None):
@@ -549,29 +790,47 @@ class Engine:
             mode += ("concat",)
         if return_pooled:
             mode += ("pooled",)
+        return self.dispatch(prepared, mode).result()
+
+    def dispatch(self, prepared: PreparedBatch, mode=(),
+                 fetch: bool = True) -> "InFlight":
+        """Queue one prepared batch's forward and return before the device
+        finishes: the port's counterpart of the reference pipeline's jitted
+        call plus ``jax.block_until_ready`` (recom_tpu/runtime/server.py:
+        248-261).  The inputs cross from pinned memory (``_stage``); the
+        forward is queued under the engine's lock; with ``fetch`` each
+        output (``mode``: ``"concat"``, ``"pooled"`` besides ``"output"``)
+        is copied into pinned host memory by a non-blocking copy; an event
+        is recorded after them.  No host sync on the card.  On the CPU the
+        forward runs to its end in the call.  ``InFlight.result()`` waits
+        and returns what ``predict_prepared`` returns."""
+        mode = tuple(mode)
         self._note_program(prepared.signature, mode)
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            dev_out = self._forward(
-                self.to_device(prepared), prepared.signature, mode
-            )
-            b = prepared.batch_size
-            result: Dict = {
-                "output": dev_out["output"][:b].cpu().numpy(),
-                "a2a_overflow": 0,
-            }
-            self.timers.add("device_step", time.perf_counter() - t0)
+        arrays, staged = self._stage(prepared)
+        b = prepared.batch_size
+        cuda = self.device.type == "cuda"
+        host = event = None
+        with self._dispatch_lock, torch.inference_mode():
+            dev_out = self._forward(arrays, prepared.signature, mode)
+            outputs = {"output": dev_out["output"][:b]}
+            if "concat" in mode:
+                outputs["concat"] = dev_out["concat"][:b]
+            if "pooled" in mode:
+                outputs["pooled_groups"] = [p[:b]
+                                            for p in dev_out["pooled_groups"]]
+            if cuda:
+                # the copies and the event queue under the lock too, so the
+                # events of successive dispatches follow their order
+                if fetch:
+                    host = {k: _pinned_copy(v) for k, v in outputs.items()}
+                event = torch.cuda.Event()
+                event.record()
             self.stats["calls"] += 1
-            if return_concat:
-                result["concat"] = dev_out["concat"][:b].cpu().numpy()
-            if return_pooled:
-                groups = [p[:b].cpu().numpy()
-                          for p in dev_out["pooled_groups"]]
-                result["pooled"] = {
-                    col: groups[gid][:, idx, :]
-                    for col, (gid, idx) in self.compiled.column_slot.items()
-                }
-        return result
+            seq = self.stats["calls"]
+        if not cuda and fetch:
+            host = outputs
+        return InFlight(self, outputs, host, event, staged, seq, t0)
 
     # ------------------------------------------------------------------
     def _note_program(self, signature, mode=()) -> None:
@@ -648,7 +907,7 @@ class Engine:
                     self.config.allow_truncate_overflow))
                 for bs in (batch_sizes or self.config.batch_buckets)
             ]
-        with torch.inference_mode():
+        with self._dispatch_lock, torch.inference_mode():
             for p in prepared:
                 self._note_program(p.signature)
                 self._forward(self.to_device(p), p.signature)
@@ -673,7 +932,7 @@ class Engine:
         sig, b0 = prepped[0].signature, prepped[0].batch_size
         self._note_program(sig)
         timed = prepped[1:] if len(prepped) > 1 else prepped
-        with torch.inference_mode():
+        with self._dispatch_lock, torch.inference_mode():
             for _ in range(warmup + 1):
                 self._forward(self.to_device(prepped[0]), sig)
             self._sync()
@@ -686,7 +945,106 @@ class Engine:
 
     # ------------------------------------------------------------------
     def reload_params(self, np_params: Dict) -> None:
-        raise _unported("Engine.reload_params", "item 10")
+        """Full parameter hot-swap (recom_tpu/runtime/executor.py:821-831):
+        write a portable pytree (the constructor's ``params``, or
+        ``checkpoint.load_checkpoint``'s output) into the live tensors IN
+        PLACE, so a ``Trainer`` whose optimizer holds them keeps stepping
+        them, every ``data_ptr()`` stays and no program is new
+        (``stats["compiles"]`` does not move).  The stored tensors are made
+        as the constructor makes them (stored dtype, emb-perm fold), one
+        member table at a time (``_write_tables``), each copy under the
+        lock: a request served during the reload sees each table whole, old
+        or new, but may see some tables old and others new.  A pytree whose
+        shapes differ from the engine's raises ValueError before anything
+        is written."""
+        self._check_tables(np_params)
+        live_tower = self.device_params["tower"]
+        tower = self._tower_host(np_params)
+        if set(tower) != set(live_tower) or any(
+                len(tower[k]) != len(live_tower[k]) for k in tower):
+            raise ValueError(
+                f"tower layers {({k: len(v) for k, v in tower.items()})} "
+                f"differ from the engine's "
+                f"{({k: len(v) for k, v in live_tower.items()})}")
+        for key, layers in tower.items():
+            for i, layer in enumerate(layers):
+                for wb, t in layer.items():
+                    have = live_tower[key][i][wb].shape
+                    if t.shape != have:
+                        raise ValueError(
+                            f"tower {key}[{i}].{wb} is {tuple(t.shape)}, "
+                            f"the engine's is {tuple(have)}")
+        self._write_tables(self.device_params["stacked"], np_params)
+        with self._dispatch_lock, torch.no_grad():
+            for key, layers in tower.items():
+                for i, layer in enumerate(layers):
+                    for wb, t in layer.items():
+                        live_tower[key][i][wb].copy_(t)
 
     def update_table_rows(self, table: str, row_ids, values) -> int:
-        raise _unported("Engine.update_table_rows", "item 10")
+        """Online embedding refresh (recom_tpu/runtime/executor.py:833-942):
+        overwrite rows of ``table`` in the live tensors, in place, without
+        rebuilding or recompiling anything.
+
+        ``row_ids``: [n] member-local rows, 0 <= id < vocab; repeated ids
+        keep their LAST value.  ``values``: [n, dim] float32, stored as the
+        engine stores the table (bf16 rounded to nearest even; int8
+        re-quantized with fresh per-row scales).  A table stacked in several
+        member slots (shared by columns or groups) is written in every one:
+        its gather group's ``[R, d]`` rows at the member's row offset, or
+        its plane of a one-hot ``[C_pad, V_pad, d]`` table.  Returns the
+        number of member slots written.
+
+        Concurrency: every write of the call (an int8 table's rows and
+        scales alike) is queued under one hold of the engine's lock, so a
+        request served meanwhile sees, per table, the old rows or the new
+        ones, never a mix.  Checkpoint export reads the same tensors."""
+        row_ids = np.asarray(row_ids, dtype=np.int64).reshape(-1)
+        values = np.asarray(values, dtype=np.float32)
+        if values.ndim != 2 or values.shape[0] != row_ids.shape[0]:
+            raise ValueError(
+                f"values must be [n, dim] aligned with row_ids: "
+                f"{values.shape} vs {row_ids.shape}"
+            )
+        # keep the LAST occurrence of a repeated id: index_copy_ leaves the
+        # order of duplicates unspecified, and an int8 row would take its q
+        # and its scale from different occurrences
+        if row_ids.size and np.unique(row_ids).size != row_ids.size:
+            rev_first = np.unique(row_ids[::-1], return_index=True)[1]
+            keep = np.sort(row_ids.size - 1 - rev_first)
+            row_ids, values = row_ids[keep], values[keep]
+        slots = []
+        for g in self.compiled.groups:
+            for i, m in enumerate(g.members):
+                if m.table != table:
+                    continue
+                if values.shape[1] != g.dim:
+                    raise ValueError(
+                        f"table {table!r} has dim {g.dim}, "
+                        f"got values dim {values.shape[1]}"
+                    )
+                if row_ids.size and (
+                    row_ids.min() < 0 or row_ids.max() >= m.vocab_size
+                ):
+                    raise ValueError(
+                        f"row_ids out of [0, {m.vocab_size}) for "
+                        f"table {table!r}"
+                    )
+                slots.append((g, i, m))
+        if not slots:
+            raise KeyError(f"unknown table {table!r}")
+        ids = torch.from_numpy(row_ids).to(self.device)
+        stored = {}             # the values as each kind of leaf stores them
+        writes = []
+        for g, i, m in slots:
+            leaf = self.device_params["stacked"][str(g.gid)]
+            kind = isinstance(leaf, QuantizedTable)
+            if kind not in stored:
+                stored[kind] = self._stored_values(leaf, values)
+            targets, base = self._slot_targets(leaf, i, m)
+            writes.append((targets, ids + base, stored[kind]))
+        with self._dispatch_lock, torch.no_grad():
+            for targets, rows, vals in writes:
+                for t, v in zip(targets, vals):
+                    t.index_copy_(0, rows, v)
+        return len(slots)

@@ -162,15 +162,18 @@ def test_unported_features_raise():
     tm = t_make_dlrm(*MINI_E, name="mini", large_rows=20_000)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(tm, EngineConfig(mesh_shape=(1, 2)), device="cpu")
-    # bf16 and int8 tables serve (tests/test_torch_quant.py); the
-    # parameter lifecycle stays item 10 in every stored dtype
+    # bf16 and int8 tables serve (tests/test_torch_quant.py), and the
+    # parameter lifecycle (item 10) is ported in every stored dtype
+    # (tests/test_torch_update.py): it refuses bad input, not the feature
+    from recom_tpu_torch.runtime.checkpoint import export_params
+
     for dtype in ("float32", "bfloat16", "int8"):
         eng = Engine(tm, EngineConfig(table_dtype=dtype), device="cpu")
-        for call in (lambda: eng.reload_params({}),
-                     lambda: eng.update_table_rows("emb_sparse0", [0],
-                                                   np.zeros((1, 8)))):
-            with pytest.raises(NotImplementedError, match="item 10"):
-                call()
+        with pytest.raises(ValueError, match="no table"):
+            eng.reload_params({"tables": {}, "tower": {}})
+        assert eng.update_table_rows("emb_sparse0", [0],
+                                     np.zeros((1, 8))) == 1
+        eng.reload_params(export_params(eng))
 
 
 def test_cpu_path_launches_no_kernel():

@@ -122,12 +122,16 @@ def test_post_constants_are_device_tensors_made_once(monkeypatch):
                  if "weight" in c]
     batch = make_random_batch(make_every_post_model(js), 20, seed=1)
     seen = []
-    real = torch.matmul
-    monkeypatch.setattr(torch, "matmul", lambda a, b: seen.append(b) or
-                        real(a, b))
+    # the projection is a row-wise product (executor.row_linear, whose rows
+    # do not depend on the batch): spy on the weight it is handed
+    from recom_tpu_torch.runtime import executor
+
+    real = executor.row_linear
+    monkeypatch.setattr(executor, "row_linear",
+                        lambda a, b, *r: seen.append(b) or real(a, b, *r))
     for _ in range(2):
         eng.predict(batch)
-    monkeypatch.setattr(torch, "matmul", real)
+    monkeypatch.setattr(executor, "row_linear", real)
     projections = [b for b in seen if tuple(b.shape) == (8, 6)]
     assert len(projections) == 2 and all(b is weight for b in projections)
 
