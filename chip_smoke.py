@@ -53,9 +53,10 @@ width, one engine at a time (``runtime_phases``):
   ``throughput_under_sla`` at 2048 with the SLA at four times that p50;
 * ``MicroBatcher(max_delay_ms=2.0)``: 64 requests of 1-64 rows, each
   request's rows ``==`` the request served alone, in fewer flushes;
-* the device forward with the tower's row tiles against the earlier
-  ``matmul`` + bias and a plain ``addmm``, in turns, and how many rows the
-  earlier tower gave other bits at batch 100, 512 and 1500 than at 2048;
+* the device forward with the tower's products on fixed 512-row chunks
+  against one batched product over 64-row tiles, ``matmul`` + bias and a
+  plain ``addmm``, in turns, and how many rows those gave other bits at
+  batch 100, 512 and 1500 than at 2048;
 * ``update_table_rows`` while a thread serves ``predict`` (every row of a
   K1 plane's table and of a string hash table, 4096 rows of a 2^23 x 32
   table with repeated ids), with f32, bf16 and int8 tables: every served
@@ -86,6 +87,23 @@ one-hot groups, X1 once), its
 four kernels held against their plain versions and timed at batch 2048,
 and trained (backward K3a once a one-hot group, X1b once), a step at 512
 and four at 2048.
+
+Then the measurement tools and entry points (``tools_phases``), each
+tool's JSON printed: ``tools/ae_sweep`` on model E at batch 32, 512 and
+2048 (the naive per-column arm at 512: its device step and its end to
+end request) and its workers sweep {2, 4} at 2048; ``tools/bw_breakdown``
+(model E at 2048: the full model, embeddings only, each of its four
+groups alone); ``tools/embedding_bw`` (model E's 2^23-row group; the
+pooled round ``==`` X1's plain version); ``tools/ragged_bench`` (X1 at L
+= 16, 32, 64, 128, ``==`` its plain version at each); ``entry()``
+(``==`` ``Engine.predict``) and ``dryrun_multichip(1)``; model F at full
+width (1200 columns, three 2^23 x 32 tables, 3.04 GiB; tower [2048,
+1024, 1024, 512, 1] over 9704 inputs) served at 512 and 2048 (K1 1, X1 1,
+X2 3 a predict; 1200 pooled columns ``==`` the oracle; rows at 100, 512
+and 1500 ``==`` at 2048; K1 and X1 at its shapes); ``ae_sweep`` on model
+F at 32, 512 and 2048; and ``tools/benchmark`` on model F at 2048 with
+two workers under ``torch.profiler`` (the trace written, the top device
+ops named).
 
 It checks:
 
@@ -2675,16 +2693,24 @@ def microbatch_phase(torch, eng, base) -> None:
         "alone (bucket 32 or 64 alone, a larger one coalesced)")
 
 
-def tower_cost(torch, eng, cases) -> None:
-    """Model E's device forward with the tower's products on fixed row
-    tiles (executor.row_linear, the Engine's) against two plain products
-    in their place: ``matmul`` then ``+ b`` (the tower before the row
-    tiles) and ``addmm``; in turns, CUDA events, queued.  Then, with the
-    earlier tower, how many rows of a smaller batch differ from the same
-    rows at 2048."""
+def tower_cost(torch, eng, cases, name: str = "model E") -> None:
+    """A model's device forward with the tower's products on fixed row
+    chunks (executor.row_linear, the Engine's) against three other forms
+    in their place: one strided-batched product over all of the batch's
+    64-row tiles (the form before the chunks), ``matmul`` then ``+ b`` and
+    ``addmm``; in turns, CUDA events, queued.  Then, with each other form,
+    how many rows of a smaller batch differ from the same rows at 2048."""
     from recom_tpu_torch.runtime import executor
 
-    tiled = executor.row_linear
+    chunked = executor.row_linear
+
+    def tiles_64(x, w, b=None):
+        m = x.shape[0]
+        n = max(-(-m // 64), 2)
+        xt = executor.pad_rows(x, n * 64).reshape(n, 64, x.shape[1])
+        wt = w.expand(n, *w.shape)
+        out = torch.bmm(xt, wt) if b is None else torch.baddbmm(b, xt, wt)
+        return out.reshape(n * 64, w.shape[1])[:m]
 
     def matmul_b(x, w, b=None):
         y = torch.matmul(x, w)
@@ -2693,40 +2719,43 @@ def tower_cost(torch, eng, cases) -> None:
     def addmm(x, w, b=None):
         return x @ w if b is None else torch.addmm(b, x, w)
 
-    forms = {"row tiles": tiled, "matmul + b": matmul_b, "addmm": addmm}
-    order = ["matmul + b", "addmm", "row tiles", "row tiles", "addmm",
-             "matmul + b"]
+    forms = {"row chunks": chunked, "64-row tiles": tiles_64,
+             "matmul + b": matmul_b, "addmm": addmm}
+    order = ["matmul + b", "addmm", "64-row tiles", "row chunks",
+             "row chunks", "64-row tiles", "addmm", "matmul + b"]
     for bs, batch in cases:
         prep = eng.prepare(batch)
         on_dev = eng.to_device(prep)
         fwd = lambda: eng._forward(on_dev, prep.signature)
         res = {k: [] for k in forms}
         with torch.inference_mode():
-            for name in order:
-                executor.row_linear = forms[name]
+            for form in order:
+                executor.row_linear = forms[form]
                 try:
-                    res[name].append(time_ms(torch, fwd, iters=10))
+                    res[form].append(time_ms(torch, fwd, iters=10))
                 finally:
-                    executor.row_linear = tiled
+                    executor.row_linear = chunked
         mean = {k: statistics.mean(v) for k, v in res.items()}
-        log(f"model E device forward, batch {bs}: " + ", ".join(
+        log(f"{name} device forward, batch {bs}: " + ", ".join(
             f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in res.items())
-            + f" (queued, 10 forwards each, in turns; row tiles / matmul + "
-            f"b {mean['row tiles'] / mean['matmul + b']:.3f}, row tiles / "
-            f"addmm {mean['row tiles'] / mean['addmm']:.3f})")
-    # what the row tiles are for: with the earlier tower, how many rows of
+            + " (queued, 10 forwards each, in turns; row chunks / "
+            + ", ".join(f"{k} {mean['row chunks'] / mean[k]:.3f}"
+                        for k in forms if k != "row chunks") + ")")
+    # what the row chunks are for: with each other form, how many rows of
     # a smaller batch differ from the same rows at 2048
     big = cases[-1][1]
-    executor.row_linear = matmul_b
-    try:
-        full = eng.predict(big)["output"]
-        differ = {n: int((eng.predict({k: v[:n] for k, v in big.items()})
-                          ["output"] != full[:n]).any(axis=1).sum())
-                  for n in (100, 512, 1500)}
-    finally:
-        executor.row_linear = tiled
-    log(f"with the tower of matmul + b, rows of batch n differing from the "
-        f"same rows at batch 2048: {differ} (with the row tiles: none)")
+    for form in ("64-row tiles", "matmul + b"):
+        executor.row_linear = forms[form]
+        try:
+            full = eng.predict(big)["output"]
+            differ = {n: int((eng.predict({k: v[:n] for k, v in big.items()})
+                              ["output"] != full[:n]).any(axis=1).sum())
+                      for n in (100, 512, 1500)}
+        finally:
+            executor.row_linear = chunked
+        log(f"{name}: with the tower of {form}, rows of batch n differing "
+            f"from the same rows at batch 2048: {differ} (with the row "
+            "chunks: none)")
 
 
 UPDATE_TABLES = ("emb_bucketize0", "emb_hash_str0", "emb_large_sparse0")
@@ -3016,6 +3045,285 @@ def runtime_phases(torch, model, np_params, served):
     return counts
 
 
+# model F's tower: K = 9704 -> 2048 -> 1024 -> 1024 -> 512 -> 1
+MODEL_F_TOWER = (9704, 2048, 1024, 1024, 512, 1)
+
+
+def model_f_phase(torch):
+    """Model F at full width (1200 columns: a 1090-column one-hot group,
+    100 string-hash columns, 7 lists and three 2^23 x 32 tables, 3.04 GiB
+    of f32 tables), served with EngineConfig() at 512 and 2048: launches
+    exactly K1 1, X1 1, X2 3 a predict, every pooled column == the oracle
+    and the output within rtol 1e-4 / atol 1e-5, each row's output at 100,
+    512 and 1500 == the same row's at 2048; predict latency, the queued
+    device forward and peak memory; K1 and X1 at its shapes at batch 2048
+    against their plain versions, timed.  Returns the model, its params,
+    its two batches, the kernels' results and launch counts."""
+    import numpy as np
+
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.models import make_model_f, make_random_batch
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.oracle import OracleModel
+    from recom_tpu_torch.runtime.executor import Engine
+    from recom_tpu_torch.utils.params import init_model_params
+
+    t = time.perf_counter()
+    model = make_model_f(seed=0)
+    params = init_model_params(model)
+    table_bytes = sum(a.nbytes for a in params["tables"].values())
+    log(f"model F params on host: {time.perf_counter() - t:.1f} s, "
+        f"{table_bytes / 2**30:.2f} GiB of tables")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    eng = Engine(model, EngineConfig(), params=params)
+    torch.cuda.synchronize()
+    groups = eng.compiled.groups
+    log(f"Engine(model F, EngineConfig()): {time.perf_counter() - t:.1f} s, "
+        "groups " + "; ".join(
+            f"gid {g.gid}: {g.num_columns} cols d={g.dim} "
+            f"V_pad={g.pallas_vocab} rows={g.stacked_rows}" for g in groups))
+    require([(g.num_columns, g.pallas_vocab is not None) for g in groups]
+            == [(1090, True), (100, False), (7, False), (3, False)],
+            "model F lowers to its four groups")
+    t = time.perf_counter()
+    batches = {512: make_random_batch(model, 512, seed=2),
+               2048: make_random_batch(model, 2048, seed=1)}
+    log(f"model F batches of 512 and 2048: {time.perf_counter() - t:.1f} s")
+    oracle = OracleModel(model, params)
+    counts = {}
+    for bs, batch in batches.items():
+        kernels.reset_launches()
+        out = eng.predict(batch, return_pooled=True)
+        torch.cuda.synchronize()
+        counts[bs] = dict(kernels.launches)
+        log(f"launches in predict(model F, batch {bs}): {counts[bs]}")
+        require_launches(counts[bs], ("K1", "X1", "X2"),
+                         f"model F, batch {bs}",
+                         exactly={"K1": 1, "X1": 1, "X2": 3})
+        t = time.perf_counter()
+        ref = oracle.forward(batch)
+        log(f"oracle forward (model F, batch {bs}): "
+            f"{time.perf_counter() - t:.1f} s")
+        check_pooled(ref, out, f"model F, batch {bs}", cols=1200)
+    full = out["output"]
+    for n in (100, 512, 1500):
+        sub = {k: v[:n] for k, v in batches[2048].items()}
+        require(np.array_equal(eng.predict(sub)["output"], full[:n]),
+                f"model F: rows at batch {n} != the same rows at batch 2048")
+    log("model F: each row's output at batch 100, 512 and 1500 (buckets "
+        "128, 512, 2048) == the same row's at batch 2048")
+    k = MODEL_F_TOWER
+    flops = 2 * 2048 * sum(a * b for a, b in zip(k, k[1:]))
+    log(f"model F tower at 2048 (computed): {flops / 1e9:.1f} GFLOP, at "
+        f"least {flops / F32_FLOPS_PER_S * 1e3:.3f} ms at 67 TFLOP/s (f32, "
+        "TF32 off)")
+    latency(torch, eng, "model F", tuple(batches.items()))
+    tower_cost(torch, eng, tuple(batches.items()), "model F")
+    log(f"peak device memory (model F serving): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    results = measure_forward(torch, stored_records(torch, eng,
+                                                    batches[2048], "K1",
+                                                    "X1"))
+    del eng
+    free_engines()
+    return dict(model=model, params=params, batches=batches,
+                results=results, counts=counts[2048])
+
+
+def fresh_batch(batch, n: int, seed: int):
+    """``n`` rows of ``batch`` in an order of ``seed`` (``shuffled``), every
+    string drawn anew from ``seed`` with the same lengths and delimiters:
+    ids the base batch never had in every hashed column (so in the large
+    tables' rows), for milliseconds of host time."""
+    import numpy as np
+
+    out = shuffled(batch, n, seed)
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789",
+                            np.uint8)
+    for k, v in out.items():
+        if v.dtype.kind != "S":
+            continue
+        u = v.view(np.uint8).reshape(len(v), v.dtype.itemsize).copy()
+        keep = (u == 0) | (u == ord(";"))
+        u[~keep] = letters[rng.integers(0, len(letters), int((~keep).sum()))]
+        out[k] = u.view(v.dtype).reshape(len(v))
+    return out
+
+
+def batch_maker(base):
+    """A tools' batch factory over ``base`` (batches of 2048):
+    ``make(model, bs, n, seed0)`` gives n distinct batches of ``bs`` rows,
+    each ``fresh_batch`` of a base batch with a seed of its own."""
+    def make(model, bs, n, seed0):
+        return [fresh_batch(base[(seed0 + i) % len(base)], bs,
+                            seed=seed0 + i) for i in range(n)]
+
+    return make
+
+
+def require_tool_launches(counts, kids, what: str) -> None:
+    """A tool's run went through its path's kernels ``kids`` (each launched
+    at least once) and no kernel off its path."""
+    require_launches(counts, kids, what)
+    log(f"{what}: launches {dict((k, n) for k, n in counts.items() if n)}")
+
+
+def print_json(what: str, doc) -> None:
+    log(f"{what}:")
+    print(json.dumps(doc), flush=True)
+
+
+def tools_phases(torch, model_e, params_e, base_e):
+    """The measurement tools and entry points (recom_tpu_torch/tools/,
+    entry.py) on the card: model F at full width (``model_f_phase``);
+    ae_sweep on models E and F at batch 32, 512 and 2048, the naive arm at
+    512 on model E, the workers sweep {2, 4} at 2048 on model E;
+    benchmark on model F at 2048 with two workers under torch.profiler;
+    bw_breakdown on model E at 2048; embedding_bw on model E (its pooled
+    round == X1's plain version); ragged_bench's four rungs (X1 == its
+    plain version at each); entry() == Engine.predict, and
+    dryrun_multichip(1).  Each tool's JSON is printed.  Returns model F's
+    and the ragged rungs' results."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from recom_tpu_torch import EngineConfig, entry
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.runtime.executor import Engine
+    from recom_tpu_torch.tools import (
+        ae_sweep,
+        benchmark,
+        bw_breakdown,
+        embedding_bw,
+        ragged_bench,
+    )
+
+    make_e = batch_maker(base_e)
+
+    # ---- ae_sweep on model E: the latency matrix, the naive arm, workers --
+    rows = []
+    kernels.reset_launches()
+    t = time.perf_counter()
+    tf_error = ae_sweep.sweep_model(model_e, [32, 2048], 40, rows,
+                                    params=params_e, factory=make_e,
+                                    min_inputs=40)
+    tf_error = ae_sweep.sweep_model(model_e, [512], 40, rows,
+                                    params=params_e, factory=make_e,
+                                    min_inputs=40, naive_arm=True) or tf_error
+    require_tool_launches(dict(kernels.launches), ("K1", "X1", "X2"),
+                          "ae_sweep, model E")
+    require(all(r["request_ms_async"] > 0 and r["examples_per_s"] > 0
+                for r in rows if "batch" in r), "ae_sweep model E rows")
+    require(rows[-2]["naive_device_step_ms"] > 0
+            and rows[-2]["naive_request_ms_async"] > 0, "naive arm at 512")
+    workers = []
+    ae_sweep.workers_sweep(model_e, 2048, 40, [2, 4], workers,
+                           params=params_e, factory=make_e)
+    require([r["serve_workers"] for r in workers] == [2, 4]
+            and all(r["examples_per_s"] > 0 for r in workers),
+            "workers sweep rows")
+    log(f"ae_sweep (model E): {time.perf_counter() - t:.1f} s")
+    free_engines()
+
+    # ---- bw_breakdown on model E at 2048 -----------------------------------
+    t = time.perf_counter()
+    kernels.reset_launches()
+    bw = bw_breakdown.run(model_e, 2048, n_inputs=40, params=params_e,
+                          factory=make_e)
+    require_tool_launches(dict(kernels.launches), ("K1", "X1", "X2"),
+                          "bw_breakdown, model E")
+    require(len(bw["groups"]) == 4 and bw["full_step_ms"] > 0,
+            "bw_breakdown rows")
+    print_json(f"bw_breakdown (model E, batch 2048; "
+               f"{time.perf_counter() - t:.1f} s)", bw)
+    free_engines()
+
+    # ---- embedding_bw on model E ------------------------------------------
+    eng = Engine(model_e, EngineConfig(), params=params_e)
+    ebw = embedding_bw.embedding_only_bench(eng, base_e[0])
+    require(ebw["detail"]["pooled_equals_plain"] is True
+            and ebw["detail"]["pooled"]["x1_launches"] > 0,
+            "embedding_bw: X1's pooled round == its plain version")
+    print_json("embedding_bw (model E, batch 2048, its 2^23-row group)", ebw)
+    del eng
+    free_engines()
+
+    # ---- ragged_bench: X1 at L = 16, 32, 64, 128 ---------------------------
+    rag = ragged_bench.run()
+    require([r["L"] for r in rag["rungs"]] == [16, 32, 64, 128]
+            and all(r["max_abs_err"] == 0.0 and r["x1_launches"] == 24
+                    for r in rag["rungs"]),
+            "ragged_bench: X1 == its plain version at every rung")
+    print_json("ragged_bench (X1 == its plain version at every rung)", rag)
+    free_engines()
+
+    # ---- entry() and dryrun_multichip(1) -----------------------------------
+    from recom_tpu_torch.models import make_random_batch
+
+    fn, args = entry.entry()
+    kernels.reset_launches()
+    got = fn(*args).cpu().numpy()
+    counts = dict(kernels.launches)
+    require_launches(counts, ("K1", "X1"), "entry()",
+                     exactly={"K1": 1, "X1": 1})
+    flagship = entry._flagship()
+    want = Engine(flagship, EngineConfig()).predict(
+        make_random_batch(flagship, 128, seed=0))["output"]
+    require(got.shape == (128, 1) and np.array_equal(got, want),
+            "entry() != Engine.predict on the same batch")
+    log(f"entry(): output [128, 1] == Engine.predict's on the same batch; "
+        f"launches {dict((k, n) for k, n in counts.items() if n)}")
+    print_json("dryrun_multichip(1)", entry.dryrun_multichip(1))
+    del fn, args
+    free_engines()
+
+    # ---- model F, then ae_sweep and benchmark on it ------------------------
+    f = model_f_phase(torch)
+    base_f = [f["batches"][2048], make_random_batch(f["model"], 2048,
+                                                    seed=40)]
+    make_f = batch_maker(base_f)
+    kernels.reset_launches()
+    t = time.perf_counter()
+    f_tf_error = ae_sweep.sweep_model(f["model"], [32, 512, 2048], 40,
+                                      rows, params=f["params"],
+                                      factory=make_f, min_inputs=40)
+    require_tool_launches(dict(kernels.launches), ("K1", "X1", "X2"),
+                          "ae_sweep, model F")
+    log(f"ae_sweep (model F): {time.perf_counter() - t:.1f} s")
+    doc = {"sweep": rows, "throughput_sweep": workers}
+    if tf_error or f_tf_error:
+        doc["tf_baseline"] = tf_error or f_tf_error
+    print_json("ae_sweep (models E and F)", doc)
+    free_engines()
+
+    profile_dir = os.path.join(tempfile.gettempdir(), "chip_smoke_profile")
+    kernels.reset_launches()
+    res = benchmark.run_benchmark(
+        f["model"], batch_size=2048, num_iterations=32, serve_workers=2,
+        profile=True, profile_dir=profile_dir, params=f["params"],
+        batch_factory=lambda seed: fresh_batch(base_f[seed % 2], 2048, seed),
+        warmup=2)
+    require_tool_launches(dict(kernels.launches), ("K1", "X1", "X2"),
+                          "benchmark, model F")
+    prof = res["profile"]
+    require(os.path.exists(os.path.join(profile_dir, "trace.json")),
+            "benchmark --profile wrote no trace")
+    if isinstance(prof, str):
+        log(f"benchmark --profile on the card: {prof}")
+    else:
+        require(bool(prof["top_device_ops"])
+                and all(o["name"] for o in prof["top_device_ops"]),
+                "benchmark --profile: the top device ops are named")
+    print_json("benchmark (model F, batch 2048, 2 workers, --profile)", res)
+    free_engines()
+    return dict(f_results=f["results"], f_counts=f["counts"],
+                ragged=rag["rungs"])
+
+
 def step_times(torch, tr, name: str, cases) -> None:
     """Median training step time (host clock around ``Trainer.step``,
     which ends in a device sync) over 6 steps, and the device time of its
@@ -3062,6 +3370,11 @@ def main() -> int:
     from recom_tpu_torch.ops import kernels
     from recom_tpu_torch.utils.params import init_model_params
 
+    t_start = time.perf_counter()
+
+    def elapsed(what: str) -> None:
+        log(f"[{time.perf_counter() - t_start:.0f} s] {what} done")
+
     card = card_line()
     int_rate = int32_ops_per_s()
     log(f"card: {card}; INT32 peak {int_rate / 1e12:.2f} Tops/s (132 SMs x "
@@ -3080,6 +3393,7 @@ def main() -> int:
 
     # ---- the PostPool models, small, first -------------------------------
     postpool_phases(torch)
+    elapsed("PostPool phases")
 
     # ---- full-size model E on the card ------------------------------------
     t = time.perf_counter()
@@ -3087,6 +3401,7 @@ def main() -> int:
     np_params = init_model_params(model)
     log(f"model E params on host: {time.perf_counter() - t:.1f} s")
     served = serve_phases(torch, model, np_params, int_rate)
+    elapsed("serving phases")
     free_engines()
     log(f"serving engines freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
         "GiB left on the card")
@@ -3095,19 +3410,32 @@ def main() -> int:
     imported_phase(torch, model, np_params, served)
     stored = stored_phases(torch, model, np_params, served)
     variant_edges(torch)
+    elapsed("imported and stored-dtype phases")
     log(f"stored-dtype engines freed: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB left on the card")
 
     # ---- the serving runtime and the parameter lifecycle --------------------
     runtime = runtime_phases(torch, model, np_params, served)
+    elapsed("serving-runtime phases")
     trained = train_phases(torch, model, np_params, served["batch_small"],
                            served["batch_big"], served["ref"])
-    del model, np_params
+    elapsed("training phases")
     gc.collect()
     torch.cuda.empty_cache()
 
     # ---- the Criteo DLRM at full width -------------------------------------
     criteo = criteo_phases(torch)
+    elapsed("Criteo phases")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the measurement tools and entry points; model F -------------------
+    from recom_tpu_torch.models import make_random_batch
+
+    base = [served["batch_big"], make_random_batch(model, 2048, seed=40)]
+    tools = tools_phases(torch, model, np_params, base)
+    elapsed("tools phases")
+    del model, np_params, base
     results = {**served["results"], **trained["results"], **stored}
     launches = {
         "K1": served["counts_2048"]["K1"], "K2": served["counts_mb"]["K2"],
@@ -3145,6 +3473,12 @@ def main() -> int:
             # the same kernel on the Criteo DLRM's path (d = 64)
             **({"criteo": entry(criteo[kid], criteo[kid]["launches"])}
                if kid in criteo else {}),
+            # on model F's path at batch 2048
+            **({"model_f": entry(tools["f_results"][kid],
+                                 tools["f_counts"][kid])}
+               if kid in tools["f_results"] else {}),
+            # X1 alone at ragged_bench's rungs L = 16, 32, 64, 128
+            **({"ragged": tools["ragged"]} if kid == "X1" else {}),
         }
         for kid in KERNEL_META
     ]}

@@ -16,7 +16,7 @@ to the same bucket a native big batch would, so no new programs compile.
 Semantics: row-wise ops (lookups, pooling, tower matmuls) are
 batch-size-invariant, so a coalesced request's rows are BIT-identical to
 serving it alone (tested), also where the two pad to different buckets:
-the port's Engine runs every row-wise product on fixed row tiles
+the port's Engine runs every row-wise product on fixed row chunks
 (runtime/executor.py ``row_linear``).  Requests flush when the pending
 group reaches ``max_batch`` rows or the oldest request has waited
 ``max_delay_ms``.

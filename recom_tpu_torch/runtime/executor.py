@@ -75,23 +75,26 @@ def _tune_malloc_for_serving() -> None:
         pass
 
 
-# Row-wise products (the tower's layers, a post chain's frozen matmul) run
-# on whole tiles of ROW_TILE rows, at least two: cuBLAS and the CPU's BLAS
-# pick a kernel, and so a summation order, by the row count M, and a single
-# matrix takes another route than a batch of them.  One strided-batched
-# product over [n, ROW_TILE, K] tiles with the weights broadcast gives every
-# row the same bits whatever the padded batch it sits in, which
-# MicroBatcher's promise needs (coalesced rows == the same request served
-# alone; the XLA reference keeps it by itself).  The tower pads its inputs
-# once to those rows (Engine._tower_forward), so dlrm_dot's Gram products
-# and the element-wise ops also see the same shapes in every small bucket.
-ROW_TILE = 64
+# Row-wise products (the tower's layers, a post chain's frozen matmul,
+# dlrm_dot's Gram products) run on fixed chunks of ROW_CHUNK rows, each
+# chunk one call of the same shape whatever the batch: cuBLAS and the CPU's
+# BLAS pick a kernel, and so a summation order, by the call's shape, so a
+# row's result must never come from a call whose shape depends on the batch.
+# With fixed chunks a row takes the same path, and gives the same bits, in
+# every padded batch it sits in, which MicroBatcher's promise needs
+# (coalesced rows == the same request served alone; the XLA reference keeps
+# it by itself).  Fixed tiles in one batched product are not enough: cuBLAS
+# picks that product's kernel by the tile count too, and model F's tower
+# gave most rows of a small batch other bits than at 2048.  The tower pads
+# its inputs once to whole chunks (Engine._tower_forward), so the
+# element-wise ops also see the same shapes in every small bucket.
+ROW_CHUNK = 512
 
 
 def tiled_rows(m: int) -> int:
-    """The rows a row-wise product runs on for ``m`` rows: whole tiles of
-    ROW_TILE, at least two."""
-    return max(-(-m // ROW_TILE), 2) * ROW_TILE
+    """The rows a row-wise product runs on for ``m`` rows: whole chunks of
+    ROW_CHUNK, at least one."""
+    return max(-(-m // ROW_CHUNK), 1) * ROW_CHUNK
 
 
 def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -101,21 +104,27 @@ def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((rows - x.shape[0],) + x.shape[1:])])
 
 
-class _TiledLinear(torch.autograd.Function):
-    """``x @ w (+ b)`` for x [n * ROW_TILE, K] as one batched product over
-    its row tiles.  The backward is the plain product's (``g @ w.T``,
-    ``x.T @ g``, ``g.sum(0)``): autograd of the broadcast weights would
-    materialize an [n, K, N] gradient."""
+class _ChunkedLinear(torch.autograd.Function):
+    """``x @ w (+ b)`` for x [n * ROW_CHUNK, K]: one ``mm`` of ROW_CHUNK
+    rows at a time into the output's rows, then the bias added.  Every
+    chunk's call is the same: x is made contiguous first (a transposed view
+    takes another kernel), and the bias is not fused into the product
+    (``addmm``'s fused bias takes a route that varied with the batch on the
+    card).  The backward is the plain product's (``g @ w.T``, ``x.T @ g``,
+    ``g.sum(0)``)."""
 
     @staticmethod
     def forward(ctx, x, w, b):
-        n = x.shape[0] // ROW_TILE
-        xt = x.reshape(n, ROW_TILE, x.shape[1])
-        wt = w.expand(n, *w.shape)
-        out = torch.bmm(xt, wt) if b is None else torch.baddbmm(b, xt, wt)
+        x = x.contiguous()
+        out = x.new_empty((x.shape[0], w.shape[1]))
+        for i in range(0, x.shape[0], ROW_CHUNK):
+            rows = slice(i, i + ROW_CHUNK)
+            torch.mm(x[rows], w, out=out[rows])
+        if b is not None:
+            out.add_(b)
         ctx.save_for_backward(x, w)
         ctx.has_bias = b is not None
-        return out.reshape(x.shape[0], w.shape[1])
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -129,9 +138,20 @@ class _TiledLinear(torch.autograd.Function):
 def row_linear(x: torch.Tensor, w: torch.Tensor,
                b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ w + b`` (f32, TF32 off) whose row results do not depend on the
-    number of rows of ``x`` (see ROW_TILE)."""
+    number of rows of ``x`` (see ROW_CHUNK)."""
     m = x.shape[0]
-    return _TiledLinear.apply(pad_rows(x, tiled_rows(m)), w, b)[:m]
+    return _ChunkedLinear.apply(pad_rows(x, tiled_rows(m)), w, b)[:m]
+
+
+def row_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(a, b)`` over a batch of rows, ROW_CHUNK rows a call (the
+    batch padded to whole chunks), so a row's product is the same bits in
+    every batch (see ROW_CHUNK)."""
+    m = a.shape[0]
+    n = tiled_rows(m)
+    a, b = pad_rows(a, n).contiguous(), pad_rows(b, n).contiguous()
+    return torch.cat([torch.bmm(a[i:i + ROW_CHUNK], b[i:i + ROW_CHUNK])
+                      for i in range(0, n, ROW_CHUNK)])[:m]
 
 
 def _act(name: Optional[str], x: torch.Tensor) -> torch.Tensor:
@@ -652,7 +672,7 @@ class Engine:
         The tower runs on its inputs padded to ``tiled_rows`` rows (zero
         rows at the end, sliced off its results): every product and
         element-wise op then sees the same shapes for a row whatever the
-        batch bucket, and each row's result is the same bits (ROW_TILE)."""
+        batch bucket, and each row's result is the same bits (ROW_CHUNK)."""
         tower = self.model.tower
         params = self.device_params["tower"]
         bp = dense.shape[0]
@@ -671,7 +691,7 @@ class Engine:
             d = bottom.shape[1]
             vecs = torch.cat([bottom[:, None, :],
                               emb.reshape(emb.shape[0], n_emb, d)], dim=1)
-            gram = torch.bmm(vecs, vecs.transpose(1, 2))
+            gram = row_bmm(vecs, vecs.transpose(1, 2))
             inter = gram.reshape(gram.shape[0], -1).index_select(
                 1, self._triu)
             tower_in = torch.cat([bottom, inter], dim=1)

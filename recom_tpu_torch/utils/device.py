@@ -20,3 +20,23 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def card_line(device) -> "str | None":
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` reports them (a card set below its
+    maximum runs slower under load, so every time is kept beside it); None
+    on the CPU or where nvidia-smi cannot be run."""
+    import subprocess
+
+    if torch.device(device).type != "cuda":
+        return None
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = out.stdout.strip().splitlines()
+    return lines[0] if lines else None
