@@ -153,7 +153,13 @@ It checks:
    zero rows (scale 0) and scales over 12 orders of magnitude, d in {1,
    3, 8, 12, 32, 64}, L in {1, 2, 33, 128}, weighted and unweighted
    columns under every combiner (K1-bf16 and K2-bf16 as bits, X1's with
-   ==);
+   ==); X1, X1-bf16 and X1-int8 also on unweighted one-id groups (C = 45,
+   Bp = 100, ids past caps and below 0) mixed with bag groups in each
+   launch, the one-id tile's cases; the one-id group timed alone
+   (``x1_oneid_alone``; under int8 also its members of <= 128 rows and
+   the larger ones, each alone) and X1's f32 launch with its one-id
+   groups on each tile, in turns (``x1_oneid_f32_ab``: models E and F,
+   the Criteo DLRM);
 4. that each ``predict``, pipelined request and training step went
    through its path's kernels and no other (model E: one launch of X1 a predict; a training
    step K1 1, X1 1, X2 3, K3a 1 and X1b 1; the bucketize path K2 1 and K3b
@@ -646,6 +652,38 @@ def x1_edge_case(d: int, l: int, seed: int, specials: bool = True):
     return table, ids, offs, caps, codes, weights, wcols
 
 
+def x1_oneid_case(d: int, seed: int, specials: bool = True):
+    """X1 inputs for the one-id tile, on two ragged tiles each way (C = 45
+    members, Bp = 100): a stacked [R, d] table (with ``specials``, -0.0,
+    NaN and +-inf rows, never a member's row 0, which a missing id reads in
+    the reference), ids [C, Bp, 1] with missing ids (-1, -2, int32 min), ids
+    past their caps and at int32 max, row offsets, caps, combiner codes
+    (sum, mean, sqrtn) and the per-column rounding (divide or reciprocal),
+    with no weights plane."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    c, bp = 45, 100
+    vocab = rng.integers(5, 40, c)
+    offs = np.concatenate([[0], np.cumsum(vocab)[:-1]]).astype(np.int32)
+    table = rng.standard_normal((int(vocab.sum()), d)).astype(np.float32)
+    if specials:
+        pick = rng.permutation(np.setdiff1d(np.arange(table.shape[0]),
+                                            offs))
+        table[pick[0::5]] = -0.0
+        table[pick[1::7]] = np.nan
+        table[pick[2::11]] = np.inf
+        table[pick[3::13]] = -np.inf
+    ids = rng.integers(-3, vocab[:, None, None] + 6, (c, bp, 1)).astype(
+        np.int32)
+    ids[:, 7] = -1
+    ids[:3, 0, 0] = [-2, np.iinfo(np.int32).min, np.iinfo(np.int32).max]
+    caps = (vocab - 1 - rng.integers(0, 3, c)).astype(np.int32)
+    codes = (np.arange(c) % 3).astype(np.int32)
+    wcols = np.arange(c) % 2 == 1
+    return table, ids, offs, caps, codes, None, wcols
+
+
 # X1b's class cases (d, weighted, crowded); at d = 64 (the Criteo DLRM's) a
 # dense tile and a window are 64 rows
 X1B_CLASS_CASES = ((8, False, False), (32, True, False), (3, True, False),
@@ -840,6 +878,28 @@ def k2_call(torch, eng, g, raw):
     )
 
 
+def x1_work(torch, args):
+    """The bytes X1 must move for one group's arguments ``args`` (ids,
+    weights, the distinct rows read at their stored width with an int8
+    row's scale, and the f32 output, each once), its valid slots, and the
+    valid mask and row of every slot."""
+    from recom_tpu_torch.ops.quant import QuantizedTable
+
+    table, ids, offs, _, weights, _, caps = args
+    quant = isinstance(table, QuantizedTable)
+    rows_t = table.q if quant else table
+    row_bytes = rows_t.shape[1] * rows_t.element_size() + 4 * quant
+    cc, bp, _ = ids.shape
+    clamped = torch.minimum(ids, caps[:, None, None]).long()
+    valid = clamped >= 0
+    rows = clamped + offs.long()[:, None, None]
+    uniq = torch.unique(rows[valid]).numel()
+    nbytes = (ids.numel() * 4 + uniq * row_bytes
+              + bp * cc * rows_t.shape[1] * 4
+              + (0 if weights is None else weights.numel() * 4))
+    return nbytes, int(valid.sum()), valid, rows
+
+
 def x1_member(torch, eng, g, ids, weights, bp: int):
     """One gather group's share of X1's launch (or of X1-bf16's, or
     X1-int8's): its arguments, plain version, library yardstick
@@ -859,26 +919,19 @@ def x1_member(torch, eng, g, ids, weights, bp: int):
             c["weighted"], c["caps"])
     quant = isinstance(table, QuantizedTable)
     rows_t = table.q if quant else table
-    row_bytes = rows_t.shape[1] * rows_t.element_size() + 4 * quant
     cc, _, ll = ids.shape
     d = rows_t.shape[1]
-    clamped = torch.minimum(ids, c["caps"][:, None, None]).long()
-    valid = clamped >= 0
-    rows = clamped + c["row_offsets"].long()[:, None, None]
+    nbytes, nvalid, valid, rows = x1_work(torch, args)
     safe = torch.where(valid, rows, torch.zeros_like(rows))
     w = valid.float() if weights is None else weights * valid
     bag_in = safe.permute(1, 0, 2).reshape(bp * cc, ll).contiguous()
     bag_w = w.permute(1, 0, 2).reshape(bp * cc, ll).contiguous()
-    nvalid = int(valid.sum())
-    uniq = torch.unique(rows[valid]).numel()
-    nbytes = (ids.numel() * 4 + uniq * row_bytes + bp * cc * d * 4
-              + (0 if weights is None else weights.numel() * 4))
     lib = None
     if rows_t.dtype == torch.float32:
         lib = lambda: F.embedding_bag(bag_in, table, mode="sum",
                                       per_sample_weights=bag_w)
     return dict(
-        group=g.gid, args=args,
+        group=g.gid, args=args, f32=rows_t.dtype == torch.float32,
         plain=lambda: group_pooled_plain(
             table, ids, g.row_offsets, g.combiner_code, weights,
             g.weighted_cols, g.vocab_caps),
@@ -907,20 +960,103 @@ def x1_call(members):
     )
 
 
+def time_alone(torch, label: str, kern, nbytes: float) -> dict:
+    """One X1 launch ``kern`` timed warm and cold, logged beside its bound
+    (``nbytes`` over the HBM rate), as a "classes" entry."""
+    with torch.inference_mode():
+        ms = time_ms(torch, kern)
+        cold = time_cold_ms(torch, kern)
+    bms, by = bound_ms(nbytes)
+    log(f"  X1, {label}: kernel {ms:.4f} ms warm, {cold:.4f} ms cold L2, "
+        f"bound {bms:.4f} ms ({by}, share {bms / ms:.0%})")
+    return dict(name=label, ms=ms, cold_ms=cold, bound_ms=bms)
+
+
 def x1_largest_alone(torch, rec) -> list:
     """X1's record ``rec``'s largest-table group (model E's 2^23-row lists)
     alone in one launch: its warm and cold times and its bound, the part of
     X1 a stored dtype shrinks most.  Returns a one-entry "classes" list."""
     member = max(rec["members"], key=lambda x: x["rows"])
     alone = x1_call([member])
-    with torch.inference_mode():
-        ms = time_ms(torch, alone["kern"])
-        cold = time_cold_ms(torch, alone["kern"])
-    bms, by = alone["bound"]
-    log(f"  X1, group {member['group']} alone ({member['shape']}): kernel "
-        f"{ms:.4f} ms warm, {cold:.4f} ms cold L2, bound {bms:.4f} ms ({by})")
-    return [dict(name=f"group {member['group']} alone ({member['shape']})",
-                 ms=ms, cold_ms=cold, bound_ms=bms)]
+    return [time_alone(torch, f"group {member['group']} alone "
+                       f"({member['shape']})", alone["kern"],
+                       member["nbytes"])]
+
+
+def x1_oneid_alone(torch, rec) -> list:
+    """X1's record ``rec``'s widest group of one id with no weights (model
+    E's 50 string-hash columns, or its 980 one-id columns under int8) alone
+    in one launch, so its share of the launch is measured and not found by
+    difference; where the group has members of both <= 128 rows (model
+    E's one-hot-sized tables) and more (its string-hash tables), each
+    class alone too: a small vocab's rows repeat within a tile and hit L1,
+    a large one's miss.  Returns the "classes" entries."""
+    from recom_tpu_torch.ops.lookup_gather import (
+        X1_ONEID_F32_BELOW_D,
+        group_pooled_plain,
+        groups_pooled,
+    )
+
+    ones = [x for x in rec["members"]
+            if x["args"][1].shape[2] == 1 and x["args"][4] is None]
+    require(bool(ones), "no group of one id in X1's launch")
+    member = max(ones, key=lambda x: x["args"][1].shape[0])
+    args = member["args"]
+    tile = ("f32 bag tile" if member["f32"]
+            and args[0].shape[1] >= X1_ONEID_F32_BELOW_D else "one-id tile")
+    out = [time_alone(torch, f"group {member['group']} alone, {tile} "
+                      f"({member['shape']})", x1_call([member])["kern"],
+                      member["nbytes"])]
+    small = (args[6] < 128).nonzero()[:, 0]
+    large = (args[6] >= 128).nonzero()[:, 0]
+    if 0 < small.numel() < args[1].shape[0]:
+        for what, sel in (("members of <= 128 rows", small),
+                          ("members of > 128 rows", large)):
+            sub = (args[0], args[1][sel].contiguous(), args[2][sel],
+                   args[3][sel], None, args[5][sel], args[6][sel])
+            kern = lambda sub=sub: groups_pooled([sub])
+            with torch.inference_mode():
+                got, want = kern()[0], group_pooled_plain(
+                    *sub[:2], *(x.cpu().numpy() for x in sub[2:4]), None,
+                    sub[5].cpu().numpy().astype(bool), sub[6].cpu().numpy())
+                torch.cuda.synchronize()
+            require(bool((got == want).all()), f"X1 group {member['group']}"
+                    f", {what}: kernel != plain")
+            out.append(time_alone(
+                torch, f"group {member['group']}'s {sel.numel()} {what} "
+                f"alone, {tile}", kern, x1_work(torch, sub)[0]))
+    return out
+
+
+def x1_oneid_f32_ab(torch, rec, name: str) -> dict:
+    """X1's f32 launch ``rec`` with its one-id groups on the bag tile (A)
+    and on the one-id tile at every width (B), as
+    ``lookup_gather.X1_ONEID_F32_BELOW_D`` set to 0 and past any d, each
+    held == the plain version and timed warm in turns A B B A (the spread:
+    each arm's two readings).  Returns both arms' readings; the module's
+    setting is restored."""
+    from recom_tpu_torch.ops import lookup_gather
+
+    keep = lookup_gather.X1_ONEID_F32_BELOW_D
+    times = {0: [], 1 << 30: []}
+    try:
+        with torch.inference_mode():
+            for arm in (0, 1 << 30, 1 << 30, 0):
+                lookup_gather.X1_ONEID_F32_BELOW_D = arm
+                outs, wants = rec["kern"](), rec["plain"]()
+                torch.cuda.synchronize()
+                for a, b in zip(outs, wants):
+                    require(bool((a == b).all()), f"X1 at {name}, one-id "
+                            f"tile below d = {arm}: kernel != plain")
+                times[arm].append(time_ms(torch, rec["kern"]))
+    finally:
+        lookup_gather.X1_ONEID_F32_BELOW_D = keep
+    bag, tile = times[0], times[1 << 30]
+    log(f"X1 at {name}, f32 one-id groups on the bag tile: {bag[0]:.4f} / "
+        f"{bag[1]:.4f} ms warm; on the one-id tile: {tile[0]:.4f} / "
+        f"{tile[1]:.4f} ms (turns A B B A; each == plain; the port takes "
+        f"the one-id tile for f32 rows of d < {keep})")
+    return {"bag_tile_ms": bag, "oneid_tile_ms": tile}
 
 
 def measure_forward(torch, calls):
@@ -1238,7 +1374,10 @@ def serve_phases(torch, model, np_params, int_rate: float):
         calls["K2"].append(k2_call(torch, eng_mb, g, raw))
 
     results = measure_forward(torch, calls)
-    results["X1"]["classes"] = x1_largest_alone(torch, calls["X1"][0])
+    results["X1"]["classes"] = (x1_largest_alone(torch, calls["X1"][0])
+                                + x1_oneid_alone(torch, calls["X1"][0]))
+    results["X1"]["oneid_f32_ab"] = x1_oneid_f32_ab(torch, calls["X1"][0],
+                                                    "model E")
 
     # ---- phase 3: the main path, counted --------------------------------
     batch_small = make_random_batch(model, 512, seed=2)
@@ -1506,7 +1645,8 @@ def stored_phases(torch, model, np_params, served):
         latency(torch, eng, f"model E, {dtype}", ((512, small), (2048, big)))
         recs = stored_records(torch, eng, big, k1, x1)
         res = measure_forward(torch, recs)
-        res[x1]["classes"] = x1_largest_alone(torch, recs[x1][0])
+        res[x1]["classes"] = (x1_largest_alone(torch, recs[x1][0])
+                              + x1_oneid_alone(torch, recs[x1][0]))
         for kid in res:
             results[kid] = dict(res[kid], launches=counted[2048][kid])
         log(f"peak device memory (model E, {dtype}): "
@@ -1581,8 +1721,9 @@ def int8_edges(torch, t, seed: int):
     return QuantizedTable(torch.from_numpy(q), torch.from_numpy(s))
 
 
-# the variants' edge widths and bag lengths: d off (1, 3) and on (8, 12,
-# 32, 64) the four-element path, L = 1 (its own path) to 128
+# the variants' edge widths and bag lengths: d off (1, 3) the vector
+# units, on four-element units only (12) and on the 16-byte units of bf16
+# and int8 (8, 32, 64); L = 1 (its own path) to 128
 VARIANT_EDGE_D = (1, 3, 8, 12, 32, 64)
 VARIANT_EDGE_L = (1, 2, 33, 128)
 
@@ -1599,6 +1740,8 @@ def variant_edges(torch) -> None:
 
     from recom_tpu_torch.ops import kernels
     from recom_tpu_torch.ops.lookup_gather import (
+        X1_ONEID_F32_BELOW_D,
+        _x1_group,
         group_pooled_plain,
         groups_pooled,
     )
@@ -1655,48 +1798,80 @@ def variant_edges(torch) -> None:
             f"in {VARIANT_EDGE_D}; K2's edge boundary sets and raw values; "
             "bf16 rows of -0.0, NaN, -inf, subnormals, ties): kernel == "
             "plain bit for bit")
-        for dtype, kid in (("bf16", "X1-bf16"), ("int8", "X1-int8")):
-            cases = []
+        for dtype, kid in (("f32", "X1"), ("bf16", "X1-bf16"),
+                           ("int8", "X1-int8")):
+            def stored(tb, seed):
+                if dtype == "f32":
+                    return torch.from_numpy(tb).to(dev)
+                if dtype == "bf16":
+                    return bf16_specials(torch, tb, seed).to(dev)
+                qt = int8_edges(torch, tb, seed)
+                return QuantizedTable(qt.q.to(dev), qt.scale.to(dev))
+
+            # each d's 8 bag groups and 8 one-id groups in two calls, 5 + 2
+            # and 3 + 6 groups: a launch puts its bag groups first, so the
+            # first call is one launch of both tiles and the second two
+            # (8 + 1 groups), the first of them mixed
+            calls = []
             for d in VARIANT_EDGE_D:
+                bags = []
                 for ll in VARIANT_EDGE_L:
                     for weighted in (False, True):
                         seed = 10 * d + ll
                         tb, ids_np, offs, caps_np, codes, w_np, wc = \
                             x1_edge_case(d, ll, seed=seed,
-                                         specials=dtype == "bf16")
-                        if dtype == "bf16":
-                            table = bf16_specials(torch, tb, seed).to(dev)
-                        else:
-                            qt = int8_edges(torch, tb, seed)
-                            table = QuantizedTable(qt.q.to(dev),
-                                                   qt.scale.to(dev))
-                        cases.append(((d, ll, weighted), (
-                            table, torch.from_numpy(ids_np).to(dev), offs,
-                            codes,
+                                         specials=dtype != "int8")
+                        bags.append(((d, ll, weighted), (
+                            stored(tb, seed),
+                            torch.from_numpy(ids_np).to(dev), offs, codes,
                             torch.from_numpy(w_np).to(dev) if weighted
                             else None,
                             wc if weighted else np.zeros(len(wc), bool),
                             caps_np)))
+                ones = []
+                for k in range(8):
+                    seed = 100 * d + k
+                    tb, ids_np, offs, caps_np, codes, _, wc = x1_oneid_case(
+                        d, seed=seed, specials=dtype != "int8")
+                    ones.append(((d, 1, f"one-id {k}"), (
+                        stored(tb, seed), torch.from_numpy(ids_np).to(dev),
+                        offs, codes, None, wc, caps_np)))
+                calls += [bags[:5] + ones[:2], bags[5:] + ones[2:]]
+            oneid = [_x1_group(*a)[0]["oneid"] for call in calls
+                     for key, a in call if str(key[2]).startswith("one-id")]
+            want = [dtype != "f32" or d < X1_ONEID_F32_BELOW_D
+                    for d in VARIANT_EDGE_D for _ in range(8)]
+            require(oneid == want, f"{kid}: the one-id cases' tile")
             before = kernels.launches[kid]
-            got_all = groups_pooled([a for _, a in cases])
-            require(kernels.launches[kid] - before == -(-len(cases) // 8),
+            n = 0
+            for call in calls:
+                got_all = groups_pooled([a for _, a in call])
+                for (key, a), got in zip(call, got_all):
+                    want = group_pooled_plain(*a)
+                    torch.cuda.synchronize()
+                    same = (got == want) | (got.isnan() & want.isnan())
+                    require(got.shape == want.shape and bool(same.all()),
+                            f"{kid} edge case (d, L, weighted) = {key}: "
+                            "kernel != plain")
+                n += -(-len(call) // 8)
+            require(kernels.launches[kid] - before == n,
                     f"{kid} edge cases: one launch per 8 groups")
-            for (key, a), got in zip(cases, got_all):
-                want = group_pooled_plain(*a)
-                torch.cuda.synchronize()
-                same = (got == want) | (got.isnan() & want.isnan())
-                require(got.shape == want.shape and bool(same.all()),
-                        f"{kid} edge case (d, L, weighted) = {key}: kernel "
-                        "!= plain")
             log(f"{kid} edge cases (d in {VARIANT_EDGE_D} x L in "
                 f"{VARIANT_EDGE_L}, unweighted and weighted, SUM / MEAN / "
-                "SQRTN columns; C = 6, Bp = 100; "
-                + ("-0.0 / NaN / +-inf / subnormal rows and rounding ties"
+                "SQRTN columns; C = 6, Bp = 100; and 8 one-id groups at "
+                "each d, C = 45, Bp = 100, ids past caps and below 0, "
+                + ("on the one-id tile" if all(oneid) else
+                   f"on the one-id tile at d < {X1_ONEID_F32_BELOW_D}, the "
+                   "bag tile above")
+                + "; "
+                + ("-0.0 / NaN / +-inf rows" if dtype == "f32" else
+                   "-0.0 / NaN / +-inf / subnormal rows and rounding ties"
                    if dtype == "bf16" else
                    "rows scaled over 12 orders of magnitude, a zero row "
                    "(scale 0) and a row at -127")
-                + f"): kernel == plain, {len(cases)} groups in "
-                f"{kernels.launches[kid] - before} launches")
+                + f"): kernel == plain, "
+                f"{sum(len(c) for c in calls)} groups in {n} launches, "
+                "one-id and bag groups mixed in each call")
 
 
 def _equal_bits(torch, a, b) -> bool:
@@ -2178,12 +2353,14 @@ def step_grads(torch, tr, batch, labels):
     tr.optimizer.zero_grad(set_to_none=True)
     loss, pooled = _with_pooled(tr, batch, labels)
     loss.backward()
-    names = [f"table {k}" for k in tr.params["stacked"]] + [
-        f"tower {k}[{i}].{wb}" for k, layers in tr.params["tower"].items()
-        for i in range(len(layers)) for wb in ("w", "b")]
-    leaves = param_leaves(tr.params)
-    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-             .detach() for n, p in zip(names, leaves)}
+    names = {id(t): f"table {k}" for k, t in tr.params["stacked"].items()}
+    for k, layers in tr.params["tower"].items():
+        for i, layer in enumerate(layers):
+            for wb in ("w", "b"):
+                names[id(layer[wb])] = f"tower {k}[{i}].{wb}"
+    grads = {names[id(p)]: (p.grad if p.grad is not None
+                            else torch.zeros_like(p)).detach()
+             for p in param_leaves(tr.params)}
     cots = [p.grad.detach() for p in pooled]
     tr.optimizer.zero_grad(set_to_none=True)
     return float(loss.detach()), grads, cots
@@ -2474,6 +2651,8 @@ def criteo_phases(torch):
             members.append(x1_member(torch, eng, g, ids, weights, bp))
     calls["X1"].append(x1_call(members))
     results = measure_forward(torch, calls)
+    results["X1"]["oneid_f32_ab"] = x1_oneid_f32_ab(
+        torch, calls["X1"][0], "the Criteo DLRM")
     del calls, members, arrays, eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -3122,9 +3301,10 @@ def model_f_phase(torch):
     tower_cost(torch, eng, tuple(batches.items()), "model F")
     log(f"peak device memory (model F serving): "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    results = measure_forward(torch, stored_records(torch, eng,
-                                                    batches[2048], "K1",
-                                                    "X1"))
+    recs = stored_records(torch, eng, batches[2048], "K1", "X1")
+    results = measure_forward(torch, recs)
+    results["X1"]["oneid_f32_ab"] = x1_oneid_f32_ab(torch, recs["X1"][0],
+                                                    "model F")
     del eng
     free_engines()
     return dict(model=model, params=params, batches=batches,
@@ -3453,6 +3633,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["lib"], "share": r["bound_ms"] / r["ms"],
             **({"classes": r["classes"]} if "classes" in r else {}),
+            **({"oneid_f32_ab": r["oneid_f32_ab"]}
+               if "oneid_f32_ab" in r else {}),
         }
 
     # each kernel's launches in the serving-runtime phases: the pipeline's

@@ -24,6 +24,12 @@
 // T in the output and units of S in table3, one S per T, so the
 // bookkeeping (dq = d or d / 4, the rows[][] offsets) is the same for
 // both dtypes.
+//
+// What a selected unit becomes in the output is the caller's ``value``
+// functor, called with the loaded unit and the entry's (bl, cl): K1 and K2
+// take CopyUnit, the upcast above; X1's one-id tile (pooled_gather.cu)
+// passes its own, which adds the unit to +0.0 and reads an int8 entry's
+// row scale, kept beside rows[][] in shared memory.
 
 #pragma once
 
@@ -57,16 +63,24 @@ __device__ __forceinline__ float4 Upcast(uint2 v) {   // four bf16, in order
                      __uint_as_float(v.y & 0xFFFF0000u));
 }
 
+// K1's and K2's value of a stored unit: its upcast, bit for bit.
+struct CopyUnit {
+  template <typename S>
+  __device__ __forceinline__ auto operator()(S v, int, int) const {
+    return Upcast(v);
+  }
+};
+
 // S: the stored unit (float or float4 for f32 tables, unsigned short or
 // uint2 for bf16); T: the output unit, float or float4 with d counted in
-// float4s (dq = d or d / 4).  Call after a __syncthreads() that publishes
-// rows.
-template <typename I, typename S, typename T>
+// float4s (dq = d or d / 4); value(unit, bl, cl) -> T.  Call after a
+// __syncthreads() that publishes rows.
+template <typename I, typename S, typename T, typename Value = CopyUnit>
 __device__ __forceinline__ void write_tile_rows(
     const S* __restrict__ table3,       // [C_pad, V, dq]
     I (*rows)[kCols + 1],               // [kRows][kCols + 1] offsets, -1 = 0
     T* __restrict__ out,                // [Bp, C, dq]
-    I C, I c0, I b0, int nc, int nb, int dq) {
+    I C, I c0, I b0, int nc, int nb, int dq, Value value = Value()) {
   const int lane = threadIdx.x & 31;
   const int span = nc * dq;            // elements of one batch row's slice
   const int cl_first = lane / dq, q_first = lane - cl_first * dq;
@@ -78,7 +92,8 @@ __device__ __forceinline__ void write_tile_rows(
 #pragma unroll 2
     for (int e = lane; e < span; e += 32) {
       const I row = r[cl];
-      __stcs(o + e, row >= 0 ? Upcast(__ldg(table3 + row + q)) : Zero<T>());
+      __stcs(o + e, row >= 0 ? value(__ldg(table3 + row + q), bl, cl)
+                             : Zero<T>());
       q += q_step;
       cl += cl_step;
       if (q >= dq) {

@@ -218,24 +218,51 @@ def group_pooled_plain(
 # described by one X1_DESC record (the kernel's struct X1Group, field for
 # field: X1_FIELDS).  Each stored dtype has its own kernel and launch
 # count: X1 (f32 rows), X1-bf16 and X1-int8 (int8 rows and f32 scales).
+# A group takes the bag tile (G lanes a bag, U stored elements a lane
+# load) or, with L == 1 and no weights plane, the one-id tile (32 columns
+# x 32 batch rows, K1's); the record's kind is 64 * one-id + 8 * log2(U) +
+# log2(G).
 X1_THREADS = 256
 X1_MAX_GROUPS = 8
+X1_ONEID_TILE = 32
 X1_FIELDS = ("table", "scales", "ids", "weights", "row_offsets", "caps",
              "codes", "weighted", "out", "C", "Bp", "L", "dq", "block_begin",
              "tiles_b", "kind")
 X1_DESC = struct.Struct("<9Q5q2i")
 X1_KERNEL = {torch.float32: "X1", torch.bfloat16: "X1-bf16",
              torch.int8: "X1-int8"}
+# f32 groups of one id take the one-id tile below this row width (bf16 and
+# int8 ones at every width): an f32 row of 32 floats or more already
+# leaves the bag tile as whole 128-byte lines.  chip_smoke.py's
+# x1_oneid_f32_ab times X1's f32 launch both ways in turns; on an NVIDIA
+# H100 80GB HBM3 at 700 W the bag tile / the one-id tile read 0.0120,
+# 0.0122 / 0.0122, 0.0118 ms at model E (d = 8), 0.0137, 0.0137 / 0.0116,
+# 0.0119 at model F (d = 8), and 0.0074 (bag, earlier run) / 0.0089 at the
+# Criteo DLRM's d = 64.
+X1_ONEID_F32_BELOW_D = 32
 
 
-def x1_tile(d: int, vec: bool):
-    """(dq, lanes, tile_rows, tile_cols) of a group with row length d:
-    dq row units (runs of four elements when ``vec``, one stored load and
-    one float4 of output each, else single elements), ``lanes`` (G) a bag,
-    the smallest power of two >= dq up to 32, and a block tile of tile_cols
-    columns x tile_rows batch rows.  The same for every stored dtype: a
-    unit is 16, 8 or 4 stored bytes (f32, bf16, int8)."""
-    dq = d // 4 if vec else d
+def x1_unit(d: int, itemsize: int, ptr: int, oneid: bool = False) -> int:
+    """The stored elements U a lane loads at once for rows of d elements
+    of ``itemsize`` bytes starting at address ``ptr``: the largest of 16,
+    8 and 4 whose load is at most 16 bytes (f32 4; bf16 8; int8 16) and
+    that divides d, with each row aligned to it; else 1.  The one-id tile
+    loads K1's units: 4 or 1."""
+    for u in (4,) if oneid else (16, 8, 4):
+        if u * itemsize <= 16 and d % u == 0 and ptr % (u * itemsize) == 0:
+            return u
+    return 1
+
+
+def x1_tile(d: int, unit: int, oneid: bool = False):
+    """(dq, lanes, tile_rows, tile_cols) of a group with row length d and
+    lane unit ``unit``: dq = d / unit units a row, ``lanes`` (G) a bag, the
+    smallest power of two >= dq up to 32, and a block tile of tile_cols
+    columns x tile_rows batch rows.  The one-id tile is 32 x 32 with no
+    lanes a bag (G = 1 in its kind)."""
+    dq = d // unit
+    if oneid:
+        return dq, 1, X1_ONEID_TILE, X1_ONEID_TILE
     lanes = 1
     while lanes < min(dq, 32):
         lanes *= 2
@@ -250,24 +277,30 @@ def x1_descriptors(groups):
     groups: one dict per group, with the device pointers ``table``,
     ``scales`` (an int8 table's; 0 for none), ``ids``, ``weights`` (0 for
     none), ``row_offsets``, ``caps``, ``codes``, ``weighted`` and ``out``,
-    the sizes ``C``, ``Bp``, ``L``, ``d``, and ``vec`` (rows move four
-    elements a load).  Blocks are numbered group after group;
-    each group's first block is its ``block_begin``."""
+    the sizes ``C``, ``Bp``, ``L``, ``d``, ``unit`` (stored elements a lane
+    load, ``x1_unit``) and ``oneid`` (the one-id tile).  Blocks are
+    numbered group after group; each group's first block is its
+    ``block_begin``."""
     if not 1 <= len(groups) <= X1_MAX_GROUPS:
         raise ValueError(f"1 to {X1_MAX_GROUPS} groups per launch, got "
                          f"{len(groups)}")
     records = []
     blocks = 0
     for g in groups:
-        if g["vec"] and g["d"] % 4:
-            raise ValueError(f"float4 rows need d % 4 == 0, got d={g['d']}")
-        dq, lanes, rows, cols = x1_tile(g["d"], g["vec"])
+        unit, oneid = g["unit"], bool(g["oneid"])
+        if unit not in ((1, 4) if oneid else (1, 4, 8, 16)) or g["d"] % unit:
+            raise ValueError(f"a unit of {unit} elements does not fit rows "
+                             f"of d={g['d']} ({'one-id' if oneid else 'bag'} "
+                             "tile)")
+        if oneid and (g["L"] != 1 or g["weights"]):
+            raise ValueError("the one-id tile takes L == 1 and no weights")
+        dq, lanes, rows, cols = x1_tile(g["d"], unit, oneid)
         tiles_b = -(-g["Bp"] // rows)
         records.append(X1_DESC.pack(
             g["table"], g["scales"], g["ids"], g["weights"], g["row_offsets"],
             g["caps"], g["codes"], g["weighted"], g["out"], g["C"], g["Bp"],
             g["L"], dq, blocks, tiles_b,
-            8 * bool(g["vec"]) + lanes.bit_length() - 1,
+            64 * oneid + 8 * (unit.bit_length() - 1) + lanes.bit_length() - 1,
         ))
         blocks += -(-g["C"] // cols) * tiles_b
     if blocks >= 1 << 31:
@@ -371,10 +404,11 @@ def _x1_group(table, ids, row_offsets, combiner_code, weights=None,
             raise ValueError(f"{name} must be contiguous")
     d = rows.shape[1]
     out = torch.empty((bp, c, d), dtype=torch.float32, device=dev)
-    # a unit of four elements loads 4 x the stored itemsize (16, 8 or 4
-    # bytes) and stores one float4
-    vec = (d % 4 == 0 and rows.data_ptr() % (4 * rows.element_size()) == 0
-           and out.data_ptr() % 16 == 0)
+    oneid = l == 1 and weights is None and (rows.dtype != torch.float32
+                                            or d < X1_ONEID_F32_BELOW_D)
+    # a unit of U > 1 elements stores U / 4 float4s
+    unit = (x1_unit(d, rows.element_size(), rows.data_ptr(), oneid)
+            if out.data_ptr() % 16 == 0 else 1)
     fields = dict(
         table=rows.data_ptr(),
         scales=0 if scales is None else scales.data_ptr(),
@@ -382,7 +416,8 @@ def _x1_group(table, ids, row_offsets, combiner_code, weights=None,
         weights=0 if weights is None else weights.data_ptr(),
         row_offsets=offs.data_ptr(), caps=caps.data_ptr(),
         codes=codes.data_ptr(), weighted=wcols.data_ptr(),
-        out=out.data_ptr(), C=c, Bp=bp, L=l, d=d, vec=vec,
+        out=out.data_ptr(), C=c, Bp=bp, L=l, d=d, unit=unit,
+        oneid=oneid,
     )
     return fields, out, (offs, caps, codes, wcols)
 
@@ -434,13 +469,17 @@ def _groups_pooled(groups) -> List[torch.Tensor]:
         by_kernel.setdefault(X1_KERNEL[_rows(g[0]).dtype], []).append(i)
     stream = kernels.stream_of(_rows(groups[0][0]))
     for kid, idx in by_kernel.items():
+        made = {j: _x1_group(*groups[j]) for j in idx}
+        # bag groups first: their blocks, bound by the latency of their
+        # slot chains, start first, and the one-id tiles' streaming writes
+        # fill the SMs around them
+        idx = sorted(idx, key=lambda j: made[j][0]["oneid"])
         for i in range(0, len(idx), X1_MAX_GROUPS):
             part = idx[i: i + X1_MAX_GROUPS]
-            made = [_x1_group(*groups[j]) for j in part]
-            desc, blocks = x1_descriptors([f for f, _, _ in made])
-            kernels.launch(kid, desc, len(made), blocks, stream)
-            for j, (_, o, _) in zip(part, made):
-                outs[j] = o
+            desc, blocks = x1_descriptors([made[j][0] for j in part])
+            kernels.launch(kid, desc, len(part), blocks, stream)
+            for j in part:
+                outs[j] = made[j][1]
     return outs
 
 

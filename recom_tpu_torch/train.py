@@ -16,7 +16,9 @@ tables, elementwise for any other rank, so for every one-hot ``[C_pad,
 V_pad, d]`` table), and ``dlrm_optimizer`` (row-wise AdaGrad on the
 tables, Adam on the tower).  Like optax's transformations they exist before
 the params do: each returns a factory that the Trainer calls on its params,
-giving a ``torch.optim.Optimizer``.
+giving a ``torch.optim.Optimizer``.  Its state is saved as optax's tree
+leaves (``opt_state.npz``), so a training checkpoint resumes in either
+package.
 
     >>> tr = Trainer(make_model_e(), EngineConfig(), optimizer=dlrm_optimizer())
     >>> loss = tr.step(raw_batch, labels)
@@ -41,34 +43,56 @@ OptimizerFactory = Callable[[Dict], torch.optim.Optimizer]
 _INT32_MAX = np.iinfo(np.int32).max
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists in ``jax.tree_util``'s order:
+    a dict's values by sorted key, a list's or tuple's in order; None has
+    no leaves."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_map(fn, tree):
+    """``tree`` with ``fn`` applied to each leaf, its dicts and lists kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
 def param_leaves(params: Dict) -> List[torch.Tensor]:
-    """The params tree's tensors in the port's fixed order: the stacked
-    tables in group order, then each tower key's layers, w before b."""
-    out = list(params["stacked"].values())
-    for layers in params["tower"].values():
-        for layer in layers:
-            out += [layer["w"], layer["b"]]
-    return out
+    """The params tree's tensors in the JAX package's order
+    (``jax.tree_util.tree_leaves``): the stacked tables by group id as
+    strings ("10" before "2"), then the tower's keys sorted, each layer's
+    b before its w."""
+    return tree_leaves(params)
 
 
 class OptaxOptimizer(torch.optim.Optimizer):
     """optax's update rules as a ``torch.optim.Optimizer``.  Each param
     group names its ``rule``, ``"adam"`` (``lr``, ``b1``, ``b2``, ``eps``,
     ``eps_root``) or ``"rowwise_adagrad"`` (``lr``, ``eps``).  State is made
-    at construction, as optax's ``init`` makes it; a param with no gradient
-    steps with a zero one, as JAX's dense cotangent would."""
+    at construction, as optax's ``init`` makes it: an Adam group keeps one
+    step ``count`` (optax's ``ScaleByAdamState.count``) and each of its
+    params ``mu`` and ``nu``; a row-wise AdaGrad param its ``acc``.  A param
+    with no gradient steps with a zero one, as JAX's dense cotangent
+    would."""
 
     def __init__(self, param_groups: List[Dict]):
         super().__init__(param_groups, defaults={})
         for group in self.param_groups:
+            if group["rule"] == "adam":
+                group["count"] = 0
             for p in group["params"]:
                 self.state[p] = self._init_state(group["rule"], p)
 
     @staticmethod
     def _init_state(rule: str, p: torch.Tensor) -> Dict:
         if rule == "adam":
-            return {"count": 0, "mu": torch.zeros_like(p),
-                    "nu": torch.zeros_like(p)}
+            return {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
         if rule == "rowwise_adagrad":
             shape = p.shape[:1] if p.dim() == 2 else p.shape
             return {"acc": torch.zeros(shape, dtype=torch.float32,
@@ -82,6 +106,8 @@ class OptaxOptimizer(torch.optim.Optimizer):
             with torch.enable_grad():
                 loss = closure()
         for group in self.param_groups:
+            if group["rule"] == "adam":
+                group["count"] = min(group["count"] + 1, _INT32_MAX)
             for p in group["params"]:
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
                 if group["rule"] == "adam":
@@ -92,18 +118,18 @@ class OptaxOptimizer(torch.optim.Optimizer):
 
     @staticmethod
     def _adam(group, p, g, st) -> None:
-        """optax.scale_by_adam, then scale by -lr, then apply_updates."""
-        b1, b2 = group["b1"], group["b2"]
+        """optax.scale_by_adam, then scale by -lr, then apply_updates; the
+        group's ``count`` is this step's."""
+        b1, b2, count = group["b1"], group["b2"], group["count"]
         mu = (1 - b1) * g + b1 * st["mu"]
         nu = (1 - b2) * (g * g) + b2 * st["nu"]
-        count = min(st["count"] + 1, _INT32_MAX)
         # the bias corrections in f64, rounded to f32 (as optax computes
         # them with jax_enable_x64, which the JAX Engine turns on)
         mu_hat = mu / np.float32(1 - b1 ** count)
         nu_hat = nu / np.float32(1 - b2 ** count)
         upd = mu_hat / (torch.sqrt(nu_hat + group["eps_root"]) + group["eps"])
         p.add_(-group["lr"] * upd)
-        st.update(count=count, mu=mu, nu=nu)
+        st.update(mu=mu, nu=nu)
 
     @staticmethod
     def _rowwise_adagrad(group, p, g, st) -> None:
@@ -121,41 +147,68 @@ class OptaxOptimizer(torch.optim.Optimizer):
         p.add_(upd)
         st["acc"] = acc
 
-    def state_leaves(self) -> List[np.ndarray]:
-        """Every state value in a fixed order (param groups, their params,
-        then each param's state keys sorted), as numpy."""
-        out = []
+    def _slots(self) -> list:
+        """Where each state leaf lives, in the order of
+        ``jax.tree_util.tree_leaves(optimizer.init(params))`` for the JAX
+        factory of the same name: (dict, key) pairs.  The param groups
+        follow optax's states in order (``dlrm_optimizer``: the
+        multi_transform's "tables", then "tower"; a masked-out param has
+        no leaf), and each group's params are in the params tree's order.
+        An Adam group gives its one count, then every param's mu, then
+        every nu (``ScaleByAdamState``; the learning-rate scale that
+        follows has none); a row-wise AdaGrad group its accumulators."""
+        slots = []
         for group in self.param_groups:
-            for p in group["params"]:
-                st = self.state[p]
-                for k in sorted(st):
-                    v = st[k]
-                    out.append(v.detach().cpu().numpy()
-                               if isinstance(v, torch.Tensor)
-                               else np.asarray(v, np.int32))
-        return out
+            states = [self.state[p] for p in group["params"]]
+            if group["rule"] == "adam":
+                slots.append((group, "count"))
+                slots += [(st, "mu") for st in states]
+                slots += [(st, "nu") for st in states]
+            else:
+                slots += [(st, "acc") for st in states]
+        return slots
+
+    def state_leaves(self) -> List[np.ndarray]:
+        """Every state value in optax's tree order (``_slots``), as
+        numpy: the layout of the JAX Trainer's ``opt_state.npz``."""
+        return [v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v, np.int32)
+                for v in (d[k] for d, k in self._slots())]
+
+    def _old_leaf_count(self) -> int:
+        """The leaf count of this package's layout before it followed
+        optax: every param's sorted state keys, one count each."""
+        return sum((3 if g["rule"] == "adam" else 1) * len(g["params"])
+                   for g in self.param_groups)
 
     def load_state_leaves(self, leaves: List[np.ndarray]) -> None:
-        """The inverse of ``state_leaves``, into this optimizer's state."""
-        slots = [(self.state[p], k)
-                 for group in self.param_groups for p in group["params"]
-                 for k in sorted(self.state[p])]
+        """The inverse of ``state_leaves``, into this optimizer's state.
+        Raises ValueError on a wrong leaf count or a wrong shape."""
+        slots = self._slots()
         if len(slots) != len(leaves):
+            old = self._old_leaf_count()
+            hint = (f"; {old} is the count of this package's earlier "
+                    "per-param layout (count, mu, nu per param), which is "
+                    "no longer read" if len(leaves) == old != len(slots)
+                    else "")
             raise ValueError(
                 f"opt_state leaf count mismatch: checkpoint has "
                 f"{len(leaves)}, the optimizer has {len(slots)}; the same "
-                "optimizer is required for resume"
+                f"optimizer is required for resume{hint}"
             )
-        for (st, k), arr in zip(slots, leaves):
-            old = st[k]
+        for i, ((d, k), arr) in enumerate(zip(slots, leaves)):
+            old = d[k]
+            want = tuple(old.shape) if isinstance(old, torch.Tensor) else ()
+            if tuple(np.shape(arr)) != want:
+                raise ValueError(f"opt_state leaf{i} ({k}): shape "
+                                 f"{np.shape(arr)}, expected {want}")
+        for (d, k), arr in zip(slots, leaves):
+            old = d[k]
             if isinstance(old, torch.Tensor):
-                if tuple(arr.shape) != tuple(old.shape):
-                    raise ValueError(f"opt_state leaf {k}: shape "
-                                     f"{arr.shape}, expected {old.shape}")
-                st[k] = torch.as_tensor(arr, dtype=old.dtype,
-                                        device=old.device).clone()
+                d[k] = torch.as_tensor(arr, dtype=old.dtype,
+                                       device=old.device).clone()
             else:
-                st[k] = int(arr)
+                d[k] = int(arr)
 
 
 def adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
@@ -194,11 +247,10 @@ def dlrm_optimizer(table_lr: float = 0.01,
     Adam on the dense tower."""
 
     def make(params: Dict) -> OptaxOptimizer:
-        tower = param_leaves({"stacked": {}, "tower": params["tower"]})
         return OptaxOptimizer([
-            {"params": list(params["stacked"].values()),
+            {"params": tree_leaves(params["stacked"]),
              "rule": "rowwise_adagrad", "lr": table_lr, "eps": 1e-10},
-            {"params": tower, "rule": "adam", "lr": tower_lr, "b1": 0.9,
+            {"params": tree_leaves(params["tower"]), "rule": "adam", "lr": tower_lr, "b1": 0.9,
              "b2": 0.999, "eps": 1e-8, "eps_root": 0.0},
         ])
 
@@ -277,15 +329,10 @@ class Trainer:
         loss = self.loss(self.engine.prepare(batch), labels)
         leaves = param_leaves(self.params)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = iter(g if g is not None else torch.zeros_like(p)
-                     for g, p in zip(grads, leaves))
-        tree: Dict = {"stacked": {k: next(grads)
-                                  for k in self.params["stacked"]},
-                      "tower": {}}
-        for key, layers in self.params["tower"].items():
-            tree["tower"][key] = [{"w": next(grads), "b": next(grads)}
-                                  for _ in layers]
-        return float(loss.detach()), tree
+        by_leaf = {id(p): g if g is not None else torch.zeros_like(p)
+                   for g, p in zip(grads, leaves)}
+        return float(loss.detach()), tree_map(lambda p: by_leaf[id(p)],
+                                              self.params)
 
     def step(self, batch: Dict, labels) -> float:
         """One optimizer step on a raw batch; returns its loss (before the
@@ -301,7 +348,9 @@ class Trainer:
         """Checkpoint the full training state for exact resume: the engine
         checkpoint (spec + portable params, runtime/checkpoint.py, which
         the JAX package's load_checkpoint reads) plus the optimizer state
-        in ``opt_state.npz``, in this package's own leaf order."""
+        in ``opt_state.npz``, in optax's tree order: the JAX Trainer's
+        ``restore`` resumes from it, and ``restore`` here from the JAX
+        Trainer's ``save``."""
         from recom_tpu_torch.runtime.checkpoint import save_checkpoint
 
         save_checkpoint(path, self.engine)

@@ -308,20 +308,31 @@ def test_x1_plain_matches_lookup_xla_on_edges(d, l, weighted):
 
 
 def _x1_blocks(desc, blocks):
-    """The (group, column, batch row) bags each block of an X1 launch
-    pools, as csrc/pooled_gather.cu maps them: a block takes a tile of
-    tile_cols columns x tile_rows batch rows of its group, G lanes a bag."""
+    """The (group, column, batch row) bags or entries each block of an X1
+    launch pools, as csrc/pooled_gather.cu maps them: a bag-tile block takes
+    tile_cols columns x tile_rows batch rows of its group, G lanes a bag,
+    batch tiles first; a one-id block (kind bit 64) 32 columns x 32 batch
+    rows, column tiles first, each of its 256 threads reading the ids of
+    entries e, e + 256, ... (column e // 32, batch row e % 32)."""
     seen = []
     begins = [g["block_begin"] for g in desc]
     for blk in range(blocks):
         i = int(np.searchsorted(begins, blk, side="right")) - 1
         g = desc[i]
+        local = blk - int(g["block_begin"])
+        tc, tb = divmod(local, int(g["tiles_b"]))
+        if int(g["kind"]) & 64:
+            tb, tc = divmod(local, -(-int(g["C"]) // 32))
+            for t in range(tg.X1_THREADS):
+                for e in range(t, 32 * 32, tg.X1_THREADS):
+                    c, b = tc * 32 + e // 32, tb * 32 + e % 32
+                    if c < g["C"] and b < g["Bp"]:
+                        seen.append((i, c, b))
+            continue
         lanes = 1 << (int(g["kind"]) % 8)
         bags = 256 // lanes                  # pool_tile's kBags, TB, TC
         rows = min(32, bags)
         cols = bags // rows
-        local = blk - int(g["block_begin"])
-        tc, tb = divmod(local, int(g["tiles_b"]))
         for t in range(0, tg.X1_THREADS, lanes):
             bag = t // lanes
             c, b = tc * cols + bag // rows, tb * rows + bag % rows
@@ -331,40 +342,60 @@ def _x1_blocks(desc, blocks):
 
 
 def test_x1_descriptors_cover_every_bag_once():
-    shapes = [(50, 2048, 1, 8, True), (15, 2048, 12, 8, True),
-              (5, 2048, 7, 32, True), (6, 100, 33, 3, False),
-              (3, 37, 2, 1, False), (2, 9, 1, 200, True),
-              (4, 70, 5, 33, False), (1, 1, 1, 4, False)]
+    """One launch of eight groups, both tiles: f32 d = 8 bags (float4
+    units), model E's 980-column int8 one-id group and a ragged one-id
+    group of scalars, 16-byte units of bf16 and int8 rows (8 and 16
+    elements; 8 at int8 d = 8), a scalar group.  Each group's kind, units
+    and block count are csrc/pooled_gather.cu's, and every (column, batch
+    row) of every group is pooled by exactly one block."""
+    # (C, Bp, L, d, unit, one-id)
+    shapes = [(50, 2048, 1, 8, 4, False), (980, 2048, 1, 8, 4, True),
+              (15, 2048, 12, 8, 8, False), (5, 2048, 7, 32, 16, False),
+              (6, 100, 33, 3, 1, False), (45, 100, 1, 12, 1, True),
+              (2, 9, 1, 200, 8, False), (4, 70, 5, 64, 16, False)]
     groups = [dict(table=1 + i, scales=i % 2, ids=2, weights=0,
                    row_offsets=3, caps=4, codes=5, weighted=6, out=7 + i,
-                   C=c, Bp=bp, L=l, d=d, vec=vec)
-              for i, (c, bp, l, d, vec) in enumerate(shapes)]
+                   C=c, Bp=bp, L=l, d=d, unit=unit, oneid=oneid)
+              for i, (c, bp, l, d, unit, oneid) in enumerate(shapes)]
     # (dq, lanes, tile rows, tile cols) as csrc/pooled_gather.cu has them
-    assert [tg.x1_tile(d, vec) for d, vec in ((8, True), (32, True),
-                                              (1, False), (3, False),
-                                              (200, True))] == [
+    assert [tg.x1_tile(d, unit, oneid) for d, unit, oneid in (
+        (8, 4, False), (32, 4, False), (1, 1, False), (3, 1, False),
+        (200, 4, False), (8, 8, False), (32, 16, False), (64, 8, False),
+        (8, 4, True), (12, 1, True))] == [
         (2, 2, 32, 4), (8, 8, 32, 1), (1, 1, 32, 8), (3, 4, 32, 2),
-        (50, 32, 8, 1)]
+        (50, 32, 8, 1), (1, 1, 32, 8), (2, 2, 32, 4), (8, 8, 32, 1),
+        (2, 1, 32, 32), (12, 1, 32, 32)]
     packed, blocks = tg.x1_descriptors(groups)
     assert tg.X1_DESC.size == 120 and len(packed) == 120 * len(shapes)
     desc = [dict(zip(tg.X1_FIELDS, r)) for r in tg.X1_DESC.iter_unpack(packed)]
     field = lambda k: [g[k] for g in desc]
     assert field("table") == [1 + i for i in range(len(shapes))]
     assert field("scales") == [i % 2 for i in range(len(shapes))]
-    assert field("kind") == [8 + 1, 8 + 1, 8 + 3, 2, 0, 8 + 5, 5, 2]
-    assert field("dq") == [2, 2, 8, 3, 1, 50, 33, 4]
+    # 64 * one-id + 8 * log2(unit) + log2(lanes)
+    assert field("kind") == [16 + 1, 64 + 16, 24, 32 + 1, 2, 64, 24 + 5,
+                             32 + 2]
+    assert field("dq") == [2, 2, 1, 2, 3, 12, 25, 4]
     assert field("out") == [7 + i for i in range(len(shapes))]
     assert field("C") == [s[0] for s in shapes]
     assert field("block_begin")[0] == 0
-    assert (np.diff(field("block_begin")) > 0).all()
+    assert list(np.diff(field("block_begin") + [blocks])) == [
+        832, 31 * 64, 128, 128, 12, 2 * 4, 4, 6]
     seen = _x1_blocks(desc, blocks)
-    want = {(i, c, b) for i, (cc, bp, _, _, _) in enumerate(shapes)
+    want = {(i, c, b) for i, (cc, bp, *_) in enumerate(shapes)
             for c in range(cc) for b in range(bp)}
     assert len(seen) == len(set(seen)) == len(want) and set(seen) == want
     with pytest.raises(ValueError, match="groups per launch"):
         tg.x1_descriptors(groups + groups[:1])
-    with pytest.raises(ValueError, match="float4"):
-        tg.x1_descriptors([dict(groups[3], vec=True)])
+    with pytest.raises(ValueError, match="does not fit"):
+        tg.x1_descriptors([dict(groups[4], unit=4)])
+    with pytest.raises(ValueError, match="does not fit"):
+        tg.x1_descriptors([dict(groups[2], d=12)])        # 12 % 8
+    with pytest.raises(ValueError, match="does not fit"):
+        tg.x1_descriptors([dict(groups[1], unit=8)])      # one-id: 1 or 4
+    with pytest.raises(ValueError, match="one-id tile takes"):
+        tg.x1_descriptors([dict(groups[1], L=2)])
+    with pytest.raises(ValueError, match="one-id tile takes"):
+        tg.x1_descriptors([dict(groups[1], weights=9)])
 
 
 def test_groups_pooled_equals_group_pooled_per_group():

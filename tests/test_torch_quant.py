@@ -250,27 +250,75 @@ def test_x1_stored_plain_matches_lookup_xla(dtype, d, l, weighted):
 
 
 def test_x1_vector_loads_follow_the_stored_itemsize():
-    """Rows move four elements a load when d % 4 == 0 and the table is
-    aligned to four stored elements: 16 bytes for f32, 8 for bf16, 4 for
-    int8 (an int8 row of d = 8 is 8 bytes: 4-aligned, not 16)."""
-    ids = torch.zeros((1, 4, 1), dtype=torch.int32)
-    for dtype in (torch.float32, torch.bfloat16, torch.int8):
-        flat = torch.zeros(600, dtype=dtype)
+    """A bag lane loads up to 16 stored bytes at once: U = 4 f32 elements,
+    8 bf16 or 16 int8 (8 at int8 d = 8, the whole row), where U divides d
+    and the table is aligned to U stored elements, else the next smaller
+    unit down to 4, else single elements.  The one-id tile (L = 1, no
+    weights: bf16 and int8 groups) loads K1's units, 4 or 1."""
+    ids2 = torch.zeros((1, 4, 2), dtype=torch.int32)
+    ids1 = torch.zeros((1, 4, 1), dtype=torch.int32)
+    dtypes = (torch.float32, torch.bfloat16, torch.int8)
+    # (elements past a 16-byte boundary, d, the bag unit of f32 / bf16 /
+    # int8, the one-id unit of bf16 / int8)
+    cases = ((0, 8, (4, 8, 8), (4, 4)), (4, 8, (4, 4, 4), (4, 4)),
+             (2, 8, (1, 1, 1), (1, 1)), (0, 3, (1, 1, 1), (1, 1)),
+             (4, 12, (4, 4, 4), (4, 4)), (0, 32, (4, 8, 16), (4, 4)),
+             (8, 32, (4, 8, 8), (4, 4)), (8, 16, (4, 8, 8), (4, 4)),
+             (0, 64, (4, 8, 16), (4, 4)))
+    for k, dtype in enumerate(dtypes):
+        flat = torch.zeros(4096, dtype=dtype)
         item = flat.element_size()
         start = (-flat.data_ptr() % 16) // item       # a 16-byte boundary
-        # (elements past the boundary, d, whether rows load four at once)
-        for shift, d, vec in ((0, 8, True), (4, 8, True), (2, 8, False),
-                              (0, 3, False), (4, 12, True)):
+        for shift, d, bag, oneid in cases:
             rows = flat[start + shift: start + shift + 32 * d].view(32, d)
             scale = torch.ones(32)
             table = (QuantizedTable(rows, scale) if dtype == torch.int8
                      else rows)
-            fields, _, _ = tg._x1_group(table, ids, np.zeros(1, np.int32),
+            fields, _, _ = tg._x1_group(table, ids2, np.zeros(1, np.int32),
                                         np.zeros(1, np.int32))
-            assert fields["vec"] == vec, (dtype, shift, d)
+            assert (fields["unit"], fields["oneid"]) == (bag[k], False), (
+                dtype, shift, d)
+            fields1, _, _ = tg._x1_group(table, ids1, np.zeros(1, np.int32),
+                                         np.zeros(1, np.int32))
+            if dtype == torch.float32 and d >= tg.X1_ONEID_F32_BELOW_D:
+                assert (fields1["unit"], fields1["oneid"]) == (bag[k], False)
+            else:
+                assert fields1["oneid"] and fields1["unit"] == (
+                    (bag[0],) + oneid)[k], (dtype, shift, d)
             assert fields["table"] == rows.data_ptr()
             assert fields["scales"] == (scale.data_ptr()
                                         if dtype == torch.int8 else 0)
+            tg.x1_descriptors([fields, fields1])      # accepted as made
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_x1_one_id_groups_take_the_one_id_tile(dtype):
+    """An unweighted L = 1 group of bf16 or int8 rows (of f32 rows too
+    below X1_ONEID_F32_BELOW_D) gets the one-id kind bit and K1's 32 x 32
+    tiles: ceil(C / 32) x ceil(Bp / 32) blocks; a weighted L = 1 group,
+    and any L > 1 group, keeps the bag tile."""
+    c, bp, d = 45, 100, 8
+    t = torch.zeros((64, d), dtype=getattr(torch, dtype))
+    table = QuantizedTable(t, torch.ones(64)) if dtype == "int8" else t
+    ids = torch.zeros((c, bp, 1), dtype=torch.int32)
+    offs, codes = np.zeros(c, np.int32), np.zeros(c, np.int32)
+    fields, out, _ = tg._x1_group(table, ids, offs, codes)
+    one = dtype != "float32" or d < tg.X1_ONEID_F32_BELOW_D
+    assert fields["oneid"] == one and out.shape == (bp, c, d)
+    packed, blocks = tg.x1_descriptors([fields])
+    (rec,) = [dict(zip(tg.X1_FIELDS, r))
+              for r in tg.X1_DESC.iter_unpack(packed)]
+    if one:
+        assert rec["kind"] == 64 + 16 and rec["dq"] == 2
+        assert blocks == 2 * 4 and rec["tiles_b"] == 4
+    w = torch.ones((c, bp, 1))
+    for args in ((ids, offs, codes, w), (torch.zeros((c, bp, 2),
+                                                     dtype=torch.int32),
+                                         offs, codes)):
+        fields, _, _ = tg._x1_group(table, *args)
+        assert not fields["oneid"]
+        packed, _ = tg.x1_descriptors([fields])
+        assert not tg.X1_DESC.unpack(packed)[-1] & 64
 
 
 def test_wrappers_take_stored_tables_and_reject_others():

@@ -8,8 +8,8 @@ matmuls and their transposes sum in other orders than XLA's); the
 optimizers alone against optax on identical gradients at rtol 1e-5 / atol
 1e-8 (XLA may contract or reorder their few f32 operations).  Mirrors of
 tests/test_training.py: learnability, updates reaching serving, row-wise
-state, bit-exact resume; and the JAX package reading the port's
-checkpoint."""
+state, bit-exact resume; and training checkpoints resumed across the
+packages, each way, under every optimizer."""
 
 import jax
 import jax.numpy as jnp
@@ -283,6 +283,153 @@ def test_checkpoint_resume_bitexact_and_jax_reads_it(tmp_path):
         np.testing.assert_array_equal(out["pooled"][col], r, err_msg=col)
     np.testing.assert_allclose(out["output"], jout["output"], rtol=1e-4,
                                atol=1e-5)
+
+
+# the cross-package checkpoint cases: (model, optimizer); "permuted" folds
+# its embedding order into the first top layer's rows on both sides
+RESUME_CASES = [("mini_e", "adam"), ("mini_e", "rowwise_adagrad"),
+                ("mini_e", "dlrm_optimizer"), ("permuted", "dlrm_optimizer")]
+OPTIMIZERS = {
+    "adam": (lambda: adam(1e-3), lambda: optax.adam(1e-3)),
+    "rowwise_adagrad": (rowwise_adagrad, j_rowwise),
+    "dlrm_optimizer": (dlrm_optimizer, j_dlrm),
+}
+
+
+def _resume_setup(model: str):
+    """(JAX model, port model, buckets, five batches, their labels)."""
+    from recom_tpu.ir import spec as js
+
+    if model == "permuted":
+        jm, tm, n, bucket = _permuted(js), _permuted(ts), 29, 32
+    else:
+        jm = j_make_dlrm(*MINI_E, name="mini", large_rows=20_000)
+        tm = t_make_dlrm(*MINI_E, name="mini", large_rows=20_000)
+        n, bucket = 40, 64
+    batches = [make_random_batch(jm, n, seed=30 + i) for i in range(5)]
+    labs = [_labels(n, 40 + i) for i in range(5)]
+    return jm, tm, (bucket,), batches, labs
+
+
+def _saved_leaves(path):
+    with np.load(str(path / "opt_state.npz")) as data:
+        return [data[f"leaf{i}"] for i in range(len(data.files))]
+
+
+@pytest.mark.parametrize("model,opt", RESUME_CASES)
+def test_jax_checkpoint_resumes_in_the_port(tmp_path, model, opt):
+    """A JAX Trainer.save after two steps, resumed by the port's
+    Trainer.restore: the port's state leaves are the file's, in optax's
+    order, and its next three losses are the JAX run's own continuation
+    within rtol 1e-4."""
+    jm, tm, buckets, batches, labs = _resume_setup(model)
+    t_opt, j_opt = OPTIMIZERS[opt]
+    jtr = JTrainer(jm, JConfig(batch_buckets=buckets), optimizer=j_opt())
+    for b, lab in zip(batches[:2], labs[:2]):
+        jtr.step(b, lab)
+    jtr.save(str(tmp_path))
+    want = [jtr.step(b, lab) for b, lab in zip(batches[2:], labs[2:])]
+    tr = Trainer.restore(str(tmp_path), EngineConfig(batch_buckets=buckets),
+                         optimizer=t_opt(), device="cpu")
+    saved = _saved_leaves(tmp_path)
+    got = tr.optimizer.state_leaves()
+    assert len(got) == len(saved)
+    for a, b in zip(got, saved):
+        assert a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    cont = [tr.step(b, lab) for b, lab in zip(batches[2:], labs[2:])]
+    np.testing.assert_allclose(cont, want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("model,opt", RESUME_CASES)
+def test_port_checkpoint_resumes_in_jax(tmp_path, model, opt):
+    """The reverse: a port Trainer.save after two steps, resumed by the JAX
+    Trainer.restore, whose leaves are the optax tree's in count and shape;
+    its next three losses are the port run's continuation within rtol
+    1e-4."""
+    jm, tm, buckets, batches, labs = _resume_setup(model)
+    t_opt, j_opt = OPTIMIZERS[opt]
+    tr = Trainer(tm, EngineConfig(batch_buckets=buckets), optimizer=t_opt(),
+                 device="cpu")
+    for b, lab in zip(batches[:2], labs[:2]):
+        tr.step(b, lab)
+    tr.save(str(tmp_path))
+    want = [tr.step(b, lab) for b, lab in zip(batches[2:], labs[2:])]
+    jtr = JTrainer.restore(str(tmp_path), JConfig(batch_buckets=buckets),
+                           optimizer=j_opt())
+    jl = jax.tree_util.tree_leaves(jtr.opt_state)
+    saved = _saved_leaves(tmp_path)
+    assert [np.shape(x) for x in jl] == [x.shape for x in saved]
+    cont = [jtr.step(b, lab) for b, lab in zip(batches[2:], labs[2:])]
+    np.testing.assert_allclose(cont, want, rtol=1e-4)
+
+
+def _old_layout(tr, opt):
+    """The port's opt_state leaves as it wrote them before they followed
+    optax: each group's params with the stacked tables in group order and
+    each layer's w before its b, each param's state keys sorted, with a
+    count beside every Adam param."""
+    p = tr.params
+    subtrees = ([{"stacked": p["stacked"]}, {"tower": p["tower"]}]
+                if opt == "dlrm_optimizer" else [p])
+    leaves = []
+    for group, sub in zip(tr.optimizer.param_groups, subtrees):
+        params = list(sub.get("stacked", {}).values()) + [
+            layer[wb] for layers in sub.get("tower", {}).values()
+            for layer in layers for wb in ("w", "b")]
+        for x in params:
+            st = tr.optimizer.state[x]
+            if group["rule"] == "adam":
+                leaves += [np.asarray(group["count"], np.int32),
+                           st["mu"].numpy(), st["nu"].numpy()]
+            else:
+                leaves.append(st["acc"].numpy())
+    return leaves
+
+
+@pytest.mark.parametrize("opt", list(OPTIMIZERS))
+def test_restore_refuses_the_earlier_port_layout(tmp_path, opt):
+    """A file in the port's earlier layout is refused with ValueError:
+    under adam and dlrm_optimizer by its leaf count, named in the message;
+    under rowwise_adagrad, where the count is the same and only the order
+    differs, by the first leaf whose shape is wrong."""
+    _, tm, buckets, batches, labs = _resume_setup("mini_e")
+    t_opt, _ = OPTIMIZERS[opt]
+    tr = Trainer(tm, EngineConfig(batch_buckets=buckets), optimizer=t_opt(),
+                 device="cpu")
+    tr.step(batches[0], labs[0])
+    tr.save(str(tmp_path))
+    old = _old_layout(tr, opt)
+    np.savez(str(tmp_path / "opt_state.npz"),
+             **{f"leaf{i}": x for i, x in enumerate(old)})
+    match = "shape" if opt == "rowwise_adagrad" else "earlier per-param"
+    with pytest.raises(ValueError, match=match):
+        Trainer.restore(str(tmp_path), EngineConfig(batch_buckets=buckets),
+                        optimizer=t_opt(), device="cpu")
+
+
+@pytest.mark.parametrize("saved_by", ["jax", "port"])
+def test_restore_refuses_a_mismatched_optimizer(tmp_path, saved_by):
+    """A checkpoint saved under one optimizer and restored under another is
+    refused with ValueError, whichever package saved it."""
+    jm, tm, buckets, batches, labs = _resume_setup("mini_e")
+    if saved_by == "jax":
+        jtr = JTrainer(jm, JConfig(batch_buckets=buckets),
+                       optimizer=optax.adam(1e-3))
+        jtr.step(batches[0], labs[0])
+        jtr.save(str(tmp_path))
+    else:
+        tr = Trainer(tm, EngineConfig(batch_buckets=buckets),
+                     optimizer=adam(1e-3), device="cpu")
+        tr.step(batches[0], labs[0])
+        tr.save(str(tmp_path))
+    for opt in (dlrm_optimizer, rowwise_adagrad):
+        with pytest.raises(ValueError, match="leaf count mismatch"):
+            Trainer.restore(str(tmp_path), EngineConfig(batch_buckets=buckets),
+                            optimizer=opt(), device="cpu")
+    with pytest.raises(ValueError, match="leaf count mismatch"):
+        JTrainer.restore(str(tmp_path), JConfig(batch_buckets=buckets),
+                         optimizer=j_dlrm())
 
 
 def _permuted(S):
