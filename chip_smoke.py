@@ -68,6 +68,29 @@ width, one engine at a time (``runtime_phases``):
   step steps on (its loss ``==`` a fresh Trainer's at rtol 1e-6; K3a 1 and
   X1b 1).
 
+Then model E on meshes of ranks that share the one card
+(``mesh_phases``): the single-device engines freed, model E's seed-0
+params saved once as ``.npy`` files, and worlds of 2 and 4 ranks spawned
+(the ``spawn`` start method), all on ``cuda:0`` over gloo, each rank
+reading only its stripe of the 2^23-row group from the ``mmap_mode="r"``
+arrays.  Each layout of ``MESH_WORLDS`` (the all-to-all exchange with
+one and two chunks, the latter with the 15 list and 50 string-hash groups
+split by columns; the psum path; pure data parallelism; a world of 4 at
+(2, 2)) serves batches of 512 and 2048 at full width in the default
+config, held to the single-device Engine on the same params and batches
+(pooled ``==``, or within 1e-6 under psum; outputs ``==``, where they are
+not a finding and rtol 1e-4 / atol 1e-5), with each rank's launches
+asserted (K1 1; X1 1, or 2 with the exchange's pool; X2 none: no wire on
+a mesh).  On the main layout also an overflow forced by a capacity
+factor of 0.01 (its count == the plain routing's on CPU copies of the
+ids; "recompute" == the lossless output, "raise" raises on every rank),
+``update_table_rows`` on a striped and a column-split table read back
+through ``predict`` and ``export_params``, and X1 in its two mesh roles
+(the psum partial sums, the exchange's pool) timed at 2048 and held to
+its plain version, there and on edge inputs.  The device forward and each
+collective's wall time are printed per rank: gloo through the host on
+one shared card, no yardstick for NCCL over NVLink.
+
 Then it trains, through ``Trainer(...,
 optimizer=dlrm_optimizer())`` on the card:
 
@@ -2330,12 +2353,12 @@ def _with_pooled(tr, batch, labels):
     kept = []
     inner = eng._embedding_forward
 
-    def keep(arrays):
-        grouped, pooled = inner(arrays)
+    def keep(arrays, *args):
+        grouped, pooled, overflow = inner(arrays, *args)
         for p in pooled:
             p.retain_grad()
         kept[:] = pooled
-        return grouped, pooled
+        return grouped, pooled, overflow
 
     eng._embedding_forward = keep
     try:
@@ -3538,6 +3561,595 @@ def step_times(torch, tr, name: str, cases) -> None:
             f"optimizer {opt:.3f} ms")
 
 
+# ---------------------------------------------------------------------------
+# Serving on a mesh of ranks that share the one card over gloo
+# ---------------------------------------------------------------------------
+
+# Each world's layouts, run in turn by every rank: (label, mesh shape,
+# EngineConfig fields, pooled gate: "==" or "1e-6").  Model E at full width
+# in the default config otherwise (use_pallas=True, f32 tables); the wire is
+# off on a mesh, so X2 does not run.
+MESH_WORLDS = {
+    2: (
+        ("a2a, chunks 1", (1, 2),
+         dict(shard_comm="all_to_all", a2a_chunks=1), "=="),
+        ("a2a, chunks 2, dim split", (1, 2),
+         dict(shard_comm="all_to_all", a2a_chunks=2, dim_shard_above=4),
+         "=="),
+        ("psum", (1, 2), dict(shard_comm="psum"), "1e-6"),
+        ("data parallel", (2, 1), dict(), "=="),
+    ),
+    4: (
+        ("a2a, chunks 2", (2, 2), dict(shard_comm="all_to_all"), "=="),
+    ),
+}
+# the layout whose engine also takes the overflow, update and X1-role runs
+MESH_MAIN = "a2a, chunks 2, dim split"
+MESH_TIMEOUT_S = 420
+
+
+def mesh_launches(shape, cfg) -> dict:
+    """The launches one predict of model E implies on each rank: K1 once
+    (the one-hot group, on the rank's data slice); X1 once for the gather
+    groups (replicated, column-split, and the psum path's partial sums),
+    and once more to pool the rows the all-to-all exchange returned; X2
+    none (no wire on a mesh)."""
+    a2a = shape[1] > 1 and cfg.get("shard_comm") == "all_to_all"
+    return {"K1": 1, "X1": 2 if a2a else 1}
+
+
+def save_mesh_inputs(np_params, batches, refs, path: str) -> None:
+    """Model E's params as one ``.npy`` a table (each rank maps them with
+    ``mmap_mode="r"``: the host keeps one page-cached copy), the tower as
+    an npz, and the batches and the single-device references pickled."""
+    import os
+    import pickle
+
+    import numpy as np
+
+    names = sorted(np_params["tables"])
+    os.makedirs(os.path.join(path, "tables"))
+    for i, name in enumerate(names):
+        np.save(os.path.join(path, "tables", f"{i}.npy"),
+                np.asarray(np_params["tables"][name]))
+    flat = {f"{k}/{i}/{wb}": l[wb]
+            for k, layers in np_params["tower"].items()
+            for i, l in enumerate(layers) for wb in ("w", "b")}
+    np.savez(os.path.join(path, "tower.npz"), **flat)
+    with open(os.path.join(path, "inputs.pkl"), "wb") as f:
+        pickle.dump({"names": names, "batches": batches, "refs": refs}, f)
+
+
+def load_mesh_inputs(path: str):
+    """(params with mmap'd tables, batches, references): the inverse of
+    ``save_mesh_inputs``."""
+    import os
+    import pickle
+
+    import numpy as np
+
+    with open(os.path.join(path, "inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    tables = {name: np.load(os.path.join(path, "tables", f"{i}.npy"),
+                            mmap_mode="r")
+              for i, name in enumerate(inputs["names"])}
+    tower = {}
+    with np.load(os.path.join(path, "tower.npz")) as z:
+        for key in z.files:
+            k, i, wb = key.rsplit("/", 2)
+            layers = tower.setdefault(k, [])
+            while len(layers) <= int(i):
+                layers.append({})
+            layers[int(i)][wb] = z[key]
+    return {"tables": tables, "tower": tower}, inputs["batches"], \
+        inputs["refs"]
+
+
+def mesh_pooled_gate(out, ref, gate: str, what: str) -> None:
+    """Pooled outputs of every column against the single-device Engine's:
+    ``==``, or within 1e-6 (the psum path)."""
+    import numpy as np
+
+    require(set(out["pooled"]) == set(ref["pooled"]), f"{what}: columns")
+    for c, r in ref["pooled"].items():
+        if gate == "==":
+            require(np.array_equal(out["pooled"][c], r),
+                    f"{what}: pooled column {c} != the single-device "
+                    "Engine's")
+        else:
+            np.testing.assert_allclose(out["pooled"][c], r, rtol=1e-6,
+                                       atol=1e-6, err_msg=f"{what}: {c}")
+
+
+def mesh_output_gate(out, ref, gate: str, what: str) -> str:
+    """The output against the single-device Engine's: ``==`` under every
+    gate but psum (a row's tower bits do not depend on the batch it rides
+    in, ROW_CHUNK); where it differs, a finding, and rtol 1e-4 / atol
+    1e-5.  Returns what held."""
+    import numpy as np
+
+    if gate == "==" and np.array_equal(out["output"], ref["output"]):
+        return "=="
+    rows = int((out["output"] != ref["output"]).any(axis=1).sum())
+    np.testing.assert_allclose(out["output"], ref["output"], rtol=1e-4,
+                               atol=1e-5, err_msg=what)
+    if gate == "==":
+        log(f"FINDING {what}: {rows} output rows differ in bits from the "
+            "single-device Engine's; within rtol 1e-4 / atol 1e-5")
+    return f"rtol 1e-4 ({rows} rows differ)"
+
+
+def x1_bytes(args) -> float:
+    """The bytes X1 must move for one ``group_pooled`` argument tuple with
+    no caps (the mesh roles): ids, weights, the distinct rows read and the
+    f32 output, each once."""
+    import torch
+
+    table, ids, offs = args[0], args[1], args[2]
+    cc, bp, _ = ids.shape
+    valid = ids >= 0
+    rows = ids.long() + torch.as_tensor(offs, device=ids.device).long()[
+        :, None, None]
+    uniq = torch.unique(rows[valid]).numel()
+    w = args[4] if len(args) > 4 else None
+    return (ids.numel() * 4 + uniq * table.shape[1] * table.element_size()
+            + bp * cc * table.shape[1] * 4
+            + (0 if w is None else w.numel() * 4))
+
+
+def x1_role(torch, label: str, args) -> dict:
+    """X1 in one mesh role at the path's shapes: the kernel held to its
+    plain version (``==``), timed warm and with L2 flushed, beside the
+    plain version, ``F.embedding_bag`` (the same sums, missing slots at
+    weight 0; MEAN / SQRTN groups have none) and its bytes bound."""
+    import torch.nn.functional as F
+
+    from recom_tpu_torch.ops.kernels import launches
+    from recom_tpu_torch.ops.lookup_gather import _plain, group_pooled
+
+    before = launches["X1"]
+    with torch.inference_mode():
+        got = group_pooled(*args)
+        plain = _plain(*args)
+        torch.cuda.synchronize()
+        require(launches["X1"] == before + 1, f"{label}: X1 launched")
+        err = float((got - plain).abs().max()) if got.numel() else 0.0
+        require(bool((got == plain).all()), f"{label}: X1 != its plain "
+                f"version (max abs err {err})")
+        table, ids = args[0], args[1]
+        cc, bp, ll = ids.shape
+        lib = None
+        if not bool(((args[3] == 1) | (args[3] == 2)).any()):
+            valid = ids >= 0
+            safe = torch.where(valid, ids, torch.zeros_like(ids)).long() + \
+                torch.as_tensor(args[2], device=ids.device).long()[:, None,
+                                                                    None]
+            w = valid.float() if args[4] is None else args[4] * valid
+            bag_in = safe.permute(1, 0, 2).reshape(bp * cc, ll).contiguous()
+            bag_w = w.permute(1, 0, 2).reshape(bp * cc, ll).contiguous()
+            lib_fn = lambda: F.embedding_bag(bag_in, table, mode="sum",
+                                             per_sample_weights=bag_w)
+            lib = time_ms(torch, lib_fn)
+        kern = lambda: group_pooled(*args)
+        ms = time_ms(torch, kern)
+        cold = time_cold_ms(torch, kern)
+        plain_ms = time_ms(torch, lambda: _plain(*args), iters=5, warmup=1)
+    bms, by = bound_ms(x1_bytes(args))
+    rec = dict(name=label, ms=ms, cold_ms=cold, plain_ms=plain_ms,
+               bound_ms=bms, bound_by=by, library_ms=lib, max_abs_err=err,
+               share=bms / ms,
+               shape=f"ids [{cc}, {bp}, {ll}], table [{table.shape[0]}, "
+               f"{table.shape[1]}] -> [{bp}, {cc}, {table.shape[1]}]")
+    log(f"  X1 as {label} ({rec['shape']}): {ms:.4f} ms warm, {cold:.4f} ms "
+        f"cold L2, plain {plain_ms:.4f} ms, embedding_bag "
+        f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bms:.4f} ms "
+        f"({by}, share {bms / ms:.0%}); == its plain version")
+    return rec
+
+
+def x1_mesh_edges(torch) -> None:
+    """X1 in its two mesh roles against its plain version on edge inputs,
+    on the card: the all-to-all pool (entries at the appended zero row, pad
+    slots, all-pad bags, weights, SUM / MEAN / SQRTN, chunked buffers) and
+    the psum path's partial sums (ids of other model ranks masked, SUM,
+    weights, bags with no id of the rank)."""
+    import numpy as np
+
+    from recom_tpu_torch.ops.lookup_gather import _plain, group_pooled
+    from recom_tpu_torch.parallel.all_to_all_lookup import (
+        a2a_route,
+        pool_args,
+    )
+    from recom_tpu_torch.parallel.sharded_lookup import psum_partial_args
+
+    dev = torch.device("cuda")
+    n = zero_row = 0
+    for seed, (c, bp, ll, d, m, factor, chunks) in enumerate((
+            (3, 64, 12, 32, 2, 0.05, 1), (3, 64, 12, 32, 2, 0.05, 2),
+            (4, 40, 5, 8, 4, 0.3, 3), (2, 16, 33, 3, 2, 1.0, 2),
+            (3, 32, 1, 64, 2, 0.5, 1))):
+        rng = np.random.default_rng(100 + seed)
+        vocab = 50
+        ids = rng.integers(0, vocab, (c, bp, ll)).astype(np.int32)
+        ids[rng.random(ids.shape) < 0.3] = -1
+        ids[:, :3] = -1                                   # all-pad bags
+        w = rng.random(ids.shape).astype(np.float32)
+        w[:, 3] = 0.0                                     # zero-weight bags
+        codes = np.arange(c) % 3                          # SUM, MEAN, SQRTN
+        offs = (np.arange(c) * vocab).astype(np.int32)
+        t_ids = torch.from_numpy(ids).to(dev)
+        t_w = torch.from_numpy(w).to(dev)
+        t_offs = torch.from_numpy(offs).to(dev)
+        shard_rows = -(-c * vocab // m)
+        for k in range(m):
+            # the routing queues its work with no host sync
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                route = a2a_route(t_ids, t_offs, shard_rows, m, k, factor)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            cap = route["cap"]
+            buf = torch.randn((m * cap + 1, d), device=dev)
+            buf[-1] = 0.0
+            zero_row += int((route["pos"] == m * cap).sum())
+            for weights in (None, t_w):
+                args = pool_args(buf, route, m, chunks, codes, weights,
+                                 weights is not None, k)
+                got, plain = group_pooled(*args), _plain(*args)
+                require(bool((got == plain).all()),
+                        f"X1 a2a pool edge case {seed}, rank {k}: != plain")
+                args, _ = psum_partial_args(
+                    torch.randn((shard_rows, d), device=dev), t_ids, offs, m,
+                    k, weights)
+                got, plain = group_pooled(*args), _plain(*args)
+                require(bool((got == plain).all()),
+                        f"X1 psum partial edge case {seed}, rank {k}: != "
+                        "plain")
+                n += 2
+    torch.cuda.synchronize()
+    require(zero_row > 0, "the edge cases send entries to the zero row")
+    log(f"X1 mesh roles: {n} edge cases (routed with no host sync; a2a pool "
+        f"with {zero_row} zero-row entries, "
+        "pads, all-pad bags, weights, SUM / MEAN / SQRTN, chunked buffers; "
+        "psum partials with other ranks' ids masked) == the plain version")
+
+
+def mesh_rank(rank: int, world: int, store: str, path: str, outq) -> None:
+    """One rank of a mesh world: join the gloo group through ``store``,
+    run ``mesh_rank_work`` and put (rank, ok, result or traceback) on
+    ``outq``."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                                world_size=world, rank=rank)
+        outq.put((rank, True, mesh_rank_work(torch, rank, world, path)))
+    except BaseException:
+        outq.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mesh_rank_work(torch, rank: int, world: int, path: str) -> dict:
+    """Every layout of ``MESH_WORLDS[world]`` on this rank: model E built
+    from the mmap'd params (the rank reads only its stripe of the striped
+    group), served at 512 and 2048 and held to the single-device Engine's
+    results; launch counts asserted; the device forward and each
+    collective timed (gloo through the host, one shared card).  On the
+    main layout also the overflow policies, the updates and X1's mesh
+    roles.  Returns the records this rank measured."""
+    import torch.distributed as dist
+
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.models import make_model_e
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.parallel import make_mesh
+    from recom_tpu_torch.runtime.executor import Engine
+    from recom_tpu_torch.utils.logging import StageTimer
+
+    params, batches, refs = load_mesh_inputs(path)
+    model = make_model_e(seed=0)
+    meshes = {}
+    out = {"layouts": {}}
+    for label, shape, cfg, gate in MESH_WORLDS[world]:
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, backend="gloo", device="cuda:0")
+        mesh = meshes[shape]
+        t = time.perf_counter()
+        eng = Engine(model, EngineConfig(mesh_shape=shape, **cfg),
+                     params=params, mesh=mesh)
+        torch.cuda.synchronize()
+        build = time.perf_counter() - t
+        rec = {"build_s": build, "layout": [
+            (g["gid"], g["layout"], g["backend"])
+            for g in eng.stats_report()["groups"]],
+            "memory_gib": torch.cuda.memory_allocated() / 2**30}
+        want = mesh_launches(shape, cfg)
+        for bs in (512, 2048):
+            batch = batches[bs]
+            kernels.reset_launches()
+            got = eng.predict(batch, return_pooled=True)
+            torch.cuda.synchronize()
+            counts = {k: n for k, n in kernels.launches.items() if n}
+            require(counts == want, f"rank {rank} {label} batch {bs}: "
+                    f"launches {counts}, expected {want}")
+            what = f"rank {rank} {label} batch {bs}"
+            mesh_pooled_gate(got, refs[bs], gate, what)
+            rec[f"output_{bs}"] = mesh_output_gate(got, refs[bs], gate, what)
+            rec[f"launches_{bs}"] = counts
+            # the queued device forward, host-paced (its collectives wait
+            # on the host), and each collective's wall time
+            prep = eng.prepare(batch)
+            on_dev = eng.to_device(prep)
+            mesh.timers = StageTimer()
+            with torch.inference_mode():
+                rec[f"forward_ms_{bs}"] = time_ms(
+                    torch, lambda: eng._forward(on_dev, prep.signature),
+                    iters=5, warmup=2, queued=False)
+            rec[f"collectives_{bs}"] = {
+                k: v["p50_ms"] for k, v in mesh.timers.summary().items()}
+        if label == MESH_MAIN:
+            out.update(mesh_main_extras(torch, eng, model, params, batches,
+                                        refs, rank))
+        out["layouts"][label] = rec
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def mesh_main_extras(torch, eng, model, params, batches, refs,
+                     rank: int) -> dict:
+    """On the main layout's engine: X1's two mesh roles timed (on rank 0,
+    the other ranks waiting) at batch 2048; the forced overflow (capacity
+    factor 0.01) under "recompute", "warn" and "raise", its count held to
+    the plain routing's on CPU copies of the same ids; update_table_rows
+    on a striped and a column-split table, read back through predict and
+    export_params."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.parallel.all_to_all_lookup import (
+        a2a_exchange,
+        a2a_route,
+        pool_args,
+        table_rows,
+    )
+    from recom_tpu_torch.parallel.sharded_lookup import psum_partial_args
+    from recom_tpu_torch.runtime.checkpoint import export_params
+    from recom_tpu_torch.runtime.executor import Engine
+
+    out = {}
+    mesh = eng.mesh
+    m, k = eng._model_split()
+    big = [g for g in eng.compiled.groups if g.gid in eng._sharded_gids]
+    require(len(big) == 1 and big[0].dim == 32, "one striped group, d = 32")
+    g = big[0]
+    c = eng._consts[g.gid]
+    table = eng.device_params["stacked"][str(g.gid)]
+    prep = eng.prepare(batches[2048])
+    gi = eng.compiled.groups.index(g)
+    with torch.inference_mode():
+        arrays = eng.to_device(prep)
+        ids, weights = eng.group_ids(g, arrays["groups"][gi])
+        route = a2a_route(ids, c["row_offsets"], table_rows(table), m, k,
+                          eng.config.a2a_capacity_factor, True, c["caps"])
+        buf = a2a_exchange(mesh, table, route, eng.config.a2a_chunks)
+        torch.cuda.synchronize()
+    out["exchange"] = dict(slots=route["pos"].numel(),
+                           ids=int((route["pos"] >= 0).sum()),
+                           cap=route["cap"],
+                           rows_bytes=int((buf.shape[0] - 1) * buf.shape[1]
+                                          * 4))
+    if rank == 0:
+        psum_args, _ = psum_partial_args(table, ids, c["row_offsets"], m, k,
+                                         weights, c["caps"])
+        out["x1_roles"] = [
+            x1_role(torch, "psum partial", psum_args),
+            x1_role(torch, "a2a pool", pool_args(
+                buf, route, m, eng.config.a2a_chunks, c["codes"], weights,
+                c["weighted"], k)),
+        ]
+    dist.barrier()
+
+    # ---- the forced overflow --------------------------------------------
+    shape = tuple(mesh.shape.values())
+    base = dict(mesh_shape=shape, shard_comm="all_to_all",
+                a2a_capacity_factor=0.01)
+    batch = batches[512]
+    host = eng.shard_batch_arrays(eng.prepare(batch).arrays)
+    cpu_ids = torch.from_numpy(host["groups"][gi]["host_ids"])
+    want_ov = sum(int(a2a_route(cpu_ids, g.row_offsets, table_rows(table), m,
+                                kk, 0.01, True, g.vocab_caps)["overflow"])
+                  for kk in range(m))
+    ov = {}
+    for policy in ("recompute", "warn", "raise"):
+        e2 = Engine(model, EngineConfig(a2a_overflow_policy=policy, **base),
+                    params=params, mesh=mesh)
+        kernels.reset_launches()
+        try:
+            got = e2.predict(batch, return_pooled=True)
+            raised = None
+        except RuntimeError as err:
+            got, raised = None, str(err)
+        torch.cuda.synchronize()
+        counts = {kk: n for kk, n in kernels.launches.items() if n}
+        got_ov = e2.stats.get("a2a_overflow")
+        require(got_ov == want_ov, f"rank {rank} {policy}: overflow "
+                f"{got_ov} != the plain routing's {want_ov} on CPU copies")
+        if policy == "recompute":
+            require(counts == {"K1": 2, "X1": 4},
+                    f"rank {rank} recompute launches {counts}")
+            require(e2.stats.get("a2a_recomputes") == 1, "one recompute")
+            mesh_pooled_gate(got, refs[512], "==", f"rank {rank} recompute")
+            mesh_output_gate(got, refs[512], "==", f"rank {rank} recompute")
+        elif policy == "warn":
+            require(got["a2a_overflow"] == want_ov, "warn keeps the count")
+        else:
+            require(raised is not None and "overflow" in raised,
+                    f"rank {rank}: the raise policy did not raise")
+        ov[policy] = dict(count=e2.stats.get("a2a_overflow"),
+                          launches=counts, raised=raised is not None)
+        del e2
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["overflow"] = dict(plain_count=want_ov, **ov)
+
+    # ---- updates: a striped row and a column-split row -------------------
+    upd = refs["updates"]
+    for name, ids_u, vals in upd:
+        eng.update_table_rows(name, ids_u, vals)
+    got = eng.predict(batch, return_pooled=True)
+    mesh_pooled_gate(got, refs["updated"], "==", f"rank {rank} updated")
+    mesh_output_gate(got, refs["updated"], "==", f"rank {rank} updated")
+    exp = export_params(eng, [u[0] for u in upd])
+    for name, ids_u, vals in upd:
+        t = exp["tables"][name]
+        require(np.array_equal(t[ids_u], vals), f"export of {name}: "
+                "updated rows")
+        keep = np.setdiff1d(np.arange(0, t.shape[0], 997), ids_u)
+        require(np.array_equal(t[keep], np.asarray(params["tables"][name])[
+            keep]), f"export of {name}: other rows")
+    out["updates"] = [(name, len(ids_u), eng.layout(
+        [gg for gg in eng.compiled.groups
+         if any(mm.table == name for mm in gg.members)][0]))
+        for name, ids_u, _ in upd]
+    return out
+
+
+def run_mesh_world(world: int, path: str) -> list:
+    """Spawn ``world`` ranks on the card (``spawn``: CUDA forbids ``fork``
+    after its init), wait for each one's result, and stop them all.  A
+    rank that fails or does not answer fails the run."""
+    import multiprocessing as mp
+    import os
+    import queue
+
+    ctx = mp.get_context("spawn")
+    outq = ctx.Queue()
+    store = os.path.join(path, f"store_{world}")
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, store, path,
+                                                 outq))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < world:
+            try:
+                rank, ok, res = outq.get(timeout=MESH_TIMEOUT_S)
+            except queue.Empty:
+                raise RuntimeError(f"chip_smoke: mesh world {world}: ranks "
+                                   f"{sorted(got)} answered in "
+                                   f"{MESH_TIMEOUT_S} s")
+            if not ok:
+                raise RuntimeError(f"chip_smoke: mesh world {world}, rank "
+                                   f"{rank} failed:\n{res}")
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60 if len(got) == world else 1)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    return [got[r] for r in range(world)]
+
+
+def mesh_phases(torch, model, np_params, served) -> dict:
+    """Model E served on meshes of ranks that share the one card over gloo
+    (worlds of 2 and 4; ``MESH_WORLDS``), each layout held to the
+    single-device Engine on the same params and batches.  Returns each
+    kernel's launches per rank and X1's mesh-role records."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.runtime.executor import Engine
+    from recom_tpu_torch.runtime.host_prep import prepare_batch
+
+    free_engines()
+    x1_mesh_edges(torch)
+    t = time.perf_counter()
+    eng = Engine(model, EngineConfig(), params=np_params)
+    batches = {512: served["batch_small"], 2048: served["batch_big"]}
+    refs = {bs: eng.predict(b, return_pooled=True)
+            for bs, b in batches.items()}
+    # updates on rows the 512 batch reads: a row of the striped 2^23-row
+    # group and one of a string-list group (split by columns in the main
+    # layout), each to new values
+    prep = prepare_batch(eng.compiled, batches[512])
+    rng = np.random.default_rng(7)
+    updates = []
+    for name in ("emb_large_sparse0", "emb_sparse0"):
+        (gi, g), = [(i, g) for i, g in enumerate(eng.compiled.groups)
+                    if any(m.table == name for m in g.members)]
+        col = [i for i, m in enumerate(g.members) if m.table == name][0]
+        hids = prep.arrays["groups"][gi]["host_ids"][col]
+        ids_u = np.unique(hids[hids >= 0])[:16]
+        updates.append((name, ids_u, rng.standard_normal(
+            (len(ids_u), g.dim)).astype(np.float32)))
+    for name, ids_u, vals in updates:
+        eng.update_table_rows(name, ids_u, vals)
+    refs["updated"] = eng.predict(batches[512], return_pooled=True)
+    refs["updates"] = updates
+    del eng
+    free_engines()
+    path = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        save_mesh_inputs(np_params, batches, refs, path)
+        log(f"mesh inputs (single-device references, params as .npy): "
+            f"{time.perf_counter() - t:.1f} s")
+        results = {}
+        for world in sorted(MESH_WORLDS):
+            t = time.perf_counter()
+            results[world] = run_mesh_world(world, path)
+            log(f"mesh world of {world} ranks on one card (gloo): "
+                f"{time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    card = card_line()
+    launches = {}
+    for world, ranks in results.items():
+        for label, shape, cfg, gate in MESH_WORLDS[world]:
+            for r, res in enumerate(ranks):
+                rec = res["layouts"][label]
+                log(f"mesh {label} {shape}, rank {r}/{world}: build "
+                    f"{rec['build_s']:.1f} s, {rec['memory_gib']:.2f} GiB on "
+                    f"the card; pooled {gate} the single-device Engine's, "
+                    f"output {rec['output_512']} / {rec['output_2048']} at "
+                    f"512 / 2048; launches {rec['launches_2048']} a predict")
+                for bs in (512, 2048):
+                    log(f"  batch {bs}: device forward "
+                        f"{rec[f'forward_ms_{bs}']:.3f} ms (CUDA events, "
+                        "host-paced; gloo through the host on one shared "
+                        f"card, {card}); collectives p50 ms (host clock): "
+                        + ", ".join(f"{k} {v}" for k, v in sorted(
+                            rec[f"collectives_{bs}"].items())))
+                for kid in KERNEL_META:
+                    launches.setdefault(kid, {}).setdefault(
+                        f"{label} {shape[0]}x{shape[1]}", []).append(
+                        rec["launches_2048"].get(kid, 0))
+    main = results[2]
+    for r, res in enumerate(main):
+        log(f"mesh main layout, rank {r}: exchange at 2048 {res['exchange']}; "
+            f"overflow at capacity 0.01: {res['overflow']}; updates "
+            f"{res['updates']} read back through predict and export_params")
+    log(f"mesh phases: every layout held to the single-device Engine; these "
+        f"are gloo-on-one-card times ({card}), no yardstick for NCCL over "
+        "NVLink")
+    return {"launches": launches, "x1_roles": main[0]["x1_roles"]}
+
+
 def main() -> int:
     import torch
 
@@ -3597,6 +4209,10 @@ def main() -> int:
     # ---- the serving runtime and the parameter lifecycle --------------------
     runtime = runtime_phases(torch, model, np_params, served)
     elapsed("serving-runtime phases")
+
+    # ---- model E on meshes of ranks that share the card -------------------
+    mesh = mesh_phases(torch, model, np_params, served)
+    elapsed("mesh phases")
     trained = train_phases(torch, model, np_params, served["batch_small"],
                            served["batch_big"], served["ref"])
     elapsed("training phases")
@@ -3661,6 +4277,11 @@ def main() -> int:
                if kid in tools["f_results"] else {}),
             # X1 alone at ragged_bench's rungs L = 16, 32, 64, 128
             **({"ragged": tools["ragged"]} if kid == "X1" else {}),
+            # model E on the mesh layouts: launches of one predict at 2048
+            # on each rank, and X1's mesh roles (psum partial, a2a pool)
+            "mesh": {"launches_per_rank": mesh["launches"][kid],
+                     **({"roles": mesh["x1_roles"]} if kid == "X1"
+                        else {})},
         }
         for kid in KERNEL_META
     ]}

@@ -10,6 +10,10 @@ package name of their imports.  What runs on the device is rewritten:
                         dispatch (asynchronous, pinned copies),
                         update_table_rows, reload_params
   runtime/server.py     ServingPipeline, throughput_under_sla
+  parallel/             serving on a ("data", "model") mesh of
+                        torch.distributed ranks: make_mesh, the psum path
+                        (sharded_group_pooled) and the all-to-all id
+                        exchange (all_to_all_group_pooled), on X1
   runtime/batcher.py    MicroBatcher (a copy)
   tools/serve_loops.py  loop_windows, on Engine.dispatch
   runtime/wire.py       unpack_blob: blob views + device string hashing
@@ -78,4 +82,9 @@ def __getattr__(name):
         from recom_tpu_torch.runtime.batcher import MicroBatcher
 
         return MicroBatcher
+    if name in ("make_mesh", "sharded_group_pooled",
+                "all_to_all_group_pooled"):
+        from recom_tpu_torch import parallel
+
+        return getattr(parallel, name)
     raise AttributeError(f"module 'recom_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,105 @@
+"""Multi-process execution: the process group, a mesh over every rank,
+placing a host array, and fetching a result.
+
+The port of recom_tpu/parallel/multihost.py:33-89.  In the JAX package a
+process drives all of its host's devices; here every device is one rank
+(one process), so a "host" is the ranks that share one
+``LOCAL_WORLD_SIZE``:
+
+  * init(): ``torch.distributed.init_process_group``, a no-op once a
+    default group exists
+  * global_mesh(): a ("data", "model") mesh over every rank
+  * from_global(): a rank materialises only its stripe, its column slice
+    or its copy of a host array: pass ``np.load(..., mmap_mode="r")`` and
+    only those rows are paged in, so a table never exists whole in one
+    rank's memory
+  * gather_to_host(): every rank's piece of a result, on every rank
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from recom_tpu_torch.parallel.mesh import Mesh, make_mesh
+from recom_tpu_torch.parallel.sharded_lookup import (
+    member_stripe,
+    stripe_rows_of,
+)
+
+
+def init(coordinator: str, num_processes: int, process_id: int,
+         backend: Optional[str] = None) -> None:
+    """Join the default process group: ``coordinator`` is ``host:port``
+    (or any ``init_method`` URL, such as ``file:///path``), rank
+    ``process_id`` of ``num_processes``.  ``backend`` defaults to NCCL
+    where CUDA is available, else gloo.  A second call, once a group
+    exists, is a no-op (recom_tpu/parallel/multihost.py:33-50)."""
+    if dist.is_initialized():
+        return
+    if "://" not in coordinator:
+        coordinator = "tcp://" + coordinator
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    dist.init_process_group(backend, init_method=coordinator,
+                            world_size=num_processes, rank=process_id)
+
+
+def global_mesh(axis_names: Tuple[str, str] = ("data", "model"),
+                data_parallel_hosts: bool = False, backend=None,
+                device=None) -> Mesh:
+    """A mesh over every rank.  ``data_parallel_hosts=False`` (default)
+    puts the model axis across every rank, so table stripes and the lookup
+    exchange cross hosts; True puts the data axis across hosts and the
+    model axis over each host's ``LOCAL_WORLD_SIZE`` ranks."""
+    world = dist.get_world_size()
+    if data_parallel_hosts:
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        return make_mesh((world // local, local), axis_names, backend, device)
+    return make_mesh((1, world), axis_names, backend, device)
+
+
+def from_global(mesh: Mesh, layout: str, array) -> torch.Tensor:
+    """This rank's part of a host array, on its device.
+
+    ``layout``: ``"replicated"`` (the whole array), ``"striped"`` (rows
+    ``k, k + m, ...`` of an ``[R, ...]`` array for model rank ``k`` of
+    ``m``, padded with zero rows to ``ceil(R / m)``: ``stripe_rows``'s
+    block ``k``) or ``"columns"`` (columns ``[k d/m, (k+1) d/m)`` of an
+    ``[R, d]`` array).  ``array`` is anything numpy can slice, such as an
+    ``np.load(..., mmap_mode="r")`` array, whose other rows are never
+    read."""
+    model = mesh.axis_names[1]
+    m, k = mesh.shape[model], mesh.axis_index(model)
+    if layout == "replicated":
+        part = array[:]
+    elif layout == "striped":
+        first, count, start = member_stripe(array.shape[0], 0, m, k)
+        part = np.zeros((stripe_rows_of(array.shape[0], m),)
+                        + tuple(array.shape[1:]), array.dtype)
+        part[start:start + count] = array[first::m]
+    elif layout == "columns":
+        d = array.shape[1]
+        if d % m:
+            raise ValueError(f"{d} columns do not split over {m} ranks")
+        part = array[:, k * (d // m):(k + 1) * (d // m)]
+    else:
+        raise ValueError(f"layout {layout!r}: expected 'replicated', "
+                         "'striped' or 'columns'")
+    return torch.from_numpy(np.ascontiguousarray(part)).to(mesh.device)
+
+
+def gather_to_host(x: torch.Tensor, mesh: Optional[Mesh] = None,
+                   axis: Optional[str] = None) -> np.ndarray:
+    """Every rank's ``x`` (along ``axis`` of ``mesh``; by default every
+    rank of the default group) concatenated on axis 0, as numpy, on every
+    rank."""
+    if mesh is not None:
+        return mesh.all_gather(x, axis).flatten(0, 1).cpu().numpy()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, x.contiguous())
+    return torch.cat(parts).cpu().numpy()

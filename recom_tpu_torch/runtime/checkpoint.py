@@ -1,10 +1,13 @@
 """Checkpoints of the port's Engine, in the JAX package's npz layout.
 
 Copied from recom_tpu/runtime/checkpoint.py (``export_params``,
-``save_checkpoint``, ``load_checkpoint``) for the port's single-device
-engine: tables stored as f32, bf16 or int8 (exported as the f32 values the
-engine serves), no row-sharded tables, and always the npz layout, never
-orbax.  A checkpoint directory holds ``model_spec.json``
+``save_checkpoint``, ``load_checkpoint``) for the port's engine: tables
+stored as f32, bf16 or int8 (exported as the f32 values the engine
+serves), on one device or on a mesh (a striped or column-split group is
+gathered over the model axis first: ``export_params`` is then a
+collective every rank calls), and always the npz layout, never orbax.  A
+checkpoint loads into any mesh: the Engine stores the params it is given
+in its own layout.  A checkpoint directory holds ``model_spec.json``
 (ir/serde.py, the format both packages write) and ``params.npz`` with keys
 ``tables/<name>`` and ``tower/<key>/<layer>/<w|b>``, so the JAX package's
 ``load_checkpoint`` reads what this module writes.  The JAX package saves
@@ -20,23 +23,77 @@ import os
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 from recom_tpu_torch.ir.serde import model_from_json, model_to_json
 from recom_tpu_torch.ir.spec import ModelSpec
 from recom_tpu_torch.ops.quant import QuantizedTable, dequantize_table
+from recom_tpu_torch.parallel.sharded_lookup import member_stripe
 
 
-def export_params(engine) -> Dict:
+def _host_f32(parts) -> np.ndarray:
+    """Stored rows (a tensor, or an int8 table's rows and scales) as f32
+    numpy: bf16 upcast, int8 dequantized."""
+    if len(parts) == 2:
+        return dequantize_table(parts[0].cpu().numpy(),
+                                parts[1].cpu().numpy())
+    return parts[0].detach().cpu().float().numpy()
+
+
+def _member_gathered(engine, g, m) -> np.ndarray:
+    """Member ``m``'s [vocab, d] f32 table of a striped or column-split
+    group, gathered over the model axis (recom_tpu/runtime/checkpoint.py:
+    25-60 unstripes the whole group): each rank's rows of the member's
+    table, padded to one length, then interleaved; or each rank's columns,
+    side by side."""
+    mesh, model = engine.mesh, engine.config.mesh_axis_names[1]
+    n = mesh.shape[model]
+    leaf = engine.device_params["stacked"][str(g.gid)]
+    parts = list(leaf) if isinstance(leaf, QuantizedTable) else [leaf]
+    # gather f32 (bf16 upcast exactly; gloo has no bf16) or int8 + scales
+    parts = [p.detach().float() if p.dtype == torch.bfloat16 else p.detach()
+             for p in parts]
+    if engine.layout(g) == "columns":
+        rows = [p[m.row_offset:m.row_offset + m.vocab_size] for p in parts]
+        q = mesh.all_gather(rows[0], model)             # [n, vocab, d / n]
+        full = q.permute(1, 0, 2).flatten(1)
+        return _host_f32([full] + rows[1:])
+    per = -(-m.vocab_size // n)
+    k = mesh.axis_index(model)
+    first, count, start = member_stripe(m.vocab_size, m.row_offset, n, k)
+    got = []
+    for p in parts:
+        mine = p.new_zeros((per,) + tuple(p.shape[1:]))
+        mine[:count] = p[start:start + count]
+        got.append(mesh.all_gather(mine, model).cpu())   # [n, per, ...]
+    out = _host_f32([t.flatten(0, 1) for t in got]).reshape(n, per, g.dim)
+    table = np.empty((m.vocab_size, g.dim), np.float32)
+    for r in range(n):
+        f, c, _ = member_stripe(m.vocab_size, m.row_offset, n, r)
+        table[f::n] = out[r, :c]
+    return table
+
+
+def export_params(engine, tables=None) -> Dict:
     """Engine device params -> the portable numpy pytree ``{"tables":
     {name: [vocab, d]}, "tower": {key: [{"w", "b"}, ...]}}``: stacked group
     tables sliced back into per-table arrays, and the first top matmul
     unfolded back into model order.  Tables are the f32 values the engine
     serves: a bf16 table upcast (numpy has no bf16), an int8 one
     dequantized (``dequantize_table``), as recom_tpu/runtime/checkpoint.py:
-    30-59 exports them."""
+    30-59 exports them.  ``tables``: the names to export (default all).
+    On a mesh every rank calls it alike and gets the whole pytree."""
     out: Dict = {"tables": {}, "tower": {}}
     for g in engine.compiled.groups:
+        if tables is not None and not any(m.table in tables
+                                          for m in g.members):
+            continue
         val = engine.device_params["stacked"][str(g.gid)]
+        if engine.layout(g) != "replicated":
+            for m in g.members:
+                if tables is None or m.table in tables:
+                    out["tables"][m.table] = _member_gathered(engine, g, m)
+            continue
         if isinstance(val, QuantizedTable):
             stacked = dequantize_table(val.q.cpu().numpy(),
                                        val.scale.cpu().numpy())
@@ -130,8 +187,8 @@ def load_orbax_params(params_dir: str) -> Dict:
     except ImportError as e:
         raise ImportError(
             f"{params_dir} is an orbax checkpoint, which recom_tpu_torch "
-            "reads with the tensorstore package, and it is not installed "
-            "(ROADMAP.md Queue 1 item 10); save the checkpoint in the npz "
+            "reads with the tensorstore package, and it is not installed; "
+            "save the checkpoint in the npz "
             "layout (params.npz, recom_tpu_torch.runtime.checkpoint."
             "save_checkpoint), which needs nothing else"
         ) from e

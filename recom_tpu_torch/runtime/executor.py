@@ -13,9 +13,19 @@ a forward and returns before the card finishes (the serving runtime's
 building block, runtime/server.py); ``update_table_rows`` and
 ``reload_params`` write the live tensors in place.
 
+On a mesh (``EngineConfig(mesh_shape=...)``, recom_tpu/runtime/executor.py:
+169-195) every rank of a torch.distributed world builds the same Engine
+and makes the same calls in the same order; each returns the whole result.
+A group over ``shard_rows_above`` rows is striped over the "model" axis
+(its rank keeps ``R / m`` rows) and looked up by the all-to-all exchange
+or the psum path (``parallel/``); a group wider than ``dim_shard_above``
+is split by columns (X1 on the rank's ``d / m`` columns, then an
+all_gather along d); every other group and the tower are replicated and
+run on the rank's slice of the batch over the "data" axis; the outputs
+are all-gathered over it.  The wire blob is off on a mesh, as in JAX.
+
 Entry points run on CUDA unless the caller names another device; asking for
-CUDA where there is none raises.  Features of the JAX Engine outside this
-slice raise NotImplementedError naming their ROADMAP item.
+CUDA where there is none raises.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from __future__ import annotations
 import os
 import threading
 import time
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -39,16 +50,21 @@ from recom_tpu_torch.ops.lookup_onehot import (
     onehot_lookup,
 )
 from recom_tpu_torch.ops.quant import QuantizedTable, quantize_rows_chunked
+from recom_tpu_torch.parallel.all_to_all_lookup import (
+    a2a_exchange,
+    a2a_route,
+    pool_args,
+    table_rows,
+)
+from recom_tpu_torch.parallel.sharded_lookup import (
+    member_stripe,
+    psum_divisors,
+    psum_partial_args,
+    stripe_rows_of,
+)
 from recom_tpu_torch.runtime.host_prep import PreparedBatch, prepare_batch
 from recom_tpu_torch.utils.device import resolve_device
 from recom_tpu_torch.utils.params import init_model_params
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to recom_tpu_torch yet (ROADMAP.md Queue 1 "
-        f"{item})"
-    )
 
 
 _MALLOC_TUNED = False
@@ -167,8 +183,13 @@ def _act(name: Optional[str], x: torch.Tensor) -> torch.Tensor:
 def _stored(table: np.ndarray, table_dtype: str) -> torch.Tensor:
     """An f32 host table as a host tensor of the stored dtype: as is for
     float32, rounded to nearest even for bfloat16 (as ``jnp.asarray(...,
-    dtype=bfloat16)`` rounds)."""
-    t = torch.from_numpy(np.ascontiguousarray(table, np.float32))
+    dtype=bfloat16)`` rounds).  A read-only table (``np.load(...,
+    mmap_mode="r")``) is wrapped as it is, without a host copy: the tensor
+    is only read, copied to the device."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                "writable")
+        t = torch.from_numpy(np.ascontiguousarray(table, np.float32))
     return t.to(torch.bfloat16) if table_dtype == "bfloat16" else t
 
 
@@ -253,10 +274,13 @@ class InFlight:
     host tensors that receive them (None for ``fetch=False``); ``event``:
     recorded on the current stream after the forward and the copies (None
     on the CPU); ``seq``: the dispatch's place in the engine's order, which
-    the events follow.  The staged input tensors are held until
-    ``result()`` returns."""
+    the events follow; ``a2a_overflow``: on a mesh, the ids the all-to-all
+    exchange dropped (summed over every rank), and ``recomputed``: whether
+    the forward was then run again losslessly.  The staged input tensors
+    are held until ``result()`` returns."""
 
-    def __init__(self, engine, outputs, host, event, staged, seq, t0):
+    def __init__(self, engine, outputs, host, event, staged, seq, t0,
+                 a2a_overflow: int = 0, recomputed: bool = False):
         self.engine = engine
         self.outputs = outputs
         self.host = host
@@ -264,6 +288,23 @@ class InFlight:
         self.staged = staged
         self.seq = seq
         self._t0 = t0
+        self.a2a_overflow = a2a_overflow
+        self.recomputed = recomputed
+
+    def check_overflow(self) -> int:
+        """Apply ``a2a_overflow_policy`` to a dispatch that dropped ids
+        (recom_tpu/runtime/executor.py:736-777): ``"raise"`` raises;
+        ``"warn"`` keeps the degraded result; ``"recompute"`` already ran
+        the forward again in ``dispatch``.  Returns the ``a2a_overflow`` the
+        result carries: 0 after a recompute."""
+        if self.recomputed or not self.a2a_overflow:
+            return 0
+        if self.engine.config.a2a_overflow_policy == "raise":
+            raise RuntimeError(
+                f"all-to-all capacity overflow: {self.a2a_overflow} ids "
+                "dropped (raise EngineConfig.a2a_capacity_factor or set "
+                "shard_comm='psum')")
+        return self.a2a_overflow
 
     def wait(self) -> None:
         """Block until the forward and its copies are done."""
@@ -273,14 +314,17 @@ class InFlight:
     def result(self) -> Dict[str, np.ndarray]:
         """Wait, then the numpy outputs ``predict_prepared`` returns:
         ``output`` (and ``concat``, and ``pooled`` by column, where
-        dispatched) of the batch's true rows, and ``a2a_overflow`` 0."""
+        dispatched) of the batch's true rows, and ``a2a_overflow``
+        (``check_overflow``, which raises under the "raise" policy)."""
         if self.host is None:
             raise RuntimeError("dispatched with fetch=False: the outputs stay "
                                "on the device (InFlight.outputs)")
+        overflow = self.check_overflow()
         self.wait()
         eng = self.engine
         host = self.host
-        result: Dict = {"output": host["output"].numpy(), "a2a_overflow": 0}
+        result: Dict = {"output": host["output"].numpy(),
+                        "a2a_overflow": overflow}
         if "concat" in host:
             result["concat"] = host["concat"].numpy()
         if "pooled_groups" in host:
@@ -297,7 +341,7 @@ class InFlight:
 
 
 class Engine:
-    """Compiled recommendation-model engine on one device.
+    """Compiled recommendation-model engine on one device or on a mesh.
 
     >>> eng = Engine(model)                  # compiler pipeline + params on cuda
     >>> out = eng.predict(raw_batch)         # host prep + eager forward
@@ -306,6 +350,12 @@ class Engine:
     ``init_model_params`` or the JAX package's ``export_params`` produce
     it); default: ``init_model_params(model)``.  ``device``: default
     ``"cuda"``; ``"cpu"`` runs every kernel's plain PyTorch version.
+
+    On a mesh (``config.mesh_shape``; see the module docstring) ``mesh`` is
+    a ``parallel.Mesh`` of that shape, made by the caller, for instance to
+    ask for ``backend="gloo"`` where several ranks share a card; by default
+    ``make_mesh(config.mesh_shape, config.mesh_axis_names, device=device)``
+    (the rank's card, NCCL; gloo for ``device="cpu"``).
 
     ``device_params`` holds leaf tensors: the stacked group tables under
     ``"stacked"`` (one-hot groups as ``[C_pad, V_pad, d]``), in the stored
@@ -322,12 +372,13 @@ class Engine:
         config: Optional[EngineConfig] = None,
         params: Optional[Dict] = None,
         device=None,
+        mesh=None,
     ):
         self.config = config or EngineConfig()
-        self.device = resolve_device(device)
         cfg = self.config
-        if cfg.mesh_shape is not None:
-            raise _unported("mesh_shape (multi-device serving)", "item 13")
+        self.mesh = self._make_mesh(mesh, device)
+        self.device = (resolve_device(device) if self.mesh is None
+                       else self.mesh.device)
         # TF32 would round the tower's f32 matmul inputs to 10 mantissa
         # bits, far outside the rtol 1e-4 the outputs are held to against
         # the f32 oracle; both switches off (cuDNN's is on by default)
@@ -337,7 +388,10 @@ class Engine:
         self.compiled: CompiledModel = lower_model(self.model, cfg)
         self._fold_emb_perm = folds_emb_perm(self.model.tower,
                                              self.compiled.total_emb_dim)
-        self._wire = bool(cfg.wire_pack)
+        self._sharded_gids, self._dim_sharded_gids = self._shard_groups()
+        # the single-blob wire is single-device only: the batch split over
+        # "data" takes the structured per-array layout
+        self._wire = bool(cfg.wire_pack) and self.mesh is None
         _tune_malloc_for_serving()
         # held around every enqueue of a forward and every write of the
         # params: on the CPU an update and a forward exclude each other; on
@@ -369,15 +423,84 @@ class Engine:
         for s in self.pass_report.stages:
             self.log.vlog(f"pass {s}")
 
-    @staticmethod
-    def _fused_bucketize(g) -> bool:
+    def _make_mesh(self, mesh, device):
+        """The Engine's mesh, or None on one device."""
+        cfg = self.config
+        if cfg.mesh_shape is None:
+            if mesh is not None:
+                raise ValueError("mesh= needs EngineConfig.mesh_shape")
+            return None
+        import torch.distributed as dist
+
+        from recom_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+
+        names = tuple(cfg.mesh_axis_names)
+        if mesh is None:
+            return make_mesh(cfg.mesh_shape, names, device=device)
+        want = mesh_shape(cfg.mesh_shape, dist.get_world_size())
+        if mesh.axis_names != names or tuple(mesh.shape.values()) != want:
+            raise ValueError(f"mesh {mesh.shape} differs from the config's "
+                             f"{dict(zip(names, want))}")
+        if device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} differs from the mesh's "
+                             f"{mesh.device}")
+        return mesh
+
+    def _shard_groups(self):
+        """(row-striped gids, column-split gids), decided as the JAX Engine
+        decides them (recom_tpu/runtime/executor.py:179-191): a group over
+        ``shard_rows_above`` rows is striped; else one wider than
+        ``dim_shard_above`` whose width divides by the model axis, and
+        that is not one-hot, is split by columns."""
+        striped, split = set(), set()
+        if self.mesh is None:
+            return striped, split
+        m = self.mesh.shape[self.config.mesh_axis_names[1]]
+        if m == 1:
+            return striped, split
+        above = self.config.dim_shard_above
+        for g in self.compiled.groups:
+            if g.stacked_rows > self.config.shard_rows_above:
+                striped.add(g.gid)
+            elif (above is not None and g.dim > above and g.dim % m == 0
+                  and g.pallas_vocab is None):
+                split.add(g.gid)
+        return striped, split
+
+    def _axes(self) -> Tuple[str, str]:
+        """The mesh's ("data", "model") axis names."""
+        return tuple(self.config.mesh_axis_names)
+
+    def layout(self, g) -> str:
+        """How this rank stores group ``g``: ``"striped"`` (rows over the
+        model axis), ``"columns"`` (columns over it) or ``"replicated"``."""
+        if g.gid in self._sharded_gids:
+            return "striped"
+        if g.gid in self._dim_sharded_gids:
+            return "columns"
+        return "replicated"
+
+    def _onehot(self, g) -> bool:
+        """A one-hot group in its ``[C_pad, V_pad, d]`` layout (K1, K2): a
+        striped one-hot group takes the gather layout instead."""
+        return g.pallas_vocab is not None and g.gid not in self._sharded_gids
+
+    def _fused_bucketize(self, g) -> bool:
         """A one-hot group of bucketize columns only, with no id LUT: K2
         takes it whenever its raw floats reach the device."""
         return (
-            g.pallas_vocab is not None
+            self._onehot(g)
             and g.n_bucketize == g.num_columns
             and g.lut_matrix is None
         )
+
+    def _model_split(self) -> Tuple[int, int]:
+        """(model axis size, this rank's index along it); (1, 0) on one
+        device."""
+        if self.mesh is None:
+            return 1, 0
+        model = self._axes()[1]
+        return self.mesh.shape[model], self.mesh.axis_index(model)
 
     # ------------------------------------------------------------------
     def _build_device_params(self, np_params: Dict) -> Dict:
@@ -387,14 +510,23 @@ class Engine:
         scales (``ops/quant.QuantizedTable``; the lowering sends every
         group of an int8 engine down the gather path).  Each group's leaf
         is made as zeros on the device and each member table written into
-        it (``_write_tables``), so no stacked copy is made on the host."""
+        it (``_write_tables``), so no stacked copy is made on the host.  On
+        a mesh a striped group's leaf holds the rank's ``ceil(R / m)`` rows
+        (with int8, their scales too), a column-split group's its ``d / m``
+        columns (int8 scales whole), and every other leaf is whole."""
         self._check_tables(np_params)
         dev = self.device
         tdtype = self.config.table_dtype
         dtype = torch.bfloat16 if tdtype == "bfloat16" else torch.float32
+        m_ax, _ = self._model_split()
         dp: Dict = {"stacked": {}, "tower": {}}
         for g in self.compiled.groups:
-            if g.pallas_vocab is not None:
+            rows, d = g.stacked_rows, g.dim
+            if self.layout(g) == "striped":
+                rows = stripe_rows_of(rows, m_ax)
+            elif self.layout(g) == "columns":
+                d //= m_ax
+            if self._onehot(g):
                 # one-hot group layout [C_pad, V_pad, d] (the reference's
                 # Pallas layout; K1 reads planes c < C only)
                 c_pad = ((g.num_columns + 7) // 8) * 8
@@ -402,13 +534,10 @@ class Engine:
                                    dtype=dtype, device=dev)
             elif tdtype == "int8":
                 leaf = QuantizedTable(
-                    torch.zeros((g.stacked_rows, g.dim), dtype=torch.int8,
-                                device=dev),
-                    torch.zeros((g.stacked_rows,), dtype=torch.float32,
-                                device=dev))
+                    torch.zeros((rows, d), dtype=torch.int8, device=dev),
+                    torch.zeros((rows,), dtype=torch.float32, device=dev))
             else:
-                leaf = torch.zeros((g.stacked_rows, g.dim), dtype=dtype,
-                                   device=dev)
+                leaf = torch.zeros((rows, d), dtype=dtype, device=dev)
             dp["stacked"][str(g.gid)] = leaf
         self._write_tables(dp["stacked"], np_params)
         dp["tower"] = {
@@ -431,15 +560,24 @@ class Engine:
                         f"table {m.table!r} is {shape}, the model's is "
                         f"{(m.vocab_size, g.dim)}")
 
-    def _stored_values(self, leaf, values: np.ndarray) -> List[torch.Tensor]:
-        """f32 host rows [n, d] on the device as ``leaf`` stores them: one
-        tensor, f32 or bf16 (rounded to nearest even), or an int8 table's
-        rows re-quantized with fresh per-row scales and those scales."""
+    def _stored_values(self, leaf, g,
+                       values: np.ndarray) -> List[torch.Tensor]:
+        """f32 host rows [n, d] of group ``g`` on the device as ``leaf``
+        stores them: one tensor, f32 or bf16 (rounded to nearest even), or
+        an int8 table's rows re-quantized with fresh per-row scales and
+        those scales; of a column-split group, the rank's columns (an int8
+        row quantized whole first, so its scale is the single device's)."""
+        cols = slice(None)
+        if self.layout(g) == "columns":
+            m_ax, k = self._model_split()
+            w = g.dim // m_ax
+            cols = slice(k * w, (k + 1) * w)
         if isinstance(leaf, QuantizedTable):
             q, scale = quantize_rows_chunked(np.asarray(values, np.float32))
-            return [torch.from_numpy(q).to(self.device),
-                    torch.from_numpy(scale).to(self.device)]
-        return [_stored(values, self.config.table_dtype).to(self.device)]
+            return [torch.from_numpy(np.ascontiguousarray(q[:, cols]))
+                    .to(self.device), torch.from_numpy(scale).to(self.device)]
+        return [_stored(np.asarray(values)[:, cols],
+                        self.config.table_dtype).to(self.device)]
 
     @staticmethod
     def _slot_targets(leaf, i: int, m) -> Tuple[List[torch.Tensor], int]:
@@ -457,15 +595,24 @@ class Engine:
         """Copy every member table of ``np_params`` into the leaves of
         ``stacked`` in place, one member at a time: the device holds at most
         one member table's stored values besides the leaves (model E: one
-        2^23 x 32 table, 1.07 GB in f32), and each copy holds the lock."""
+        2^23 x 32 table, 1.07 GB in f32), and each copy holds the lock.  A
+        striped group's member gives only the rows of the rank's stripe
+        (``member_stripe``; of an ``np.load(mmap_mode="r")`` table only
+        those are read)."""
+        m_ax, k = self._model_split()
         for g in self.compiled.groups:
             leaf = stacked[str(g.gid)]
             for i, m in enumerate(g.members):
-                vals = self._stored_values(leaf, np_params["tables"][m.table])
+                table = np_params["tables"][m.table]
                 targets, base = self._slot_targets(leaf, i, m)
+                if self.layout(g) == "striped":
+                    first, _, base = member_stripe(m.vocab_size, m.row_offset,
+                                                   m_ax, k)
+                    table = table[first::m_ax]
+                vals = self._stored_values(leaf, g, table)
                 with self._dispatch_lock, torch.no_grad():
                     for t, v in zip(targets, vals):
-                        t[base: base + m.vocab_size].copy_(v)
+                        t[base: base + v.shape[0]].copy_(v)
                 del vals
 
     def _tower_host(self, np_params: Dict) -> Dict:
@@ -604,11 +751,19 @@ class Engine:
         ids = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
         return ids.to(torch.int32).contiguous(), packed.get("weights")
 
-    def _embedding_forward(self, arrays) -> Tuple[torch.Tensor, List]:
-        """Grouped lookups -> (grouped-order emb concat [Bp, grouped_emb],
-        per-group pooled [Bp, C, d] list)."""
+    def _embedding_forward(self, arrays, lossless: bool = False):
+        """Grouped lookups -> (grouped-order emb concat [b, grouped_emb],
+        per-group pooled [b, C, d] list, the all-to-all overflow: None where
+        no group took the exchange, else a 0-d tensor summed over every
+        rank), for the b rows of ``arrays`` (on a mesh, the rank's data
+        slice).  ``lossless``: the exchange at capacity factor m, which
+        cannot overflow (``predict``'s "recompute" policy)."""
         pooled_list = []
         gathers = []            # (slot in pooled_list, group_pooled args)
+        psums = []              # (slot, group, valid, weights)
+        splits = []             # slots of column-split groups
+        routed = []             # (slot, group, route, weights)
+        m_ax, k = self._model_split()
         for g, packed in zip(self.compiled.groups, arrays["groups"]):
             c = self._consts[g.gid]
             table = self.device_params["stacked"][str(g.gid)]
@@ -621,22 +776,65 @@ class Engine:
                 ))
                 continue
             ids, weights = self.group_ids(g, packed)
-            if g.pallas_vocab is not None:
+            if weights is not None:
+                weights = weights.contiguous()
+            slot = len(pooled_list)
+            pooled_list.append(None)
+            if self._onehot(g):
                 # one id per entry: every combiner passes the row through
                 # (divisor 1) or gives 0 for a missing id
-                pooled_list.append(onehot_lookup(
-                    table, ids[:, :, 0].contiguous(), c["caps"]))
+                pooled_list[slot] = onehot_lookup(
+                    table, ids[:, :, 0].contiguous(), c["caps"])
+            elif g.gid in self._sharded_gids and self._takes_a2a(ids):
+                factor = (float(m_ax) if lossless
+                          else self.config.a2a_capacity_factor)
+                routed.append((slot, g, a2a_route(
+                    ids, c["row_offsets"], table_rows(table), m_ax, k,
+                    factor, True, c["caps"]), weights))
+            elif g.gid in self._sharded_gids:
+                # the psum path: the partial sums join X1's launch
+                args, valid = psum_partial_args(
+                    table, ids, c["row_offsets"], m_ax, k, weights, c["caps"])
+                gathers.append((slot, args))
+                psums.append((slot, g, valid, weights))
             else:
-                gathers.append((len(pooled_list), (
-                    table, ids, c["row_offsets"], c["codes"],
-                    None if weights is None else weights.contiguous(),
+                if g.gid in self._dim_sharded_gids:
+                    splits.append(slot)
+                gathers.append((slot, (
+                    table, ids, c["row_offsets"], c["codes"], weights,
                     c["weighted"], c["caps"],
                 )))
-                pooled_list.append(None)
         # every gather group in one launch of X1
         for (slot, _), pooled in zip(
                 gathers, groups_pooled([a for _, a in gathers])):
             pooled_list[slot] = pooled
+        overflow = None
+        if routed:
+            model = self._axes()[1]
+            chunks = self.config.a2a_chunks
+            bufs = [a2a_exchange(self.mesh, self.device_params["stacked"][
+                str(g.gid)], route, chunks, model)
+                for _, g, route, _ in routed]
+            # the returned rows of every exchanged group in one more launch
+            consts = [self._consts[g.gid] for _, g, _, _ in routed]
+            mine = groups_pooled([
+                pool_args(buf, route, m_ax, chunks, c["codes"], w,
+                          c["weighted"], k)
+                for buf, c, (_, _, route, w) in zip(bufs, consts, routed)])
+            for (slot, _, _, _), p in zip(routed, mine):
+                pooled_list[slot] = self.mesh.all_gather(p, model).flatten(
+                    0, 1)
+            overflow = self.mesh.all_reduce(
+                sum(r["overflow"] for _, _, r, _ in routed).reshape(1),
+                None)[0]
+        for slot, g, valid, weights in psums:
+            total = self.mesh.all_reduce(pooled_list[slot], self._axes()[1])
+            pooled_list[slot] = psum_divisors(total, valid, weights,
+                                              g.combiner_code, g.weighted_cols)
+        for slot in splits:
+            # [m, b, C, d/m] -> [b, C, m, d/m] -> [b, C, d]
+            parts = self.mesh.all_gather(pooled_list[slot], self._axes()[1])
+            pooled_list[slot] = parts.permute(1, 2, 0, 3).flatten(2)
         # the concats only once every group has pooled: a mul_column post
         # reads another column's raw pooled output, from any group
         col_pooled = None
@@ -655,7 +853,27 @@ class Engine:
             bp = arrays["dense"].shape[1]
             grouped = torch.zeros((bp, 0), dtype=torch.float32,
                                   device=self.device)
-        return grouped, pooled_list
+        return grouped, pooled_list, overflow
+
+    def _takes_a2a(self, ids: torch.Tensor) -> bool:
+        """Whether a striped group's lookup takes the all-to-all exchange
+        (recom_tpu/runtime/executor.py:368-403): under ``shard_comm=
+        "all_to_all"``, or ``"auto"`` while L <= 2m (the exchange moves
+        [b, C, L, d] rows split m ways, the psum [b, C, d] sums twice); only
+        where the rank's data slice divides by the model axis, else the
+        psum path, with a warning where the exchange was asked for."""
+        m_ax, _ = self._model_split()
+        mode = self.config.shard_comm
+        divisible = ids.shape[1] % m_ax == 0
+        want = mode == "all_to_all" or (
+            mode == "auto" and divisible and ids.shape[2] <= 2 * m_ax)
+        if want and not divisible:
+            d_ax = self.mesh.shape[self._axes()[0]]
+            self.log.warning(
+                f"shard_comm=all_to_all needs batch divisible by "
+                f"{d_ax * m_ax}, got {ids.shape[1] * d_ax}; falling back to "
+                "psum")
+        return want and divisible
 
     def _model_order(self, grouped: torch.Tensor) -> torch.Tensor:
         if grouped.shape[1] == 0:
@@ -706,10 +924,14 @@ class Engine:
                         None if logits_only else tower.final_activation)
         return out[:bp], front[:bp]
 
-    def _forward(self, arrays, signature, mode=(), logits_only: bool = False):
-        """The device forward of one prepared batch.  Differentiable in the
-        device params where they require grad (train.Trainer sets that):
-        every kernel wrapper on the path has its backward kernel."""
+    def _forward(self, arrays, signature, mode=(), logits_only: bool = False,
+                 lossless: bool = False):
+        """The device forward of one prepared batch (on a mesh, of the
+        rank's data slice: ``to_device``), with the whole batch's outputs
+        and, where a group took the all-to-all exchange,
+        ``"a2a_overflow"``.  Differentiable in the device params where they
+        require grad (train.Trainer sets that): every kernel wrapper on the
+        one-device path has its backward kernel."""
         if "blob" in arrays:
             from recom_tpu_torch.runtime.wire import unpack_blob
 
@@ -717,24 +939,58 @@ class Engine:
             wsig = signature[2] if len(signature) > 2 else ()
             arrays = unpack_blob(self.compiled, arrays["blob"], bp, rowlens,
                                  wsig)
-        grouped, pooled_list = self._embedding_forward(arrays)
+        grouped, pooled_list, overflow = self._embedding_forward(
+            arrays, lossless)
         emb_tower = (
             grouped if self._fold_emb_perm else self._model_order(grouped)
         )
         out, front = self._tower_forward(arrays["dense"].T, emb_tower,
                                          logits_only)
-        result = {"output": out}
+        result = {"output": self._gather_batch(out)}
         if "concat" in mode:
-            result["concat"] = torch.cat(
+            result["concat"] = self._gather_batch(torch.cat(
                 [front, self._model_order(grouped)], dim=1
-            )
+            ))
         if "pooled" in mode:
-            result["pooled_groups"] = pooled_list
+            result["pooled_groups"] = [self._gather_batch(p)
+                                       for p in pooled_list]
+        if overflow is not None:
+            result["a2a_overflow"] = overflow
         return result
+
+    def _gather_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """On a mesh, the rows of every data slice in order (an all_gather
+        over the "data" axis); ``x`` itself on one device."""
+        if self.mesh is None:
+            return x
+        return self.mesh.all_gather(x, self._axes()[0]).flatten(0, 1)
 
     def to_device(self, prepared: PreparedBatch) -> Dict:
         """The prepared host arrays as device tensors (``_stage``)."""
         return self._stage(prepared)[0]
+
+    def shard_batch_arrays(self, arrays: Dict) -> Dict:
+        """On a mesh, the rank's slice of prepared host arrays over the
+        "data" axis (recom_tpu/runtime/executor.py:343-355): prepared
+        arrays are column-major, batch on axis 1 (host_prep's LAYOUT note),
+        and the padded batch must divide by the data axis.  On one device,
+        ``arrays`` as they are."""
+        if self.mesh is None:
+            return arrays
+        data = self._axes()[0]
+        n, r = self.mesh.shape[data], self.mesh.axis_index(data)
+        bp = arrays["dense"].shape[1]
+        if bp % n:
+            raise ValueError(f"batch bucket {bp} does not divide over the "
+                             f"{n} ranks of the data axis")
+        per = bp // n
+
+        def cut(x: np.ndarray) -> np.ndarray:
+            return np.ascontiguousarray(x[:, r * per:(r + 1) * per])
+
+        return {"dense": cut(arrays["dense"]),
+                "groups": [{k: cut(v) for k, v in g.items()}
+                           for g in arrays["groups"]]}
 
     def _stage(self, prepared: PreparedBatch) -> Tuple[Dict, List]:
         """(device arrays, staged host tensors) of a prepared batch: the
@@ -743,7 +999,8 @@ class Engine:
         crosses with ``non_blocking=True``, so the call returns once the
         copy is queued; PyTorch's caching host allocator keeps a staged
         block until its copy is done.  On the CPU the arrays are used as
-        they are."""
+        they are.  On a mesh only the rank's data slice crosses
+        (``shard_batch_arrays``)."""
         staged: List[torch.Tensor] = []
 
         def put(x: np.ndarray) -> torch.Tensor:
@@ -755,7 +1012,7 @@ class Engine:
             staged.append(pinned)
             return pinned.to(self.device, non_blocking=True)
 
-        a = prepared.arrays
+        a = self.shard_batch_arrays(prepared.arrays)
         if "blob" in a:
             return {"blob": put(a["blob"])}, staged
         return {
@@ -823,7 +1080,15 @@ class Engine:
         is copied into pinned host memory by a non-blocking copy; an event
         is recorded after them.  No host sync on the card.  On the CPU the
         forward runs to its end in the call.  ``InFlight.result()`` waits
-        and returns what ``predict_prepared`` returns."""
+        and returns what ``predict_prepared`` returns.
+
+        On a mesh the forward's collectives pair with the other ranks'
+        dispatches in order, and where the all-to-all exchange dropped ids
+        the count (summed over every rank, so every rank decides alike) is
+        read here, a host sync: it lands in ``stats["a2a_overflow"]``, and
+        under ``a2a_overflow_policy="recompute"`` the forward runs again at
+        once at the lossless capacity (``stats["a2a_recomputes"]``);
+        ``InFlight.check_overflow`` applies "warn" and "raise"."""
         mode = tuple(mode)
         self._note_program(prepared.signature, mode)
         t0 = time.perf_counter()
@@ -833,6 +1098,11 @@ class Engine:
         host = event = None
         with self._dispatch_lock, torch.inference_mode():
             dev_out = self._forward(arrays, prepared.signature, mode)
+            overflow = int(dev_out.get("a2a_overflow", 0))
+            recomputed = bool(overflow) and self._overflowed(overflow)
+            if recomputed:
+                dev_out = self._forward(arrays, prepared.signature, mode,
+                                        lossless=True)
             outputs = {"output": dev_out["output"][:b]}
             if "concat" in mode:
                 outputs["concat"] = dev_out["concat"][:b]
@@ -850,7 +1120,27 @@ class Engine:
             seq = self.stats["calls"]
         if not cuda and fetch:
             host = outputs
-        return InFlight(self, outputs, host, event, staged, seq, t0)
+        return InFlight(self, outputs, host, event, staged, seq, t0,
+                        overflow, recomputed)
+
+    def _overflowed(self, overflow: int) -> bool:
+        """Count a forward whose exchange dropped ``overflow`` ids; whether
+        to run it again losslessly (the "recompute" policy: capacity factor
+        m, bit for bit the exact result; recom_tpu/runtime/executor.py:
+        736-777)."""
+        self.stats["a2a_overflow"] = self.stats.get("a2a_overflow", 0) \
+            + overflow
+        if self.config.a2a_overflow_policy != "recompute":
+            if self.config.a2a_overflow_policy == "warn":
+                self.log.warning(
+                    f"all-to-all capacity overflow: {overflow} ids dropped "
+                    "this step (raise EngineConfig.a2a_capacity_factor or "
+                    "set shard_comm='psum')")
+            return False
+        self.stats["a2a_recomputes"] = self.stats.get("a2a_recomputes", 0) + 1
+        self.log.warning(f"all-to-all overflow ({overflow} ids): recomputing "
+                         "via lossless full-capacity exchange")
+        return True
 
     # ------------------------------------------------------------------
     def _note_program(self, signature, mode=()) -> None:
@@ -870,9 +1160,12 @@ class Engine:
 
     def stats_report(self) -> Dict:
         """Serving snapshot: call and program counters, per-stage latency
-        percentiles (host clock), and each group's layout and kernel."""
+        percentiles (host clock; on a mesh also each collective's, from
+        ``Mesh.timers``), and each group's layout and kernel."""
 
         def backend(g) -> str:
+            if g.gid in self._sharded_gids:
+                return f"sharded_{self.config.shard_comm} (X1)"
             if g.pallas_vocab is None:
                 return "pooled_gather (X1)"
             if self._fused_bucketize(g) and not (
@@ -881,9 +1174,12 @@ class Engine:
                 return "onehot_bucketize (K2)"
             return "onehot_lookup (K1)"
 
+        latency = self.timers.summary()
+        if self.mesh is not None:
+            latency.update(self.mesh.timers.summary())
         return {
             "counters": dict(self.stats),
-            "stage_latency": self.timers.summary(),
+            "stage_latency": latency,
             "programs_compiled": len(self._programs),
             "groups": [
                 {
@@ -893,6 +1189,7 @@ class Engine:
                     "ragged": g.ragged,
                     "rows": g.stacked_rows,
                     "backend": backend(g),
+                    "layout": self.layout(g),
                 }
                 for g in self.compiled.groups
             ],
@@ -1012,8 +1309,11 @@ class Engine:
         re-quantized with fresh per-row scales).  A table stacked in several
         member slots (shared by columns or groups) is written in every one:
         its gather group's ``[R, d]`` rows at the member's row offset, or
-        its plane of a one-hot ``[C_pad, V_pad, d]`` table.  Returns the
-        number of member slots written.
+        its plane of a one-hot ``[C_pad, V_pad, d]`` table.  On a mesh every
+        rank makes the same call: a rank writes only the rows of a striped
+        group its stripe holds, at ``(row_offset + id) // m``, and only its
+        columns of a column-split group.  Returns the number of member
+        slots written.
 
         Concurrency: every write of the call (an int8 table's rows and
         scales alike) is queued under one hold of the engine's lock, so a
@@ -1053,16 +1353,20 @@ class Engine:
                 slots.append((g, i, m))
         if not slots:
             raise KeyError(f"unknown table {table!r}")
-        ids = torch.from_numpy(row_ids).to(self.device)
-        stored = {}             # the values as each kind of leaf stores them
+        m_ax, k = self._model_split()
         writes = []
         for g, i, m in slots:
             leaf = self.device_params["stacked"][str(g.gid)]
-            kind = isinstance(leaf, QuantizedTable)
-            if kind not in stored:
-                stored[kind] = self._stored_values(leaf, values)
             targets, base = self._slot_targets(leaf, i, m)
-            writes.append((targets, ids + base, stored[kind]))
+            rows, vals = row_ids + base, values
+            if self.layout(g) == "striped":
+                # only the rows of this rank's stripe, at their local rows
+                # (recom_tpu/runtime/executor.py:922-940)
+                logical = m.row_offset + row_ids
+                mine = logical % m_ax == k
+                rows, vals = logical[mine] // m_ax, values[mine]
+            writes.append((targets, torch.from_numpy(rows).to(self.device),
+                           self._stored_values(leaf, g, vals)))
         with self._dispatch_lock, torch.no_grad():
             for targets, rows, vals in writes:
                 for t, v in zip(targets, vals):

@@ -14,11 +14,21 @@ request k while the host packs request k+1.
 ``max_inflight`` bounds device-queue depth (memory + tail-latency control:
 an unbounded queue turns p99 into queue depth x step time).
 
+On a mesh every rank runs the same pipeline and submits the same batches
+in the same order.  Each forward's collectives pair with the other ranks'
+in dispatch order, so a rank that dispatched batch k+1 before batch k
+would pair its collectives with another rank's batch k: wrong results, or
+a hang.  So on a mesh each request takes a ticket when it is submitted,
+and its worker dispatches only in its ticket's turn; prep still runs in
+parallel.  A mesh request that fails is not retried: a retry would enter
+the collective order at a place the other ranks cannot know.
+``_resolve_overflow`` applies ``a2a_overflow_policy`` as
+recom_tpu/runtime/server.py:182-234 does (the "recompute" forward itself
+runs inside ``Engine.dispatch``, in its turn).
+
 Left out of the reference: the completer's adaptive linger on the cost of
 its waits (server.py:134-146), which exists for a remote device's RPC
-waits, and ``_resolve_overflow`` (server.py:182-234), which only a mesh
-needs (ROADMAP.md Queue 1 item 13); outputs carry ``a2a_overflow`` 0, as
-``Engine.predict`` does.
+waits.
 """
 
 from __future__ import annotations
@@ -77,6 +87,11 @@ class ServingPipeline:
             thread_name_prefix="recom-prep",
         )
         self._inflight = threading.Semaphore(max_inflight)
+        # dispatch turns on a mesh: the ticket a submit takes, and the
+        # ticket whose turn it is
+        self._mesh = getattr(engine, "mesh", None) is not None
+        self._turn = threading.Condition()
+        self._tickets = [0, 0]
         self._stats_lock = threading.Lock()
         self.stats = {"submitted": 0, "completed": 0, "retries": 0}
         self._done_q: "queue.Queue" = queue.Queue()
@@ -119,6 +134,7 @@ class ServingPipeline:
                 continue
             for rec, fut, _ in batch_items:
                 try:
+                    self._resolve_overflow(rec)
                     if self.fetch_outputs:
                         out = rec.result()["output"]
                     else:
@@ -139,8 +155,25 @@ class ServingPipeline:
         engine queued them on its stream)."""
         max(batch_items, key=lambda it: it[0].seq)[0].wait()
 
+    def _resolve_overflow(self, rec) -> None:
+        """Apply ``a2a_overflow_policy`` to a request whose all-to-all
+        exchange dropped ids, as ``Engine.predict`` does: count it, then
+        ``InFlight.check_overflow`` ("raise" fails the request; "recompute"
+        already ran the lossless forward in its dispatch).  A single-device
+        record never overflows."""
+        if not rec.a2a_overflow:
+            return
+        with self._stats_lock:
+            self.stats["a2a_overflow"] = (
+                self.stats.get("a2a_overflow", 0) + rec.a2a_overflow)
+            if rec.recomputed:
+                self.stats["a2a_recomputes"] = (
+                    self.stats.get("a2a_recomputes", 0) + 1)
+        rec.check_overflow()
+
     def _retry_or_fail(self, fut, work, exc):
-        if work["attempt"] < self.retries and not self._closed:
+        if work["attempt"] < self.retries and not self._closed \
+                and not self._mesh:
             work["attempt"] += 1
             self._bump("retries")
             try:
@@ -159,10 +192,31 @@ class ServingPipeline:
         prepared = eng.prepare(batch, batch_size)
         return eng.dispatch(prepared, fetch=self.fetch_outputs)
 
+    def _dispatch_in_turn(self, batch: Dict, batch_size: Optional[int],
+                          ticket: int):
+        """On a mesh: prep at once, then dispatch in ``ticket``'s turn; the
+        turn passes on whether prep and dispatch succeed or not."""
+        eng = self.engine
+        try:
+            prepared = eng.prepare(batch, batch_size)
+            with self._turn:
+                self._turn.wait_for(lambda: self._tickets[1] == ticket)
+            return eng.dispatch(prepared, fetch=self.fetch_outputs)
+        finally:
+            with self._turn:
+                self._turn.wait_for(lambda: self._tickets[1] == ticket)
+                self._tickets[1] += 1
+                self._turn.notify_all()
+
     def _work(self, work):
         fut = work["future"]
         try:
-            rec = self._dispatch(work["batch"], work["batch_size"])
+            if "ticket" in work:
+                rec = self._dispatch_in_turn(work["batch"],
+                                             work["batch_size"],
+                                             work["ticket"])
+            else:
+                rec = self._dispatch(work["batch"], work["batch_size"])
             self._done_q.put((rec, fut, work))
         except Exception as e:  # prep/dispatch errors
             self._retry_or_fail(fut, work, e)
@@ -181,11 +235,15 @@ class ServingPipeline:
         self._inflight.acquire()
         self._bump("submitted")
         result: "Future[np.ndarray]" = Future()
-        self._pool.submit(
-            self._work,
-            {"batch": batch, "batch_size": batch_size, "future": result,
-             "attempt": 0},
-        )
+        work = {"batch": batch, "batch_size": batch_size, "future": result,
+                "attempt": 0}
+        with self._turn:
+            if self._mesh:
+                # the pool takes work in submission order, so the lowest
+                # ticket waiting for its turn always holds a worker
+                work["ticket"] = self._tickets[0]
+                self._tickets[0] += 1
+            self._pool.submit(self._work, work)
         return result
 
     def map_stream(self, batches: Iterable[Dict]) -> List[np.ndarray]:
