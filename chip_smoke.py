@@ -91,6 +91,28 @@ its plain version, there and on edge inputs.  The device forward and each
 collective's wall time are printed per rank: gloo through the host on
 one shared card, no yardstick for NCCL over NVLink.
 
+In the same worlds model E then trains at full width (``MESH_TRAIN``:
+the exchange at (1, 2) with one chunk, the psum path at (1, 2), and at
+(2, 2) the exchange with two chunks and the list and string groups split
+by columns), ``dlrm_optimizer(tower_lr=1e-5)``, 3 steps of 2048 rows,
+against the single-device card Trainer on the same params, batches and
+labels (``mesh_train_refs``): step 1's loss ``==`` (within 1e-6 under psum
+and where the data axis sums two slices), step 1's gradients (each rank's
+stripe at the rows the batch touches within atol 1e-5, its other 20.97 M
+rows +0.0 by count; column slices within atol 1e-5; the tower and the
+replicated leaves within rtol 1e-5 / atol 1e-6), the three losses within
+rtol 1e-5, the params after the steps within atol 1e-5 (the stripe at
+the touched rows, 64 other rows unchanged); each step's launches asserted
+(K1 1, X1 2 or 1, K3a 1, X1b 3 under the exchange or 1 under psum) and
+timed (forward, backward, the gradients' all_reduce over "data",
+optimizer), with each collective's p50 and each rank's peak memory.  X1b
+in its three mesh roles (the psum path's partial sums on the stripe, the
+exchange's pool into its receive buffer, the owner's scatter into the
+stripe) is held to its plain version at those shapes and on edge inputs
+and timed.  The world of 2 also runs a ``tools.scaling`` sweep (model
+axes 1 and 2, both comms), the world of 4 ``entry.dryrun_multichip(4)``
+and ``tools.train_multi`` for 4 steps on (2, 2).
+
 Then it trains, through ``Trainer(...,
 optimizer=dlrm_optimizer())`` on the card:
 
@@ -183,8 +205,8 @@ It checks:
    the larger ones, each alone) and X1's f32 launch with its one-id
    groups on each tile, in turns (``x1_oneid_f32_ab``: models E and F,
    the Criteo DLRM);
-4. that each ``predict``, pipelined request and training step went
-   through its path's kernels and no other (model E: one launch of X1 a predict; a training
+4. that each ``predict``, pipelined request and training step (also on
+   the mesh layouts, per rank) went through its path's kernels and no other (model E: one launch of X1 a predict; a training
    step K1 1, X1 1, X2 3, K3a 1 and X1b 1; the bucketize path K2 1 and K3b
    1 a step; Criteo: K1 5 and X1 1 a predict, and K3a 5 and X1b 1 more a
    step; each PostPool model: K1 a one-hot group, X1 once, X2 a group of
@@ -3585,7 +3607,7 @@ MESH_WORLDS = {
 }
 # the layout whose engine also takes the overflow, update and X1-role runs
 MESH_MAIN = "a2a, chunks 2, dim split"
-MESH_TIMEOUT_S = 420
+MESH_TIMEOUT_S = 900
 
 
 def mesh_launches(shape, cfg) -> dict:
@@ -3814,6 +3836,490 @@ def x1_mesh_edges(torch) -> None:
         "psum partials with other ranks' ids masked) == the plain version")
 
 
+# ---------------------------------------------------------------------------
+# Training on a mesh of ranks that share the one card over gloo
+# ---------------------------------------------------------------------------
+
+# Each world's training layouts, after its serving ones: (label, mesh
+# shape, EngineConfig fields, step-1 loss gate).  Model E at full width in
+# the default config otherwise, dlrm_optimizer(tower_lr=1e-5) (the random
+# towers overshoot at 1e-3), 3 steps of 2048 rows against the single-device
+# card Trainer on the same params, batches and labels.
+MESH_TRAIN = {
+    2: (
+        ("train a2a, chunks 1", (1, 2),
+         dict(shard_comm="all_to_all", a2a_chunks=1), "=="),
+        ("train psum", (1, 2), dict(shard_comm="psum"), "1e-6"),
+    ),
+    4: (
+        ("train a2a, chunks 2, dim split", (2, 2),
+         dict(shard_comm="all_to_all", a2a_chunks=2, dim_shard_above=4),
+         "=="),
+    ),
+}
+MESH_TRAIN_OPT = dict(tower_lr=1e-5)
+MESH_TRAIN_STEPS = 3
+
+
+def mesh_train_launches(cfg) -> dict:
+    """The launches one training step of model E implies on each rank: the
+    forward's (``mesh_launches``), K3a once (the one-hot group's backward
+    on the rank's data slice), X1b once for the gather groups (the psum
+    path's partial sums on the stripe among them), and under the exchange
+    twice more: its pool into the receive buffer and the owner's scatter
+    into the stripe."""
+    a2a = cfg.get("shard_comm") == "all_to_all"
+    return {"K1": 1, "X1": 2 if a2a else 1, "K3a": 1,
+            "X1b": 3 if a2a else 1}
+
+
+def big_group(eng):
+    """(index, group) of model E's one striped group, the 2^23-row lists."""
+    (gi, g), = [(i, g) for i, g in enumerate(eng.compiled.groups)
+                if g.stacked_rows > eng.config.shard_rows_above]
+    return gi, g
+
+
+def touched_rows(eng, batch):
+    """The stacked rows of the striped group that ``batch`` reads (ids
+    clamped to their caps, offset), sorted, as int64."""
+    import numpy as np
+
+    from recom_tpu_torch.runtime.host_prep import prepare_batch
+
+    gi, g = big_group(eng)
+    ids = prepare_batch(eng.compiled, batch).arrays["groups"][gi]["host_ids"]
+    caps = np.asarray(g.vocab_caps, np.int64)[:, None, None]
+    offs = np.asarray(g.row_offsets, np.int64)[:, None, None]
+    rows = np.minimum(ids.astype(np.int64), caps) + offs
+    return np.unique(rows[ids >= 0])
+
+
+def mesh_train_refs(torch, model, np_params, base) -> dict:
+    """The single-device card Trainer (default config, MESH_TRAIN_OPT) on
+    MESH_TRAIN_STEPS batches of 2048 (``base`` and two ``fresh_batch``es,
+    seeded labels): its losses; step 1's gradients (the striped group's at
+    the rows the batch touches, every other leaf whole); the params after
+    the steps (the striped group's at the rows any batch touched).  The
+    5.37 GB dense gradient never leaves the card."""
+    import numpy as np
+
+    from recom_tpu_torch import EngineConfig, Trainer
+    from recom_tpu_torch.train import dlrm_optimizer
+
+    batches = [base] + [fresh_batch(base, 2048, seed=70 + i)
+                        for i in range(MESH_TRAIN_STEPS - 1)]
+    labels = [np.random.default_rng(80 + i).integers(0, 2, 2048)
+              .astype(np.float32) for i in range(MESH_TRAIN_STEPS)]
+    tr = Trainer(model, EngineConfig(),
+                 optimizer=dlrm_optimizer(**MESH_TRAIN_OPT), params=np_params)
+    eng = tr.engine
+    gi, g = big_group(eng)
+    big = str(g.gid)
+    rows1 = touched_rows(eng, batches[0])
+    idx1 = torch.from_numpy(rows1).to(eng.device)
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    losses = [tr.step(batches[0], labels[0])]
+    params = tr.params
+    grads = {
+        "big": host(params["stacked"][big].grad[idx1]),
+        "stacked": {gid: host(p.grad) for gid, p in params["stacked"].items()
+                    if gid != big},
+        "tower": {key: [{wb: host(l[wb].grad) for wb in ("w", "b")}
+                        for l in layers]
+                  for key, layers in params["tower"].items()},
+    }
+    for b, lab in zip(batches[1:], labels[1:]):
+        losses.append(tr.step(b, lab))
+    rows = np.unique(np.concatenate([touched_rows(eng, b) for b in batches]))
+    idx = torch.from_numpy(rows).to(eng.device)
+    final = {
+        "big": host(params["stacked"][big][idx]),
+        "stacked": {gid: host(p) for gid, p in params["stacked"].items()
+                    if gid != big},
+        "tower": {key: [{wb: host(l[wb]) for wb in ("w", "b")}
+                        for l in layers]
+                  for key, layers in params["tower"].items()},
+    }
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del tr, eng, params, idx, idx1
+    free_engines()
+    return {"batches": batches, "labels": labels, "losses": losses,
+            "big_gid": big, "rows1": rows1, "grads": grads, "rows": rows,
+            "final": final, "peak_gib": peak}
+
+
+def mesh_train_checks(torch, tr, ref, what: str, step: int) -> dict:
+    """The rank's leaves against the single-device references: after step
+    1 its gradients (``step`` 1), after the last step its params.  The
+    striped leaf at the rows the batches touched (atol 1e-5), its other
+    rows +0.0 (gradients, counted) or unchanged (params, 64 rows against
+    the mmap'd tables); a column-split leaf's columns and every replicated
+    leaf whole (gradients rtol 1e-5 / atol 1e-6; params atol 1e-5)."""
+    import numpy as np
+
+    eng = tr.engine
+    m, k = eng._model_split()
+    big = ref["big_gid"]
+    grads = step == 1
+    want = ref["grads"] if grads else ref["final"]
+    rows = ref["rows1"] if grads else ref["rows"]
+    rtol, atol = (1e-5, 1e-6) if grads else (0.0, 1e-5)
+    out = {}
+    for g in eng.compiled.groups:
+        gid = str(g.gid)
+        leaf = tr.params["stacked"][gid]
+        t = leaf.grad if grads else leaf.detach()
+        if gid == big:
+            mine = rows % m == k
+            local = torch.from_numpy(rows[mine] // m).to(t.device)
+            np.testing.assert_allclose(
+                t[local].cpu().numpy(), want["big"][mine], rtol=0.0,
+                atol=1e-5, err_msg=f"{what}: striped group {gid} at its "
+                "touched rows")
+            touched = torch.zeros(t.shape[0], dtype=torch.bool,
+                                  device=t.device)
+            touched[local] = True
+            if grads:
+                nz = (t.view(torch.int32) != 0).any(dim=1)
+                bad = int((nz & ~touched).sum())
+                require(bad == 0, f"{what}: {bad} untouched stripe rows of "
+                        "the gradient are not +0.0")
+                out["stripe_rows_touched"] = int(mine.sum())
+                out["stripe_rows"] = int(t.shape[0])
+            else:
+                free = (~touched).nonzero()[:, 0]
+                pick = free[torch.arange(64, device=t.device)
+                            * (free.numel() - 1) // 63]
+                out["unchanged_rows_checked"] = int(pick.numel())
+                out["sample"] = pick.cpu().numpy()
+            continue
+        w = want["stacked"][gid]
+        if eng.layout(g) == "columns":
+            cw = w.shape[1] // m
+            w = w[:, k * cw:(k + 1) * cw]
+        np.testing.assert_allclose(t.detach().cpu().numpy(), w, rtol=rtol,
+                                   atol=atol, err_msg=f"{what}: group {gid} "
+                                   f"({eng.layout(g)})")
+    for key, layers in tr.params["tower"].items():
+        for i, layer in enumerate(layers):
+            for wb in ("w", "b"):
+                t = layer[wb].grad if grads else layer[wb].detach()
+                np.testing.assert_allclose(
+                    t.cpu().numpy(), want["tower"][key][i][wb], rtol=rtol,
+                    atol=atol, err_msg=f"{what}: tower {key}[{i}].{wb}")
+    return out
+
+
+def stripe_sample_initial(eng, params, sample) -> "np.ndarray":
+    """The initial values of the striped group's local rows ``sample`` of
+    this rank, read from the mmap'd member tables."""
+    import numpy as np
+
+    m, k = eng._model_split()
+    _, g = big_group(eng)
+    out = np.zeros((len(sample), g.dim), np.float32)
+    for j, r in enumerate(np.asarray(sample) * m + k):
+        for mem in g.members:
+            if mem.row_offset <= r < mem.row_offset + mem.vocab_size:
+                out[j] = params["tables"][mem.table][r - mem.row_offset]
+    return out
+
+
+def mesh_train_layout(torch, rank: int, label: str, shape, cfg, gate: str,
+                      mesh, model, params, ref) -> dict:
+    """One training layout on this rank: the mesh Trainer stepped on the
+    reference batches, each step split by host clock (synchronized) into
+    forward, backward, the gradients' all_reduce over "data" and the
+    optimizer; its launches asserted each step; step 1's loss (``gate``)
+    and gradients and the params after the steps held to the single
+    device's; the losses within rtol 1e-5."""
+    import numpy as np
+
+    from recom_tpu_torch import EngineConfig, Trainer
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.train import dlrm_optimizer, param_leaves
+    from recom_tpu_torch.utils.logging import StageTimer
+
+    t = time.perf_counter()
+    tr = Trainer(model, EngineConfig(mesh_shape=shape, **cfg),
+                 optimizer=dlrm_optimizer(**MESH_TRAIN_OPT), params=params,
+                 mesh=mesh)
+    torch.cuda.synchronize()
+    rec = {"build_s": time.perf_counter() - t}
+    want = mesh_train_launches(cfg)
+    mesh.timers = StageTimer()
+    torch.cuda.reset_peak_memory_stats()
+    losses, parts, counts = [], [], []
+    for i, (b, lab) in enumerate(zip(ref["batches"], ref["labels"])):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        prepared = tr.engine.prepare(b)
+        tr.optimizer.zero_grad(set_to_none=True)
+        loss = tr.loss(prepared, lab)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        leaves = param_leaves(tr.params)
+        for p in leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        tr.reduce_grads([p.grad for p in leaves])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        tr.optimizer.step()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        got = {kk: n for kk, n in kernels.launches.items() if n}
+        require(got == want, f"rank {rank} {label} step {i + 1}: launches "
+                f"{got}, expected {want}")
+        counts.append(got)
+        losses.append(float(loss.detach()))
+        parts.append([(t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3,
+                      (t4 - t3) * 1e3, (t4 - t0) * 1e3])
+        if i == 0:
+            rec["grads"] = mesh_train_checks(torch, tr, ref,
+                                             f"rank {rank} {label}", 1)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["collectives"] = {kk: v["p50_ms"]
+                          for kk, v in mesh.timers.summary().items()}
+    what = f"rank {rank} {label}"
+    d_ax = shape[0]
+    if gate == "==" and losses[0] == ref["losses"][0]:
+        rec["loss1"] = "=="
+    else:
+        require(gate != "==" or d_ax > 1, f"{what}: step 1's loss "
+                f"{losses[0]!r} != the single device's {ref['losses'][0]!r}")
+        np.testing.assert_allclose(losses[0], ref["losses"][0], rtol=1e-6,
+                                   err_msg=what)
+        rec["loss1"] = (f"rtol 1e-6 (differs by "
+                        f"{abs(losses[0] - ref['losses'][0]):.3g})")
+        if gate == "==":
+            log(f"FINDING {what}: step 1's loss sums {d_ax} data slices, "
+                f"{losses[0]!r} against {ref['losses'][0]!r}")
+    np.testing.assert_allclose(losses, ref["losses"], rtol=1e-5,
+                               err_msg=f"{what}: losses")
+    fin = mesh_train_checks(torch, tr, ref, what, MESH_TRAIN_STEPS)
+    leaf = tr.params["stacked"][ref["big_gid"]].detach()
+    sample = torch.from_numpy(fin.pop("sample")).to(leaf.device)
+    require(np.array_equal(leaf[sample].cpu().numpy(), stripe_sample_initial(
+        tr.engine, params, sample.cpu().numpy())),
+        f"{what}: untouched stripe rows changed")
+    rec.update(losses=losses, launches=counts[-1], params=fin,
+               step_ms={name: statistics.median(p[j] for p in parts)
+                        for j, name in enumerate(
+                            ("forward", "backward", "grad_all_reduce",
+                             "optimizer", "step"))})
+    return rec, tr
+
+
+def x1b_role(torch, label: str, args, launches: str) -> dict:
+    """X1b in one mesh role (``args``: one ``groups_pooled_grad`` group at
+    the path's shapes): checked by ``check_backward`` (two runs, the second
+    into NaN-filled outputs, give the same bits; those equal the wrapper on
+    CPU copies; within 1e-5 of the terms' magnitudes of the plain version on
+    the card), timed warm and with L2 flushed, beside the plain version on
+    the card, ``torch.zeros`` + ``index_add_`` of precomputed contributions
+    (the library yardstick) and its bound (the cotangent, ids, weights and
+    the dense output, each once)."""
+    from recom_tpu_torch.ops.lookup_gather import (
+        group_pooled_grad_plain,
+        groups_pooled_grad,
+        slot_contributions,
+    )
+
+    g, num_rows, ids = args[0], args[1], args[2]
+    weights = args[5] if len(args) > 5 else None
+    d = g.shape[2]
+    fn = lambda *a: groups_pooled_grad([a])[0]
+    mag = (g.abs(),) + tuple(args[1:5]) + (
+        None if weights is None else weights.abs(),) + tuple(args[6:])
+    into = lambda a: groups_pooled_grad([a], out=[torch.full(
+        (num_rows, d), float("nan"), device=g.device)])[0]
+    err = check_backward(torch, f"X1b as {label}", fn,
+                         group_pooled_grad_plain, args, mag, into)
+    rows, contrib = slot_contributions(g, ids, *args[3:])
+    lib_fn = lambda: torch.zeros((num_rows, d), device=g.device).index_add_(
+        0, rows, contrib)
+    kern = lambda: fn(*args)
+    ms = time_ms(torch, kern)
+    cold = time_cold_ms(torch, kern)
+    plain_ms = time_ms(torch, lambda: group_pooled_grad_plain(*args),
+                       iters=5, warmup=1)
+    lib = time_ms(torch, lib_fn)
+    nbytes = (num_rows * d + g.numel() + ids.numel()
+              + (0 if weights is None else weights.numel())) * 4
+    bms, by = bound_ms(nbytes, 2.0 * contrib.numel())
+    shape = (f"g [{g.shape[0]}, {g.shape[1]}, {d}], ids {list(ids.shape)} -> "
+             f"[{num_rows}, {d}]")
+    log(f"  X1b as {label} ({shape}): {ms:.4f} ms warm, {cold:.4f} ms cold "
+        f"L2, plain {plain_ms:.4f} ms, library (torch.zeros + index_add_) "
+        f"{lib:.4f} ms, bound {bms:.4f} ms ({by}, share {bms / ms:.0%}); "
+        f"launches {launches}; == plain on CPU copies, max abs diff from "
+        f"the card's plain version {err:.3g}")
+    return dict(name=label, ms=ms, cold_ms=cold, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib, max_abs_err=err,
+                share=bms / ms, shape=shape, launches=launches)
+
+
+def x1b_mesh_roles(torch, tr, batch, rank: int) -> list:
+    """X1b's three mesh roles at model E's shapes on this layout (every
+    rank routes and exchanges, collectively; rank 0 checks and times, the
+    others wait): (a) the psum path's partial sums on the stripe, (b) the
+    exchange's pool into the receive buffer, (c) the owner's gather,
+    scattered into the stripe; each with a random cotangent."""
+    import torch.distributed as dist
+
+    from recom_tpu_torch.ops.lookup_gather import shared_rows_consts
+    from recom_tpu_torch.parallel.all_to_all_lookup import (
+        a2a_exchange,
+        a2a_route,
+        pool_args,
+    )
+    from recom_tpu_torch.parallel.sharded_lookup import psum_partial_args
+
+    eng = tr.engine
+    mesh = eng.mesh
+    m, k = eng._model_split()
+    gi, g = big_group(eng)
+    c = eng._consts[g.gid]
+    table = tr.params["stacked"][str(g.gid)].detach()
+    rows = table.shape[0]
+    chunks = eng.config.a2a_chunks
+    with torch.no_grad():
+        arrays = eng.to_device(eng.prepare(batch))
+        ids, weights = eng.group_ids(g, arrays["groups"][gi])
+        route = a2a_route(ids, c["row_offsets"], rows, m, k,
+                          eng.config.a2a_capacity_factor, True, c["caps"])
+        recv = mesh.all_to_all(route["send"], "model")
+        buf = a2a_exchange(mesh, table, route, chunks)
+        torch.cuda.synchronize()
+    out = []
+    if rank == 0:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        rand = lambda *s: torch.randn(s, device="cuda", generator=gen)
+        pa, _ = psum_partial_args(table, ids, c["row_offsets"], m, k,
+                                  weights, c["caps"])
+        bp, cc = ids.shape[1], ids.shape[0]
+        out.append(x1b_role(torch, "psum partial (stripe)", (
+            rand(bp, cc, g.dim), rows) + tuple(pa[1:]),
+            "0 more: it joins the gather groups' launch (X1b 1 a step)"))
+        po = pool_args(buf, route, m, chunks, c["codes"], weights,
+                       c["weighted"], k)
+        b_my = po[1].shape[1]
+        out.append(x1b_role(torch, "a2a pool (receive buffer)", (
+            rand(b_my, cc, g.dim), buf.shape[0]) + tuple(po[1:]),
+            "1 more (X1b 3 a step)"))
+        zero, no_cap, flags = shared_rows_consts(1, "cuda")
+        n = recv.numel()
+        out.append(x1b_role(torch, "owner scatter (stripe)", (
+            rand(n, 1, g.dim), rows, recv.reshape(1, n, 1), zero, zero,
+            None, flags, no_cap), "1 more (X1b 3 a step)"))
+    dist.barrier()
+    return out
+
+
+def x1b_mesh_edges(torch) -> None:
+    """X1b in its three mesh roles against its plain version on edge inputs
+    (``check_backward``): the owner's scatter with every source rank's ids
+    on one stripe row, row 0 of unused slots, heavy duplicates; the pool
+    with pads, duplicate buffer rows (the dedup), entries at the zero row,
+    SUM / MEAN / SQRTN, weights; the psum partials with other ranks' ids
+    masked; stripes under and over one sparse range, d 3, 8, 32."""
+    import numpy as np
+
+    from recom_tpu_torch.ops import lookup_gather as lg
+    from recom_tpu_torch.ops.lookup_gather import (
+        group_pooled_grad_plain,
+        groups_pooled_grad,
+        shared_rows_consts,
+    )
+
+    dev = torch.device("cuda")
+    fn = lambda *a: groups_pooled_grad([a])[0]
+    n = 0
+    for seed, (rows, d) in enumerate(((300, 3), (50_000, 8), (70_000, 32))):
+        rng = np.random.default_rng(200 + seed)
+        t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        # (c): 2 source ranks x cap 96; half the slots ask one hot row,
+        # some ask row 0, some are unfilled (-1), the rest heavy duplicates
+        recv = rng.integers(0, 7, 192).astype(np.int32) * (rows // 7)
+        recv[::2] = rows // 3
+        recv[-30:-20] = 0
+        recv[-20:] = -1
+        zero, no_cap, flags = shared_rows_consts(1, "cuda")
+        g = rng.standard_normal((192, 1, d)).astype(np.float32)
+        cases = [(t(g), rows, t(recv.reshape(1, 192, 1)), zero, zero, None,
+                  flags, no_cap)]
+        # (b): pool positions into [m * cap + 1] rows, pads, duplicates,
+        # the zero row; 3 columns SUM / MEAN / SQRTN, weighted; the last
+        # buffer has 70 001 rows, 3 members of dense tiles
+        c, ll = 3, 5
+        b, buf_rows = (40, 2 * 64 + 1) if seed < 2 else (1200, 70_001)
+        pos = rng.integers(0, buf_rows // 6, (c, b, ll)).astype(np.int32)
+        pos[rng.random(pos.shape) < 0.25] = -1
+        pos[:, ::7] = buf_rows - 1
+        pos[:, :2] = -1
+        w = rng.random((c, b, ll)).astype(np.float32)
+        z3, nc3, f3 = shared_rows_consts(c, "cuda")
+        gb = rng.standard_normal((b, c, d)).astype(np.float32)
+        for weights in (None, t(w)):
+            cases.append((t(gb), buf_rows, t(pos), z3,
+                          t(np.arange(c, dtype=np.int32)), weights,
+                          t(np.array([1, 0, 1], np.uint8)), nc3))
+        # (a): the stripe's local ids, another rank's masked to -1
+        local = rng.integers(0, rows, (c, b, ll)).astype(np.int32)
+        local[rng.random(local.shape) < 0.5] = -1
+        local[:, 3] = rows - 1
+        cases.append((t(gb), rows, t(local), z3, z3, t(w), f3, nc3))
+        require(lg.shared_rows_members(buf_rows, pos.size) == (
+            3 if seed == 2 else 1), "the buffer's members")
+        for args in cases:
+            w_ = args[5]
+            mag = (args[0].abs(),) + tuple(args[1:5]) + (
+                None if w_ is None else w_.abs(),) + tuple(args[6:])
+            into = lambda a: groups_pooled_grad([a], out=[torch.full(
+                (a[1], a[0].shape[2]), float("nan"), device=dev)])[0]
+            check_backward(torch, f"X1b mesh edge case {seed}.{n}", fn,
+                           group_pooled_grad_plain, args, mag, into)
+            n += 1
+    log(f"X1b mesh roles: {n} edge cases (owner scatter with one hot row "
+        "from both source ranks, row 0 and unfilled slots; pool with pads, "
+        "duplicate rows, the zero row, SUM / MEAN / SQRTN, weights, a 70 001-"
+        "row buffer in 3 dense members; psum partials with masked ids; "
+        "stripes of 300 / 50 000 / 70 000 rows, d 3 / 8 / 32) == the plain "
+        "version on CPU copies, twice, into NaN-filled outputs")
+
+
+def mesh_train_extras(torch, rank: int, world: int) -> dict:
+    """The mesh tools and entry point in this world, on the card over
+    gloo at small sizes: a world of 2 runs ``tools.scaling.sweep`` (model
+    axes 1 and 2, both comms); a world of 4 ``entry.dryrun_multichip(4)``
+    and ``tools.train_multi.run`` for 4 steps on (2, 2)."""
+    from recom_tpu_torch import entry
+    from recom_tpu_torch.tools import scaling, train_multi
+
+    out = {}
+    if world == 2:
+        for comm in ("all_to_all", "psum"):
+            out[f"scaling_{comm}"] = scaling.sweep(
+                rows_per_shard=1 << 16, dim=32, batch=2048, n_columns=5,
+                rowlen=12, iters=5, comm=comm, mesh_sizes=[1, 2], chunks=2,
+                device="cuda:0", backend="gloo")
+    else:
+        out["dryrun"] = entry.dryrun_multichip(4, device="cuda:0",
+                                               backend="gloo")
+        out["train_multi"] = train_multi.run(
+            steps=4, batch=256, lr=1e-3, mesh=(2, 2), eval_n=512,
+            device="cuda:0", backend="gloo")
+    return out
+
+
 def mesh_rank(rank: int, world: int, store: str, path: str, outq) -> None:
     """One rank of a mesh world: join the gloo group through ``store``,
     run ``mesh_rank_work`` and put (rank, ok, result or traceback) on
@@ -3842,7 +4348,12 @@ def mesh_rank_work(torch, rank: int, world: int, path: str) -> dict:
     results; launch counts asserted; the device forward and each
     collective timed (gloo through the host, one shared card).  On the
     main layout also the overflow policies, the updates and X1's mesh
-    roles.  Returns the records this rank measured."""
+    roles.  Then every training layout of ``MESH_TRAIN[world]``
+    (``mesh_train_layout``; X1b's mesh roles on the first of the world of
+    2) and the world's tools (``mesh_train_extras``).  Returns the records
+    this rank measured."""
+    import os
+
     import torch.distributed as dist
 
     from recom_tpu_torch import EngineConfig
@@ -3901,6 +4412,28 @@ def mesh_rank_work(torch, rank: int, world: int, path: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         dist.barrier()
+    import pickle
+
+    with open(os.path.join(path, "train.pkl"), "rb") as f:
+        tref = pickle.load(f)
+    out["train"] = {}
+    for label, shape, cfg, gate in MESH_TRAIN[world]:
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, backend="gloo", device="cuda:0")
+        rec, tr = mesh_train_layout(torch, rank, label, shape, cfg, gate,
+                                    meshes[shape], model, params, tref)
+        if label == MESH_TRAIN[2][0][0]:
+            tr.optimizer.zero_grad(set_to_none=True)
+            rec["x1b_roles"] = x1b_mesh_roles(torch, tr, tref["batches"][0],
+                                              rank)
+        out["train"][label] = rec
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    t = time.perf_counter()
+    out["extras"] = mesh_train_extras(torch, rank, world)
+    out["extras_s"] = time.perf_counter() - t
     return out
 
 
@@ -4042,14 +4575,21 @@ def run_mesh_world(world: int, path: str) -> list:
     for p in procs:
         p.start()
     got = {}
+    deadline = time.monotonic() + MESH_TIMEOUT_S
     try:
         while len(got) < world:
             try:
-                rank, ok, res = outq.get(timeout=MESH_TIMEOUT_S)
+                rank, ok, res = outq.get(timeout=5)
             except queue.Empty:
-                raise RuntimeError(f"chip_smoke: mesh world {world}: ranks "
-                                   f"{sorted(got)} answered in "
-                                   f"{MESH_TIMEOUT_S} s")
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and not p.is_alive()]
+                if dead or time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"chip_smoke: mesh world {world}: ranks "
+                        f"{sorted(got)} answered, ranks {dead} ended "
+                        f"without an answer (exit codes "
+                        f"{[procs[r].exitcode for r in dead]})")
+                continue
             if not ok:
                 raise RuntimeError(f"chip_smoke: mesh world {world}, rank "
                                    f"{rank} failed:\n{res}")
@@ -4064,10 +4604,11 @@ def run_mesh_world(world: int, path: str) -> list:
 
 
 def mesh_phases(torch, model, np_params, served) -> dict:
-    """Model E served on meshes of ranks that share the one card over gloo
-    (worlds of 2 and 4; ``MESH_WORLDS``), each layout held to the
-    single-device Engine on the same params and batches.  Returns each
-    kernel's launches per rank and X1's mesh-role records."""
+    """Model E served and trained on meshes of ranks that share the one
+    card over gloo (worlds of 2 and 4; ``MESH_WORLDS``, ``MESH_TRAIN``),
+    each layout held to the single-device Engine or Trainer on the same
+    params and batches.  Returns each kernel's launches per rank (a
+    predict, a training step) and X1's and X1b's mesh-role records."""
     import shutil
     import tempfile
 
@@ -4104,9 +4645,20 @@ def mesh_phases(torch, model, np_params, served) -> dict:
     refs["updates"] = updates
     del eng
     free_engines()
+    x1b_mesh_edges(torch)
+    t_ref = time.perf_counter()
+    tref = mesh_train_refs(torch, model, np_params, batches[2048])
+    log(f"mesh training references (the single-device card Trainer, "
+        f"{MESH_TRAIN_STEPS} steps at 2048, peak {tref['peak_gib']:.2f} GiB):"
+        f" {time.perf_counter() - t_ref:.1f} s; losses {tref['losses']}")
     path = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     try:
         save_mesh_inputs(np_params, batches, refs, path)
+        import os
+        import pickle
+
+        with open(os.path.join(path, "train.pkl"), "wb") as f:
+            pickle.dump(tref, f)
         log(f"mesh inputs (single-device references, params as .npy): "
             f"{time.perf_counter() - t:.1f} s")
         results = {}
@@ -4144,10 +4696,38 @@ def mesh_phases(torch, model, np_params, served) -> dict:
         log(f"mesh main layout, rank {r}: exchange at 2048 {res['exchange']}; "
             f"overflow at capacity 0.01: {res['overflow']}; updates "
             f"{res['updates']} read back through predict and export_params")
-    log(f"mesh phases: every layout held to the single-device Engine; these "
-        f"are gloo-on-one-card times ({card}), no yardstick for NCCL over "
-        "NVLink")
-    return {"launches": launches, "x1_roles": main[0]["x1_roles"]}
+    train_launches = {}
+    for world, ranks in results.items():
+        for label, shape, cfg, gate in MESH_TRAIN[world]:
+            for r, res in enumerate(ranks):
+                rec = res["train"][label]
+                log(f"mesh {label} {shape}, rank {r}/{world}: build "
+                    f"{rec['build_s']:.1f} s, peak {rec['peak_gib']:.2f} GiB;"
+                    f" step 1 loss {rec['loss1']} the single device's, "
+                    f"gradients held ({rec['grads']}); losses "
+                    f"{rec['losses']} within rtol 1e-5; params after "
+                    f"{MESH_TRAIN_STEPS} steps held ({rec['params']}); "
+                    f"launches {rec['launches']} a step")
+                log("  step p50 ms (host clock, synchronized; gloo through "
+                    f"the host on one shared card, {card}): "
+                    + ", ".join(f"{k} {v:.3f}"
+                                for k, v in rec["step_ms"].items())
+                    + "; collectives p50 ms: "
+                    + ", ".join(f"{k} {v}" for k, v in sorted(
+                        rec["collectives"].items())))
+                for kid in KERNEL_META:
+                    train_launches.setdefault(kid, {}).setdefault(
+                        f"{label} {shape[0]}x{shape[1]}", []).append(
+                        rec["launches"].get(kid, 0))
+        log(f"mesh world of {world}: tools and entry "
+            f"({ranks[0]['extras_s']:.1f} s): "
+            + json.dumps(ranks[0]["extras"], default=str))
+    x1b_roles = results[2][0]["train"][MESH_TRAIN[2][0][0]]["x1b_roles"]
+    log(f"mesh phases: every layout held to the single-device Engine and "
+        f"Trainer; these are gloo-on-one-card times ({card}), no yardstick "
+        "for NCCL over NVLink")
+    return {"launches": launches, "x1_roles": main[0]["x1_roles"],
+            "train_launches": train_launches, "x1b_roles": x1b_roles}
 
 
 def main() -> int:
@@ -4280,7 +4860,10 @@ def main() -> int:
             # model E on the mesh layouts: launches of one predict at 2048
             # on each rank, and X1's mesh roles (psum partial, a2a pool)
             "mesh": {"launches_per_rank": mesh["launches"][kid],
+                     "train_launches_per_rank": mesh["train_launches"][kid],
                      **({"roles": mesh["x1_roles"]} if kid == "X1"
+                        else {}),
+                     **({"train_roles": mesh["x1b_roles"]} if kid == "X1b"
                         else {})},
         }
         for kid in KERNEL_META

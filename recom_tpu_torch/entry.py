@@ -4,13 +4,14 @@ entry(device=None)  -> (forward fn, (params, arrays)) on the flagship model
                        (model E's columns, large tables at 2^16 rows, batch
                        128): ``fn(params, arrays)`` is the port's
                        ``Engine._forward`` output on the card.
-dryrun_multichip(n, device=None)
-                    -> n == 1: the JAX dryrun's checks on one device: a tiny
-                       model with every column type, its pooled outputs
-                       ``==`` the oracle before training, 9 ``Trainer``
-                       steps on one batch with the loss falling, and the K1
+dryrun_multichip(n, device=None, backend=None)
+                    -> the JAX dryrun's checks: a tiny model with every
+                       column type, its pooled outputs ``==`` the oracle
+                       before training, 9 ``Trainer`` steps on one batch
+                       with the loss falling, and the K1
                        (``use_pallas=True``) and device-hash arms ``==`` the
-                       oracle.  n > 1 is a mesh: ROADMAP Queue 1 item 13.
+                       oracle; on one device (n == 1) or, called on every
+                       rank of a world of n ranks, on a mesh of them.
 """
 
 from __future__ import annotations
@@ -66,15 +67,20 @@ def entry(device=None):
     return fn, args
 
 
-def _unported_mesh(n_devices: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"dryrun_multichip({n_devices}): a mesh of more than one device is "
-        "not ported to recom_tpu_torch yet (ROADMAP.md Queue 1 item 13)")
-
-
-def dryrun_multichip(n_devices: int, device=None) -> dict:
-    """The JAX dryrun's checks on one device (``n_devices == 1``); raises
-    NotImplementedError naming item 13 for more.  Returns what it saw."""
+def dryrun_multichip(n_devices: int, device=None, backend=None) -> dict:
+    """The JAX dryrun's checks (``__graft_entry__.py:42-130``) on one
+    device (``n_devices == 1``) or on a ("data", "model") mesh of
+    ``n_devices`` ranks: every rank of an initialised torch.distributed
+    world of at least that many ranks calls it alike (``device`` and
+    ``backend`` as ``make_mesh`` takes them; ranks share a card over
+    ``backend="gloo"``).  The mesh is ``(n / 2, 2)`` for an even n, else
+    ``(n, 1)``; the 4096-row list table is striped (``shard_rows_above``
+    2048) and looked up by the all-to-all exchange.  Pooled outputs ``==``
+    the oracle before training, 9 ``Trainer`` steps on one batch with the
+    loss falling, and the K1 (``use_pallas=True``) and device-hash arms
+    ``==`` the oracle.  On a mesh the wire is off, in both packages, so the
+    device-hash arm is the same engine with ``device_hash=True``.  Returns
+    what it saw."""
     import numpy as np
 
     from recom_tpu_torch import Engine, EngineConfig
@@ -84,15 +90,36 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     from recom_tpu_torch.runtime.checkpoint import export_params
     from recom_tpu_torch.train import Trainer
 
-    if n_devices != 1:
-        raise _unported_mesh(n_devices)
+    mesh, mesh_cfg = None, {}
+    model_axis, data_axis = 1, 1
+    if n_devices > 1:
+        import torch.distributed as dist
+
+        from recom_tpu_torch.parallel import make_mesh
+
+        if not dist.is_initialized() or dist.get_world_size() < n_devices:
+            raise RuntimeError(
+                f"dryrun_multichip({n_devices}): call it on every rank of "
+                f"a torch.distributed world of {n_devices} ranks "
+                "(parallel.multihost.init)")
+        model_axis = 2 if n_devices % 2 == 0 else 1
+        data_axis = n_devices // model_axis
+        mesh = make_mesh((data_axis, model_axis), backend=backend,
+                         device=device)
+        device = mesh.device
+        mesh_cfg = dict(mesh_shape=(data_axis, model_axis),
+                        shard_rows_above=2048,  # stripe the 4096-row table
+                        shard_comm="all_to_all")  # bit-exact (psum: 1e-6)
     # tiny model with every column type
     model = make_dlrm_model(
         4, 2, 2, 2, 1, 4, [8], [16], name="dryrun", large_rows=4096
     )
-    bs = 8
-    tr = Trainer(model, EngineConfig(batch_buckets=(bs,), use_pallas=False),
-                 device=device)
+    bs = data_axis * 8
+    tr = Trainer(model, EngineConfig(batch_buckets=(bs,), use_pallas=False,
+                                     **mesh_cfg),
+                 device=device, mesh=mesh)
+    if model_axis > 1 and not tr.engine._sharded_gids:
+        raise AssertionError("expected a row-sharded table group")
     batch = make_random_batch(model, bs, seed=0)
 
     # pooled outputs bit-exact against the NumPy oracle before any training
@@ -121,8 +148,9 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
         ("pallas", dict(use_pallas=True)),
         ("dev_hash", dict(use_pallas=False, device_hash=True)),
     ):
-        eng2 = Engine(model, EngineConfig(batch_buckets=(bs,), **kw),
-                      params=params0, device=tr.engine.device)
+        eng2 = Engine(model, EngineConfig(batch_buckets=(bs,), **kw,
+                                          **mesh_cfg),
+                      params=params0, device=tr.engine.device, mesh=mesh)
         got2 = eng2.predict(batch, return_pooled=True)["pooled"]
         for name, want in ref.items():
             np.testing.assert_array_equal(
@@ -132,17 +160,22 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
 
     summary = {
         "device": str(tr.engine.device),
+        "mesh": (data_axis, model_axis),
+        "sharded_groups": sorted(tr.engine._sharded_gids),
         "pooled_vs_oracle": "bit-exact",
         "loss_first": float(loss1),
         "loss_last": float(losses[-1]),
         "steps": 9,
         "arms": arm_results,
     }
-    print(
-        f"dryrun_multichip OK on {summary['device']}: pooled bit-exact vs "
-        f"oracle, loss {loss1:.4f} -> {losses[-1]:.4f} over 9 steps; arms "
-        "bit-exact: " + ", ".join(f"{k}={v}" for k, v in arm_results.items())
-    )
+    if mesh is None or mesh.rank == 0:
+        print(
+            f"dryrun_multichip OK on {summary['device']}: mesh="
+            f"({data_axis}x{model_axis}), sharded_groups="
+            f"{summary['sharded_groups']}, pooled bit-exact vs oracle, loss "
+            f"{loss1:.4f} -> {losses[-1]:.4f} over 9 steps; arms bit-exact: "
+            + ", ".join(f"{k}={v}" for k, v in arm_results.items())
+        )
     return summary
 
 

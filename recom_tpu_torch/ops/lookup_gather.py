@@ -512,6 +512,44 @@ def group_pooled(
 # ---------------------------------------------------------------------------
 
 
+def combiner_cotangent(
+    g: torch.Tensor,                # [Bp, C, d] cotangent of the pooled
+    ids: torch.Tensor,              # [C, Bp, L] int32, clamped, -1 = missing
+    combiner_code,                  # [C]
+    weights: Optional[torch.Tensor] = None,   # [C, Bp, L] f32
+    weighted_cols=None,             # scalar or [C] bool
+) -> torch.Tensor:
+    """[C, Bp, d]: the cotangent each slot of a bag takes before its
+    weight: ``g`` as is under SUM; under MEAN / SQRTN scaled as the
+    combiner divided (times the rounded reciprocal, or divided, by the
+    bag's denominator summed in slot order), 0 where the denominator is
+    not > 0."""
+    if isinstance(combiner_code, torch.Tensor):
+        combiner_code = combiner_code.cpu().numpy()
+    combiner_code = np.asarray(combiner_code)
+    dacc = g.transpose(0, 1)                                 # [C, Bp, d]
+    need_sqrtn = bool((combiner_code == 2).any())
+    if not (need_sqrtn or bool((combiner_code == 1).any())):
+        return dacc
+    c, _, l = ids.shape
+    mask = ids >= 0
+    w = mask.to(torch.float32) if weights is None else weights * mask
+    wsum = w[:, :, 0] * 0.0
+    w2sum = w[:, :, 0] * 0.0
+    for k in range(l):
+        wk = w[:, :, k]
+        wsum = wsum + wk
+        w2sum = w2sum + (wk * wk if need_sqrtn else wk)
+    nz, safe = combiner_denominators(wsum, w2sum, combiner_code)
+    safe = safe[:, :, None]
+    dacc = torch.where(nz[:, :, None], dacc, torch.zeros_like(dacc))
+    wmask = torch.as_tensor(
+        _weighted_mask(weighted_cols, weights, c), device=ids.device
+    )[:, None, None]
+    return torch.where(wmask, dacc / safe,
+                       dacc * (torch.ones_like(safe) / safe))
+
+
 def slot_contributions(
     g: torch.Tensor,                # [Bp, C, d] cotangent of the pooled
     ids: torch.Tensor,              # [C, Bp, L] int32, -1 = missing/pad
@@ -526,33 +564,13 @@ def slot_contributions(
     cotangent scaled as the combiner divided, times the slot's weight.
     The per-column arguments may be host arrays or device tensors."""
     dev = ids.device
-    if isinstance(combiner_code, torch.Tensor):
-        combiner_code = combiner_code.cpu().numpy()
-    combiner_code = np.asarray(combiner_code)
     if vocab_caps is not None:
         ids = torch.minimum(
             ids, as_device(vocab_caps, torch.int32, dev)[:, None, None]
         )
-    c, bp, l = ids.shape
     mask = ids >= 0
     w = mask.to(torch.float32) if weights is None else weights * mask
-    dacc = g.transpose(0, 1)                                 # [C, Bp, d]
-    need_sqrtn = bool((combiner_code == 2).any())
-    if need_sqrtn or bool((combiner_code == 1).any()):
-        wsum = w[:, :, 0] * 0.0
-        w2sum = w[:, :, 0] * 0.0
-        for k in range(l):
-            wk = w[:, :, k]
-            wsum = wsum + wk
-            w2sum = w2sum + (wk * wk if need_sqrtn else wk)
-        nz, safe = combiner_denominators(wsum, w2sum, combiner_code)
-        safe = safe[:, :, None]
-        dacc = torch.where(nz[:, :, None], dacc, torch.zeros_like(dacc))
-        wmask = torch.as_tensor(
-            _weighted_mask(weighted_cols, weights, c), device=dev
-        )[:, None, None]
-        dacc = torch.where(wmask, dacc / safe,
-                           dacc * (torch.ones_like(safe) / safe))
+    dacc = combiner_cotangent(g, ids, combiner_code, weights, weighted_cols)
     contrib = dacc[:, :, None, :] * w[:, :, :, None]         # [C, Bp, L, d]
     offs = as_device(row_offsets, torch.int64, dev)[:, None, None]
     return (ids.long() + offs)[mask], contrib[mask]
@@ -647,6 +665,10 @@ def x1b_plan(num_rows: int, d: int, row_offsets,
                 f"X1b: member {m}'s rows start at {lo}, inside another "
                 f"member's rows or past R = {num_rows}")
         extent = end - lo
+        if extent == 0 and k + 1 < c:
+            raise ValueError(
+                f"X1b: members {m} and {order[k + 1]} share the rows from "
+                f"{lo} (shared_rows_grad takes such a group)")
         if caps[m] < np.iinfo(np.int32).max:
             if caps[m] + 1 > extent:
                 raise ValueError(
@@ -802,6 +824,87 @@ def _x1b_group(gi_args, out=None):
     return desc, key, out, (g, ids, weights, caps, codes, wcols)
 
 
+@functools.lru_cache(maxsize=None)
+def shared_rows_consts(c: int, device: str):
+    """(zeros [c] int32, caps [c] int32 max, zeros [c] uint8) on
+    ``device``, made once: the per-column arguments (row offsets and SUM
+    codes; no clamp; the reciprocal flags) of a group whose columns all
+    address one table's rows (the mesh roles: the psum path's partial
+    sums, the exchange's pool, the owner's gather).  The same tensors every
+    call, so X1b's plan and host copies are made once (``_host_array``)."""
+    with torch.inference_mode(False):
+        return (torch.zeros(c, dtype=torch.int32, device=device),
+                torch.full((c,), np.iinfo(np.int32).max, dtype=torch.int32,
+                           device=device),
+                torch.zeros(c, dtype=torch.uint8, device=device))
+
+
+def shares_rows(row_offsets, c: int) -> bool:
+    """Whether two of a group's ``c`` columns start at one row: their rows
+    are not disjoint, as X1b's plan needs them (``x1b_plan``)."""
+    offs = _host_array(row_offsets)
+    return c > 1 and np.unique(np.asarray(offs)).size < c
+
+
+def shared_rows_members(num_rows: int, slots: int) -> int:
+    """Into how many members of X1B_RANGE_ROWS rows ``shared_rows_grad_args``
+    cuts the one column of a group whose columns share ``num_rows`` rows,
+    read by ``slots`` slots: 1 (sparse ranges, or one member of dense
+    tiles) unless the rows are few beside the slots (at most 4 rows a
+    slot: the all-to-all exchange's receive buffer, most of whose rows the
+    pool reads), where sparse ranges would be crowded past their windows;
+    then each member of at most X1B_RANGE_ROWS rows takes dense tiles."""
+    k = -(-num_rows // X1B_RANGE_ROWS)
+    return k if k > 1 and num_rows <= 4 * slots else 1
+
+
+def shared_rows_grad_args(g, num_rows, ids, row_offsets, combiner_code,
+                          weights=None, weighted_cols=None, vocab_caps=None):
+    """The arguments of one group whose columns share rows, rewritten as
+    one SUM column of the same gradient: each id clamped and offset in
+    place (-1 stays), the ``[C, Bp, L]`` slots as ``[1, C * Bp, L]`` (so
+    slot order is kept), and the cotangent scaled by the combiner first
+    (``combiner_cotangent``), ``[C * Bp, 1, d]``.  X1b then sums each row
+    in the same slot order, with the same rounded terms.  Where
+    ``shared_rows_members`` gives k > 1, the column is k members of
+    X1B_RANGE_ROWS rows, each given every slot (its ids shifted to its
+    rows; a slot outside them adds nothing to it)."""
+    dev = ids.device
+    c, bp, l = ids.shape
+    if vocab_caps is not None:
+        ids = torch.minimum(
+            ids, as_device(vocab_caps, torch.int32, dev)[:, None, None])
+    offs = as_device(row_offsets, torch.int32, dev)[:, None, None]
+    ids = torch.where(ids >= 0, ids + offs, torch.full_like(ids, -1))
+    dacc = combiner_cotangent(g, ids, _host_array(combiner_code), weights,
+                              _weighted_mask(weighted_cols, weights, c))
+    k = shared_rows_members(num_rows, ids.numel())
+    dacc = dacc.reshape(c * bp, 1, dacc.shape[2])
+    ids = ids.reshape(1, c * bp, l)
+    if weights is not None:
+        weights = weights.reshape(1, c * bp, l)
+    zero, no_cap, flags = shared_rows_consts(k, str(dev))
+    offs = zero
+    if k > 1:
+        offs = _member_starts(k, str(dev))
+        local = ids - offs[:, None, None]
+        ids = torch.where((ids >= 0) & (local >= 0)
+                          & (local < X1B_RANGE_ROWS), local,
+                          torch.full_like(local, -1))
+        dacc = dacc.expand(-1, k, -1).contiguous()
+        if weights is not None:
+            weights = weights.expand(k, -1, -1).contiguous()
+    return (dacc, num_rows, ids, offs, zero, weights, flags, no_cap)
+
+
+@functools.lru_cache(maxsize=None)
+def _member_starts(k: int, device: str) -> torch.Tensor:
+    """[k] int32: member j's first row, j * X1B_RANGE_ROWS, made once."""
+    with torch.inference_mode(False):
+        return torch.arange(k, dtype=torch.int32, device=device) * \
+            X1B_RANGE_ROWS
+
+
 def groups_pooled_grad(groups, out=None) -> List[torch.Tensor]:
     """d(table) [R, d] f32 of several groups: one argument tuple of
     ``group_pooled_grad`` per group, (g, num_rows, ids, row_offsets,
@@ -809,7 +912,11 @@ def groups_pooled_grad(groups, out=None) -> List[torch.Tensor]:
     device.  CPU tensors take the plain version; on CUDA one launch of
     kernel X1b serves up to X1B_MAX_GROUPS groups, with no sort and no fill:
     the kernel writes every element once, into ``out`` (one [R, d] tensor a
-    group) where given."""
+    group) where given.  A group whose columns share rows (``shares_rows``)
+    is taken as one SUM column (``shared_rows_grad_args``)."""
+    groups = [shared_rows_grad_args(*grp)
+              if shares_rows(grp[3], grp[2].shape[0]) else grp
+              for grp in groups]
     checked = [_x1b_check(*grp) for grp in groups]
     if not checked:
         return []

@@ -1,5 +1,5 @@
-"""Serving on a ("data", "model") mesh of torch.distributed ranks (the
-port of recom_tpu/parallel/)."""
+"""Serving and training on a ("data", "model") mesh of torch.distributed
+ranks (the port of recom_tpu/parallel/)."""
 
 from recom_tpu_torch.parallel.all_to_all_lookup import (  # noqa: F401
     all_to_all_group_pooled,

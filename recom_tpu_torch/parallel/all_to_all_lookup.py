@@ -17,6 +17,16 @@ sharded_lookup.py):
        the table, row offsets 0), bit for bit the single-device pooling
     -> all_gather over the model subgroup rebuilds the data shard's batch
 
+Under autograd (training, recom_tpu/parallel/all_to_all_lookup.py:118-246
+under ``jax.grad``) each step has its transpose: the all_gather's is the
+rank's own slice; X1's pool into the receive buffer backs through X1b
+with the buffer as the table (its columns share the buffer's rows, so
+``groups_pooled_grad`` takes them as one column; the zero row's
+cotangent is dropped); the chunked return is undone chunk by chunk by
+the reverse all_to_all (``_RowsBack``); the owner's gather backs through
+X1b into the stripe (``_OwnerGather``), never through ``index_add_`` or
+``table[idx]``'s autograd.
+
 Which entries overflow depends only on the sorted keys, so the overflow
 count equals the JAX package's on the same batch.  An overflowed entry
 pools as a zero row that still counts in its bag's MEAN / SQRTN divisor,
@@ -45,8 +55,11 @@ from recom_tpu_torch.ops.lookup_gather import (
     as_device,
     gather_rows_f32,
     group_pooled,
+    group_pooled_grad,
+    shared_rows_consts,
 )
 from recom_tpu_torch.ops.quant import QuantizedTable
+from recom_tpu_torch.parallel.mesh import all_gather
 
 
 # Copied from recom_tpu/parallel/all_to_all_lookup.py:47-52.
@@ -84,7 +97,7 @@ def a2a_route(ids: torch.Tensor, row_offsets, shard_rows: int, m: int,
 
     ids: [C, b_loc, L] int32 of the data shard (b_loc % m == 0), clamped
     to ``vocab_caps`` first.  Returns ``send`` [m, cap] int32 (the local
-    stripe rows asked of each owner, 0 in unused slots), ``pos`` [C, b_my,
+    stripe rows asked of each owner, -1 in unused slots), ``pos`` [C, b_my,
     L] int64 (each valid entry's row in the receive buffer, ``m * cap`` =
     the zero row for an overflowed one; -1 for a pad), ``valid`` [C, b_my,
     L], ``overflow`` (the entries whose row is not exchanged, a 0-d int64),
@@ -137,7 +150,7 @@ def a2a_route(ids: torch.Tensor, row_offsets, shard_rows: int, m: int,
     entry_ok = real & rep_ok[:n][seg0]
     overflow = (real & ~entry_ok).sum()
     lin_u = so * cap + urank                          # owner * cap + rank
-    send = torch.zeros(m * cap + 1, dtype=torch.int32, device=dev)
+    send = torch.full((m * cap + 1,), -1, dtype=torch.int32, device=dev)
     send[torch.where(ok_u, lin_u, torch.full_like(lin_u, m * cap))] = (
         sk % shard_rows).to(torch.int32)
     send = send[:m * cap].view(m, cap)
@@ -169,25 +182,94 @@ def chunked_positions(pos: torch.Tensor, m: int, cap: int,
     return torch.where((pos >= 0) & (pos < m * cap), moved, pos)
 
 
+def owner_rows(table, recv: torch.Tensor) -> torch.Tensor:
+    """The rows ``recv`` [n] int32 asks of the owner's stripe, ``[n, d]``
+    f32; a slot no id filled (-1) reads row 0, as JAX's zero-filled
+    ``send_ids`` ask for it (all_to_all_lookup.py:170-174), and its row is
+    never read."""
+    return gather_rows_f32(table, recv.clamp(min=0).long())
+
+
+class _OwnerGather(torch.autograd.Function):
+    """The owner's gather (``owner_rows``).  Backward: X1b scatters the
+    rows' cotangents into the stripe, the received ids taken as one SUM
+    column of L = 1 over ``n`` batch rows (``group_pooled_grad``), so each
+    row's terms add in slot order (the stable sort of
+    csrc/ordered_runs.cuh), with no float atomics.  The unfilled slots (-1)
+    add nothing: JAX adds their +0.0 cotangents to row 0, and X1b, whose
+    sums start at +0.0, gives the same bits either way, without summing
+    tens of thousands of zero terms into one row."""
+
+    @staticmethod
+    def forward(ctx, table, recv):
+        ctx.save_for_backward(recv)
+        ctx.rows = table.shape[0]
+        return owner_rows(table, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        (recv,) = ctx.saved_tensors
+        zero, no_cap, flags = shared_rows_consts(1, str(g.device))
+        return group_pooled_grad(
+            g.contiguous()[:, None, :], ctx.rows, recv.view(1, -1, 1),
+            zero, zero, None, flags, no_cap), None
+
+
+class _RowsBack(torch.autograd.Function):
+    """The rows' return: ``rows`` [m, cap, d] sent back in ``chunks``
+    capacity slices, each received into its own slice of the receive
+    buffer ``[m * cap + 1, d]``, whose last row is zero (the overflowed
+    entries').  Backward: the buffer's cotangent undone chunk by chunk
+    (the inverse of ``chunked_positions``: chunk ``ck`` is the buffer's
+    rows ``[ck m capc, (ck + 1) m capc)``), each slice sent back by the
+    reverse all_to_all; the zero row's cotangent is dropped."""
+
+    @staticmethod
+    def forward(ctx, rows, mesh, axis, chunks):
+        m, cap, d = rows.shape
+        capc = cap // chunks
+        ctx.mesh, ctx.axis, ctx.chunks = mesh, axis, chunks
+        buf = rows.new_empty((m * cap + 1, d))
+        buf[m * cap] = 0.0
+        for ck in range(chunks):
+            part = rows[:, ck * capc:(ck + 1) * capc]
+            view = buf[ck * m * capc:(ck + 1) * m * capc].view(m, capc, d)
+            mesh.all_to_all(part, axis, out=view)
+        return buf
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, chunks = ctx.mesh, ctx.axis, ctx.chunks
+        m = mesh.shape[axis]
+        d = g.shape[1]
+        cap = (g.shape[0] - 1) // m
+        capc = cap // chunks
+        g = g.contiguous()
+        out = g.new_empty((m, cap, d))
+        for ck in range(chunks):
+            part = g[ck * m * capc:(ck + 1) * m * capc].view(m, capc, d)
+            out[:, ck * capc:(ck + 1) * capc] = mesh.all_to_all(part, axis)
+        return out, None, None, None
+
+
 def a2a_exchange(mesh, table, route: Dict[str, torch.Tensor],
                  chunks: int = 1, model_axis: str = "model") -> torch.Tensor:
     """The two exchanges of a routed batch: the ids out, the owners' rows
     (f32) back.  Returns the receive buffer ``[m * cap + 1, d]`` f32, its
-    last row zero, laid out as ``chunked_positions`` says."""
+    last row zero, laid out as ``chunked_positions`` says.  Differentiable
+    in an f32 ``table`` that requires grad (``_OwnerGather``,
+    ``_RowsBack``)."""
     m = mesh.shape[model_axis]
     cap = route["cap"]
     d = _dim_of(table)
     recv = mesh.all_to_all(route["send"], model_axis)            # [m, cap]
-    rows = gather_rows_f32(table, recv.reshape(-1).long()).reshape(m, cap, d)
     chunks = a2a_chunks(cap, chunks)
-    capc = cap // chunks
-    buf = rows.new_empty((m * cap + 1, d))
-    buf[m * cap] = 0.0
-    for ck in range(chunks):
-        part = rows[:, ck * capc:(ck + 1) * capc]
-        view = buf[ck * m * capc:(ck + 1) * m * capc].view(m, capc, d)
-        mesh.all_to_all(part, model_axis, out=view)
-    return buf
+    if isinstance(table, torch.Tensor) and table.requires_grad and \
+            torch.is_grad_enabled():
+        rows = _OwnerGather.apply(table, recv.reshape(-1))
+    else:
+        rows = owner_rows(table, recv.reshape(-1))
+    return _RowsBack.apply(rows.reshape(m, cap, d), mesh, model_axis, chunks)
 
 
 def pool_args(buf: torch.Tensor, route: Dict[str, torch.Tensor], m: int,
@@ -204,9 +286,9 @@ def pool_args(buf: torch.Tensor, route: Dict[str, torch.Tensor], m: int,
     w = None
     if weights is not None:
         w = weights[:, k * b_my:(k + 1) * b_my].contiguous()
-    zeros = torch.zeros(c, dtype=torch.int32, device=pos.device)
+    zeros, no_cap, _ = shared_rows_consts(c, str(pos.device))
     return (buf, pos.to(torch.int32), zeros, combiner_code, w, weighted_cols,
-            torch.full_like(zeros, np.iinfo(np.int32).max))
+            no_cap)
 
 
 def all_to_all_group_pooled(
@@ -235,6 +317,6 @@ def all_to_all_group_pooled(
     buf = a2a_exchange(mesh, table, route, chunks, model_axis)
     mine = group_pooled(*pool_args(buf, route, m, chunks, combiner_code,
                                    weights, weighted_cols, k))
-    pooled = mesh.all_gather(mine, model_axis)
+    pooled = all_gather(mesh, mine, model_axis)
     overflow = mesh.all_reduce(route["overflow"].reshape(1), None)[0]
     return pooled.reshape((-1,) + tuple(mine.shape[1:])), overflow

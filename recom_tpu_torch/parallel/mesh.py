@@ -22,6 +22,17 @@ itself; gloo takes CUDA tensors for the three collectives (torch 2.11 on
 an H100, checked) and stages them through host memory.  Nothing switches
 backend after an error.
 
+Training takes the collectives under autograd through ``psum`` and
+``all_gather`` below, each the eager method where no gradient is asked
+(serving, under ``torch.inference_mode``), and the all-to-all exchange's
+row return through ``all_to_all_lookup._RowsBack``.  Their backwards are
+``shard_map``'s transposes for a result that every rank of the axis
+holds alike: a psum's is the identity (each rank already holds the whole
+cotangent: summing it again would count it ``n`` times), an all_gather's
+the rank's own slice of the cotangent, an all_to_all's the reverse
+all_to_all.  ``Mesh.grad_all_reduce`` sums the gradients of every leaf
+over the "data" axis, never over "model".
+
 Not ported: ``enable_async_collectives``, which sets an XLA flag for the
 TPU's scheduler; NCCL's collectives are asynchronous on their stream
 already.
@@ -163,9 +174,99 @@ class Mesh:
             out, x, group=self.groups[axis]))
         return out
 
+    def barrier(self) -> None:
+        """Wait until every rank of the mesh is here."""
+        dist.barrier(group=self.groups[None])
+
+    def grad_all_reduce(self, tensors: Sequence[torch.Tensor],
+                        axis: str = "data") -> None:
+        """Sum each of ``tensors`` (the leaves' gradients, in the params
+        tree's fixed order) over ``axis``'s ranks, in place: one flat
+        all_reduce of the consecutive tensors that fit ``GRAD_BUCKET_BYTES``
+        together, and a tensor larger than that alone, in its own storage
+        (model E's 2^23-row stripe: no second copy of its 2.68 GB).  Nothing
+        runs where the axis has one rank."""
+        if self.axis_size(axis) == 1:
+            return
+        bucket: list = []
+        size = 0
+
+        def flush():
+            if not bucket:
+                return
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+            self.all_reduce(flat, axis)
+            at = 0
+            for t in bucket:
+                t.copy_(flat[at:at + t.numel()].view_as(t))
+                at += t.numel()
+            bucket.clear()
+
+        for t in tensors:
+            nbytes = t.numel() * t.element_size()
+            if nbytes > GRAD_BUCKET_BYTES and t.is_contiguous():
+                flush()
+                size = 0
+                self.all_reduce(t, axis)
+                continue
+            if size + nbytes > GRAD_BUCKET_BYTES:
+                flush()
+                size = 0
+            bucket.append(t)
+            size += nbytes
+        flush()
+
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank {self.rank} at {self.coords}, "
                 f"{self.device}, {self.backend})")
+
+
+# the largest flat buffer Mesh.grad_all_reduce packs gradients into
+GRAD_BUCKET_BYTES = 256 << 20
+
+
+def _wants_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.index = mesh.axis_index(axis)
+        return mesh.all_gather(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.index], None, None
+
+
+def psum(mesh: Mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``x`` summed over ``axis``'s ranks, a result every rank of the axis
+    holds alike (``jax.lax.psum`` under ``shard_map``).  Under autograd a
+    new tensor whose backward is the identity; otherwise ``Mesh.all_reduce``
+    in place."""
+    if _wants_grad(x):
+        return _Psum.apply(x, mesh, axis)
+    return mesh.all_reduce(x, axis)
+
+
+def all_gather(mesh: Mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``Mesh.all_gather`` over a named axis; under autograd its backward
+    is the rank's own slice of the cotangent (the result is the same on
+    every rank of the axis, and so is its cotangent)."""
+    if _wants_grad(x):
+        return _AllGather.apply(x, mesh, axis)
+    return mesh.all_gather(x, axis)
 
 
 # torch 2.13 names all_gather_into_tensor all_gather_single

@@ -14,12 +14,15 @@ process drives all of its host's devices; here every device is one rank
     only those rows are paged in, so a table never exists whole in one
     rank's memory
   * gather_to_host(): every rank's piece of a result, on every rank
+  * init_from_env() and spawn(): a world from torchrun's environment, or
+    ``n`` local ranks started with that environment (the tools' ``--spawn
+    N``)
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +50,98 @@ def init(coordinator: str, num_processes: int, process_id: int,
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     dist.init_process_group(backend, init_method=coordinator,
                             world_size=num_processes, rank=process_id)
+
+
+def init_from_env(backend: Optional[str] = None) -> None:
+    """Join the default process group from torchrun's environment
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; ``spawn``
+    sets the same); a no-op once a group exists.  Raises where the
+    environment names no world."""
+    if dist.is_initialized():
+        return
+    need = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+    missing = [k for k in need if k not in os.environ]
+    if missing:
+        raise RuntimeError(
+            f"no torch.distributed world: {', '.join(missing)} unset (run "
+            "under torchrun --nproc-per-node N, or pass --spawn N)")
+    init(f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+         int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]), backend)
+
+
+def free_port() -> int:
+    """A TCP port on localhost that is free now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn(argv: Sequence[str], n: int, timeout_s: float = 1200.0):
+    """Run ``python argv...`` as ``n`` local ranks with torchrun's
+    environment (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``,
+    ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` localhost, ``MASTER_PORT`` a free
+    port), and wait for them: [(return code, output)] in rank order.  A
+    rank that has not ended when the first failure is seen, or at the time
+    limit, is killed."""
+    import subprocess
+    import sys
+    import time
+
+    port = free_port()
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable] + list(argv), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    import threading
+
+    outs = [None] * n
+    deadline = time.monotonic() + timeout_s
+    threads = []
+    try:
+        def drain(i):
+            outs[i] = procs[i].communicate()[0].decode(errors="replace")
+
+        threads = [threading.Thread(target=drain, args=(i,))
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        while any(t.is_alive() for t in threads):
+            failed = any(p.poll() not in (None, 0) for p in procs)
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for t in threads:
+            t.join(timeout=30)
+    return [(p.returncode, o or "") for p, o in zip(procs, outs)]
+
+
+def spawn_self(module: str, argv: Sequence[str], device=None) -> str:
+    """A tool's ``--spawn N``: run ``python -m module`` with ``argv`` less
+    its ``--spawn N``, plus ``--backend gloo`` and ``--device`` (default
+    ``cuda:0``: ranks that share one card), as N local ranks
+    (``spawn``).  Returns rank 0's output; a rank that fails raises
+    SystemExit with the end of its output."""
+    argv = list(argv)
+    i = argv.index("--spawn")
+    n = int(argv[i + 1])
+    rest = argv[:i] + argv[i + 2:] + ["--backend", "gloo"]
+    if device is None:
+        rest += ["--device", "cuda:0"]
+    res = spawn(["-m", module] + rest, n)
+    for r, (rc, text) in enumerate(res):
+        if rc != 0:
+            raise SystemExit(f"rank {r} failed (exit {rc}):\n{text[-4000:]}")
+    return res[0][1]
 
 
 def global_mesh(axis_names: Tuple[str, str] = ("data", "model"),

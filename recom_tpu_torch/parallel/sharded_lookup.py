@@ -15,6 +15,11 @@ spread evenly.  The psum path looks it up as:
       -> the combiner divisors (``lookup_gather.apply_combiner_divisors``),
          from the ids and weights every model rank holds
 
+Under autograd (training) the all_reduce is ``mesh.psum``, whose
+backward is the identity (the summed result is the same on every model
+rank, and so is its cotangent); X1b takes the partial sums' backward on
+the stripe; the divisors back through torch.
+
 The all_reduce adds the ranks' partial sums, so where a bag's ids lie on
 several ranks the result may differ from the single-device left-to-right
 sum in the last ulps: within 1e-6, as the JAX package promises
@@ -35,7 +40,9 @@ from recom_tpu_torch.ops.lookup_gather import (
     apply_combiner_divisors,
     as_device,
     group_pooled,
+    shared_rows_consts,
 )
+from recom_tpu_torch.parallel.mesh import psum
 
 
 # Copied from recom_tpu/parallel/sharded_lookup.py:40-50.
@@ -145,14 +152,16 @@ def psum_partial_args(table, ids: torch.Tensor, row_offsets, m: int, k: int,
                       vocab_caps=None):
     """(``group_pooled`` arguments of model rank ``k``'s partial sums,
     valid [C, b, L]): the owned ids on the local stripe, offsets 0, every
-    combiner SUM, no clamp (made on the ids' device: no host copy).  The
-    Engine launches them in one X1 launch with its other gather groups."""
+    combiner SUM, no clamp (``shared_rows_consts``: no host copy).  The
+    Engine launches them in one X1 launch with its other gather groups.
+    Under autograd their backward is X1b on the stripe (its columns share
+    the stripe's rows: ``groups_pooled_grad`` takes them as one column),
+    where an id another rank owns, masked, adds nothing."""
     local, valid = owned_ids(ids, row_offsets, m, k, vocab_caps)
-    zeros = torch.zeros(ids.shape[0], dtype=torch.int32, device=ids.device)
+    zeros, no_cap, flags = shared_rows_consts(ids.shape[0], str(ids.device))
     return (table, local, zeros, zeros,
             None if weights is None else weights.contiguous(),
-            zeros.to(torch.uint8),
-            torch.full_like(zeros, np.iinfo(np.int32).max)), valid
+            flags, no_cap), valid
 
 
 def sharded_group_pooled(
@@ -174,5 +183,5 @@ def sharded_group_pooled(
     k = mesh.axis_index(model_axis)
     args, valid = psum_partial_args(table, ids, row_offsets, m, k, weights,
                                     vocab_caps)
-    total = mesh.all_reduce(group_pooled(*args), model_axis)
+    total = psum(mesh, group_pooled(*args), model_axis)
     return psum_divisors(total, valid, weights, combiner_code, weighted_cols)

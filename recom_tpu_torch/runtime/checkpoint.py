@@ -134,11 +134,15 @@ def export_params(engine, tables=None) -> Dict:
 
 def save_checkpoint(path: str, engine) -> None:
     """Save spec + params under ``path`` (``model_spec.json`` and
-    ``params.npz``)."""
+    ``params.npz``).  On a mesh every rank calls it (the export gathers
+    over the model axis) and the mesh's rank 0 writes."""
+    params = export_params(engine)
+    mesh = getattr(engine, "mesh", None)
+    if mesh is not None and mesh.rank != 0:
+        return
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "model_spec.json"), "w") as f:
         f.write(model_to_json(engine.model))
-    params = export_params(engine)
     flat = {}
     for t, arr in params["tables"].items():
         flat[f"tables/{t}"] = arr

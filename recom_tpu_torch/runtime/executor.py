@@ -23,6 +23,9 @@ is split by columns (X1 on the rank's ``d / m`` columns, then an
 all_gather along d); every other group and the tower are replicated and
 run on the rank's slice of the batch over the "data" axis; the outputs
 are all-gathered over it.  The wire blob is off on a mesh, as in JAX.
+Under autograd (``train.Trainer`` on a mesh) every collective of the
+forward backs through its transpose (``parallel.mesh``), and the output
+the loss takes is the rank's data slice (``_forward(gather=False)``).
 
 Entry points run on CUDA unless the caller names another device; asking for
 CUDA where there is none raises.
@@ -56,6 +59,7 @@ from recom_tpu_torch.parallel.all_to_all_lookup import (
     pool_args,
     table_rows,
 )
+from recom_tpu_torch.parallel.mesh import all_gather, psum
 from recom_tpu_torch.parallel.sharded_lookup import (
     member_stripe,
     psum_divisors,
@@ -822,18 +826,18 @@ class Engine:
                           c["weighted"], k)
                 for buf, c, (_, _, route, w) in zip(bufs, consts, routed)])
             for (slot, _, _, _), p in zip(routed, mine):
-                pooled_list[slot] = self.mesh.all_gather(p, model).flatten(
+                pooled_list[slot] = all_gather(self.mesh, p, model).flatten(
                     0, 1)
             overflow = self.mesh.all_reduce(
                 sum(r["overflow"] for _, _, r, _ in routed).reshape(1),
                 None)[0]
         for slot, g, valid, weights in psums:
-            total = self.mesh.all_reduce(pooled_list[slot], self._axes()[1])
+            total = psum(self.mesh, pooled_list[slot], self._axes()[1])
             pooled_list[slot] = psum_divisors(total, valid, weights,
                                               g.combiner_code, g.weighted_cols)
         for slot in splits:
             # [m, b, C, d/m] -> [b, C, m, d/m] -> [b, C, d]
-            parts = self.mesh.all_gather(pooled_list[slot], self._axes()[1])
+            parts = all_gather(self.mesh, pooled_list[slot], self._axes()[1])
             pooled_list[slot] = parts.permute(1, 2, 0, 3).flatten(2)
         # the concats only once every group has pooled: a mul_column post
         # reads another column's raw pooled output, from any group
@@ -925,13 +929,16 @@ class Engine:
         return out[:bp], front[:bp]
 
     def _forward(self, arrays, signature, mode=(), logits_only: bool = False,
-                 lossless: bool = False):
+                 lossless: bool = False, gather: bool = True):
         """The device forward of one prepared batch (on a mesh, of the
         rank's data slice: ``to_device``), with the whole batch's outputs
-        and, where a group took the all-to-all exchange,
-        ``"a2a_overflow"``.  Differentiable in the device params where they
-        require grad (train.Trainer sets that): every kernel wrapper on the
-        one-device path has its backward kernel."""
+        (``gather=False``: the ``"output"`` of the rank's data slice only,
+        as the mesh Trainer's loss takes it) and, where a group took the
+        all-to-all exchange, ``"a2a_overflow"``.  Differentiable in the
+        device params where they require grad (train.Trainer sets that):
+        every kernel wrapper has its backward kernel, and on a mesh every
+        collective its transpose (``parallel.mesh.psum``, ``all_gather``,
+        ``all_to_all``)."""
         if "blob" in arrays:
             from recom_tpu_torch.runtime.wire import unpack_blob
 
@@ -946,7 +953,7 @@ class Engine:
         )
         out, front = self._tower_forward(arrays["dense"].T, emb_tower,
                                          logits_only)
-        result = {"output": self._gather_batch(out)}
+        result = {"output": self._gather_batch(out) if gather else out}
         if "concat" in mode:
             result["concat"] = self._gather_batch(torch.cat(
                 [front, self._model_order(grouped)], dim=1
@@ -963,7 +970,7 @@ class Engine:
         over the "data" axis); ``x`` itself on one device."""
         if self.mesh is None:
             return x
-        return self.mesh.all_gather(x, self._axes()[0]).flatten(0, 1)
+        return all_gather(self.mesh, x, self._axes()[0]).flatten(0, 1)
 
     def to_device(self, prepared: PreparedBatch) -> Dict:
         """The prepared host arrays as device tensors (``_stage``)."""

@@ -23,7 +23,13 @@ does with N session threads over one TF session.  Each request waits on
 the card (``InFlight.wait``), with no copy of the outputs to the host.
 
 On the card by default; ``--device cpu`` runs every kernel's plain
-version.  ``--mesh`` other than 1x1 is ROADMAP Queue 1 item 13.
+version.  ``--mesh DxM`` serves on a ("data", "model") mesh of D x M
+ranks (recom_tpu/tools/benchmark.py:175-205): every rank runs this tool
+alike, under ``torchrun --nproc-per-node N`` (each rank on its card,
+NCCL), or with ``--spawn N``, which starts the N ranks itself over gloo,
+all on ``--device`` (ranks sharing one card, or the CPU).  Rank 0 prints
+the result.  On a mesh one serving worker dispatches, so that every
+rank's collectives pair in one order.
 """
 
 from __future__ import annotations
@@ -65,16 +71,14 @@ def model_from_name(name: str):
 
 
 def config_for_mesh(mesh):
-    """The EngineConfig for ``--mesh``: a 1x1 mesh is one device; any other
-    shape raises NotImplementedError naming ROADMAP item 13."""
+    """The EngineConfig for ``--mesh``: none or 1x1 is one device, DxM a
+    ("data", "model") mesh of that shape."""
     from recom_tpu_torch import EngineConfig
 
     if mesh:
         shape = tuple(int(x) for x in mesh.split("x"))
         if shape != (1, 1):
-            raise NotImplementedError(
-                f"--mesh {mesh}: multi-device serving is not ported to "
-                "recom_tpu_torch yet (ROADMAP.md Queue 1 item 13)")
+            return EngineConfig(mesh_shape=shape)
     return EngineConfig()
 
 
@@ -143,17 +147,23 @@ def run_benchmark(
     params=None,
     batch_factory=None,
     device=None,
+    mesh=None,
 ) -> Dict:
     """``params``: numpy params (default ``init_model_params``);
     ``batch_factory(seed) -> batch``: the distinct batches of the pools
-    (default ``make_random_batch(model, batch_size, seed)``)."""
+    (default ``make_random_batch(model, batch_size, seed)``); ``mesh``: a
+    ``parallel.Mesh`` for ``config.mesh_shape`` (every rank calls alike;
+    one serving worker)."""
     import torch
 
     from recom_tpu_torch import Engine, EngineConfig
     from recom_tpu_torch.models import make_random_batch
     from recom_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    if mesh is not None and serve_workers != 1:
+        raise ValueError("on a mesh one serving worker dispatches (every "
+                         "rank's collectives must pair in one order)")
     if dev.type == "cuda":
         from recom_tpu_torch.ops import kernels
 
@@ -162,7 +172,8 @@ def run_benchmark(
                                               "recom_tpu_torch_profile")
     make = batch_factory or (
         lambda seed: make_random_batch(model, batch_size, seed=seed))
-    eng = Engine(model, config or EngineConfig(), params=params, device=dev)
+    eng = Engine(model, config or EngineConfig(), params=params,
+                 device=None if mesh is not None else dev, mesh=mesh)
     batches = [make(1000 + w) for w in range(serve_workers)]
 
     mode = ("concat",) if embedding_only else ()
@@ -264,6 +275,8 @@ def run_benchmark(
 
 
 def main(argv=None):
+    import sys
+
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--model", default="micro100",
                     help="micro<N> | E | F | E@<scale> | F@<scale> | criteo")
@@ -274,19 +287,41 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--profile-dir", default=None)
     ap.add_argument("--mesh", default=None,
-                    help="mesh shape, e.g. 1x1 (data x model)")
+                    help="mesh shape, e.g. 2x2 (data x model)")
+    ap.add_argument("--spawn", type=int, default=None,
+                    help="start this many local ranks over gloo, all on "
+                         "--device (default: the ranks of torchrun's "
+                         "environment)")
+    ap.add_argument("--backend", default=None,
+                    help="the mesh's backend (default: NCCL for ranks on "
+                         "cards, gloo on the CPU and under --spawn)")
     ap.add_argument("--sla-ms", type=float, default=None,
                     help="SLA-pressure throughput mode (reference "
                          "benchmark_throughput): raise concurrency until "
                          "p99 exceeds this latency")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
 
     config = config_for_mesh(args.mesh)
+    mesh = None
+    if config.mesh_shape is not None:
+        from recom_tpu_torch.parallel import make_mesh, multihost
+
+        if args.spawn:
+            print(multihost.spawn_self("recom_tpu_torch.tools.benchmark",
+                                       argv, args.device), end="")
+            return None
+        multihost.init_from_env(args.backend)
+        mesh = make_mesh(config.mesh_shape, backend=args.backend,
+                         device=args.device)
     model = model_from_name(args.model)
 
     if args.sla_ms is not None:
+        if mesh is not None:
+            raise SystemExit("--sla-ms raises concurrency: on a mesh one "
+                             "worker dispatches")
         from recom_tpu_torch import Engine
         from recom_tpu_torch.models import make_random_batch
         from recom_tpu_torch.runtime.server import throughput_under_sla
@@ -314,10 +349,19 @@ def main(argv=None):
             profile_dir=args.profile_dir,
             config=config,
             device=args.device,
+            mesh=mesh,
         )
     from recom_tpu_torch.utils.device import card_line, resolve_device
 
-    result["card"] = card_line(resolve_device(args.device))
+    result["card"] = card_line(mesh.device if mesh is not None
+                               else resolve_device(args.device))
+    if mesh is not None:
+        result["mesh"] = list(mesh.shape.values())
+        result["rank"] = mesh.rank
+        result["collectives_p50_ms"] = {
+            k: v["p50_ms"] for k, v in mesh.timers.summary().items()}
+        if mesh.rank != 0:
+            return result
     print(json.dumps(result, indent=1))
     return result
 

@@ -22,6 +22,12 @@ package.
 
     >>> tr = Trainer(make_model_e(), EngineConfig(), optimizer=dlrm_optimizer())
     >>> loss = tr.step(raw_batch, labels)
+
+On a mesh (``EngineConfig(mesh_shape=...)``, the mesh half of
+recom_tpu/train.py:98-231) every rank of a torch.distributed world builds
+the same Trainer and makes the same calls: each takes its data slice of
+the batch, labels and mask, and the collectives of the forward back
+through their transposes (``parallel.mesh``); see ``Trainer``.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch.nn.functional as F
 from recom_tpu_torch.config import EngineConfig
 from recom_tpu_torch.ir.spec import ModelSpec
 from recom_tpu_torch.runtime.executor import Engine
+from recom_tpu_torch.parallel.mesh import psum
 from recom_tpu_torch.runtime.host_prep import PreparedBatch
 
 OptimizerFactory = Callable[[Dict], torch.optim.Optimizer]
@@ -83,6 +90,9 @@ class OptaxOptimizer(torch.optim.Optimizer):
 
     def __init__(self, param_groups: List[Dict]):
         super().__init__(param_groups, defaults={})
+        # id(param) -> (mesh, model axis, whole row width) of a table split
+        # by columns over a mesh's model axis (Trainer sets it)
+        self.column_split: Dict[int, tuple] = {}
         for group in self.param_groups:
             if group["rule"] == "adam":
                 group["count"] = 0
@@ -113,7 +123,8 @@ class OptaxOptimizer(torch.optim.Optimizer):
                 if group["rule"] == "adam":
                     self._adam(group, p, g, self.state[p])
                 else:
-                    self._rowwise_adagrad(group, p, g, self.state[p])
+                    self._rowwise_adagrad(group, p, g, self.state[p],
+                                          self.column_split.get(id(p)))
         return loss
 
     @staticmethod
@@ -132,11 +143,19 @@ class OptaxOptimizer(torch.optim.Optimizer):
         st.update(mu=mu, nu=nu)
 
     @staticmethod
-    def _rowwise_adagrad(group, p, g, st) -> None:
+    def _rowwise_adagrad(group, p, g, st, split=None) -> None:
         """recom_tpu/train.py::rowwise_adagrad: one accumulator per row of a
         2-D table (the mean of its squared gradients), elementwise
-        otherwise."""
-        if p.dim() == 2:
+        otherwise.  ``split``: (mesh, axis, d) of a table split by columns
+        over ``axis``: the row's sum of squares is its columns' partial
+        sums summed over the axis, then divided by the whole width d, as
+        GSPMD reduces ``jnp.mean`` of a column-sharded array."""
+        if p.dim() == 2 and split is not None:
+            mesh, axis, d = split
+            sq = mesh.all_reduce((g * g).sum(dim=1), axis)
+            acc = st["acc"] + sq / d
+            s = torch.rsqrt(acc + group["eps"])[:, None]
+        elif p.dim() == 2:
             acc = st["acc"] + (g * g).mean(dim=1)
             s = torch.rsqrt(acc + group["eps"])[:, None]
         else:
@@ -146,6 +165,22 @@ class OptaxOptimizer(torch.optim.Optimizer):
         upd.mul_(s)
         p.add_(upd)
         st["acc"] = acc
+
+    def slot_params(self) -> list:
+        """The param each state leaf of ``_slots`` belongs to, in that
+        order (None for an Adam group's count)."""
+        out = []
+        for group in self.param_groups:
+            if group["rule"] == "adam":
+                out += [None] + list(group["params"]) * 2
+            else:
+                out += list(group["params"])
+        return out
+
+    def state_tensors(self) -> list:
+        """Every state value in optax's tree order (``_slots``): tensors,
+        and each Adam count as an int."""
+        return [d[k] for d, k in self._slots()]
 
     def _slots(self) -> list:
         """Where each state leaf lives, in the order of
@@ -259,10 +294,11 @@ def dlrm_optimizer(table_lr: float = 0.01,
 
 def forward_logits(engine: Engine, arrays, signature=None) -> torch.Tensor:
     """Engine forward with the final activation stripped (losses want
-    logits).  ``signature`` is required on the single-blob wire path (the
-    blob's layout is keyed by it)."""
-    return engine._forward(arrays, signature, mode=(),
-                           logits_only=True)["output"]
+    logits), of the batch's rows on one device and of the rank's data
+    slice on a mesh.  ``signature`` is required on the single-blob wire
+    path (the blob's layout is keyed by it)."""
+    return engine._forward(arrays, signature, mode=(), logits_only=True,
+                           gather=False)["output"]
 
 
 def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -273,12 +309,30 @@ def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 class Trainer:
     """Mini training loop: BCE loss on the tower's logits, masked over the
-    padded batch, and an optax-rule optimizer, on one device.
+    padded batch, and an optax-rule optimizer, on one device or on a mesh.
 
     ``device``: default ``"cuda"`` (raises where there is none); ``"cpu"``
-    runs every kernel's plain version.  The Engine's params become leaf
-    tensors that require grad, updated in place by ``step``; the same
-    ``trainer.engine`` serves them."""
+    runs every kernel's plain version.  ``mesh``: as ``Engine``'s, for a
+    ``config.mesh_shape``.  The Engine's params become leaf tensors that
+    require grad, updated in place by ``step``; the same
+    ``trainer.engine`` serves them.
+
+    On a mesh (recom_tpu/train.py:98-231 under GSPMD) each rank holds its
+    leaves: a striped table's stripe, a column-split table's columns, every
+    other leaf whole.  Each rank takes its slice of the labels and mask
+    over the "data" axis (``Engine.shard_batch_arrays``' cut, as
+    recom_tpu/train.py:217-223 shards them), and the loss is the global
+    masked mean: the rank's masked BCE sum over the whole batch's mask
+    count, summed over "data" by ``parallel.mesh.psum`` (identity
+    backward), so every rank returns the same float.  The gradient of
+    every leaf is then summed over "data" (``Mesh.grad_all_reduce``), and
+    never over "model": the model ranks of a data slice compute one
+    replicated loss, so a replicated leaf's gradient is already whole on
+    each of them, and a stripe's or column slice's is its own part of the
+    whole.  ``adam`` and row-wise AdaGrad then step each rank's leaves
+    locally, except that row-wise AdaGrad on a column-split leaf sums each
+    row's squares over "model" first (``OptaxOptimizer._rowwise_adagrad``).
+    """
 
     def __init__(
         self,
@@ -287,21 +341,31 @@ class Trainer:
         optimizer: Optional[OptimizerFactory] = None,
         params: Optional[Dict] = None,
         device=None,
+        mesh=None,
     ):
         if config is not None and config.table_dtype != "float32":
             raise ValueError(
                 "training requires table_dtype='float32' (bf16/int8 table "
                 "storage is an inference-serving optimization)"
             )
-        if config is not None and config.mesh_shape is not None:
-            raise NotImplementedError(
-                "training on a mesh is not ported to recom_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 13)"
-            )
-        self.engine = Engine(model, config, params, device=device)
+        self.engine = Engine(model, config, params, device=device, mesh=mesh)
         for leaf in param_leaves(self.engine.device_params):
             leaf.requires_grad_(True)
         self.optimizer = (optimizer or adam(1e-3))(self.engine.device_params)
+        eng = self.engine
+        # id(leaf) -> its layout over the mesh's model axis
+        self._layouts = {
+            id(eng.device_params["stacked"][str(g.gid)]): eng.layout(g)
+            for g in eng.compiled.groups}
+        if eng.mesh is not None and hasattr(self.optimizer, "column_split"):
+            model_axis = eng._axes()[1]
+            m = eng.mesh.shape[model_axis]
+            for g in eng.compiled.groups:
+                if eng.layout(g) == "columns":
+                    leaf = eng.device_params["stacked"][str(g.gid)]
+                    self.optimizer.column_split[id(leaf)] = (
+                        eng.mesh, model_axis, g.dim)
+        self._data_axis = None if eng.mesh is None else eng._axes()[0]
 
     @property
     def params(self) -> Dict:
@@ -309,28 +373,48 @@ class Trainer:
 
     def loss(self, prepared: PreparedBatch, labels) -> torch.Tensor:
         """The masked mean BCE of one prepared batch (a 0-d tensor, under
-        autograd)."""
+        autograd); on a mesh the global one, the same on every rank, whose
+        gradient is the rank's part (see the class docstring)."""
         eng = self.engine
         bp, b = prepared.batch_padded, prepared.batch_size
         lab = np.zeros((bp,), np.float32)
         lab[:b] = np.asarray(labels, np.float32)
         mask = np.zeros((bp,), np.float32)
         mask[:b] = 1.0
-        lab_t = torch.from_numpy(lab).to(eng.device)
-        mask_t = torch.from_numpy(mask).to(eng.device)
         logits = forward_logits(eng, eng.to_device(prepared),
                                 prepared.signature)
+        if eng.mesh is None:
+            lab_t = torch.from_numpy(lab).to(eng.device)
+            mask_t = torch.from_numpy(mask).to(eng.device)
+            per = sigmoid_bce(logits[:, 0], lab_t)
+            return (per * mask_t).sum() / torch.clamp(mask_t.sum(), min=1.0)
+        n = eng.mesh.shape[self._data_axis]
+        r = eng.mesh.axis_index(self._data_axis)
+        cut = slice(r * (bp // n), (r + 1) * (bp // n))
+        lab_t = torch.from_numpy(lab[cut]).to(eng.device)
+        mask_t = torch.from_numpy(mask[cut]).to(eng.device)
+        count = torch.tensor(max(float(b), 1.0), device=eng.device)
         per = sigmoid_bce(logits[:, 0], lab_t)
-        return (per * mask_t).sum() / torch.clamp(mask_t.sum(), min=1.0)
+        return psum(eng.mesh, (per * mask_t).sum() / count, self._data_axis)
+
+    def reduce_grads(self, grads: List[torch.Tensor]) -> None:
+        """Sum ``grads`` (one a leaf, in the params tree's order) over the
+        mesh's "data" axis, in place; nothing on one device."""
+        if self.engine.mesh is not None:
+            self.engine.mesh.grad_all_reduce(grads, self._data_axis)
 
     def value_and_grad(self, batch: Dict, labels):
         """(loss, grads) of one raw batch without a step: grads mirrors
-        ``params`` (``{"stacked": {gid: ...}, "tower": {key: [{"w", "b"}]}}``)."""
+        ``params`` (``{"stacked": {gid: ...}, "tower": {key: [{"w", "b"}]}}``),
+        on a mesh the rank's leaves (stripes, column slices) summed over
+        the "data" axis."""
         loss = self.loss(self.engine.prepare(batch), labels)
         leaves = param_leaves(self.params)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        by_leaf = {id(p): g if g is not None else torch.zeros_like(p)
-                   for g, p in zip(grads, leaves)}
+        grads = [g if g is not None else torch.zeros_like(p)
+                 for g, p in zip(grads, leaves)]
+        self.reduce_grads(grads)
+        by_leaf = {id(p): g for g, p in zip(grads, leaves)}
         return float(loss.detach()), tree_map(lambda p: by_leaf[id(p)],
                                               self.params)
 
@@ -341,8 +425,71 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.loss(prepared, labels)
         loss.backward()
+        if self.engine.mesh is not None:
+            leaves = param_leaves(self.params)
+            for p in leaves:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            self.reduce_grads([p.grad for p in leaves])
         self.optimizer.step()
         return float(loss.detach())
+
+    def _state_layout(self, p, t) -> str:
+        """How a state tensor ``t`` of param ``p`` lies over the mesh:
+        ``"striped"`` (a stripe's rows), ``"columns"`` (a column slice,
+        for a state of the param's shape) or ``"whole"``."""
+        layout = self._layouts.get(id(p)) if p is not None else None
+        if layout == "striped":
+            return "striped"
+        if layout == "columns" and t.dim() == p.dim():
+            return "columns"
+        return "whole"
+
+    def global_state_leaves(self) -> List[np.ndarray]:
+        """The optimizer state in optax's leaf order, as numpy, each leaf
+        in its global physical layout (recom_tpu/train.py:139-150: a
+        striped leaf's stripes one after another, a column-split leaf's
+        columns side by side): gathered over the model axis on a mesh,
+        where every rank calls it alike."""
+        if self.engine.mesh is None:
+            return self.optimizer.state_leaves()
+        mesh, model = self.engine.mesh, self.engine._axes()[1]
+        out = []
+        for p, t in zip(self.optimizer.slot_params(),
+                        self.optimizer.state_tensors()):
+            if not isinstance(t, torch.Tensor):
+                out.append(np.asarray(t, np.int32))
+                continue
+            kind = self._state_layout(p, t)
+            t = t.detach()
+            if kind == "striped":
+                t = mesh.all_gather(t, model).flatten(0, 1)
+            elif kind == "columns":
+                t = mesh.all_gather(t, model).movedim(0, -2).flatten(-2)
+            out.append(t.cpu().numpy())
+        return out
+
+    def load_global_state_leaves(self, leaves: List[np.ndarray]) -> None:
+        """The inverse of ``global_state_leaves``: each rank takes its
+        stripe or column slice of each leaf."""
+        if self.engine.mesh is not None:
+            model = self.engine._axes()[1]
+            m = self.engine.mesh.shape[model]
+            k = self.engine.mesh.axis_index(model)
+            local = []
+            for p, t, arr in zip(self.optimizer.slot_params(),
+                                 self.optimizer.state_tensors(), leaves):
+                kind = (self._state_layout(p, t)
+                        if isinstance(t, torch.Tensor) else "whole")
+                if kind == "striped":
+                    per = np.shape(arr)[0] // m
+                    arr = arr[k * per:(k + 1) * per]
+                elif kind == "columns":
+                    w = np.shape(arr)[-1] // m
+                    arr = arr[..., k * w:(k + 1) * w]
+                local.append(arr)
+            leaves = local
+        self.optimizer.load_state_leaves(leaves)
 
     def save(self, path: str) -> None:
         """Checkpoint the full training state for exact resume: the engine
@@ -350,15 +497,20 @@ class Trainer:
         the JAX package's load_checkpoint reads) plus the optimizer state
         in ``opt_state.npz``, in optax's tree order: the JAX Trainer's
         ``restore`` resumes from it, and ``restore`` here from the JAX
-        Trainer's ``save``."""
+        Trainer's ``save``.  On a mesh every rank calls it; the params and
+        state are gathered (``global_state_leaves``) and rank 0 writes, so
+        a save of either package resumes in the other on the same mesh
+        shape."""
         from recom_tpu_torch.runtime.checkpoint import save_checkpoint
 
         save_checkpoint(path, self.engine)
-        np.savez(
-            os.path.join(path, "opt_state.npz"),
-            **{f"leaf{i}": x
-               for i, x in enumerate(self.optimizer.state_leaves())},
-        )
+        leaves = self.global_state_leaves()
+        mesh = self.engine.mesh
+        if mesh is None or mesh.rank == 0:
+            np.savez(os.path.join(path, "opt_state.npz"),
+                     **{f"leaf{i}": x for i, x in enumerate(leaves)})
+        if mesh is not None:
+            mesh.barrier()
 
     @classmethod
     def restore(
@@ -367,15 +519,17 @@ class Trainer:
         config: Optional[EngineConfig] = None,
         optimizer: Optional[OptimizerFactory] = None,
         device=None,
+        mesh=None,
     ) -> "Trainer":
         """Rebuild a Trainer from ``save``: the engine from the stored spec
-        and params, the optimizer state into a fresh optimizer's."""
+        and params, the optimizer state into a fresh optimizer's (on a
+        mesh, each rank its slice of each leaf)."""
         from recom_tpu_torch.runtime.checkpoint import load_checkpoint
 
         model, params = load_checkpoint(path)
         tr = cls(model, config, optimizer=optimizer, params=params,
-                 device=device)
+                 device=device, mesh=mesh)
         with np.load(os.path.join(path, "opt_state.npz")) as data:
             leaves = [data[f"leaf{i}"] for i in range(len(data.files))]
-        tr.optimizer.load_state_leaves(leaves)
+        tr.load_global_state_leaves(leaves)
         return tr

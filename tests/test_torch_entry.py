@@ -3,7 +3,7 @@ __graft_entry__.py) on the CPU: the entry machinery against the JAX
 ``Engine._forward`` on the scaled model of
 tests/test_sharding.py::test_graft_entry_single_chip (rtol 1e-4 / atol
 1e-5), the flagship entry against ``Engine.predict``, and
-``dryrun_multichip`` on one device (more raises, naming ROADMAP item 13)."""
+``dryrun_multichip`` on one device (on a mesh: tests/test_torch_mesh_train.py)."""
 
 import jax
 import numpy as np
@@ -75,7 +75,10 @@ def test_dryrun_multichip_one_device_on_cpu():
 
 @pytest.mark.parametrize("n", [2, 8])
 def test_dryrun_multichip_mesh_raises_naming_item_13(n):
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """A mesh runs on every rank of a torch.distributed world
+    (tests/test_torch_mesh_train.py runs it on 4); with no world it
+    raises, naming what it needs."""
+    with pytest.raises(RuntimeError, match=f"world of {n} ranks"):
         entry.dryrun_multichip(n, device="cpu")
 
 

@@ -295,12 +295,16 @@ def test_run_benchmark_keys_and_profile(tmp_path):
 
 
 def test_benchmark_mesh_raises_naming_item_13():
+    """``--mesh`` serves on a world of ranks (tests/test_torch_mesh_train.py
+    runs --mesh 1x2 --spawn 2); with neither torchrun's environment nor
+    --spawn it raises, naming both."""
     from recom_tpu_torch.tools import benchmark
 
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(RuntimeError, match="torchrun.*--spawn"):
         benchmark.main(["--model", "micro10", "--mesh", "2x4",
                         "--device", "cpu"])
     assert benchmark.config_for_mesh("1x1").mesh_shape is None
+    assert benchmark.config_for_mesh("2x4").mesh_shape == (2, 4)
 
 
 def test_benchmark_cli_embedding_only_on_cpu(capsys):

@@ -97,12 +97,19 @@ class Ctx:
         self.meshes = {}
 
     def mesh(self, shape):
+        """The mesh of ``shape`` over the first ranks of the world; None on
+        a rank outside it (a (1, 2) mesh in a world of 4)."""
         from recom_tpu_torch.parallel import make_mesh
 
         shape = tuple(shape)
         if shape not in self.meshes:
-            self.meshes[shape] = make_mesh(shape, backend="gloo",
-                                           device=self.device)
+            try:
+                self.meshes[shape] = make_mesh(shape, backend="gloo",
+                                               device=self.device)
+            except ValueError as e:
+                if "outside" not in str(e):
+                    raise
+                self.meshes[shape] = None
         return self.meshes[shape]
 
 
@@ -279,5 +286,110 @@ def multihost(ctx, table_path, shape, local_world):
     return out
 
 
+def op_grad(ctx, shape, kind, table, ids, offs, code, g_out, weights=None,
+            chunks=1):
+    """The gradient of ``(pooled * g_out).sum()`` in the table through the
+    op-level psum or all-to-all lookup of a [B, C, L] batch (the JAX
+    layout): each rank's pooled rows of its data slice, backward through
+    the collectives' transposes, then summed over "data".  Returns the
+    rank's stripe gradient and coordinates."""
+    import torch
+
+    from recom_tpu_torch.parallel import (
+        all_to_all_group_pooled,
+        sharded_group_pooled,
+    )
+    from recom_tpu_torch.parallel.multihost import from_global
+
+    mesh = ctx.mesh(shape)
+    n_data = mesh.shape["data"]
+    r = mesh.axis_index("data")
+    b_loc = ids.shape[0] // n_data
+    rows = slice(r * b_loc, (r + 1) * b_loc)
+    cut = lambda x: torch.from_numpy(np.ascontiguousarray(
+        np.transpose(x[rows], (1, 0, 2)))).to(mesh.device)
+    stripe = from_global(mesh, "striped", table).requires_grad_(True)
+    w = None if weights is None else cut(weights)
+    if kind == "psum":
+        out = sharded_group_pooled(mesh, stripe, cut(ids), offs, code, w)
+    else:
+        out, _ = all_to_all_group_pooled(mesh, stripe, cut(ids), offs, code,
+                                         w, chunks=chunks)
+    (out * torch.from_numpy(g_out[rows])).sum().backward()
+    grad = stripe.grad
+    mesh.grad_all_reduce([grad], "data")
+    return _np(grad), mesh.coords
+
+
+def _optimizer(opt):
+    from recom_tpu_torch import train
+
+    name, kw = opt
+    return getattr(train, name)(**kw)
+
+
+def train(ctx, shape, model_json, cfg, params, stream, opt=("adam", {}),
+          grads=False, save_after=None, save_path=None, restore_path=None):
+    """A mesh Trainer (or ``Trainer.restore`` of ``restore_path``) stepped
+    on each (batch, labels) of ``stream``: the losses, the exported params
+    after the steps, and with ``grads`` the first batch's
+    ``value_and_grad`` first (loss, the rank's leaves' gradients by
+    group id and tower key, each group's layout).  ``save_after``: steps
+    after which ``Trainer.save`` writes ``save_path``.  None on a rank
+    outside the mesh."""
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.ir.serde import model_from_json
+    from recom_tpu_torch.runtime.checkpoint import export_params
+    from recom_tpu_torch.train import Trainer, tree_map
+
+    mesh = ctx.mesh(shape)
+    if mesh is None:
+        return None
+    config = EngineConfig(**cfg)
+    if restore_path is not None:
+        tr = Trainer.restore(restore_path, config, _optimizer(opt),
+                             mesh=mesh)
+    else:
+        tr = Trainer(model_from_json(model_json), config, _optimizer(opt),
+                     params=params, mesh=mesh)
+    out = {"coords": mesh.coords,
+           "layouts": {g.gid: tr.engine.layout(g)
+                       for g in tr.engine.compiled.groups}}
+    if grads:
+        loss, gr = tr.value_and_grad(*stream[0])
+        out["grad_loss"] = loss
+        out["grads"] = tree_map(_np, gr)
+    losses = []
+    for i, (b, l) in enumerate(stream):
+        losses.append(tr.step(b, l))
+        if save_after == i + 1:
+            tr.save(save_path)
+    out["losses"] = losses
+    out["params"] = export_params(tr.engine)
+    return out
+
+
+def dryrun(ctx, n):
+    """``entry.dryrun_multichip(n)`` on every rank."""
+    from recom_tpu_torch import entry
+
+    return entry.dryrun_multichip(n, device=ctx.device, backend="gloo")
+
+
+def train_multi(ctx, **kw):
+    """``tools.train_multi.run`` on every rank (rank 0 gets the document)."""
+    from recom_tpu_torch.tools import train_multi as tm
+
+    return tm.run(device=ctx.device, backend="gloo", **kw)
+
+
+def scaling(ctx, **kw):
+    """``tools.scaling.sweep`` on every rank (rank 0 gets the rows)."""
+    from recom_tpu_torch.tools import scaling as sc
+
+    return sc.sweep(device=ctx.device, backend="gloo", **kw)
+
+
 CASES = {f.__name__: f for f in (op_lookup, serve, pipeline, lifecycle,
-                                 collectives, multihost)}
+                                 collectives, multihost, op_grad, train,
+                                 dryrun, train_multi, scaling)}
