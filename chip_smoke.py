@@ -150,6 +150,25 @@ F at 32, 512 and 2048; and ``tools/benchmark`` on model F at 2048 with
 two workers under ``torch.profiler`` (the trace written, the top device
 ops named).
 
+Right after the PostPool models come random models (``fuzz_phases``,
+ROADMAP item 17): ``FUZZ_SEEDS`` = 48 seeds, each a model drawn by the
+port's copy of tests/test_fuzz.py's generator (``random_model``,
+``random_batch``) at the card's widths (3-9 columns of every kind, dims
+1-64, vocabs up to 70 000 past the one-hot limit, lists up to 128, batches
+1-2048 at the tile edges) under a random single-device config
+(``random_config``: every table dtype, ``use_pallas``, ``wire_pack``,
+``host_bucketize``, ``dedup_subcolumns``, ``device_hash``): its pooled
+outputs ``==`` the oracle, its output within rtol 1e-4 / atol 1e-5 of the
+same Engine on the CPU, each kernel's launches exactly what the lowering
+implies (``fuzz_launches``), and on the even f32 seeds one training step
+against CPU copies (``grads_close``); then 3 mesh seeds served on a world
+of 2 ranks at (1, 2), every group striped, under psum and the exchange.
+Every kernel of ``KERNEL_META`` must launch in the sweep.  Last, the three
+examples of ``recom_tpu_torch/examples/`` (``examples_phase``): dlrm at
+model E's full width (predict at 2048, 2 training steps), microbenchmark
+at 1000 columns and 2048 rows, serving at its defaults, each printing its
+check against the oracle.
+
 It checks:
 
 1. each forward kernel (K1 one-id lookup, K2 fused bucketize + lookup, X1
@@ -2368,18 +2387,23 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
 
 def _with_pooled(tr, batch, labels):
     """``tr.loss`` (``Trainer.loss``) on one batch, keeping each group's
-    pooled output (the output of its K1 or X1 launch) with ``retain_grad``:
-    (loss, [pooled [Bp, C, d] per group]).  The Engine's
-    ``_embedding_forward`` is wrapped on the instance for this call only."""
+    pooled output (the output of its K1 or X1 launch) and the grouped
+    concat of the groups' post-lookup outputs with ``retain_grad``:
+    (loss, [pooled [Bp, C, d] per group], [grouped [Bp, W]]).  The
+    Engine's ``_embedding_forward`` is wrapped on the instance for this
+    call only."""
     eng = tr.engine
-    kept = []
+    kept, concat = [], []
     inner = eng._embedding_forward
 
     def keep(arrays, *args):
         grouped, pooled, overflow = inner(arrays, *args)
         for p in pooled:
             p.retain_grad()
+        if grouped.requires_grad:
+            grouped.retain_grad()
         kept[:] = pooled
+        concat[:] = [grouped]
         return grouped, pooled, overflow
 
     eng._embedding_forward = keep
@@ -2387,16 +2411,17 @@ def _with_pooled(tr, batch, labels):
         loss = tr.loss(eng.prepare(batch), labels)
     finally:
         del eng._embedding_forward
-    return loss, kept
+    return loss, kept, concat
 
 
 def step_grads(torch, tr, batch, labels):
     """One step's backward without the update: (loss, {name: gradient of
-    each param}, [cotangent of each group's pooled output])."""
+    each param}, [cotangent of each group's pooled output], the grouped
+    concat's cotangent [Bp, W])."""
     from recom_tpu_torch.train import param_leaves
 
     tr.optimizer.zero_grad(set_to_none=True)
-    loss, pooled = _with_pooled(tr, batch, labels)
+    loss, pooled, concat = _with_pooled(tr, batch, labels)
     loss.backward()
     names = {id(t): f"table {k}" for k, t in tr.params["stacked"].items()}
     for k, layers in tr.params["tower"].items():
@@ -2407,8 +2432,9 @@ def step_grads(torch, tr, batch, labels):
                             else torch.zeros_like(p)).detach()
              for p in param_leaves(tr.params)}
     cots = [p.grad.detach() for p in pooled]
+    concat = concat[0].grad
     tr.optimizer.zero_grad(set_to_none=True)
-    return float(loss.detach()), grads, cots
+    return float(loss.detach()), grads, cots, concat
 
 
 def grads_close(torch, card, cpu, batch, labels, what: str) -> tuple:
@@ -2418,7 +2444,11 @@ def grads_close(torch, card, cpu, batch, labels, what: str) -> tuple:
     * each group's pooled-output cotangent (the tower and the post-lookup
       ops' backward, torch ops that sum in other orders on the card) within
       1e-5 of each element's magnitude plus its column's largest over the
-      batch (no example is hot: they share one tower);
+      batch (no example is hot: they share one tower), or, where larger,
+      the largest cotangent of the column's slot in the concat, which its
+      post ops' backward takes apart (softmax then reduce_sum sums to 1
+      whatever the input: the exact cotangent is 0, and each device's is
+      the rounding of the slot's);
     * each table's gradient, the backward kernels' work, equal to the bit
       to the CPU's backward of its pooled outputs with the card's
       cotangents: every row, small or hot, exact;
@@ -2427,8 +2457,8 @@ def grads_close(torch, card, cpu, batch, labels, what: str) -> tuple:
 
     Returns (the card's loss, the CPU's, the largest absolute difference
     of a cotangent or a tower gradient from the CPU's)."""
-    loss, grads, cots = step_grads(torch, card, batch, labels)
-    want, wgrads, wcots = step_grads(torch, cpu, batch, labels)
+    loss, grads, cots, _ = step_grads(torch, card, batch, labels)
+    want, wgrads, wcots, wcat = step_grads(torch, cpu, batch, labels)
     require(abs(loss - want) <= 1e-5 * abs(want),
             f"{what}: loss {loss} != the CPU's {want}")
     err = 0.0
@@ -2442,11 +2472,20 @@ def grads_close(torch, card, cpu, batch, labels, what: str) -> tuple:
                 f"{float(diff.max()):.3g}")
         err = max(err, float(diff.max()) if diff.numel() else 0.0)
 
-    for gi, (a, b) in enumerate(zip(cots, wcots)):
-        close(f"pooled cotangent of group {gi}", a.cpu(), b,
-              b.abs().amax(dim=(0, 2), keepdim=True))
+    start = 0
+    for gi, (g, a, b) in enumerate(zip(card.engine.compiled.groups, cots,
+                                       wcots)):
+        scale = b.abs().amax(dim=(0, 2), keepdim=True)
+        for j, m in enumerate(g.members):
+            if m.out_width and m.column.post:
+                slot = wcat[:, start:start + m.out_width].abs().max()
+                scale[0, j, 0] = torch.maximum(scale[0, j, 0], slot)
+            start += m.out_width
+        close(f"pooled cotangent of group {gi}", a.cpu(), b, scale)
+    require(start == wcat.shape[1], f"{what}: concat width {start} != "
+            f"{wcat.shape[1]}")
     # the CPU's table gradients from the card's cotangents
-    _, pooled = _with_pooled(cpu, batch, labels)
+    _, pooled, _ = _with_pooled(cpu, batch, labels)
     tables = list(cpu.params["stacked"].values())
     again = torch.autograd.grad(pooled, tables, [c.cpu() for c in cots],
                                 allow_unused=True)
@@ -2462,18 +2501,6 @@ def grads_close(torch, card, cpu, batch, labels, what: str) -> tuple:
             close(name, grads[name].cpu(), b,
                   b.abs().max() if b.numel() else 0.0)
     return loss, want, err
-
-
-def post_launches(eng, prep) -> dict:
-    """The kernels one forward of ``eng`` on the prepared batch ``prep``
-    launches, by its lowering: K1 once for each one-hot group (the config
-    bucketizes on the host, so no K2), X1 once for every gather group
-    together, X2 once for each group that stages strings for the card to
-    hash (``prep.wsig``)."""
-    groups = eng.compiled.groups
-    return {"K1": sum(g.pallas_vocab is not None for g in groups),
-            "X1": int(any(g.pallas_vocab is None for g in groups)),
-            "X2": sum(1 for w in prep.wsig if any(w))}
 
 
 def postpool_phases(torch) -> None:
@@ -2507,7 +2534,7 @@ def postpool_phases(torch) -> None:
         params = init_model_params(model)
         batch = make_random_batch(model, bs, seed=bs)
         eng = Engine(model, cfg, params=params, device="cuda")
-        fwd = post_launches(eng, eng.prepare(batch))
+        fwd = fuzz_launches(eng.compiled, cfg, eng.prepare(batch))
         kernels.reset_launches()
         out = eng.predict(batch, return_pooled=True, return_concat=True)
         torch.cuda.synchronize()
@@ -2541,11 +2568,12 @@ def postpool_phases(torch) -> None:
                       device="cpu")
         loss, want, err = grads_close(torch, card, cpu, batch, labels,
                                       model.name)
+        train = fuzz_launches(card.engine.compiled, cfg,
+                              card.engine.prepare(batch), True)
         kernels.reset_launches()
         step = card.step(batch, labels)
         torch.cuda.synchronize()
         counts = dict(kernels.launches)
-        train = dict(fwd, K3a=fwd["K1"], X1b=fwd["X1"])
         require_launches(counts, [k for k, n in train.items() if n],
                          f"training, PostPool {model.name}", exactly=train)
         counts = {k: n for k, n in counts.items() if n}
@@ -4320,9 +4348,11 @@ def mesh_train_extras(torch, rank: int, world: int) -> dict:
     return out
 
 
-def mesh_rank(rank: int, world: int, store: str, path: str, outq) -> None:
+def mesh_rank(rank: int, world: int, store: str, path: str, outq,
+              work) -> None:
     """One rank of a mesh world: join the gloo group through ``store``,
-    run ``mesh_rank_work`` and put (rank, ok, result or traceback) on
+    run ``work(torch, rank, world, path)`` (``mesh_rank_work``, or
+    ``fuzz_mesh_work``) and put (rank, ok, result or traceback) on
     ``outq``."""
     import traceback
 
@@ -4333,7 +4363,7 @@ def mesh_rank(rank: int, world: int, store: str, path: str, outq) -> None:
         torch.cuda.set_device(0)
         dist.init_process_group("gloo", store=dist.FileStore(store, world),
                                 world_size=world, rank=rank)
-        outq.put((rank, True, mesh_rank_work(torch, rank, world, path)))
+        outq.put((rank, True, work(torch, rank, world, path)))
     except BaseException:
         outq.put((rank, False, traceback.format_exc()))
     finally:
@@ -4558,9 +4588,10 @@ def mesh_main_extras(torch, eng, model, params, batches, refs,
     return out
 
 
-def run_mesh_world(world: int, path: str) -> list:
+def run_mesh_world(world: int, path: str, work) -> list:
     """Spawn ``world`` ranks on the card (``spawn``: CUDA forbids ``fork``
-    after its init), wait for each one's result, and stop them all.  A
+    after its init), each running ``work``, a function of this module
+    (``mesh_rank``), wait for each one's result, and stop them all.  A
     rank that fails or does not answer fails the run."""
     import multiprocessing as mp
     import os
@@ -4570,7 +4601,7 @@ def run_mesh_world(world: int, path: str) -> list:
     outq = ctx.Queue()
     store = os.path.join(path, f"store_{world}")
     procs = [ctx.Process(target=mesh_rank, args=(r, world, store, path,
-                                                 outq))
+                                                 outq, work))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -4664,7 +4695,7 @@ def mesh_phases(torch, model, np_params, served) -> dict:
         results = {}
         for world in sorted(MESH_WORLDS):
             t = time.perf_counter()
-            results[world] = run_mesh_world(world, path)
+            results[world] = run_mesh_world(world, path, mesh_rank_work)
             log(f"mesh world of {world} ranks on one card (gloo): "
                 f"{time.perf_counter() - t:.1f} s")
     finally:
@@ -4730,6 +4761,712 @@ def mesh_phases(torch, model, np_params, served) -> dict:
             "train_launches": train_launches, "x1b_roles": x1b_roles}
 
 
+# ---------------------------------------------------------------------------
+# Random models on the card (ROADMAP item 17): the generator of
+# tests/test_fuzz.py, the port's own copy, at its widths and the card's
+# ---------------------------------------------------------------------------
+
+FUZZ_KINDS = ("bucketize", "bucketize_suffix", "int_hash", "str_hash",
+              "int_list", "weighted", "vocab", "weighted_str", "delim_split")
+# tests/test_fuzz.py's widths: dims, vocab regimes [lo, hi), list lengths
+JAX_DIMS = (4, 8)
+JAX_VOCABS = ((8, 200), (500, 3000))
+# the card's: the variants' edge dims, a vocab regime past
+# onehot_vocab_limit (4096: such columns take X1's one-id and bag tiles),
+# list lengths up to 128 (each list column draws its longest row), and
+# batches at the tile edges under the default batch_buckets
+CARD_DIMS = VARIANT_EDGE_D + (4, 16)
+CARD_VOCABS = JAX_VOCABS + ((4097, 70_000),)
+CARD_LIST_LENS = (5,) + VARIANT_EDGE_L
+CARD_BATCHES = (1, 5, 31, 33, 100, 511, 513, 1500, 2047, 2048)
+
+
+def random_model(rng, n_cols: int, dims=JAX_DIMS, vocabs=JAX_VOCABS):
+    """A random ModelSpec of ``recom_tpu_torch.ir.spec``: mixed sources,
+    transform chains, combiners, weighted lookups and post ops.
+
+    A copy of tests/test_fuzz.py:35 ``random_model``; at its widths (the
+    defaults) it draws from ``rng`` exactly as the source does, so one seed
+    gives the same model.  ``dims`` and ``vocabs`` (one ``[lo, hi)`` range a
+    regime) widen it for the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from recom_tpu_torch.ir import spec as S
+    from recom_tpu_torch.ir.intervals import IntervalSet
+
+    tables = {}
+    cols = []
+    for i in range(n_cols):
+        dim = int(rng.choice(list(dims)))
+        kind = rng.choice(list(FUZZ_KINDS))
+        vocab = int(rng.choice([rng.integers(lo, hi) for lo, hi in vocabs]))
+        tname = f"t{i}"
+        tables[tname] = S.TableSpec(tname, vocab, dim, init_seed=i)
+        comb = S.Combiner(list(S.Combiner)[int(rng.integers(0,
+                                                            len(S.Combiner)))])
+        field = f"f{i}"
+        if kind == "bucketize":
+            bounds = sorted(set(
+                np.float32(b) for b in
+                rng.uniform(-50, 50, int(rng.integers(1, vocab)))
+            ))
+            col = S.FeatureColumn(
+                f"c{i}", S.FeatureSource(field, S.FeatureKind.DENSE_FLOAT),
+                (S.Bucketize(list(bounds)),), S.LookupSpec(tname, comb),
+            )
+        elif kind == "bucketize_suffix":
+            k = int(rng.integers(1, min(vocab - 1, 20)))
+            bounds = sorted(set(np.float32(b)
+                                for b in rng.uniform(-50, 50, k)))
+            suffix = []
+            if rng.random() < 0.5:
+                lo = int(rng.integers(0, k))
+                suffix.append(S.FilterRange(
+                    IntervalSet.closed(lo, int(rng.integers(lo, k + 1)))))
+            if rng.random() < 0.5:
+                lo = int(rng.integers(0, k))
+                suffix.append(S.SelectRange(
+                    IntervalSet.closed(lo, int(rng.integers(lo, k + 1))),
+                    int(rng.integers(0, vocab)),
+                ))
+            if rng.random() < 0.5:
+                suffix.append(S.Mod(int(rng.integers(1, vocab))))
+            col = S.FeatureColumn(
+                f"c{i}", S.FeatureSource(field, S.FeatureKind.DENSE_FLOAT),
+                tuple([S.Bucketize(list(bounds))] + suffix),
+                S.LookupSpec(tname, comb),
+            )
+        elif kind == "int_hash":
+            col = S.FeatureColumn(
+                f"c{i}", S.FeatureSource(field, S.FeatureKind.DENSE_INT),
+                (S.HashBucket(vocab),), S.LookupSpec(tname, comb),
+            )
+        elif kind == "str_hash":
+            col = S.FeatureColumn(
+                f"c{i}", S.FeatureSource(field, S.FeatureKind.STRING),
+                (S.HashBucket(vocab),), S.LookupSpec(tname, comb),
+            )
+        elif kind == "int_list":
+            col = S.FeatureColumn(
+                f"c{i}", S.FeatureSource(field, S.FeatureKind.INT_LIST),
+                (S.NumToId(vocab),), S.LookupSpec(tname, comb),
+            )
+        elif kind == "weighted":
+            col = S.FeatureColumn(
+                f"c{i}", S.FeatureSource(field, S.FeatureKind.INT_LIST),
+                (S.NumToId(vocab),),
+                S.LookupSpec(tname, comb, weight_field=f"w{i}"),
+            )
+        elif kind == "vocab":
+            n_words = int(rng.integers(2, min(vocab, 12)))
+            words = [f"w{j}" for j in range(n_words)]
+            num_oov = int(rng.integers(0, vocab - n_words + 1))
+            default = (
+                int(rng.integers(0, n_words))
+                if num_oov == 0 and rng.random() < 0.5 else -1
+            )
+            col = S.FeatureColumn(
+                f"c{i}", S.FeatureSource(field, S.FeatureKind.STRING),
+                (S.VocabLookup(words, num_oov=num_oov, default=default),),
+                S.LookupSpec(tname, comb),
+            )
+        elif kind == "weighted_str":
+            col = S.FeatureColumn(
+                f"c{i}", S.FeatureSource(field, S.FeatureKind.STRING),
+                (S.HashBucket(vocab),),
+                S.LookupSpec(tname, comb, weight_field=f"w{i}"),
+            )
+        else:  # delimited split, sometimes on a two-byte delimiter
+            delim = ";" if rng.random() < 0.7 else "||"
+            col = S.FeatureColumn(
+                f"c{i}", S.FeatureSource(field, S.FeatureKind.STRING_LIST,
+                                         delimiter=delim),
+                (S.HashBucket(vocab),), S.LookupSpec(tname, comb),
+            )
+        # post-lookup ops on a quarter of the columns
+        if rng.random() < 0.25:
+            post = []
+            if rng.random() < 0.5:
+                post.append(S.PostPool(
+                    "affine",
+                    scale=tuple(rng.uniform(0.5, 2.0, dim).astype(float)),
+                    bias=(float(rng.uniform(-1, 1)),),
+                ))
+            if rng.random() < 0.3:
+                post.append(S.PostPool("softmax"))
+            if rng.random() < 0.3:
+                cands = [c.name for c in cols if c.lookup is not None
+                         and tables[c.lookup.table].dim == dim]
+                if cands:
+                    post.append(S.PostPool(
+                        "mul_column",
+                        other=cands[int(rng.integers(len(cands)))],
+                    ))
+            if rng.random() < 0.3:
+                k = int(rng.integers(1, dim + 1))
+                post.append(S.PostPool(
+                    "matmul",
+                    weight=tuple(tuple(rng.uniform(-1, 1, k).astype(float))
+                                 for _ in range(dim)),
+                ))
+            if rng.random() < 0.5:
+                post.append(S.PostPool(
+                    "reduce_sum" if rng.random() < 0.5 else "reduce_mean"))
+            if post:
+                col = dataclasses.replace(col, post=tuple(post))
+        cols.append(col)
+    tower = S.TowerSpec(arch="mlp", bottom_mlp=(), top_mlp=(8, 1),
+                        final_activation="sigmoid")
+    return S.ModelSpec("fuzz", tables, cols, tower)
+
+
+def random_batch(rng, model, batch: int, list_lens=None):
+    """A raw batch of ``batch`` rows for ``model``: dense floats over the
+    bucketize ranges, ints with 10% missing (-1), strings with vocab words
+    and OOV ones, delimited strings, int lists and their weights.
+
+    A copy of tests/test_fuzz.py:189 ``random_batch``; with ``list_lens``
+    None it draws from ``rng`` exactly as the source does (rows of 0-5
+    items).  ``list_lens``: each list column first draws its longest row
+    from it, then each row's length in [0, longest]."""
+    import numpy as np
+
+    from recom_tpu_torch.ir.spec import FeatureKind
+
+    def length_hi():
+        return 6 if list_lens is None else int(rng.choice(list_lens)) + 1
+
+    out = {}
+    for col in model.columns:
+        f = col.source.field
+        kind = col.source.kind
+        if kind == FeatureKind.DENSE_FLOAT:
+            out[f] = rng.uniform(-80, 80, batch)
+        elif kind == FeatureKind.DENSE_INT:
+            vals = rng.integers(-(10**9), 10**9, batch)
+            vals[rng.random(batch) < 0.1] = -1
+            out[f] = vals
+        elif kind == FeatureKind.STRING:
+            if col.transforms and \
+                    type(col.transforms[0]).__name__ == "VocabLookup":
+                pool = list(col.transforms[0].vocab) + ["oovA", "oovB",
+                                                        "zzz"]
+                out[f] = np.asarray([pool[int(rng.integers(0, len(pool)))]
+                                     for _ in range(batch)])
+            else:
+                out[f] = np.asarray(
+                    ["s%d" % v for v in rng.integers(0, 10**6, batch)])
+            if col.lookup.weight_field:
+                out[col.lookup.weight_field] = rng.uniform(
+                    0.1, 2.0, batch).astype(np.float32)
+        elif kind == FeatureKind.STRING_LIST:
+            d = col.source.delimiter
+            hi = length_hi()
+            out[f] = np.asarray(
+                [d.join("t%d" % v for v in rng.integers(
+                    0, 10**5, int(rng.integers(0, hi))))
+                 for _ in range(batch)],
+                dtype="S",
+            )
+        elif kind == FeatureKind.INT_LIST:
+            vocab = model.tables[col.lookup.table].vocab_size
+            hi = length_hi()
+            rows = [list(rng.integers(0, vocab, int(rng.integers(0, hi))))
+                    for _ in range(batch)]
+            out[f] = rows
+            if col.lookup.weight_field:
+                out[col.lookup.weight_field] = [
+                    list(rng.random(len(r)).astype(np.float32)) for r in rows
+                ]
+    return out
+
+
+def random_config(rng, card: bool = False, mesh_shapes=None) -> dict:
+    """``EngineConfig`` keyword arguments drawn over the axes of
+    tests/test_fuzz_config.py:34 ``random_config`` (``use_pallas``,
+    ``batch_buckets``, ``rowlen_buckets``, ``table_dtype``, ``wire_pack``,
+    ``host_bucketize``, ``dedup_subcolumns``), plus ``device_hash``.
+    ``card``: the default ``batch_buckets`` (batches up to 2048; the draw
+    is made and dropped).  ``mesh_shapes``: also a mesh shape drawn from
+    them, with ``shard_comm`` and ``shard_rows_above`` (64: most groups
+    striped, or 2^22: none)."""
+    mesh = None
+    if mesh_shapes:
+        mesh = tuple(mesh_shapes[int(rng.integers(len(mesh_shapes)))])
+    dtype = ("float32", "float32", "bfloat16", "int8")[int(rng.integers(4))]
+    kw = dict(
+        table_dtype=dtype,
+        use_pallas=bool(rng.integers(2)),
+        batch_buckets=((64,), (8, 64))[int(rng.integers(2))],
+        rowlen_buckets=(
+            (1, 2, 4, 8, 12, 16, 32, 64, 128),
+            (1, 4, 16, 64, 128),
+            (128,),
+        )[int(rng.integers(3))],
+        wire_pack=bool(rng.integers(2)),
+        host_bucketize=bool(rng.integers(2)),
+        dedup_subcolumns=bool(rng.integers(2)),
+        device_hash=bool(rng.integers(2)),
+    )
+    if card:
+        del kw["batch_buckets"]
+    if mesh is not None:
+        kw.update(mesh_shape=mesh,
+                  shard_comm=("all_to_all", "psum")[int(rng.integers(2))],
+                  shard_rows_above=int(rng.choice([64, 1 << 22])))
+    return kw
+
+
+# fuzz_phases' seeds: FUZZ_SEED_BASE + 0 .. FUZZ_SEEDS - 1, each a random
+# model at the card's widths (3-9 columns) under a random config; the even
+# seeds with f32 tables also train a step
+FUZZ_SEED_BASE = 14_000_000
+FUZZ_SEEDS = 48
+
+
+def fuzz_case(seed: int):
+    """(model, config kwargs, batch, labels) of card seed ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(FUZZ_SEED_BASE + seed)
+    model = random_model(rng, int(rng.integers(3, 10)), CARD_DIMS,
+                         CARD_VOCABS)
+    cfg = random_config(rng, card=True)
+    bs = int(rng.choice(CARD_BATCHES))
+    batch = random_batch(rng, model, bs, CARD_LIST_LENS)
+    labels = rng.integers(0, 2, bs).astype(np.float32)
+    return model, cfg, batch, labels
+
+
+def fuzz_trains(seed: int, cfg: dict) -> bool:
+    """Whether card seed ``seed`` also trains a step: every other seed,
+    with f32 tables (the JAX Trainer's)."""
+    return seed % 2 == 0 and cfg.get("table_dtype", "float32") == "float32"
+
+
+def fuzz_launches(compiled, cfg, prep, train: bool = False) -> dict:
+    """The launches of each kernel that one forward of the compiled plan
+    ``compiled`` under the config ``cfg`` implies for the prepared batch
+    ``prep`` (``train``: and its backward), worked out from the plan and
+    the config alone, independently of the Engine's own dispatch:
+
+    * striped: on a mesh whose model axis is over 1, each group of more
+      than ``cfg.shard_rows_above`` rows (it takes the gather layout);
+    * a one-hot group (``g.pallas_vocab``, not striped): K2 where all its
+      columns bucketize (``g.n_bucketize == g.num_columns``), it has no
+      id LUT (``g.lut_matrix``) and its raw floats reach the device (the
+      structured arrays, or the wire, which one device takes under
+      ``wire_pack``, with ``host_bucketize=False``), else K1; the bf16
+      variants for bf16 tables; backward K3b or K3a;
+    * X1 once for every other gather group together (X1-bf16, X1-int8 by
+      the stored dtype; on a mesh with the psum path's partial sums), and
+      once more (X1: the rows return as f32) to pool the rows the
+      all-to-all exchange returned for the striped groups; backward (one
+      device) X1b once; each launch takes up to 8 groups
+      (``X1_MAX_GROUPS``, ``X1B_MAX_GROUPS``);
+    * X2 once for each group whose strings the card hashes: the wire's
+      ``prep.wsig``, which the batch's string widths decide."""
+    from recom_tpu_torch.ops.lookup_gather import (
+        X1_MAX_GROUPS,
+        X1B_MAX_GROUPS,
+    )
+
+    sfx = {"float32": "", "bfloat16": "-bf16", "int8": "-int8"}[
+        cfg.table_dtype]
+    mesh = cfg.mesh_shape is not None
+    require(not (train and mesh),
+            "fuzz_launches: training launches are counted on one device")
+    model_ranks = cfg.mesh_shape[1] if mesh else 1
+    wire = bool(cfg.wire_pack) and not mesh
+    raw = not (wire and cfg.host_bucketize)
+    exchange = mesh and cfg.shard_comm == "all_to_all"
+
+    def launches(groups: int, per: int) -> int:
+        return -(-groups // per)
+
+    n = dict.fromkeys(KERNEL_META, 0)
+    gather = routed = 0
+    for g in compiled.groups:
+        striped = model_ranks > 1 and g.stacked_rows > cfg.shard_rows_above
+        if g.pallas_vocab is not None and not striped:
+            fused = (raw and g.n_bucketize == g.num_columns
+                     and g.lut_matrix is None)
+            n[("K2" if fused else "K1") + sfx] += 1
+            if train:
+                n["K3b" if fused else "K3a"] += 1
+        elif striped and exchange:
+            routed += 1
+        else:
+            gather += 1
+    n["X1" + sfx] = launches(gather, X1_MAX_GROUPS)
+    # the exchange returns rows as f32 (gather_rows_f32 on the owner)
+    n["X1"] += launches(routed, X1_MAX_GROUPS)
+    n["X1b"] = launches(gather, X1B_MAX_GROUPS) if train else 0
+    n["X2"] = sum(1 for w in prep.wsig if any(w)) if wire else 0
+    return n
+
+
+def fuzz_context(seed: int, model, cfg: dict, bs: int) -> str:
+    """A seed's config and model, for a failure's message."""
+    kinds = ", ".join(
+        f"{c.name}:{c.source.kind.name}/{model.tables[c.lookup.table].vocab_size}"
+        f"x{model.tables[c.lookup.table].dim}" for c in model.columns)
+    return f"fuzz seed {seed} (batch {bs}; config {cfg}; columns {kinds})"
+
+
+def fuzz_gates(out, ref, model, ctx: str, exact: bool = True) -> None:
+    """run_config_seed's gates (tests/test_fuzz_config.py:63): each pooled
+    column ``==`` the oracle (within rtol / atol 1e-6 where ``exact`` is
+    False: the psum path); the concat ``==``, or within 1e-6 with post ops
+    or off ``exact``.  A failure names the first column and element that
+    differ."""
+    import numpy as np
+
+    def check(got, want, tight: bool, what: str) -> None:
+        require(got.shape == want.shape, f"{ctx}: {what}'s shape "
+                f"{got.shape} != the oracle's {want.shape}")
+        bad = (got != want) if tight else ~np.isclose(got, want, rtol=1e-6,
+                                                      atol=1e-6)
+        if bad.any():
+            at = tuple(int(i) for i in np.argwhere(bad)[0])
+            raise RuntimeError(
+                f"chip_smoke: {ctx}: {what} differs from the oracle "
+                f"({'==' if tight else 'rtol / atol 1e-6'}), first at {at}: "
+                f"{got[at]!r} vs {want[at]!r}")
+
+    require(set(out["pooled"]) == set(ref["pooled"]), f"{ctx}: columns")
+    for c, r in ref["pooled"].items():
+        check(out["pooled"][c], r, exact, f"pooled column {c}")
+    check(out["concat"], ref["concat"],
+          exact and not any(c.post for c in model.columns), "the concat")
+
+
+def fuzz_seed(torch, seed: int, device: str = "cuda",
+              oracle=None) -> dict:
+    """Card seed ``seed`` (``fuzz_case``) served, and on even f32 seeds
+    trained a step, on ``device``:
+
+    * ``predict`` with the pooled outputs and the concat, held by
+      ``fuzz_gates`` to ``oracle(model, params, batch)`` (by default the
+      port's ``OracleModel(model, params).forward(batch)``; bf16 / int8:
+      on the engine's own ``export_params``,
+      tests/test_fuzz_config.py:11-15),
+      and its output within rtol 1e-4 / atol 1e-5 of the same Engine
+      rebuilt on the CPU from the same params (every kernel's plain
+      version);
+    * on the card, each kernel's launches in that ``predict`` exactly
+      ``fuzz_launches``'; and in the training step, after the staged
+      check of ``grads_close`` against the same step on CPU copies, the
+      forward's and the backward's.
+
+    Returns the seed's record: its config, batch, launch counts (the
+    expected ones off the card), the largest output difference from the
+    CPU and, where it trained, the step's counts and loss."""
+    import numpy as np
+
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.oracle import OracleModel
+    from recom_tpu_torch.runtime.checkpoint import export_params
+    from recom_tpu_torch.runtime.executor import Engine
+    from recom_tpu_torch.train import Trainer, dlrm_optimizer
+    from recom_tpu_torch.utils.params import init_model_params
+
+    model, kw, batch, labels = fuzz_case(seed)
+    bs = len(labels)
+    ctx = fuzz_context(seed, model, kw, bs)
+    on_card = torch.device(device).type == "cuda"
+    cfg = EngineConfig(**kw)
+    params = init_model_params(model)
+
+    def counted(fn, want, what):
+        kernels.reset_launches()
+        res = fn()
+        if not on_card:
+            return res, want
+        torch.cuda.synchronize()
+        got = dict(kernels.launches)
+        bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+        require(not bad, f"{ctx}: {what} launches (got, expected): {bad}")
+        return res, got
+
+    eng = Engine(model, cfg, params=params, device=device)
+    out, counts = counted(
+        lambda: eng.predict(batch, return_pooled=True, return_concat=True),
+        fuzz_launches(eng.compiled, cfg, eng.prepare(batch)), "predict")
+    oparams = (export_params(eng) if cfg.table_dtype != "float32"
+               else params)
+    del eng
+    if oracle is None:
+        ref = OracleModel(model, oparams).forward(batch)
+    else:
+        ref = oracle(model, oparams, batch)
+    fuzz_gates(out, ref, model, ctx)
+    cpu = Engine(model, cfg, params=params, device="cpu").predict(batch)
+    require(bool(np.isfinite(out["output"]).all())
+            and out["output"].shape == (bs, 1), f"{ctx}: output")
+    require(np.allclose(out["output"], cpu["output"], rtol=1e-4, atol=1e-5),
+            f"{ctx}: output differs from the CPU Engine's past rtol 1e-4 / "
+            "atol 1e-5")
+    rec = {"seed": seed, "batch": bs, "config": kw, "launches": counts,
+           "err": float(np.abs(out["output"] - cpu["output"]).max())}
+    if fuzz_trains(seed, kw):
+        card = Trainer(model, cfg, optimizer=dlrm_optimizer(), params=params,
+                       device=device)
+        cpu_tr = Trainer(model, cfg, optimizer=dlrm_optimizer(),
+                         params=params, device="cpu")
+        grads_close(torch, card, cpu_tr, batch, labels, ctx)
+        loss, rec["train_launches"] = counted(
+            lambda: card.step(batch, labels),
+            fuzz_launches(card.engine.compiled, cfg,
+                          card.engine.prepare(batch), True),
+            "training step")
+        require(bool(np.isfinite(loss)), f"{ctx}: loss {loss}")
+        rec["loss"] = float(loss)
+    return rec
+
+
+# the mesh seeds: served on a world of 2 ranks that share the card over
+# gloo at (1, 2), every group over 64 rows striped, under each comm
+FUZZ_MESH_SEEDS = 3
+FUZZ_MESH_COMMS = ("psum", "all_to_all")
+
+
+def fuzz_mesh_case(seed: int):
+    """(model, config kwargs, batch) of mesh seed ``seed``: a card seed's
+    draw (``FUZZ_SEED_BASE + 1000 + seed``) on ``mesh_shape=(1, 2)`` with
+    ``shard_rows_above=64``."""
+    import numpy as np
+
+    rng = np.random.default_rng(FUZZ_SEED_BASE + 1000 + seed)
+    model = random_model(rng, int(rng.integers(3, 10)), CARD_DIMS,
+                         CARD_VOCABS)
+    cfg = random_config(rng, card=True)
+    cfg.update(mesh_shape=(1, 2), shard_rows_above=64)
+    batch = random_batch(rng, model, int(rng.choice(CARD_BATCHES)),
+                         CARD_LIST_LENS)
+    return model, cfg, batch
+
+
+def fuzz_mesh_work(torch, rank: int, world: int, path: str) -> list:
+    """A rank's part of the mesh seeds: each case of ``path``'s
+    ``fuzz.pkl`` served once under each of ``FUZZ_MESH_COMMS`` by an
+    Engine on the (1, 2) mesh, its launches asserted (``fuzz_launches``;
+    X2 none: no wire on a mesh).  Returns per case and comm the rank's
+    ``predict`` result, launches and striped groups (rank 0: also the
+    engine's ``export_params`` for bf16 / int8 tables)."""
+    import os
+    import pickle
+
+    from recom_tpu_torch import EngineConfig
+    from recom_tpu_torch.ir.serde import model_from_json
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.parallel import make_mesh
+    from recom_tpu_torch.runtime.checkpoint import export_params
+    from recom_tpu_torch.runtime.executor import Engine
+
+    with open(os.path.join(path, "fuzz.pkl"), "rb") as f:
+        cases = pickle.load(f)
+    mesh = make_mesh((1, 2), backend="gloo", device="cuda:0")
+    recs = []
+    for case in cases:
+        model = model_from_json(case["model"])
+        for comm in FUZZ_MESH_COMMS:
+            cfg = EngineConfig(**dict(case["config"], shard_comm=comm))
+            eng = Engine(model, cfg, params=case["params"], mesh=mesh)
+            want = fuzz_launches(eng.compiled, cfg,
+                                 eng.prepare(case["batch"]))
+            kernels.reset_launches()
+            out = eng.predict(case["batch"], return_pooled=True,
+                              return_concat=True)
+            torch.cuda.synchronize()
+            got = dict(kernels.launches)
+            bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+            require(not bad, f"mesh fuzz seed {case['seed']} {comm}, rank "
+                    f"{rank}: launches (got, expected): {bad}")
+            rec = {"seed": case["seed"], "comm": comm, "out": out,
+                   "launches": got,
+                   "sharded": [g.gid for g in eng.compiled.groups
+                               if g.stacked_rows > cfg.shard_rows_above]}
+            if rank == 0 and cfg.table_dtype != "float32":
+                rec["params"] = export_params(eng)
+            elif cfg.table_dtype != "float32":
+                export_params(eng)      # collective: every rank joins
+            recs.append(rec)
+            del eng
+    return recs
+
+
+def fuzz_mesh(torch) -> dict:
+    """The mesh seeds (``fuzz_mesh_case``) on a spawned world of 2 ranks
+    that share the card over gloo, held to the oracle with
+    run_config_seed's gates: pooled ``==`` under the exchange, within
+    1e-6 under psum (where a group is striped); the concat likewise; the
+    output within rtol 1e-4 / atol 1e-5; both ranks' results ``==``.
+    Returns the launch totals of rank 0 and the pairs run."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from recom_tpu_torch.ir.serde import model_to_json
+    from recom_tpu_torch.oracle import OracleModel
+    from recom_tpu_torch.utils.params import init_model_params
+
+    cases = []
+    for seed in range(FUZZ_MESH_SEEDS):
+        model, cfg, batch = fuzz_mesh_case(seed)
+        cases.append({"seed": seed, "model": model_to_json(model),
+                      "config": cfg, "batch": batch,
+                      "bs": len(next(iter(batch.values()))),
+                      "params": init_model_params(model), "spec": model})
+    path = tempfile.mkdtemp(prefix="chip_smoke_fuzz_")
+    try:
+        with open(os.path.join(path, "fuzz.pkl"), "wb") as f:
+            pickle.dump([{k: v for k, v in c.items() if k != "spec"}
+                         for c in cases], f)
+        ranks = run_mesh_world(2, path, fuzz_mesh_work)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    totals = dict.fromkeys(KERNEL_META, 0)
+    for i, rec in enumerate(ranks[0]):
+        case = cases[rec["seed"]]
+        model, batch = case["spec"], case["batch"]
+        other = ranks[1][i]
+        ctx = "mesh " + fuzz_context(rec["seed"], model, case["config"],
+                                     case["bs"]) + f" under {rec['comm']}"
+        for c, r in rec["out"]["pooled"].items():
+            require(np.array_equal(other["out"]["pooled"][c], r),
+                    f"{ctx}: rank 1's pooled column {c} != rank 0's")
+        ref = OracleModel(model, rec.get("params", case["params"])).forward(
+            batch)
+        exact = rec["comm"] == "all_to_all" or not rec["sharded"]
+        fuzz_gates(rec["out"], ref, model, ctx, exact=exact)
+        require(np.allclose(rec["out"]["output"], ref["output"], rtol=1e-4,
+                            atol=1e-5), f"{ctx}: output")
+        for k, n in rec["launches"].items():
+            totals[k] += n
+        log(f"  {ctx.split(' (')[0]} {rec['comm']}: batch "
+            f"{len(rec['out']['output'])}, {len(rec['sharded'])} striped "
+            f"group(s), pooled {'==' if exact else 'within 1e-6 of'} the "
+            f"oracle; launches "
+            f"{ {k: n for k, n in rec['launches'].items() if n} }")
+    return {"pairs": len(ranks[0]), "launches": totals}
+
+
+def fuzz_phases(torch) -> dict:
+    """ROADMAP item 17 on the card: ``FUZZ_SEEDS`` random models at the
+    card's widths under random single-device configs (``fuzz_seed``: the
+    oracle, the CPU Engine, exact launch counts, a training step on the
+    even f32 seeds), then the mesh seeds (``fuzz_mesh``).  Fails where a
+    kernel of ``KERNEL_META`` never launched in the sweep.  Prints the
+    ``{"fuzz": ...}`` line and returns its document."""
+    t0 = time.perf_counter()
+    totals = dict.fromkeys(KERNEL_META, 0)
+    err, trained, axes = 0.0, 0, set()
+    for seed in range(FUZZ_SEEDS):
+        t = time.perf_counter()
+        rec = fuzz_seed(torch, seed)
+        for counts in (rec["launches"], rec.get("train_launches", {})):
+            for k, n in counts.items():
+                totals[k] += n
+        err = max(err, rec["err"])
+        trained += "loss" in rec
+        cfg = rec["config"]
+        axes |= {("table_dtype", cfg["table_dtype"]),
+                 ("use_pallas", cfg["use_pallas"]),
+                 ("dedup_subcolumns", cfg["dedup_subcolumns"])}
+        if not cfg["host_bucketize"]:
+            axes.add(("wire_pack, host_bucketize=False", cfg["wire_pack"]))
+        launched = {k: n for k, n in rec["launches"].items() if n}
+        log(f"  fuzz seed {seed}: batch {rec['batch']}, {cfg}; launches "
+            f"{launched}" + (f"; trained (loss {rec['loss']:.6f}, launches "
+                             f"{ {k: n for k, n in rec['train_launches'].items() if n} })"
+                             if "loss" in rec else "")
+            + f"; output within {rec['err']:.3g} of the CPU's "
+            f"({time.perf_counter() - t:.2f} s)")
+        gc.collect()
+    torch.cuda.empty_cache()
+    want_axes = {("table_dtype", d) for d in ("float32", "bfloat16", "int8")}
+    want_axes |= {(a, v) for a in ("use_pallas", "dedup_subcolumns",
+                                   "wire_pack, host_bucketize=False")
+                  for v in (False, True)}
+    require(want_axes <= axes, f"fuzz: config axes never drawn: "
+            f"{sorted(want_axes - axes)}")
+    t_mesh = time.perf_counter()
+    mesh = fuzz_mesh(torch)
+    mesh_s = time.perf_counter() - t_mesh
+    missing = [k for k in KERNEL_META if totals[k] == 0]
+    require(not missing, f"fuzz: kernels never launched in the "
+            f"{FUZZ_SEEDS} seeds: {missing}")
+    doc = {"seeds": FUZZ_SEEDS, "pairs": FUZZ_SEEDS, "trained": trained,
+           "mesh_seeds": FUZZ_MESH_SEEDS, "mesh_pairs": mesh["pairs"],
+           "launches": totals, "mesh_launches": mesh["launches"],
+           "max_output_err": err, "mesh_seconds": mesh_s,
+           "seconds": time.perf_counter() - t0, "card": card_line()}
+    print(json.dumps({"fuzz": doc}))
+    return doc
+
+
+# ROADMAP item 18: each example's arguments on the card, the line its
+# check prints, and the kernels its model's path launches (dlrm: model E's
+# predict, twice, K1 1, X1 1, X2 3, and each of its 2 training steps those
+# and K3a 1, X1b 1)
+EXAMPLES = (
+    ("dlrm", ["--model", "E", "--scale", "1.0", "--batch", "2048",
+              "--train-steps", "2"],
+     "all pooled embedding outputs bit-exact vs oracle",
+     {"K1": 4, "X1": 4, "X2": 12, "K3a": 2, "X1b": 2}),
+    ("microbenchmark", ["--columns", "1000", "--batch", "2048",
+                        "--random-boundary"],
+     "bit-exact vs oracle: 1000 columns OK", {"K1": None}),
+    ("serving", [], "request 0: pooled outputs bit-exact vs oracle",
+     {"K1": None, "X1": None, "X2": None}),
+)
+
+
+def examples_phase(torch) -> dict:
+    """The three examples of ``recom_tpu_torch/examples/`` run once each on
+    the card through their ``main(argv)`` (``EXAMPLES``): each must print
+    its check against the oracle and launch its path's kernels and no
+    other (dlrm: exactly).  Returns each one's launches and seconds."""
+    import contextlib
+    import importlib
+    import io
+
+    from recom_tpu_torch.ops import kernels
+
+    done = {}
+    for name, argv, check, want in EXAMPLES:
+        mod = importlib.import_module(f"recom_tpu_torch.examples.{name}")
+        buf = io.StringIO()
+        t = time.perf_counter()
+        kernels.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            mod.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = dict(kernels.launches)
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            log(f"  example {name}: {line}")
+        require(check in lines, f"example {name} {argv}: no line {check!r}")
+        require_launches(counts, list(want), f"example {name}",
+                         exactly={k: n for k, n in want.items()
+                                  if n is not None})
+        counts = {k: n for k, n in counts.items() if n}
+        log(f"example {name} {' '.join(argv)}: {secs:.1f} s; launches "
+            f"{counts}")
+        done[name] = {"launches": counts, "seconds": secs}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return done
+
+
 def main() -> int:
     import torch
 
@@ -4766,6 +5503,10 @@ def main() -> int:
     # ---- the PostPool models, small, first -------------------------------
     postpool_phases(torch)
     elapsed("PostPool phases")
+
+    # ---- random models through every kernel (served, trained, on a mesh) --
+    fuzz = fuzz_phases(torch)
+    elapsed("fuzz phases")
 
     # ---- full-size model E on the card ------------------------------------
     t = time.perf_counter()
@@ -4812,6 +5553,12 @@ def main() -> int:
     tools = tools_phases(torch, model, np_params, base)
     elapsed("tools phases")
     del model, np_params, base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the examples, dlrm at model E's full width -------------------------
+    examples = examples_phase(torch)
+    elapsed("examples")
     results = {**served["results"], **trained["results"], **stored}
     launches = {
         "K1": served["counts_2048"]["K1"], "K2": served["counts_mb"]["K2"],
@@ -4848,6 +5595,11 @@ def main() -> int:
             "source": KERNEL_META[kid][0], "replaces": KERNEL_META[kid][1],
             **entry(results[kid], launches[kid]),
             "runtime_launches": runtime_launches.get(kid, []),
+            # the random models' sweep (fuzz_phases): single device, all
+            # seeds, serving and training
+            "fuzz_launches": fuzz["launches"][kid],
+            "examples_launches": {name: e["launches"].get(kid, 0)
+                                  for name, e in examples.items()},
             # the same kernel on the Criteo DLRM's path (d = 64)
             **({"criteo": entry(criteo[kid], criteo[kid]["launches"])}
                if kid in criteo else {}),

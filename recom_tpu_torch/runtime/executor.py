@@ -206,6 +206,40 @@ def folds_emb_perm(tower, total_emb_dim: int) -> bool:
     return tower.arch == "mlp" and bool(tower.top_mlp) and total_emb_dim > 0
 
 
+def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over dim 1 of ``x`` [B, n] f32, as [B, 1], in numpy's
+    pairwise order (``np.add.reduce`` along a contiguous f32 axis): fewer
+    than 8 terms added left to right from +0.0; up to 128, eight stride-8
+    accumulators started from the first eight terms, combined as ((r0 +
+    r1) + (r2 + r3)) + ((r4 + r5) + (r6 + r7)), then the rest left to
+    right; past 128, the two halves (the first a multiple of 8) apart.
+
+    The oracle's reduce_sum and reduce_mean (oracle/reference.py
+    ``apply_post``) sum so, and torch's own sum order depends on the
+    device: at d = 64 after an affine bias, a card's sum left the
+    oracle's by more than 1e-6."""
+    n = x.shape[1]
+    if n < 8:
+        res = torch.zeros_like(x[:, :1])
+        for i in range(n):
+            res = res + x[:, i:i + 1]
+        return res
+    if n > 128:
+        half = n // 2
+        half -= half % 8
+        return pairwise_sum(x[:, :half]) + pairwise_sum(x[:, half:])
+    stop = n - n % 8
+    r = x[:, :8]
+    for i in range(8, stop, 8):
+        r = r + x[:, i:i + 8]
+    r = r[:, 0::2] + r[:, 1::2]          # r0 + r1, r2 + r3, ...
+    r = r[:, 0::2] + r[:, 1::2]
+    res = r[:, :1] + r[:, 1:]
+    for i in range(stop, n):
+        res = res + x[:, i:i + 1]
+    return res
+
+
 def group_concat(g, pooled: torch.Tensor, col_pooled=None,
                  post_consts=None) -> torch.Tensor:
     """Group output concat [Bp, out_width] from pooled [Bp, C, d], applying
@@ -224,9 +258,9 @@ def group_concat(g, pooled: torch.Tensor, col_pooled=None,
         x = pooled[:, idx, :]
         for i, p in enumerate(m.column.post):
             if p.op == "reduce_sum":
-                x = x.sum(dim=1, keepdim=True)
+                x = pairwise_sum(x)
             elif p.op == "reduce_mean":
-                x = x.mean(dim=1, keepdim=True)
+                x = pairwise_sum(x) / x.shape[1]
             elif p.op == "softmax":
                 x = torch.softmax(x, dim=1)
             elif p.op == "mul_column":

@@ -1,7 +1,7 @@
-"""The port's import contract: recom_tpu_torch (and chip_smoke.py and
-predict_latency.py) import
-torch and numpy, never jax and nothing of the JAX package recom_tpu, not
-even its jax-free modules (the port keeps its own copies)."""
+"""The port's import contract: recom_tpu_torch (and chip_smoke.py,
+predict_latency.py and postpool_latency.py) import torch and numpy,
+never jax and nothing of the JAX package recom_tpu, not even its jax-free
+modules (the port keeps its own copies)."""
 
 import ast
 import os
@@ -16,7 +16,8 @@ PORT = os.path.join(ROOT, "recom_tpu_torch")
 
 def _port_sources():
     out = [os.path.join(ROOT, f)
-           for f in ("chip_smoke.py", "predict_latency.py")]
+           for f in ("chip_smoke.py", "predict_latency.py",
+                     "postpool_latency.py")]
     for dirpath, _, files in os.walk(PORT):
         if os.sep + "build" in dirpath[len(PORT):]:
             continue

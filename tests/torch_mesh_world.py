@@ -157,9 +157,12 @@ def _engine(ctx, shape, model_json, cfg, params):
 
 
 def serve(ctx, shape, model_json, cfg, params, batches, pooled=True,
-          concat=False):
+          concat=False, export=False):
     """``predict`` of each batch on a mesh Engine: per batch the result (or
-    ``{"raised": message}``), then the engine's counters and layouts."""
+    ``{"raised": message}``), then the engine's counters and layouts, and
+    with ``export`` its ``export_params`` (the stored values as f32)."""
+    from recom_tpu_torch.runtime.checkpoint import export_params
+
     eng = _engine(ctx, shape, model_json, cfg, params)
     outs = []
     for b in batches:
@@ -174,7 +177,8 @@ def serve(ctx, shape, model_json, cfg, params, batches, pooled=True,
                         for g in rep["groups"]},
             "sharded": sorted(eng._sharded_gids),
             "dim_sharded": sorted(eng._dim_sharded_gids),
-            "collectives": sorted(eng.mesh.timers.samples)}
+            "collectives": sorted(eng.mesh.timers.samples),
+            **({"params": export_params(eng)} if export else {})}
 
 
 def pipeline(ctx, shape, model_json, cfg, params, batches, prep_workers=3,
