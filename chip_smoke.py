@@ -40,8 +40,29 @@ and micro-1000 with bf16 tables under ``host_bucketize=False`` (K2-bf16
 twice), and holds the four stored-dtype variants against their plain
 versions on edge inputs.
 
+On the card every single-device ``Engine`` serves through one captured
+CUDA graph per (shape signature, outputs) (recom_tpu_torch/runtime/
+graphs.py): the first request of a signature runs the forward eagerly
+(its launches count) and captures it; every later one replays it (each
+replay counts the launches its graph holds), so every phase's launch
+gates keep their values: the kernel nodes of each captured graph are
+read back through libcuda and must be the launches its capture
+recorded.  The main path's counted requests are replays, and a
+``torch.profiler`` trace of one holds the kernels it ran.
+
 Then the serving runtime and the parameter lifecycle, on model E at full
 width, one engine at a time (``runtime_phases``):
+
+* the programs (``graph_phases``), on a fresh engine: the first request
+  of a signature (eager pass and capture) against a replayed one; a new
+  signature arriving while a 2-worker ``ServingPipeline`` serves; the
+  other batch buckets warmed from representative batches (memory after);
+  at each of the 7 buckets the replay ``==`` ``Engine._forward`` run
+  eagerly, as bits, on ``output``, ``concat`` and ``pooled``, on the
+  capture's batch and on its rows permuted, with the eager pass's
+  launches (at 2048 K1 1, X1 1, X2 3); the program count
+  bounded by the buckets; pooled ``==`` the oracle through a replay; and
+  ``update_table_rows`` after capture served by the next replay;
 
 * a ``ServingPipeline(prep_workers=4, max_inflight=4)`` fed 24 distinct
   batches (8 at 512, 12 at 2048, 4 at 1500) from two submitting threads:
@@ -1444,7 +1465,13 @@ def serve_phases(torch, model, np_params, int_rate: float):
                                                     "model E")
 
     # ---- phase 3: the main path, counted --------------------------------
+    # the first request of a signature runs the forward eagerly and
+    # captures its program; the counted requests are replays of it
     batch_small = make_random_batch(model, 512, seed=2)
+    eng.predict(batch_small, return_pooled=True)
+    eng.predict(batch_big)
+    torch.cuda.synchronize()
+    programs = eng.stats["compiles"]
     kernels.reset_launches()
     out = eng.predict(batch_small, return_pooled=True)
     torch.cuda.synchronize()
@@ -1461,12 +1488,16 @@ def serve_phases(torch, model, np_params, int_rate: float):
     check_pooled(ref, out, "model E, batch 512")
 
     kernels.reset_launches()
-    out_big = eng.predict(batch_big)
-    torch.cuda.synchronize()
+    out_big, seen = profiled_kernels(torch, lambda: eng.predict(batch_big))
     counts_2048 = dict(kernels.launches)
-    log(f"launches in predict(batch 2048): {counts_2048}")
+    log(f"launches in predict(batch 2048): {counts_2048}; the profiler's "
+        f"kernels of csrc/ in that replay: {seen}")
     require_launches(counts_2048, ("K1", "X1", "X2"), "model E",
-                     exactly={"X1": 1})
+                     exactly={"K1": 1, "X1": 1, "X2": 3})
+    require(seen == {"K1": 1, "X1": 1, "X2": 3},
+            f"model E at 2048: the profiler saw {seen} in the replay")
+    require(eng.stats["compiles"] == programs == len(eng._programs) == 2,
+            f"the counted requests were not replays: {eng.stats}")
     require(out_big["output"].shape == (2048, 1)
             and bool(np.isfinite(out_big["output"]).all()),
             "batch 2048 output")
@@ -3251,6 +3282,235 @@ def reload_trainer_phase(torch, model, np_params, p2, served):
     return counts
 
 
+def profiled_kernels(torch, fn) -> tuple:
+    """(``fn()``, {kernel id: device kernels of csrc/ that
+    ``torch.profiler`` saw run in the call}), named by
+    ``kernels.kernel_of``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from recom_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    seen = {}
+    for ev in prof.events():
+        kid = (kernels.kernel_of(ev.name)
+               if ev.device_type == DeviceType.CUDA else None)
+        if kid is not None:
+            seen[kid] = seen.get(kid, 0) + 1
+    return out, seen
+
+
+def served_outputs(rec) -> dict:
+    """The numpy outputs of a dispatched record's true rows, waited on:
+    ``output``, and ``concat`` and ``pooled_groups`` where dispatched."""
+    out = rec.result()
+    res = {"output": out["output"]}
+    if "concat" in out:
+        res["concat"] = out["concat"]
+    if "pooled_groups" in rec.host:
+        res["pooled_groups"] = [p.numpy() for p in rec.host["pooled_groups"]]
+    return res
+
+
+def eager_outputs(torch, eng, prepared, mode=()) -> dict:
+    """``Engine._forward`` run eagerly on ``prepared`` (staged on the
+    card), as ``served_outputs`` gives a dispatch's."""
+    with torch.inference_mode():
+        out = eng._forward(eng.to_device(prepared), prepared.signature, mode)
+    b = prepared.batch_size
+    res = {"output": out["output"][:b].cpu().numpy()}
+    if "concat" in mode:
+        res["concat"] = out["concat"][:b].cpu().numpy()
+    if "pooled" in mode:
+        res["pooled_groups"] = [p[:b].cpu().numpy()
+                                for p in out["pooled_groups"]]
+    return res
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    """Every array of ``a`` and ``b`` equal as bits (keys alike)."""
+    import numpy as np
+
+    def flat(d):
+        return [x for k in sorted(d) for x in (
+            d[k] if isinstance(d[k], list) else [d[k]])]
+
+    fa, fb = flat(a), flat(b)
+    return sorted(a) == sorted(b) and len(fa) == len(fb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and np.array_equal(
+            x.view(np.uint8), y.view(np.uint8)) for x, y in zip(fa, fb))
+
+
+def graph_phases(torch, eng, np_params, served) -> dict:
+    """Model E's programs, one captured CUDA graph per (signature, mode),
+    on a fresh engine in the default config: the first request of a
+    signature (its eager pass and capture) timed against a replayed one;
+    a new signature (bucket 1024) arriving while a 2-worker
+    ServingPipeline serves warmed requests at 2048 (each output == the
+    eager forward's); ``warmup`` of the other five buckets from
+    representative batches (timed; memory after); at every bucket the
+    replay == ``Engine._forward`` run eagerly, as bits, on ``output``,
+    ``concat`` and ``pooled``, on the capture's batch and on its rows
+    permuted, each replay launching what the eager pass launched (at
+    2048: K1 1, X1 1, X2 3); ``stats["compiles"]`` the number of programs, no more than the buckets for each mode; pooled ==
+    the oracle through a replay; and ``update_table_rows`` after capture
+    (a one-hot plane's table and a string hash table, every row) served
+    by the next replay, then undone.  Returns the readings."""
+    import numpy as np
+
+    from recom_tpu_torch import ServingPipeline
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.runtime.graphs import Program
+
+    t_phase = time.perf_counter()
+    buckets = tuple(eng.config.batch_buckets)
+    big = served["batch_big"]
+    require(len(buckets) == 7 and buckets[-1] == 2048
+            and eng.stats["compiles"] == 0, f"a fresh engine with 7 "
+            f"buckets, got {buckets}, {eng.stats}")
+    rep = {bs: big if bs == 2048 else shuffled(big, bs, seed=300 + bs)
+           for bs in buckets}
+    preps = {bs: eng.prepare(b) for bs, b in rep.items()}
+    read = {}
+
+    # ---- one signature: the first request (eager pass + capture), then
+    # a replay
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    first = served_outputs(eng.dispatch(preps[2048]))
+    read["first_request_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    again = served_outputs(eng.dispatch(preps[2048]))
+    read["replayed_request_ms"] = (time.perf_counter() - t) * 1e3
+    require(eng.stats["compiles"] == 1 and same_bits(first, again),
+            "model E at 2048: the replay != the first (eager) request")
+    log(f"model E, batch 2048: first request (eager pass + capture, "
+        f"dispatch to result) {read['first_request_ms']:.3f} ms; a replayed "
+        f"one {read['replayed_request_ms']:.3f} ms (host clock)")
+
+    # ---- a new signature while a 2-worker pipeline serves -----------------
+    stream = [shuffled(big, 2048, seed=400 + k) for k in range(8)]
+    stream.insert(4, rep[1024])
+    want = [eager_outputs(torch, eng, eng.prepare(b))["output"]
+            for b in stream]
+    kernels.reset_launches()
+    with ServingPipeline(eng, prep_workers=2, max_inflight=4) as pipe:
+        futs = [pipe.submit(b) for b in stream]
+        got = [f.result(timeout=300) for f in futs]
+    torch.cuda.synchronize()
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not np.array_equal(g, w)]
+    require(not bad, f"pipeline with a new signature: requests {bad} != "
+            "the eager forward")
+    require(eng.stats["compiles"] == 2 and len(eng._programs) == 2,
+            f"the 1024 request made one program: {eng.stats}")
+    require_launches(dict(kernels.launches), ("K1", "X1", "X2"),
+                     "pipeline with a new signature",
+                     exactly={"K1": 9, "X1": 9})
+    log(f"ServingPipeline (2 prep workers): 8 warmed requests at 2048 and "
+        f"a new signature (bucket 1024) among them == the eager forward; "
+        f"one program captured in flight; launches "
+        f"{ {k: n for k, n in kernels.launches.items() if n} }")
+
+    # ---- the other buckets -------------------------------------------------
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    n = eng.warmup(batches=[rep[bs] for bs in buckets[:5]])
+    read["warmup_5_buckets_s"] = time.perf_counter() - t
+    read["memory_allocated_gib"] = torch.cuda.memory_allocated() / 2**30
+    read["memory_reserved_gib"] = torch.cuda.memory_reserved() / 2**30
+    require(n == 5 and eng.stats["compiles"] == len(eng._programs) == 7
+            and all(isinstance(p, Program) for p in eng._programs.values()),
+            f"warmup of 5 more buckets: {n} new, {eng.stats}")
+    log(f"warmup(5 buckets, 32-512, from representative batches): "
+        f"{read['warmup_5_buckets_s']:.3f} s; 7 programs; device memory "
+        f"allocated {read['memory_allocated_gib']:.3f} GiB, reserved "
+        f"{read['memory_reserved_gib']:.3f} GiB")
+
+    # ---- replay == eager at every bucket, with the same launches ---------
+    mode = ("concat", "pooled")
+    for bs in buckets:
+        p = preps[bs]
+        counts = []
+        outs = []
+        for m in (mode, mode, ()):            # capture, replay, replay
+            kernels.reset_launches()
+            outs.append(served_outputs(eng.dispatch(p, m)))
+            counts.append(dict(kernels.launches))
+        want = eager_outputs(torch, eng, p, mode)
+        require(same_bits(outs[1], want) and same_bits(outs[0], want)
+                and same_bits(outs[2], {"output": want["output"]}),
+                f"bucket {bs}: the replay != the eager forward")
+        # the same rows in another order: the signature's program replayed
+        # on other values in each row's place (a replay that did not load
+        # its inputs, or lacked a kernel whose output buffer still held the
+        # capture's values, would serve the batch above)
+        q = eng.prepare(shuffled(rep[bs], bs, seed=500 + bs))
+        require(q.signature == p.signature,
+                f"bucket {bs}: a permuted batch has another signature")
+        moved = served_outputs(eng.dispatch(q, mode))
+        require(same_bits(moved, eager_outputs(torch, eng, q, mode))
+                and not np.array_equal(moved["output"], want["output"]),
+                f"bucket {bs}: the replay on permuted rows != the eager "
+                "forward, or == the batch before it")
+        require(counts[0] == counts[1] == counts[2],
+                f"bucket {bs}: launches eager {counts[0]}, replays "
+                f"{counts[1]}, {counts[2]}")
+        if bs == 2048:
+            require_launches(counts[1], ("K1", "X1", "X2"),
+                             "model E replay at 2048",
+                             exactly={"K1": 1, "X1": 1, "X2": 3})
+        read.setdefault("launches", {})[bs] = {
+            k: c for k, c in counts[1].items() if c}
+    per_mode = {}
+    for _, m in eng._programs:
+        per_mode[m] = per_mode.get(m, 0) + 1
+    require(eng.stats["compiles"] == len(eng._programs) == 14
+            and all(c <= len(buckets) for c in per_mode.values()),
+            f"programs {per_mode}, {eng.stats}")
+    log(f"model E at every bucket {buckets}: the replay == the eager "
+        f"forward as bits (output, concat, pooled), on the capture's batch "
+        f"and on its rows permuted, each launching what the "
+        f"eager pass did {read['launches']}; programs {per_mode} "
+        f"(stats['compiles'] {eng.stats['compiles']})")
+
+    # ---- pooled == the oracle through a replay ---------------------------
+    for _ in range(2):
+        out = eng.predict(served["batch_small"], return_pooled=True)
+    check_pooled(served["ref"], out, "model E, batch 512, replayed")
+
+    # ---- updates after capture, served by the next replay ----------------
+    p = preps[2048]
+    before = served_outputs(eng.dispatch(p, mode))
+    rng = np.random.default_rng(60)
+    for tname in UPDATE_TABLES[:2]:
+        vocab, dim = np_params["tables"][tname].shape
+        eng.update_table_rows(tname, np.arange(vocab), rng.standard_normal(
+            (vocab, dim), dtype=np.float32))
+    after = served_outputs(eng.dispatch(p, mode))
+    require(same_bits(after, eager_outputs(torch, eng, p, mode))
+            and not np.array_equal(after["output"], before["output"]),
+            "update_table_rows after capture: the replay != the eager "
+            "forward, or did not change")
+    for tname in UPDATE_TABLES[:2]:
+        vocab = np_params["tables"][tname].shape[0]
+        eng.update_table_rows(tname, np.arange(vocab),
+                              np_params["tables"][tname])
+    require(same_bits(served_outputs(eng.dispatch(p, mode)), before),
+            "the tables written back: the replay != before the update")
+    log(f"update_table_rows after capture ({', '.join(UPDATE_TABLES[:2])}, "
+        "every row): the next replay == the eager forward on the new "
+        "rows; written back, == before")
+    read["phase_s"] = time.perf_counter() - t_phase
+    log(f"graph phases: {read['phase_s']:.1f} s")
+    return read
+
+
 def runtime_phases(torch, model, np_params, served):
     """The serving runtime and the parameter lifecycle at model E's full
     width, one engine at a time: pipeline, MicroBatcher, the tower's row
@@ -3269,6 +3529,8 @@ def runtime_phases(torch, model, np_params, served):
     eng = Engine(model, EngineConfig(), params=np_params)
     torch.cuda.synchronize()
     log(f"Engine(model E, EngineConfig()): {time.perf_counter() - t:.1f} s")
+    print_json("graph phases (model E, NVIDIA card above)",
+               graph_phases(torch, eng, np_params, served))
     counts = {"pipeline": pipeline_phase(torch, eng, base)}
     microbatch_phase(torch, eng, base)
     tower_cost(torch, eng, ((512, served["batch_small"]),

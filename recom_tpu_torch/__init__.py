@@ -9,6 +9,9 @@ package name of their imports.  What runs on the device is rewritten:
   runtime/executor.py   Engine: host prep -> one H2D copy -> lookups -> tower;
                         dispatch (asynchronous, pinned copies),
                         update_table_rows, reload_params
+  runtime/graphs.py     Program: one captured CUDA graph per (shape
+                        signature, outputs) on the card, which every
+                        request after the first replays
   runtime/server.py     ServingPipeline, throughput_under_sla
   parallel/             serving on a ("data", "model") mesh of
                         torch.distributed ranks: make_mesh, the psum path

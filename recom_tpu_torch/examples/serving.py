@@ -5,7 +5,8 @@ SLA report.
 The port of examples/serving.py.  The full serving lifecycle on one card:
   1. build the engine
   2. Engine.warmup(): one forward per batch bucket before traffic (each
-     kernel built, the allocator's cache filled)
+     kernel built, the allocator's cache filled; on the card each
+     bucket's CUDA graph captured, which later requests replay)
   3. ServingPipeline: host prep of request k+1 overlaps the card's step k;
      the first request's pooled outputs held bit for bit to the oracle
   4. online refresh mid-traffic: Engine.update_table_rows (stream fresh

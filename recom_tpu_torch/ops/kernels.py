@@ -17,14 +17,21 @@ Every entry point returns the ``cudaError_t`` of its launch, which
 kernel (the forwards K1, K2, X1, X2, the stored-dtype variants K1-bf16,
 K2-bf16, X1-bf16 and X1-int8, and the backwards K3a, K3b, X1b): a
 wrapper adds one where it launches, and nowhere else, so a run can show that
-a path went through its kernels.
+a path went through its kernels.  Only launches that run on the card count:
+while a CUDA graph is captured (``recording``) the calling thread's launches
+queue nothing and are recorded instead; the kernel nodes of the captured
+graph, named by ``kernel_of``, must be those launches, and each replay of
+the graph adds them (``add_launches``; runtime/graphs.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -80,11 +87,94 @@ launches: Dict[str, int] = {kid: 0 for kid in KERNELS}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+# per thread: the launches recorded by the capture under way, if any
+_capturing = threading.local()
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """Within it, this thread's launches are recorded in the yielded dict
+    ({kernel id: launches}) instead of counted: the capture of a CUDA
+    graph, whose launches run only when it is replayed.  A recording
+    within another adds what it recorded to the outer one when it ends."""
+    counts: Dict[str, int] = {}
+    outer = getattr(_capturing, "counts", None)
+    _capturing.counts = counts
+    try:
+        yield counts
+    finally:
+        _capturing.counts = outer
+        if outer is not None:
+            for kid, n in counts.items():
+                outer[kid] = outer.get(kid, 0) + n
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count the launches ``counts`` of a graph's replay."""
+    for kid, n in counts.items():
+        launches[kid] += n
+
+
+# the __global__ functions of csrc/ by their demangled names, as a CUDA
+# graph's kernel nodes and the profiler name them: (pattern, kernel id), the
+# first match wins; the template arguments tell the stored dtypes (unsigned
+# short / uint2: bf16 units; pooled_gather_kernel<0, 1, 2>: f32, bf16,
+# int8) and K3a from K3b (onehot_grad_kernel<kBucketize, ...>) apart
+_FUNCTIONS = tuple((re.compile(p), kid) for p, kid in (
+    (r"\bonehot_lookup_kernel<\w+, (unsigned short|uint2),", "K1-bf16"),
+    (r"\bonehot_lookup_kernel<", "K1"),
+    (r"\bonehot_bucketize_kernel<\w+, (unsigned short|uint2),", "K2-bf16"),
+    (r"\bonehot_bucketize_kernel<", "K2"),
+    (r"\bpooled_gather_kernel<(\([^<>]*\))?0>", "X1"),
+    (r"\bpooled_gather_kernel<(\([^<>]*\))?1>", "X1-bf16"),
+    (r"\bpooled_gather_kernel<(\([^<>]*\))?2>", "X1-int8"),
+    (r"\bhash_rows_kernel<", "X2"),
+    (r"\bonehot_grad_kernel<false,", "K3a"),
+    (r"\bonehot_grad_kernel<true,", "K3b"),
+    (r"\bpooled_gather_grad_kernel\b", "X1b"),
+))
+
+
+@functools.lru_cache(maxsize=None)
+def _cxa_demangle():
+    fn = getattr(ctypes.CDLL("libstdc++.so.6"), "__cxa_demangle")
+    fn.restype = ctypes.c_void_p
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_int)]
+    free = ctypes.CDLL(None).free
+    free.argtypes = [ctypes.c_void_p]
+    return fn, free
+
+
+def demangle(name: str) -> str:
+    """The C++ name of a mangled symbol (``name`` itself if it is not
+    one)."""
+    if not name.startswith("_Z"):
+        return name
+    fn, free = _cxa_demangle()
+    status = ctypes.c_int(0)
+    out = fn(name.encode(), None, None, ctypes.byref(status))
+    if status.value != 0 or not out:
+        return name
+    try:
+        return ctypes.string_at(out).decode()
+    finally:
+        free(out)
+
+
+def kernel_of(name: str) -> Optional[str]:
+    """The kernel id whose entry point launches the device function
+    ``name`` (mangled or not), or None for a function not of csrc/."""
+    name = demangle(name)
+    for pat, kid in _FUNCTIONS:
+        if pat.search(name):
+            return kid
+    return None
 
 
 def nvcc_path() -> str:
@@ -164,14 +254,18 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(kid: str, *args) -> None:
     """Call kernel ``kid``'s entry point, raise on a launch error, and count
-    the launch."""
+    the launch (record it, under ``recording``)."""
     name, fn, _ = KERNELS[kid]
     lib = library(name)
     err = getattr(lib, fn)(*args)
     if err != 0:
         msg = lib.rt_cuda_error_string(err).decode()
         raise RuntimeError(f"kernel {kid} ({fn}) launch failed: {msg} ({err})")
-    launches[kid] += 1
+    counts = getattr(_capturing, "counts", None)
+    if counts is None:
+        launches[kid] += 1
+    else:
+        counts[kid] = counts.get(kid, 0) + 1
 
 
 def ptr(t) -> Optional[int]:

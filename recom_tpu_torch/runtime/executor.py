@@ -6,12 +6,17 @@ serving path: host prep (the copied wire/host_prep modules) -> one H2D copy
 groups, K2 for pure-bucketize one-hot groups fed raw floats, X1 for gather
 groups, X2 for device string hashing) -> each group's concat, with its
 members' post-lookup ops (PostPool) -> the tower (an MLP, or DLRM's
-``dlrm_dot`` interaction) -> outputs.  It runs eagerly: a "program" is a
-shape signature, and ``stats["compiles"]`` counts the distinct ones served
-(CUDA graphs per signature are ROADMAP Queue 1 item 6).  ``dispatch`` queues
-a forward and returns before the card finishes (the serving runtime's
-building block, runtime/server.py); ``update_table_rows`` and
-``reload_params`` write the live tensors in place.
+``dlrm_dot`` interaction) -> outputs.  On one card the forward of each
+(shape signature, outputs) is one captured CUDA graph (runtime/graphs.py),
+the counterpart of the JAX Engine's jitted program per signature: its
+first request runs the forward eagerly and captures it, every later one
+copies its inputs into the program's static buffers and replays it, and
+``stats["compiles"]`` counts the captured programs.  On the CPU and on a
+mesh the forward runs eagerly, and ``stats["compiles"]`` counts the
+signatures served.  ``dispatch`` queues a forward and returns before the
+card finishes (the serving runtime's building block, runtime/server.py);
+``update_table_rows`` and ``reload_params`` write the live tensors in
+place, so every program reads the new values.
 
 On a mesh (``EngineConfig(mesh_shape=...)``, recom_tpu/runtime/executor.py:
 169-195) every rank of a torch.distributed world builds the same Engine
@@ -66,9 +71,11 @@ from recom_tpu_torch.parallel.sharded_lookup import (
     psum_partial_args,
     stripe_rows_of,
 )
+from recom_tpu_torch.runtime.graphs import CudaCapture, Program
 from recom_tpu_torch.runtime.host_prep import PreparedBatch, prepare_batch
 from recom_tpu_torch.utils.device import resolve_device
 from recom_tpu_torch.utils.params import init_model_params
+from recom_tpu_torch.utils.tree import tree_map
 
 
 _MALLOC_TUNED = False
@@ -308,7 +315,9 @@ class InFlight:
     """A forward queued by ``Engine.dispatch``.
 
     ``outputs``: the device outputs sliced to the batch's size (``"output"``
-    and, where asked, ``"concat"`` and ``"pooled_groups"``); ``host``: the
+    and, where asked, ``"concat"`` and ``"pooled_groups"``): on the card,
+    with ``fetch``, views of the program's own outputs, which the engine's
+    next forward may overwrite; else tensors of their own; ``host``: the
     host tensors that receive them (None for ``fetch=False``); ``event``:
     recorded on the current stream after the forward and the copies (None
     on the CPU); ``seq``: the dispatch's place in the engine's order, which
@@ -382,7 +391,7 @@ class Engine:
     """Compiled recommendation-model engine on one device or on a mesh.
 
     >>> eng = Engine(model)                  # compiler pipeline + params on cuda
-    >>> out = eng.predict(raw_batch)         # host prep + eager forward
+    >>> out = eng.predict(raw_batch)         # host prep + the signature's graph
 
     ``params``: the portable numpy pytree ``{"tables", "tower"}`` (as
     ``init_model_params`` or the JAX package's ``export_params`` produce
@@ -431,10 +440,11 @@ class Engine:
         # "data" takes the structured per-array layout
         self._wire = bool(cfg.wire_pack) and self.mesh is None
         _tune_malloc_for_serving()
-        # held around every enqueue of a forward and every write of the
-        # params: on the CPU an update and a forward exclude each other; on
-        # the card a forward is enqueued wholly before or after a write, all
-        # on the one current stream
+        # held around every enqueue of a forward (a program's capture and
+        # each replay too) and every write of the params: on the CPU an
+        # update and a forward exclude each other; on the card a forward is
+        # enqueued wholly before or after a write, all on the one current
+        # stream
         self._dispatch_lock = threading.Lock()
 
         np_params = params if params is not None else init_model_params(model)
@@ -451,8 +461,12 @@ class Engine:
                                          device=self.device)
         self._triu = self._build_triu()
         self._rowlen_hints: Dict[int, int] = {}
-        self._programs = set()      # (signature, mode) keys served
-        self._programs_lock = threading.Lock()
+        # (signature, mode) -> its captured Program on one card; -> None
+        # (a signature served eagerly) on the CPU and on a mesh
+        self._programs: Dict = {}
+        self._capture = (CudaCapture(self.device)
+                         if self.device.type == "cuda" and self.mesh is None
+                         else None)
         self.stats = {"calls": 0, "compiles": 0}
         from recom_tpu_torch.utils.logging import Logger, StageTimer
 
@@ -1007,8 +1021,17 @@ class Engine:
         return all_gather(self.mesh, x, self._axes()[0]).flatten(0, 1)
 
     def to_device(self, prepared: PreparedBatch) -> Dict:
-        """The prepared host arrays as device tensors (``_stage``)."""
-        return self._stage(prepared)[0]
+        """The prepared host arrays as device tensors (``_stage``, then
+        ``_on_device``)."""
+        return self._on_device(self._stage(prepared)[0])
+
+    def _on_device(self, arrays: Dict) -> Dict:
+        """``_stage``'s arrays on the engine's device: from pinned memory
+        each crosses with ``non_blocking=True``, so the call returns once
+        the copy is queued (the caching host allocator keeps a staged block
+        until its copy is done); on the CPU, the arrays themselves."""
+        return tree_map(lambda t: t.to(self.device, non_blocking=True),
+                        arrays)
 
     def shard_batch_arrays(self, arrays: Dict) -> Dict:
         """On a mesh, the rank's slice of prepared host arrays over the
@@ -1034,13 +1057,12 @@ class Engine:
                            for g in arrays["groups"]]}
 
     def _stage(self, prepared: PreparedBatch) -> Tuple[Dict, List]:
-        """(device arrays, staged host tensors) of a prepared batch: the
-        wire blob crosses as ONE copy, structured arrays one copy each.  On
-        the card each array is first copied into pinned host memory and
-        crosses with ``non_blocking=True``, so the call returns once the
-        copy is queued; PyTorch's caching host allocator keeps a staged
-        block until its copy is done.  On the CPU the arrays are used as
-        they are.  On a mesh only the rank's data slice crosses
+        """(staged arrays, the staged host tensors) of a prepared batch: the
+        wire blob as ONE array, structured arrays one each.  On the card
+        each array is copied into pinned host memory, from which
+        ``_on_device`` or ``Program.load`` copies it with
+        ``non_blocking=True``.  On the CPU the arrays are used as they are.
+        On a mesh only the rank's data slice is staged
         (``shard_batch_arrays``)."""
         staged: List[torch.Tensor] = []
 
@@ -1051,7 +1073,7 @@ class Engine:
             pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             pinned.copy_(t)
             staged.append(pinned)
-            return pinned.to(self.device, non_blocking=True)
+            return pinned
 
         a = self.shard_batch_arrays(prepared.arrays)
         if "blob" in a:
@@ -1115,11 +1137,15 @@ class Engine:
         """Queue one prepared batch's forward and return before the device
         finishes: the port's counterpart of the reference pipeline's jitted
         call plus ``jax.block_until_ready`` (recom_tpu/runtime/server.py:
-        248-261).  The inputs cross from pinned memory (``_stage``); the
-        forward is queued under the engine's lock; with ``fetch`` each
-        output (``mode``: ``"concat"``, ``"pooled"`` besides ``"output"``)
-        is copied into pinned host memory by a non-blocking copy; an event
-        is recorded after them.  No host sync on the card.  On the CPU the
+        248-261).  The inputs are staged in pinned memory (``_stage``);
+        under the engine's lock they are copied into the static inputs of
+        the (signature, mode)'s program and it is replayed (``_run``: the
+        first request of a signature captures it, a host sync); with
+        ``fetch`` each output (``mode``: ``"concat"``, ``"pooled"`` besides
+        ``"output"``) is copied into pinned host memory by a non-blocking
+        copy, and without it each is cloned, since the program's next
+        replay overwrites its outputs; an event is recorded after them.  No
+        host sync on the card once the program exists.  On the CPU the
         forward runs to its end in the call.  ``InFlight.result()`` waits
         and returns what ``predict_prepared`` returns.
 
@@ -1131,18 +1157,19 @@ class Engine:
         once at the lossless capacity (``stats["a2a_recomputes"]``);
         ``InFlight.check_overflow`` applies "warn" and "raise"."""
         mode = tuple(mode)
-        self._note_program(prepared.signature, mode)
         t0 = time.perf_counter()
+        graphed = self._capture is not None
         arrays, staged = self._stage(prepared)
         b = prepared.batch_size
         cuda = self.device.type == "cuda"
         host = event = None
         with self._dispatch_lock, torch.inference_mode():
-            dev_out = self._forward(arrays, prepared.signature, mode)
+            dev_out = self._run(arrays, prepared.signature, mode)
             overflow = int(dev_out.get("a2a_overflow", 0))
             recomputed = bool(overflow) and self._overflowed(overflow)
             if recomputed:
-                dev_out = self._forward(arrays, prepared.signature, mode,
+                dev_out = self._forward(self._on_device(arrays),
+                                        prepared.signature, mode,
                                         lossless=True)
             outputs = {"output": dev_out["output"][:b]}
             if "concat" in mode:
@@ -1150,6 +1177,10 @@ class Engine:
             if "pooled" in mode:
                 outputs["pooled_groups"] = [p[:b]
                                             for p in dev_out["pooled_groups"]]
+            if graphed and not (cuda and fetch):
+                # a program's outputs are its own: its next replay
+                # overwrites them
+                outputs = tree_map(torch.clone, outputs)
             if cuda:
                 # the copies and the event queue under the lock too, so the
                 # events of successive dispatches follow their order
@@ -1184,16 +1215,35 @@ class Engine:
         return True
 
     # ------------------------------------------------------------------
-    def _note_program(self, signature, mode=()) -> None:
-        """Count a (shape signature, outputs) pair the first time it is
-        served: the eager engine's counterpart of the reference's jit cache
-        (recom_tpu/runtime/executor.py:661-680), whose size the batch and
-        rowlen buckets bound."""
-        key = (signature, tuple(sorted(mode)))
-        with self._programs_lock:
+    def _run(self, arrays, signature, mode=()):
+        """The forward of one staged batch, queued on the current stream;
+        the caller holds ``_dispatch_lock``, under inference mode.  The
+        port's counterpart of the reference's jit cache (recom_tpu/runtime/
+        executor.py:661-680), whose size the batch and rowlen buckets
+        bound: on one card the (signature, mode)'s ``Program``, captured
+        at its first use (whose eager pass serves that use) and replayed
+        after it on ``arrays`` (``_stage``'s pinned host arrays); on the
+        CPU and on a mesh ``_forward`` on ``arrays`` put on the device, the
+        signature noted.  Either way ``stats["compiles"]`` counts the keys
+        new to the engine.  Returns the forward's outputs: a replay's are
+        the program's own."""
+        mode = tuple(sorted(mode))
+        key = (signature, mode)
+        if self._capture is None:
             if key not in self._programs:
-                self._programs.add(key)
+                self._programs[key] = None
                 self.stats["compiles"] += 1
+            return self._forward(self._on_device(arrays), signature, mode)
+        prog = self._programs.get(key)
+        if prog is not None:
+            prog.load(arrays)
+            return prog.replay()
+        prog, out = Program.capture(
+            self._capture, self.device, arrays,
+            lambda a: self._forward(a, signature, mode))
+        self._programs[key] = prog
+        self.stats["compiles"] += 1
+        return out
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -1237,9 +1287,11 @@ class Engine:
         }
 
     def warmup(self, batches=None, batch_sizes=None) -> int:
-        """Serve one forward per shape signature ahead of traffic: the
-        first launch of each kernel builds it (nvcc) and the first of each
-        shape fills the allocator's cache.
+        """Serve one forward per shape signature ahead of traffic, so that
+        live requests replay programs: on one card each new signature's
+        forward runs eagerly (the first launch of each kernel builds it,
+        with nvcc, and the first of each shape fills the allocator's cache)
+        and is captured; a signature already captured is replayed.
 
         * ``batches``: representative raw batches; they also seed the
           rowlen hints, so the first live request skips the counting scan.
@@ -1248,7 +1300,7 @@ class Engine:
           only the host-hash signature, which empty arrays give).
         * neither: every batch bucket of the config.
 
-        Returns the number of signatures new to the engine."""
+        Returns the number of programs new to the engine."""
         before = self.stats["compiles"]
         if batches is not None:
             prepared = [self.prepare(b) for b in batches]
@@ -1267,16 +1319,17 @@ class Engine:
             ]
         with self._dispatch_lock, torch.inference_mode():
             for p in prepared:
-                self._note_program(p.signature)
-                self._forward(self.to_device(p), p.signature)
+                self._run(self._stage(p)[0], p.signature)
         self._sync()
         return self.stats["compiles"] - before
 
     def benchmark(self, batch, iters: int = 100,
                   warmup: int = 10) -> Dict[str, float]:
-        """Steady-state time of one step over pre-prepared inputs: H2D copy
-        plus device forward, ended by a device synchronize (the reference
-        protocol: warm up, then the mean of ``iters`` timed steps).
+        """Steady-state time of one step over pre-prepared inputs: staging,
+        H2D copy and device forward (on one card the replay of the
+        signature's program, captured in the first warm-up step), ended by
+        a device synchronize (the reference protocol: warm up, then the
+        mean of ``iters`` timed steps).
 
         ``batch`` may be a list of batches: the timed steps then rotate
         over those whose signature matches the first (warmed on the first,
@@ -1288,15 +1341,14 @@ class Engine:
             if not prepped or p.signature == prepped[0].signature:
                 prepped.append(p)
         sig, b0 = prepped[0].signature, prepped[0].batch_size
-        self._note_program(sig)
         timed = prepped[1:] if len(prepped) > 1 else prepped
         with self._dispatch_lock, torch.inference_mode():
             for _ in range(warmup + 1):
-                self._forward(self.to_device(prepped[0]), sig)
+                self._run(self._stage(prepped[0])[0], sig)
             self._sync()
             t0 = time.perf_counter()
             for i in range(iters):
-                self._forward(self.to_device(timed[i % len(timed)]), sig)
+                self._run(self._stage(timed[i % len(timed)])[0], sig)
             self._sync()
         dt = (time.perf_counter() - t0) / iters
         return {"latency_ms": dt * 1e3, "examples_per_s": b0 / dt}
@@ -1307,8 +1359,9 @@ class Engine:
         write a portable pytree (the constructor's ``params``, or
         ``checkpoint.load_checkpoint``'s output) into the live tensors IN
         PLACE, so a ``Trainer`` whose optimizer holds them keeps stepping
-        them, every ``data_ptr()`` stays and no program is new
-        (``stats["compiles"]`` does not move).  The stored tensors are made
+        them, every ``data_ptr()`` stays (so the captured programs read the
+        new values) and no program is new (``stats["compiles"]`` does not
+        move).  The stored tensors are made
         as the constructor makes them (stored dtype, emb-perm fold), one
         member table at a time (``_write_tables``), each copy under the
         lock: a request served during the reload sees each table whole, old
