@@ -144,6 +144,19 @@ optimizer=dlrm_optimizer())`` on the card:
   (``make_dlrm_model(880, 0, 0, 0, 0, 32, [32], [1024, 1024, 128])``) with
   ``host_bucketize=False`` (forward K2, backward K3b), three steps.
 
+On one card each training step runs through one captured CUDA graph per
+shape signature (``Trainer._programs``): forward, loss, backward and the
+optimizer's update, its first step an eager pass plus the capture.
+``train_program_gate`` holds the captured step to an eager twin (the same
+params, ``_capture = None``) as bits after 3 steps (every loss, param and
+optimizer state leaf) at each of model E's 7 batch buckets, on the Criteo
+DLRM at 512 and 2048 and on bucketize-880 at 2048, each program's kernel
+nodes read back and equal to its recorded launches (K3a / K3b / X1b
+among them); ``step_times`` times the two in turns (host p50, the eager
+step's forward / backward / optimizer split, the captured graph's device
+time), and the gate reads the first step of each signature and the
+reserved memory of each trainer.
+
 Last, the Criteo DLRM (``make_criteo_dlrm()``: 26 columns at d = 64, 1.90
 GB of tables, a ``dlrm_dot`` tower) at full width, on batches shaped as
 ``read_criteo_tsv`` gives them (``criteo_batch``: each cat id a uniform
@@ -265,8 +278,10 @@ It checks:
    cotangents and tower gradients within 1e-5, table gradients equal to
    the bit to the CPU's backward of the card's cotangents);
 6. median ``predict`` latency of each path, ``Engine.benchmark``'s step
-   time on the microbenchmark, and the median training step time with its
-   forward / backward / optimizer split (CUDA events) and peak memory.
+   time on the microbenchmark, and the median training step time, eager
+   and captured in turns, with the eager step's forward / backward /
+   optimizer split and the captured graph's device time (CUDA events) and
+   peak memory.
 
 The last lines of stdout are one JSON object for the kernels (each also
 under ``criteo`` where the Criteo DLRM's path runs it, and with its
@@ -2172,9 +2187,11 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     """Phases 7-10: train model E (default config, dlrm_optimizer) and the
     880-column bucketize model (host_bucketize=False) on the card; hold
     the backward kernels K3a, K3b and X1b against their plain versions at
-    the path's shapes and on edge inputs, and time them.  Returns the
-    kernels' results and the launch counts of one counted step of each
-    path."""
+    the path's shapes and on edge inputs, and time them; hold each path's
+    captured training step to the eager one (``train_program_gate``: model
+    E at every batch bucket).  Returns the kernels' results, the launch
+    counts of one counted (replayed) step of each path and the step
+    readings."""
     import numpy as np
 
     from recom_tpu_torch import EngineConfig
@@ -2195,6 +2212,7 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     )
     from recom_tpu_torch.oracle.reference import run_mlp
     from recom_tpu_torch.runtime.wire import unpack_blob
+    from recom_tpu_torch.runtime.graphs import CudaCapture
     from recom_tpu_torch.train import Trainer, dlrm_optimizer
     from recom_tpu_torch.utils.params import init_model_params
 
@@ -2211,7 +2229,11 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     tr = Trainer(model, EngineConfig(), optimizer=dlrm_optimizer(),
                  params=np_params)
     torch.cuda.synchronize()
-    require(tr.engine.device.type == "cuda", "Trainer defaults to CUDA")
+    require(tr.engine.device.type == "cuda"
+            and isinstance(tr._capture, CudaCapture)
+            and tr._capture is not tr.engine._capture,
+            "Trainer defaults to CUDA, steps through captured programs in a "
+            "pool of its own")
     log(f"Trainer(model E, EngineConfig(), dlrm_optimizer()): "
         f"{time.perf_counter() - t:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
@@ -2221,9 +2243,12 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     # Adam's first step moves every weight of the 1024-wide layers by
     # 1e-3 the same way, and the loss jumps 20x (on the CPU too, with the
     # plain versions); at 1e-5 it falls step after step
-    tr_bz = Trainer(bz_model, EngineConfig(host_bucketize=False),
-                    optimizer=dlrm_optimizer(table_lr=1e-3, tower_lr=1e-5),
-                    params=init_model_params(bz_model))
+    bz_params = init_model_params(bz_model)
+    tr_bz, tr_bz_eager = (
+        Trainer(bz_model, EngineConfig(host_bucketize=False),
+                optimizer=dlrm_optimizer(table_lr=1e-3, tower_lr=1e-5),
+                params=bz_params) for _ in range(2))
+    tr_bz_eager._capture = None
     eng, eng_bz = tr.engine, tr_bz.engine
 
     # ---- phase 8: the backward kernels against their plain versions -------
@@ -2374,46 +2399,77 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     log(f"model E, step 1 (batch 512): loss {loss0:.6f}, the oracle's BCE "
         f"{want:.6f} (within rtol 1e-4); predict after the step differs")
     lab_big = rng.integers(0, 2, 2048).astype(np.float32)
+    path_e = dict(exactly={"K1": 1, "X1": 1, "X2": 3, "K3a": 1, "X1b": 1})
     kernels.reset_launches()
-    losses = [tr.step(batch_big, lab_big)]
+    losses = [tr.step(batch_big, lab_big)]      # eager pass + capture
+    torch.cuda.synchronize()
+    counts_first = dict(kernels.launches)
+    require_launches(counts_first, ("K1", "X1", "X2", "K3a", "X1b"),
+                     "training, model E, a signature's first step", **path_e)
+    # the main path of training: a step replaying its captured program
+    kernels.reset_launches()
+    losses.append(tr.step(batch_big, lab_big))
     torch.cuda.synchronize()
     counts_train = dict(kernels.launches)
-    log(f"launches in one training step (model E, batch 2048): "
+    log(f"launches in one training step (model E, batch 2048): the "
+        f"signature's first (eager pass + capture) "
+        f"{ {k: n for k, n in counts_first.items() if n} }, a replayed one "
         f"{counts_train}")
     require_launches(counts_train, ("K1", "X1", "X2", "K3a", "X1b"),
-                     "training, model E",
-                     exactly={"K1": 1, "X1": 1, "X2": 3, "K3a": 1, "X1b": 1})
-    losses += [tr.step(batch_big, lab_big) for _ in range(4)]
+                     "training, model E, a replayed step", **path_e)
+    losses += [tr.step(batch_big, lab_big) for _ in range(3)]
     require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
             f"model E losses on one batch do not decrease: {losses}")
     log(f"model E, 5 steps on one batch of 2048: losses {losses}")
-    step_times(torch, tr, "model E", ((512, batch_small, lab_small),
-                                      (2048, batch_big, lab_big)))
     log(f"peak device memory (model E training): "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del tr, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 9b: model E's captured step == the eager step, every bucket -
+    torch.cuda.reset_peak_memory_stats()
+    pair_e = tuple(Trainer(model, EngineConfig(), optimizer=dlrm_optimizer(),
+                           params=np_params) for _ in range(2))
+    pair_e[1]._capture = None
+    buckets = tuple(pair_e[0].engine.config.batch_buckets)
+    require(len(buckets) == 7 and buckets[-1] == 2048,
+            f"model E's batch buckets {buckets}")
+    gate_e = train_program_gate(
+        torch, *pair_e, [(bs, shuffled(batch_big, bs, seed=300 + bs))
+                         for bs in buckets],
+        "model E, dlrm_optimizer", ("K3a", "X1b"))
+    times_e = step_times(torch, pair_e, "model E",
+                         ((512, batch_small, lab_small),
+                          (2048, batch_big, lab_big)))
+    log(f"peak device memory (model E, a captured and an eager trainer): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del pair_e
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ---- phase 10: training path 2, 880 bucketize columns (K2, K3b) --------
     b2 = make_random_batch(bz_model, 2048, seed=5)
     lab2 = rng.integers(0, 2, 2048).astype(np.float32)
-    losses = []
-    for _ in range(3):
-        kernels.reset_launches()
-        losses.append(tr_bz.step(b2, lab2))
-        torch.cuda.synchronize()
-        counts_bz = dict(kernels.launches)
+    gate_bz = train_program_gate(torch, tr_bz, tr_bz_eager, [(2048, b2)],
+                                 "bucketize-880, host_bucketize=False",
+                                 ("K3b",))
+    for counts_bz in gate_bz["counts"]:
         require_launches(counts_bz, ("K2", "K3b"), "training, bucketize-880",
                          exactly={"K2": 1, "K3b": 1})
+    losses = gate_bz["losses"]
     log(f"launches in each of 3 training steps (bucketize-880, batch "
-        f"2048): {counts_bz}")
+        f"2048; a capture and two replays): {counts_bz}")
     require(bool(np.isfinite(losses).all())
             and all(b < a for a, b in zip(losses, losses[1:])),
             f"bucketize-880 losses on one batch do not decrease: {losses}")
-    log(f"bucketize-880, 3 steps on one batch of 2048: losses {losses}")
-    step_times(torch, tr_bz, "bucketize-880", ((2048, b2, lab2),))
+    log(f"bucketize-880, 3 steps on one batch of 2048 (its rows in three "
+        f"orders): losses {losses}")
+    times_bz = step_times(torch, (tr_bz, tr_bz_eager), "bucketize-880",
+                          ((2048, b2, lab2),))
     return dict(results=results, counts_train=counts_train,
-                counts_bz=counts_bz)
+                counts_bz=counts_bz, gate_e=gate_e, times_e=times_e,
+                gate_bz=gate_bz, times_bz=times_bz)
 
 
 def _with_pooled(tr, batch, labels):
@@ -2803,13 +2859,26 @@ def criteo_phases(torch):
     require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
             f"Criteo losses on one batch do not decrease: {losses}")
     log(f"Criteo, 4 steps on one batch of 2048: losses {losses}")
-    step_times(torch, tr, "Criteo DLRM", ((512, batches[512], lab_small),
-                                          (2048, batches[2048], lab_big)))
     log(f"peak device memory (Criteo training and its kernel checks): "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    pair = tuple(Trainer(model, EngineConfig(),
+                         optimizer=dlrm_optimizer(tower_lr=1e-5),
+                         params=params) for _ in range(2))
+    pair[1]._capture = None
+    gate = train_program_gate(torch, *pair, list(batches.items()),
+                              "Criteo DLRM", ("K3a", "X1b"))
+    times = step_times(torch, pair, "Criteo DLRM",
+                       ((512, batches[512], lab_small),
+                        (2048, batches[2048], lab_big)))
+    del pair
     launches = {"K1": serve_counts["K1"], "X1": serve_counts["X1"],
                 "K3a": train_counts["K3a"], "X1b": train_counts["X1b"]}
-    return {k: dict(results[k], launches=launches[k]) for k in launches}
+    out = {k: dict(results[k], launches=launches[k]) for k in launches}
+    out["training"] = {"gate": gate, "times": times}
+    return out
 
 
 def shuffled(batch, n: int, seed: int):
@@ -3839,38 +3908,169 @@ def tools_phases(torch, model_e, params_e, base_e):
                 ragged=rag["rungs"])
 
 
-def step_times(torch, tr, name: str, cases) -> None:
-    """Median training step time (host clock around ``Trainer.step``,
-    which ends in a device sync) over 6 steps, and the device time of its
-    forward, backward and optimizer parts by CUDA events over 5 more."""
+def train_program_gate(torch, graphed, eager, cases, what: str,
+                       backward) -> dict:
+    """The captured training step against the eager one (ROADMAP item 19).
+    ``graphed`` steps through its programs (one captured CUDA graph per
+    shape signature, ``Trainer._programs``); ``eager``, built from the same
+    params and optimizer with ``_capture = None``, runs each step one
+    Python launch at a time.  At each (batch size, base batch) of
+    ``cases``: three steps on the base's rows in three orders, each with
+    its own labels (the signature's capture, then two replays that must
+    load their inputs), all of ``eager``'s first, then all of
+    ``graphed``'s.  Every loss ``==`` as bits; then every param and every
+    optimizer state leaf ``==`` as bits.  Each program's kernel nodes, read
+    back from its graph (``graphs.graph_launches``), are the launches its
+    capture recorded, among them the backward kernels ``backward``, and
+    every step counts exactly those.  Returns the readings: the losses and
+    launch counts of ``graphed``'s steps, the first step of each signature
+    and the replayed ones (host ms, ending in the loss read), and each
+    trainer's reserved device memory over its steps."""
+    import numpy as np
+
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.runtime.graphs import Program, graph_launches
+    from recom_tpu_torch.utils.tree import tree_leaves
+
+    require(graphed._capture is not None and eager._capture is None,
+            f"{what}: one captured trainer and one eager")
+    rng = np.random.default_rng(77)
+    steps = [(bs, shuffled(base, bs, seed=1000 * k + bs),
+              rng.integers(0, 2, bs).astype(np.float32))
+             for bs, base in cases for k in range(3)]
+    read = {"first_step_ms": {}, "replayed_step_ms": {}, "counts": [],
+            "losses": []}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_reserved()
+    want = [eager.step(b, lab) for _, b, lab in steps]
+    torch.cuda.synchronize()
+    read["eager_reserved_gib"] = (torch.cuda.memory_reserved()
+                                  - base_mem) / 2**30
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_reserved()
+    for i, (bs, b, lab) in enumerate(steps):
+        kernels.reset_launches()
+        t = time.perf_counter()
+        read["losses"].append(graphed.step(b, lab))
+        ms = (time.perf_counter() - t) * 1e3
+        counts = {k: n for k, n in kernels.launches.items() if n}
+        prog = graphed._programs.get(
+            (graphed.engine.prepare(b).signature, "train"))
+        require(isinstance(prog, Program), f"{what}, batch {bs}: no "
+                "captured program for the step's signature")
+        require(counts == prog.launches, f"{what}, batch {bs}, step "
+                f"{i % 3 + 1}: launches {counts}, the program holds "
+                f"{prog.launches}")
+        read["counts"].append(counts)
+        key = "first_step_ms" if i % 3 == 0 else "replayed_step_ms"
+        read[key].setdefault(bs, []).append(ms)
+    torch.cuda.synchronize()
+    read["captured_reserved_gib"] = (torch.cuda.memory_reserved()
+                                     - base_mem) / 2**30
+    require(len(graphed._programs) == len(cases), f"{what}: "
+            f"{len(graphed._programs)} programs for {len(cases)} signatures")
+    for prog in graphed._programs.values():
+        held = graph_launches(prog.graph.raw_cuda_graph())
+        require(held == prog.launches and all(
+            prog.launches.get(k, 0) >= 1 for k in backward),
+            f"{what}: a program's kernel nodes {held}, its recorded "
+            f"launches {prog.launches}, backward kernels {backward}")
+    bits = lambda x: np.float64(x).tobytes()
+    bad = [i for i, (g, w) in enumerate(zip(read["losses"], want))
+           if bits(g) != bits(w)]
+    require(not bad, f"{what}: captured losses != eager at steps {bad}: "
+            f"{[(read['losses'][i], want[i]) for i in bad[:3]]}")
+
+    def same(x, y):
+        return torch.equal(x.detach().view(torch.int32),
+                           y.detach().view(torch.int32))
+
+    leaves = list(zip(tree_leaves(graphed.params), tree_leaves(eager.params)))
+    bad = [i for i, (x, y) in enumerate(leaves) if not same(x, y)]
+    require(not bad, f"{what}: params {bad} differ from the eager "
+            "trainer's after the steps")
+    state = list(zip(graphed.optimizer.state_tensors(),
+                     eager.optimizer.state_tensors()))
+    bad = [i for i, (x, y) in enumerate(state)
+           if not (same(x, y) if isinstance(x, torch.Tensor) else x == y)]
+    require(not bad, f"{what}: optimizer state leaves {bad} differ from "
+            "the eager trainer's after the steps")
+    log(f"{what}: captured training steps == eager as bits (3 steps at "
+        f"each of batch {[bs for bs, _ in cases]}: every loss, {len(leaves)}"
+        f" params, {len(state)} optimizer state leaves); {len(cases)} "
+        f"programs, each graph's kernel nodes == its recorded launches "
+        f"({prog.launches} at batch {cases[-1][0]}), counted by each step; "
+        f"first step of a signature (eager pass + capture) ms "
+        + ", ".join(f"{bs}: {v[0]:.1f}" for bs, v in
+                    read["first_step_ms"].items())
+        + "; replayed ms " + ", ".join(
+            f"{bs}: {statistics.median(v):.2f}" for bs, v in
+            read["replayed_step_ms"].items())
+        + f"; reserved memory over the steps: eager "
+        f"{read['eager_reserved_gib']:.3f} GiB, captured "
+        f"{read['captured_reserved_gib']:.3f} GiB")
+    return read
+
+
+def step_times(torch, pair, name: str, cases) -> dict:
+    """Training step times of a (captured, eager) pair of Trainers on the
+    same model (``train_program_gate``'s).  For each (batch size, batch,
+    labels): the median step time over 6 rounds, the two trainers in
+    turns (host clock around ``Trainer.step``, which ends in the loss
+    read: host prep + H2D + forward + backward + optimizer); the eager
+    step's forward / backward / optimizer device split (CUDA events,
+    median of 5); and the captured step's device time, its graph
+    replayed alone between CUDA events (mean of 5), queued behind a sleep
+    kernel and host-paced.  Returns the readings."""
+    graphed, eager = pair
+    read = {}
     for bs, batch, labels in cases:
-        host = []
-        for _ in range(6):
-            t = time.perf_counter()
+        for tr in pair:            # a new signature captures here
             tr.step(batch, labels)
-            torch.cuda.synchronize()
-            host.append((time.perf_counter() - t) * 1e3)
+        host = {"eager": [], "captured": []}
+        for _ in range(6):
+            for kind, tr in (("eager", eager), ("captured", graphed)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                tr.step(batch, labels)
+                torch.cuda.synchronize()
+                host[kind].append((time.perf_counter() - t) * 1e3)
         parts = []
         for _ in range(5):
-            prepared = tr.engine.prepare(batch)
+            prepared = eager.engine.prepare(batch)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             ev[0].record()
-            tr.optimizer.zero_grad(set_to_none=True)
-            loss = tr.loss(prepared, labels)
+            eager.optimizer.zero_grad(set_to_none=True)
+            loss = eager.loss(prepared, labels)
             ev[1].record()
             loss.backward()
             ev[2].record()
-            tr.optimizer.step()
+            eager.optimizer.step()
             ev[3].record()
             torch.cuda.synchronize()
             parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
         fwd, bwd, opt = (statistics.median(p[i] for p in parts)
                          for i in range(3))
-        log(f"{name}: training step batch {bs}: median {statistics.median(host):.3f} "
-            f"ms (min {min(host):.3f}, max {max(host):.3f}, 6 steps; host "
-            f"prep + H2D + forward + backward + optimizer); CUDA events, "
-            f"median of 5: forward {fwd:.3f} ms, backward {bwd:.3f} ms, "
-            f"optimizer {opt:.3f} ms")
+        prog = graphed._programs[(graphed.engine.prepare(batch).signature,
+                                  "train")]
+        queued = time_ms(torch, prog.graph.replay, iters=5, warmup=1)
+        paced = time_ms(torch, prog.graph.replay, iters=5, warmup=1,
+                        queued=False)
+        e, c = (statistics.median(host[k]) for k in ("eager", "captured"))
+        read[bs] = {"eager_ms": e, "captured_ms": c, "forward_ms": fwd,
+                    "backward_ms": bwd, "optimizer_ms": opt,
+                    "replay_queued_ms": queued, "replay_paced_ms": paced}
+        log(f"{name}: training step batch {bs}: median eager {e:.3f} ms "
+            f"(min {min(host['eager']):.3f}, max {max(host['eager']):.3f}), "
+            f"captured {c:.3f} ms (min {min(host['captured']):.3f}, max "
+            f"{max(host['captured']):.3f}), 6 steps each in turns; eager "
+            f"device split (CUDA events, median of 5): forward {fwd:.3f} "
+            f"ms, backward {bwd:.3f} ms, optimizer {opt:.3f} ms (sum "
+            f"{fwd + bwd + opt:.3f}); the captured step's graph replayed "
+            f"alone: {queued:.3f} ms queued, {paced:.3f} ms host-paced "
+            "(mean of 5)")
+    return read
 
 
 # ---------------------------------------------------------------------------
@@ -4203,6 +4403,9 @@ def mesh_train_refs(torch, model, np_params, base) -> dict:
               .astype(np.float32) for i in range(MESH_TRAIN_STEPS)]
     tr = Trainer(model, EngineConfig(),
                  optimizer=dlrm_optimizer(**MESH_TRAIN_OPT), params=np_params)
+    # eager, as the mesh Trainers step: a captured step keeps no .grad,
+    # and step 1's gradients are read below
+    tr._capture = None
     eng = tr.engine
     gi, g = big_group(eng)
     big = str(g.gid)
@@ -5798,12 +6001,15 @@ def main() -> int:
     elapsed("mesh phases")
     trained = train_phases(torch, model, np_params, served["batch_small"],
                            served["batch_big"], served["ref"])
+    print_json("training programs (model E, bucketize-880)", {
+        k: trained[k] for k in ("gate_e", "times_e", "gate_bz", "times_bz")})
     elapsed("training phases")
     gc.collect()
     torch.cuda.empty_cache()
 
     # ---- the Criteo DLRM at full width -------------------------------------
     criteo = criteo_phases(torch)
+    print_json("training programs (Criteo DLRM)", criteo.pop("training"))
     elapsed("Criteo phases")
     gc.collect()
     torch.cuda.empty_cache()

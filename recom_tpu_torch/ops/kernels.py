@@ -18,10 +18,13 @@ kernel (the forwards K1, K2, X1, X2, the stored-dtype variants K1-bf16,
 K2-bf16, X1-bf16 and X1-int8, and the backwards K3a, K3b, X1b): a
 wrapper adds one where it launches, and nowhere else, so a run can show that
 a path went through its kernels.  Only launches that run on the card count:
-while a CUDA graph is captured (``recording``) the calling thread's launches
-queue nothing and are recorded instead; the kernel nodes of the captured
-graph, named by ``kernel_of``, must be those launches, and each replay of
-the graph adds them (``add_launches``; runtime/graphs.py).
+while a CUDA graph is captured (``recording``) the launches queued on the
+capturing stream run nothing and are recorded instead, the capturing
+thread's and any other thread's (autograd runs a captured backward on its
+own device thread); the kernel nodes of the captured graph, named by
+``kernel_of``, must be those launches, and each replay of the graph adds
+them (``add_launches``; runtime/graphs.py).  Every entry point takes its
+stream last.
 """
 
 from __future__ import annotations
@@ -89,6 +92,10 @@ _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 # per thread: the launches recorded by the capture under way, if any
 _capturing = threading.local()
+# CUDA stream handle -> the launches recorded by the capture under way on
+# that stream, for launches queued on it from other threads
+_by_stream: Dict[int, Dict[str, int]] = {}
+_by_stream_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -97,18 +104,27 @@ def reset_launches() -> None:
 
 
 @contextlib.contextmanager
-def recording():
+def recording(stream=None):
     """Within it, this thread's launches are recorded in the yielded dict
     ({kernel id: launches}) instead of counted: the capture of a CUDA
-    graph, whose launches run only when it is replayed.  A recording
-    within another adds what it recorded to the outer one when it ends."""
+    graph, whose launches run only when it is replayed.  ``stream``: the
+    capturing ``torch.cuda.Stream``, whose launches from other threads are
+    recorded here too.  A recording within another adds what it recorded
+    to the outer one when it ends."""
     counts: Dict[str, int] = {}
     outer = getattr(_capturing, "counts", None)
     _capturing.counts = counts
+    key = None if stream is None else int(stream.cuda_stream)
+    if key is not None:
+        with _by_stream_lock:
+            _by_stream[key] = counts
     try:
         yield counts
     finally:
         _capturing.counts = outer
+        if key is not None:
+            with _by_stream_lock:
+                del _by_stream[key]
         if outer is not None:
             for kid, n in counts.items():
                 outer[kid] = outer.get(kid, 0) + n
@@ -253,8 +269,9 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def launch(kid: str, *args) -> None:
-    """Call kernel ``kid``'s entry point, raise on a launch error, and count
-    the launch (record it, under ``recording``)."""
+    """Call kernel ``kid``'s entry point (``args``, its stream last), raise
+    on a launch error, and count the launch (record it, under
+    ``recording`` on this thread or on its stream)."""
     name, fn, _ = KERNELS[kid]
     lib = library(name)
     err = getattr(lib, fn)(*args)
@@ -262,6 +279,12 @@ def launch(kid: str, *args) -> None:
         msg = lib.rt_cuda_error_string(err).decode()
         raise RuntimeError(f"kernel {kid} ({fn}) launch failed: {msg} ({err})")
     counts = getattr(_capturing, "counts", None)
+    if counts is None and _by_stream:
+        with _by_stream_lock:
+            counts = _by_stream.get(args[-1])
+            if counts is not None:
+                counts[kid] = counts.get(kid, 0) + 1
+                return
     if counts is None:
         launches[kid] += 1
     else:

@@ -314,7 +314,9 @@ def _weighted_mask(weighted_cols, weights, c: int) -> np.ndarray:
     if isinstance(weighted_cols, (bool, np.bool_)):
         return np.full(c, bool(weighted_cols))
     if isinstance(weighted_cols, torch.Tensor):
-        return weighted_cols.cpu().numpy().astype(bool)
+        # the host copy kept while the tensor is unchanged: a captured
+        # backward reads no device tensor on the host
+        return _host_array(weighted_cols).astype(bool)
     return np.asarray(weighted_cols, bool)
 
 

@@ -154,13 +154,27 @@ def save_checkpoint(path: str, engine) -> None:
 
 
 def load_checkpoint(path: str) -> Tuple[ModelSpec, Dict]:
-    """Restore (model spec, numpy params pytree) from ``path``."""
+    """Restore (model spec, numpy params pytree) from ``path``.  Every tower
+    key the spec implies ("top", and "bottom" where the tower has a bottom
+    MLP, as ``init_model_params`` makes them) is in the result, an empty
+    layer list where the checkpoint stored no layer of it (a ``top_mlp=()``
+    model's npz has no key for its empty "top")."""
     with open(os.path.join(path, "model_spec.json")) as f:
         model = model_from_json(f.read())
     params_dir = os.path.join(os.path.abspath(path), "params")
     if os.path.exists(params_dir):
-        return model, load_orbax_params(params_dir)
-    npz = np.load(os.path.join(path, "params.npz"))
+        params = load_orbax_params(params_dir)
+    else:
+        params = _load_npz_params(os.path.join(path, "params.npz"))
+    for key in (("bottom",) if model.tower.bottom_mlp else ()) + ("top",):
+        params["tower"].setdefault(key, [])
+    return model, params
+
+
+def _load_npz_params(npz_path: str) -> Dict:
+    """The params pytree of ``save_checkpoint``'s ``params.npz``: the tower
+    keys that have a stored layer."""
+    npz = np.load(npz_path)
     params: Dict = {"tables": {}, "tower": {}}
     for key in npz.files:
         kind, rest = key.split("/", 1)
@@ -175,7 +189,7 @@ def load_checkpoint(path: str) -> Tuple[ModelSpec, Dict]:
             while len(layers) <= int(idx):
                 layers.append({})
             layers[int(idx)][wb] = npz[key]
-    return model, params
+    return params
 
 
 def load_orbax_params(params_dir: str) -> Dict:
@@ -185,7 +199,10 @@ def load_orbax_params(params_dir: str) -> Dict:
     ``tree_metadata``, and each leaf is a zarr array in the directory's
     OCDBT key-value store at its keys joined by ".", so "tables.<name>/"
     for a table (a name may hold "/" or ".") and
-    "tower.<key>.<layer>.<w|b>/" for a tower leaf."""
+    "tower.<key>.<layer>.<w|b>/" for a tower leaf.  An empty layer list
+    (a ``top_mlp=()`` model's "top") is a leaf of its own that orbax stores
+    no array for (value type "List", ``skip_deserialize``): it reads as
+    ``[]``, with no array opened."""
     try:
         import tensorstore as ts
     except ImportError as e:
@@ -213,6 +230,14 @@ def load_orbax_params(params_dir: str) -> Dict:
     params: Dict = {"tables": {}, "tower": {}}
     for leaf in meta["tree_metadata"].values():
         keys = [str(k["key"]) for k in leaf["key_metadata"]]
+        value = leaf.get("value_metadata", {})
+        if value.get("skip_deserialize"):
+            if value.get("value_type") != "List" or len(keys) != 2 or \
+                    keys[0] != "tower":
+                raise ValueError(f"unexpected empty leaf {keys} "
+                                 f"({value}) in {params_dir}")
+            params["tower"][keys[1]] = []
+            continue
         store = ts.open({"driver": "zarr", "kvstore": {
             "driver": "ocdbt", "base": base, "path": ".".join(keys) + "/"}},
             open=True).result()

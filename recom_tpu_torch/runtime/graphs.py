@@ -186,7 +186,8 @@ class Program:
         prog = cls(inputs, None, None, {})
         prog.load(host)
         first = capturer.warm(lambda: forward(inputs))
-        with kernels.recording() as recorded:
+        with kernels.recording(getattr(capturer, "stream", None)) \
+                as recorded:
             prog.graph, prog.outputs, held = capturer.capture(
                 lambda: forward(inputs))
         if held != recorded:

@@ -28,6 +28,15 @@ recom_tpu/train.py:98-231) every rank of a torch.distributed world builds
 the same Trainer and makes the same calls: each takes its data slice of
 the batch, labels and mask, and the collectives of the forward back
 through their transposes (``parallel.mesh``); see ``Trainer``.
+
+On one card each shape signature's step is one captured CUDA graph (a
+``runtime/graphs.Program`` keyed ``(signature, "train")``), the counterpart
+of the JAX Trainer's jitted ``train_step`` per signature
+(recom_tpu/train.py:123-140, cached at :117 and :213-216): forward, loss,
+``torch.autograd.grad``, and the optimizer's update in place.  Its first
+step is an eager pass plus the capture; every later step of the signature
+loads the batch, labels, mask and Adam's step scalars into the program's
+static inputs and replays it.  The CPU and a mesh step eagerly.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from recom_tpu_torch.config import EngineConfig
 from recom_tpu_torch.ir.spec import ModelSpec
 from recom_tpu_torch.runtime.executor import Engine
 from recom_tpu_torch.parallel.mesh import psum
+from recom_tpu_torch.runtime.graphs import CudaCapture, Program
 from recom_tpu_torch.runtime.host_prep import PreparedBatch
 from recom_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -67,7 +77,9 @@ class OptaxOptimizer(torch.optim.Optimizer):
     step ``count`` (optax's ``ScaleByAdamState.count``) and each of its
     params ``mu`` and ``nu``; a row-wise AdaGrad param its ``acc``.  A param
     with no gradient steps with a zero one, as JAX's dense cotangent
-    would."""
+    would.  Every state tensor is written in place, by ``step`` and by
+    ``load_state_leaves``, so a captured step (``apply``) reads and writes
+    the live state."""
 
     def __init__(self, param_groups: List[Dict]):
         super().__init__(param_groups, defaults={})
@@ -96,32 +108,89 @@ class OptaxOptimizer(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        self.advance()
+        self.apply([p.grad if p.grad is not None else torch.zeros_like(p)
+                    for p in self.leaves()])
+        return loss
+
+    def leaves(self) -> List[torch.Tensor]:
+        """Every param, group after group: the order ``apply`` takes the
+        gradients in."""
+        return [p for group in self.param_groups for p in group["params"]]
+
+    def advance(self) -> None:
+        """Count the step about to be applied: each Adam group's ``count``
+        (optax's, saturating at int32's largest)."""
         for group in self.param_groups:
             if group["rule"] == "adam":
                 group["count"] = min(group["count"] + 1, _INT32_MAX)
+
+    def step_scalars(self, device) -> np.ndarray:
+        """f32 ``[2 * Adam groups]``: each Adam group's two bias corrections
+        at its ``count``, as the step on ``device`` applies them with host
+        scalars (``apply`` without ``scalars``), for a step that reads them
+        on the device.  optax computes ``1 - b ** count`` in f64 (the JAX
+        Engine turns on x64), rounded to f32.  ATen divides by such a host
+        scalar on CUDA as a product with its reciprocal, rounded to f32
+        (``div_true_kernel_cuda``'s CPU-scalar branch), so on a CUDA device
+        these are the reciprocals; elsewhere it divides, and these are the
+        divisors."""
+        cuda = torch.device(device).type == "cuda"
+        out = []
+        for group in self.param_groups:
+            if group["rule"] == "adam":
+                for b in (group["b1"], group["b2"]):
+                    corr = np.float32(1 - b ** group["count"])
+                    out.append(np.float32(1) / corr if cuda else corr)
+        return np.asarray(out, np.float32)
+
+    @torch.no_grad()
+    def apply(self, grads: List[torch.Tensor], scalars=None) -> None:
+        """One update of every param from ``grads`` (one a param, in
+        ``leaves`` order), the step already counted (``advance``).
+        ``scalars``: None, and each Adam group's bias corrections are host
+        scalars from its ``count``; or ``step_scalars``' values in a tensor
+        on the params' device, read there, as a captured step must (its
+        host scalars would stay those of the step it was captured at)."""
+        grads = iter(grads)
+        k = 0
+        for group in self.param_groups:
+            corr = None
+            if group["rule"] == "adam" and scalars is not None:
+                corr, k = (scalars[k], scalars[k + 1]), k + 2
             for p in group["params"]:
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                g = next(grads)
                 if group["rule"] == "adam":
-                    self._adam(group, p, g, self.state[p])
+                    self._adam(group, p, g, self.state[p], corr)
                 else:
                     self._rowwise_adagrad(group, p, g, self.state[p],
                                           self.column_split.get(id(p)))
-        return loss
 
     @staticmethod
-    def _adam(group, p, g, st) -> None:
+    def _adam(group, p, g, st, corr=None) -> None:
         """optax.scale_by_adam, then scale by -lr, then apply_updates; the
-        group's ``count`` is this step's."""
-        b1, b2, count = group["b1"], group["b2"], group["count"]
-        mu = (1 - b1) * g + b1 * st["mu"]
-        nu = (1 - b2) * (g * g) + b2 * st["nu"]
-        # the bias corrections in f64, rounded to f32 (as optax computes
-        # them with jax_enable_x64, which the JAX Engine turns on)
-        mu_hat = mu / np.float32(1 - b1 ** count)
-        nu_hat = nu / np.float32(1 - b2 ** count)
+        group's ``count`` is this step's.  ``corr``: the bias corrections as
+        0-d device tensors (``step_scalars``), else from ``count``.  The
+        moments are written in place, each element rounded as
+        ``(1 - b) * g + b * m`` rounds it (float sums and products are
+        commutative)."""
+        b1, b2 = group["b1"], group["b2"]
+        mu = st["mu"].mul_(b1).add_((1 - b1) * g)
+        nu = st["nu"].mul_(b2).add_((1 - b2) * (g * g))
+        if corr is None:
+            # the bias corrections in f64, rounded to f32 (as optax computes
+            # them with jax_enable_x64, which the JAX Engine turns on)
+            count = group["count"]
+            mu_hat = mu / np.float32(1 - b1 ** count)
+            nu_hat = nu / np.float32(1 - b2 ** count)
+        elif p.device.type == "cuda":
+            mu_hat = mu * corr[0]
+            nu_hat = nu * corr[1]
+        else:
+            mu_hat = mu / corr[0]
+            nu_hat = nu / corr[1]
         upd = mu_hat / (torch.sqrt(nu_hat + group["eps_root"]) + group["eps"])
         p.add_(-group["lr"] * upd)
-        st.update(mu=mu, nu=nu)
 
     @staticmethod
     def _rowwise_adagrad(group, p, g, st, split=None) -> None:
@@ -130,22 +199,22 @@ class OptaxOptimizer(torch.optim.Optimizer):
         otherwise.  ``split``: (mesh, axis, d) of a table split by columns
         over ``axis``: the row's sum of squares is its columns' partial
         sums summed over the axis, then divided by the whole width d, as
-        GSPMD reduces ``jnp.mean`` of a column-sharded array."""
+        GSPMD reduces ``jnp.mean`` of a column-sharded array.  The
+        accumulator is written in place."""
         if p.dim() == 2 and split is not None:
             mesh, axis, d = split
             sq = mesh.all_reduce((g * g).sum(dim=1), axis)
-            acc = st["acc"] + sq / d
+            acc = st["acc"].add_(sq / d)
             s = torch.rsqrt(acc + group["eps"])[:, None]
         elif p.dim() == 2:
-            acc = st["acc"] + (g * g).mean(dim=1)
+            acc = st["acc"].add_((g * g).mean(dim=1))
             s = torch.rsqrt(acc + group["eps"])[:, None]
         else:
-            acc = st["acc"] + g * g
+            acc = st["acc"].add_(g * g)
             s = torch.rsqrt(acc + group["eps"])
         upd = -group["lr"] * g
         upd.mul_(s)
         p.add_(upd)
-        st["acc"] = acc
 
     def slot_params(self) -> list:
         """The param each state leaf of ``_slots`` belongs to, in that
@@ -198,8 +267,10 @@ class OptaxOptimizer(torch.optim.Optimizer):
                    for g in self.param_groups)
 
     def load_state_leaves(self, leaves: List[np.ndarray]) -> None:
-        """The inverse of ``state_leaves``, into this optimizer's state.
-        Raises ValueError on a wrong leaf count or a wrong shape."""
+        """The inverse of ``state_leaves``, into this optimizer's state:
+        each tensor written in place (a captured step reads it), each Adam
+        count set.  Raises ValueError on a wrong leaf count or a wrong
+        shape, before anything is written."""
         slots = self._slots()
         if len(slots) != len(leaves):
             old = self._old_leaf_count()
@@ -221,8 +292,9 @@ class OptaxOptimizer(torch.optim.Optimizer):
         for (d, k), arr in zip(slots, leaves):
             old = d[k]
             if isinstance(old, torch.Tensor):
-                d[k] = torch.as_tensor(arr, dtype=old.dtype,
-                                       device=old.device).clone()
+                with torch.no_grad():
+                    old.copy_(torch.as_tensor(np.asarray(arr),
+                                              dtype=old.dtype))
             else:
                 d[k] = int(arr)
 
@@ -273,6 +345,15 @@ def dlrm_optimizer(table_lr: float = 0.01,
     return make
 
 
+def _host_tensor(x: np.ndarray, pin: bool) -> torch.Tensor:
+    """``x`` as a host tensor, in pinned memory where ``pin`` (the source
+    of a non-blocking copy to the card)."""
+    t = torch.from_numpy(x)
+    if not pin:
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
 def forward_logits(engine: Engine, arrays, signature=None) -> torch.Tensor:
     """Engine forward with the final activation stripped (losses want
     logits), of the batch's rows on one device and of the rank's data
@@ -313,6 +394,15 @@ class Trainer:
     whole.  ``adam`` and row-wise AdaGrad then step each rank's leaves
     locally, except that row-wise AdaGrad on a column-split leaf sums each
     row's squares over "model" first (``OptaxOptimizer._rowwise_adagrad``).
+
+    On one card ``step`` runs through one captured CUDA graph per shape
+    signature (``_programs``, keyed ``(signature, "train")``, the
+    counterpart of the JAX Trainer's ``_step_cache``): the first step of a
+    signature is an eager pass, which serves it, then the capture; later
+    ones replay.  The graphs share one memory pool, the Trainer's own
+    (``_capture``): a replay writes nothing the Engine's serving programs
+    hold.  The CPU and a mesh step eagerly, and ``_programs`` maps each
+    key to None.
     """
 
     def __init__(
@@ -347,10 +437,33 @@ class Trainer:
                     self.optimizer.column_split[id(leaf)] = (
                         eng.mesh, model_axis, g.dim)
         self._data_axis = None if eng.mesh is None else eng._axes()[0]
+        # (signature, "train") -> its captured Program on one card; -> None
+        # (a signature stepped eagerly) on the CPU and on a mesh
+        self._programs: Dict = {}
+        self._capture = (CudaCapture(eng.device)
+                         if eng._capture is not None else None)
 
     @property
     def params(self) -> Dict:
         return self.engine.device_params
+
+    @staticmethod
+    def _labels_mask(prepared: PreparedBatch, labels):
+        """(labels, mask): f32 ``[Bp]`` host arrays, the batch's labels and
+        ones in its rows, zeros in the padding."""
+        bp, b = prepared.batch_padded, prepared.batch_size
+        lab = np.zeros((bp,), np.float32)
+        lab[:b] = np.asarray(labels, np.float32)
+        mask = np.zeros((bp,), np.float32)
+        mask[:b] = 1.0
+        return lab, mask
+
+    def _masked_loss(self, arrays, signature, lab_t, mask_t) -> torch.Tensor:
+        """The masked mean BCE on one device: the forward of the device
+        ``arrays``, labels and mask ``[Bp]`` on the device."""
+        logits = forward_logits(self.engine, arrays, signature)
+        per = sigmoid_bce(logits[:, 0], lab_t)
+        return (per * mask_t).sum() / torch.clamp(mask_t.sum(), min=1.0)
 
     def loss(self, prepared: PreparedBatch, labels) -> torch.Tensor:
         """The masked mean BCE of one prepared batch (a 0-d tensor, under
@@ -358,17 +471,14 @@ class Trainer:
         gradient is the rank's part (see the class docstring)."""
         eng = self.engine
         bp, b = prepared.batch_padded, prepared.batch_size
-        lab = np.zeros((bp,), np.float32)
-        lab[:b] = np.asarray(labels, np.float32)
-        mask = np.zeros((bp,), np.float32)
-        mask[:b] = 1.0
+        lab, mask = self._labels_mask(prepared, labels)
+        if eng.mesh is None:
+            return self._masked_loss(eng.to_device(prepared),
+                                     prepared.signature,
+                                     torch.from_numpy(lab).to(eng.device),
+                                     torch.from_numpy(mask).to(eng.device))
         logits = forward_logits(eng, eng.to_device(prepared),
                                 prepared.signature)
-        if eng.mesh is None:
-            lab_t = torch.from_numpy(lab).to(eng.device)
-            mask_t = torch.from_numpy(mask).to(eng.device)
-            per = sigmoid_bce(logits[:, 0], lab_t)
-            return (per * mask_t).sum() / torch.clamp(mask_t.sum(), min=1.0)
         n = eng.mesh.shape[self._data_axis]
         r = eng.mesh.axis_index(self._data_axis)
         cut = slice(r * (bp // n), (r + 1) * (bp // n))
@@ -401,8 +511,13 @@ class Trainer:
 
     def step(self, batch: Dict, labels) -> float:
         """One optimizer step on a raw batch; returns its loss (before the
-        update)."""
+        update).  On one card through the signature's program
+        (``_program_step``; reading the loss is the step's one host sync),
+        elsewhere eagerly."""
         prepared = self.engine.prepare(batch)
+        if self._capture is not None:
+            return float(self._program_step(prepared, labels))
+        self._programs.setdefault((prepared.signature, "train"), None)
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.loss(prepared, labels)
         loss.backward()
@@ -414,6 +529,59 @@ class Trainer:
             self.reduce_grads([p.grad for p in leaves])
         self.optimizer.step()
         return float(loss.detach())
+
+    def _program_step(self, prepared: PreparedBatch, labels) -> torch.Tensor:
+        """Queue one step through the ``(signature, "train")`` program and
+        return its loss, a 0-d device tensor: the program's static output,
+        which the next replay overwrites.  The batch's staged arrays
+        (``Engine._stage``), the labels, the mask and the Adam groups'
+        step scalars (``OptaxOptimizer.step_scalars`` after ``advance``)
+        are the program's inputs.  The first step of a signature captures
+        the program (``Program.capture``: an eager pass of ``_train_fn``,
+        which is this step, then the capture, which runs nothing); a later
+        one loads the inputs and replays it.  Holds the Engine's dispatch
+        lock: the update writes the params that its forwards read.  A
+        capture that raises, or whose graph holds other kernels than the
+        step launched, raises: nothing steps eagerly instead."""
+        eng, opt = self.engine, self.optimizer
+        if not isinstance(opt, OptaxOptimizer):
+            raise TypeError(
+                "a captured training step needs an OptaxOptimizer (adam, "
+                "rowwise_adagrad, dlrm_optimizer), got "
+                f"{type(opt).__name__}")
+        pin = eng.device.type == "cuda"
+        arrays, _ = eng._stage(prepared)
+        lab, mask = self._labels_mask(prepared, labels)
+        opt.advance()
+        host = {"arrays": arrays, "labels": _host_tensor(lab, pin),
+                "mask": _host_tensor(mask, pin),
+                "scalars": _host_tensor(opt.step_scalars(eng.device), pin)}
+        key = (prepared.signature, "train")
+        with eng._dispatch_lock:
+            prog = self._programs.get(key)
+            if prog is None:
+                prog, out = Program.capture(
+                    self._capture, eng.device, host,
+                    lambda inputs: self._train_fn(inputs, prepared.signature))
+                self._programs[key] = prog
+                return out["loss"]
+            prog.load(host)
+            return prog.replay()["loss"]
+
+    def _train_fn(self, inputs: Dict, signature) -> Dict:
+        """The step a program holds, on its static ``inputs``: the forward
+        and the masked BCE, the gradients by ``torch.autograd.grad`` (the
+        step's temporaries: no ``.grad`` is kept), and the optimizer's
+        update in place with the step scalars read on the device.
+        Returns ``{"loss": the loss before the update}``."""
+        loss = self._masked_loss(inputs["arrays"], signature,
+                                 inputs["labels"], inputs["mask"])
+        leaves = self.optimizer.leaves()
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        self.optimizer.apply(
+            [g if g is not None else torch.zeros_like(p)
+             for g, p in zip(grads, leaves)], inputs["scalars"])
+        return {"loss": loss.detach()}
 
     def _state_layout(self, p, t) -> str:
         """How a state tensor ``t`` of param ``p`` lies over the mesh:

@@ -56,8 +56,21 @@ class World:
                         daemon=True)
             for r in range(n)
         ]
-        for p in self.procs:
-            p.start()
+        # tests/test_tf_import_real.py and test_tf_ground_truth.py hide
+        # every card from the process they are collected in
+        # (CUDA_VISIBLE_DEVICES=-1, for TF), and a spawned rank inherits
+        # the environment: a card world's ranks start with the card
+        # visible, and the variable is put back as it was
+        hidden = device != "cpu" and \
+            os.environ.get("CUDA_VISIBLE_DEVICES") == "-1"
+        if hidden:
+            del os.environ["CUDA_VISIBLE_DEVICES"]
+        try:
+            for p in self.procs:
+                p.start()
+        finally:
+            if hidden:
+                os.environ["CUDA_VISIBLE_DEVICES"] = "-1"
 
     def run(self, case: str, **kwargs):
         for q in self.inqs:
@@ -394,6 +407,12 @@ def scaling(ctx, **kw):
     return sc.sweep(device=ctx.device, backend="gloo", **kw)
 
 
-CASES = {f.__name__: f for f in (op_lookup, serve, pipeline, lifecycle,
-                                 collectives, multihost, op_grad, train,
-                                 dryrun, train_multi, scaling)}
+def visible_devices(ctx):
+    """The rank's CUDA_VISIBLE_DEVICES (None where it is not set)."""
+    return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+CASES = {f.__name__: f for f in (visible_devices, op_lookup, serve,
+                                 pipeline, lifecycle, collectives, multihost,
+                                 op_grad, train, dryrun, train_multi,
+                                 scaling)}
