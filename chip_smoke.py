@@ -86,8 +86,8 @@ width, one engine at a time (``runtime_phases``):
   K1 / K1-bf16, X1 / X1-bf16 / X1-int8;
 * ``reload_params`` of seed 1's params: outputs ``==`` a fresh engine's, no
   new program, every tensor in place; and a ``Trainer`` reloaded after a
-  step steps on (its loss ``==`` a fresh Trainer's at rtol 1e-6; K3a 1 and
-  X1b 1).
+  step steps on (its loss ``==`` a fresh Trainer's at rtol 1e-6; K3a 1,
+  X1b 1 and Part 1).
 
 Then model E on meshes of ranks that share the one card
 (``mesh_phases``): the single-device engines freed, model E's seed-0
@@ -124,13 +124,14 @@ rows +0.0 by count; column slices within atol 1e-5; the tower and the
 replicated leaves within rtol 1e-5 / atol 1e-6), the three losses within
 rtol 1e-5, the params after the steps within atol 1e-5 (the stripe at
 the touched rows, 64 other rows unchanged); each step's launches asserted
-(K1 1, X1 2 or 1, K3a 1, X1b 3 under the exchange or 1 under psum) and
+(K1 1, X1 2 or 1, K3a 1, X1b 3 under the exchange or 1 under psum, a
+partition launch Part before each X1b) and
 timed (forward, backward, the gradients' all_reduce over "data",
 optimizer), with each collective's p50 and each rank's peak memory.  X1b
 in its three mesh roles (the psum path's partial sums on the stripe, the
 exchange's pool into its receive buffer, the owner's scatter into the
 stripe) is held to its plain version at those shapes and on edge inputs
-and timed.  The world of 2 also runs a ``tools.scaling`` sweep (model
+and timed, and its partition (Part) to its plain version there.  The world of 2 also runs a ``tools.scaling`` sweep (model
 axes 1 and 2, both comms), the world of 4 ``entry.dryrun_multichip(4)``
 and ``tools.train_multi`` for 4 steps on (2, 2).
 
@@ -138,8 +139,8 @@ Then it trains, through ``Trainer(...,
 optimizer=dlrm_optimizer())`` on the card:
 
 * model E with the default config (forward K1, X1, X2; backward K3a, and
-  X1b once for all three gather groups), a step at batch 512 and five at
-  2048;
+  X1b once for all three gather groups after one Part), a step at batch
+  512 and five at 2048;
 * model E's 880 bucketize columns and tower alone
   (``make_dlrm_model(880, 0, 0, 0, 0, 32, [32], [1024, 1024, 128])``) with
   ``host_bucketize=False`` (forward K2, backward K3b), three steps.
@@ -151,8 +152,8 @@ optimizer's update, its first step an eager pass plus the capture.
 params, ``_capture = None``) as bits after 3 steps (every loss, param and
 optimizer state leaf) at each of model E's 7 batch buckets, on the Criteo
 DLRM at 512 and 2048 and on bucketize-880 at 2048, each program's kernel
-nodes read back and equal to its recorded launches (K3a / K3b / X1b
-among them); ``step_times`` times the two in turns (host p50, the eager
+nodes read back and equal to its recorded launches (K3a / K3b / X1b /
+Part among them); ``step_times`` times the two in turns (host p50, the eager
 step's forward / backward / optimizer split, the captured graph's device
 time), and the gate reads the first step of each signature and the
 reserved memory of each trainer.
@@ -164,8 +165,8 @@ GB of tables, a ``dlrm_dot`` tower) at full width, on batches shaped as
 log(1 + x)): served at batch 512 and 2048 (K1 once for each of its five
 one-hot groups, X1 once), its
 four kernels held against their plain versions and timed at batch 2048,
-and trained (backward K3a once a one-hot group, X1b once), a step at 512
-and four at 2048.
+and trained (backward K3a once for its five one-hot groups, X1b once,
+each after one Part), a step at 512 and four at 2048.
 
 Then the measurement tools and entry points (``tools_phases``), each
 tool's JSON printed: ``tools/ae_sweep`` on model E at batch 32, 512 and
@@ -219,14 +220,19 @@ It checks:
    everywhere and >= 0x80, odd itemsizes, every FarmHash length and bucket
    counts 1 .. 2^31): exact equality (``==``, so +0 == -0, with NaN where
    the plain version has it for X1; as bits for K1 and K2);
-2. each backward kernel (K3a of K1, K3b of K2, X1b of X1, one launch for
-   all of model E's gather groups) at its path's shapes at batch 2048 (K3a
+2. each backward kernel (K3a of K1, one launch for every one-hot group;
+   K3b of K2; X1b of X1, one launch for all of model E's gather groups)
+   and the partition Part that lists their work items' entries (its
+   slots, values and offsets ``==`` its plain version as integers, at each
+   path's and mesh role's shapes) at its path's shapes at batch 2048 (K3a
    with missing and past-cap ids added, K3b on a plane holding NaN, +-inf,
    +-0.0 and exact boundaries; X1b also into outputs filled with NaN, so
    that every element must be written) and on edge inputs (K3a: C not a
    multiple of the columns an item takes, Bp past a stage and past a pass,
-   V_pad 384 and 2304, d 1 to 64; K3b: K2's 12 edge planes, and Bp past a
-   stage; X1b: d in {1, 3, 8, 32, 64} x L in {1, 2, 12, 33}, weighted MEAN
+   V_pad 384 and 2304, d 1 to 64, all of them in one launch, the Criteo
+   DLRM's vocabularies with a column whose 2048 entries hit one row and a
+   column with none; K3b: K2's 12 edge planes, and Bp past a stage; X1b:
+   2048 slots on one row of a dense tile and of a sparse range; d in {1, 3, 8, 32, 64} x L in {1, 2, 12, 33}, weighted MEAN
    / SQRTN, all-missing and zero-weight bags, ids at and past caps, and
    groups that mix small-vocab members (dense tiles) with large-vocab ones
    (sparse ranges), one with all its slots in one range, one hot row, one
@@ -243,8 +249,8 @@ It checks:
    bytes, or integer operations counted from this batch's pieces over the
    INT32 rate, whichever is larger); X1b also per class of member (model
    E: the small-vocab groups alone, the large-vocab group alone; Criteo:
-   its one gather group with no ids, with only its members of <= 32768
-   rows, with only the larger ones);
+   its one gather group with no ids, with only its members of dense
+   tiles, with only those of sparse ranges);
    The stored-dtype variants K1-bf16, K2-bf16, X1-bf16 and X1-int8 at
    their paths' shapes and on edge inputs: ragged tiles, bf16 rows of
    -0.0, NaN, +-inf, subnormals and rounding ties, int8 rows at -127,
@@ -260,9 +266,9 @@ It checks:
    the Criteo DLRM);
 4. that each ``predict``, pipelined request and training step (also on
    the mesh layouts, per rank) went through its path's kernels and no other (model E: one launch of X1 a predict; a training
-   step K1 1, X1 1, X2 3, K3a 1 and X1b 1; the bucketize path K2 1 and K3b
-   1 a step; Criteo: K1 5 and X1 1 a predict, and K3a 5 and X1b 1 more a
-   step; each PostPool model: K1 a one-hot group, X1 once, X2 a group of
+   step K1 1, X1 1, X2 3, K3a 1, X1b 1 and Part 1; the bucketize path K2
+   1 and K3b 1 a step (its one vocab tile needs no Part); Criteo: K1 5 and
+   X1 1 a predict, and K3a 1, X1b 1 and Part 2 more a step; each PostPool model: K1 a one-hot group, X1 once, X2 a group of
    strings hashed on the card, and K3a and X1b to match a step): the
    launch counts are zeroed just before and read just after;
 5. pooled outputs of every column against the port's NumPy oracle
@@ -430,8 +436,8 @@ def require_launches(counts, kids, path: str, exactly=None) -> None:
             require(n == 0, f"{path}: predict launched kernel {kid} {n} x, "
                     "which is not on its path")
     for kid, n in (exactly or {}).items():
-        require(counts[kid] == n, f"{path}: kernel {kid} launched "
-                f"{counts[kid]} x, expected {n}")
+        require(counts.get(kid, 0) == n, f"{path}: kernel {kid} launched "
+                f"{counts.get(kid, 0)} x, expected {n}")
 
 
 def check_micro(ref, out, bs: int) -> None:
@@ -891,6 +897,10 @@ KERNEL_META = {
             "recom_tpu/ops/lookup_pallas.py:211"),
     "X1b": ("recom_tpu_torch/csrc/pooled_gather_grad.cu",
             "recom_tpu/ops/lookup_xla.py:61"),
+    # the partition pass of K3a, K3b and X1b: a phase of their ports (the
+    # scatter-adds of K3a's _bwd, K3b's and XLA's autodiff of X1's)
+    "Part": ("recom_tpu_torch/csrc/partition.cu",
+             "recom_tpu/ops/lookup_pallas.py:321"),
 }
 
 
@@ -2001,26 +2011,33 @@ def _on_cpu(torch, x):
 
 def backward_calls(torch, eng, arrays, bp: int, cotangent):
     """The backward kernels' records for ``eng``'s groups on one unpacked
-    batch: K3a for each one-hot group (the batch's ids, with missing ids
-    and ids past each cap added), X1b one launch for every gather group
-    (its second run into outputs filled with NaN), each with a random
-    cotangent ``cotangent(bp, C, d)``, the terms' magnitudes, the library
-    yardstick (``torch.zeros`` + ``index_add_`` of precomputed
+    batch: K3a one launch for every one-hot group (the batch's ids, with
+    missing ids and ids past each cap added), X1b one launch for every
+    gather group (its second run into outputs filled with NaN), each with
+    a random cotangent ``cotangent(bp, C, d)``, the terms' magnitudes, the
+    library yardstick (``torch.zeros`` + ``index_add_`` of precomputed
     contributions) and the bound (cotangent, ids and the whole gradient,
-    each once).  Returns {"K3a": [...], "X1b": [...]}."""
+    each once); and the partition launches that come before them (Part:
+    X1b's groups, and K3a's groups cut into several vocab tiles), as
+    ``partition_record``s.  Returns {"K3a": [...], "X1b": [...], "Part":
+    [...]}."""
     from recom_tpu_torch.ops.lookup_gather import (
         group_pooled_grad_plain,
         groups_pooled_grad,
         slot_contributions,
+        x1b_partition_groups,
     )
     from recom_tpu_torch.ops.lookup_onehot import (
-        onehot_lookup_grad,
+        k3_listed,
+        k3_member_info,
         onehot_lookup_grad_plain,
+        onehot_lookups_grad,
     )
 
     dev = torch.device("cuda")
-    recs = {"K3a": [], "X1b": []}
+    recs = {"K3a": [], "X1b": [], "Part": []}
     x1b = []                # the gather groups: X1b's one launch
+    k3a = []                # the one-hot groups: K3a's one launch
     for g, packed in zip(eng.compiled.groups, arrays["groups"]):
         c = eng._consts[g.gid]
         table = eng.device_params["stacked"][str(g.gid)]
@@ -2032,23 +2049,19 @@ def backward_calls(torch, eng, arrays, bp: int, cotangent):
             ids2[:, ::17] = -1
             ids2[:, 5::19] = c["caps"][:, None] + 3
             c_pad, v = table.shape[0], table.shape[1]
-            a = (cot, ids2, c["caps"], c_pad, v)
             clamped = torch.minimum(ids2, c["caps"][:, None])
             valid = clamped >= 0
             cols = torch.arange(g.num_columns, device=dev)[:, None] * v
-            flat = (cols + clamped.long())[valid]
-            src = cot.transpose(0, 1)[valid]
-            nbytes = (cot.numel() + ids2.numel() + g.num_columns
-                      + table.numel()) * 4
-            recs["K3a"].append(dict(
-                what=f"K3a group {g.gid}", fn=onehot_lookup_grad,
-                plain=onehot_lookup_grad_plain, args=a,
-                mag_args=(cot.abs(),) + a[1:],
-                lib=lambda n=table.numel() // g.dim, d=g.dim, f=flat,
-                s=src: torch.zeros((n, d), device=dev).index_add_(0, f, s),
-                bound=bound_ms(nbytes, float(src.numel())),
-                shape=f"g [{bp}, {g.num_columns}, {g.dim}] -> "
-                f"[{c_pad}, {v}, {g.dim}]",
+            k3a.append(dict(
+                gid=g.gid, args=(cot, ids2, c["caps"], c_pad, v),
+                flat=(cols + clamped.long())[valid],
+                src=cot.transpose(0, 1)[valid], n=table.numel() // g.dim,
+                d=g.dim, nbytes=(cot.numel() + ids2.numel() + g.num_columns
+                                 + table.numel()) * 4,
+                listed=k3_listed(v, g.dim),
+                info=k3_member_info(g.num_columns, v, g.dim),
+                shape=f"group {g.gid}: g [{bp}, {g.num_columns}, {g.dim}] "
+                f"-> [{c_pad}, {v}, {g.dim}]",
             ))
             continue
         r = table.shape[0]
@@ -2069,6 +2082,28 @@ def backward_calls(torch, eng, arrays, bp: int, cotangent):
             shape=f"group {g.gid}: g [{bp}, {g.num_columns}, {g.dim}], "
             f"ids {list(ids.shape)} -> [{r}, {g.dim}]",
         ))
+    # K3a: every one-hot group in one launch
+    if k3a:
+        entries = [x["args"] for x in k3a]
+        recs["K3a"].append(dict(
+            what="K3a groups " + "+".join(str(x["gid"]) for x in k3a),
+            fn=lambda *e: onehot_lookups_grad(e),
+            plain=lambda *e: [onehot_lookup_grad_plain(*a) for a in e],
+            args=tuple(entries),
+            mag_args=tuple((a[0].abs(),) + a[1:] for a in entries),
+            lib=lambda: [torch.zeros((x["n"], x["d"]), device=dev)
+                         .index_add_(0, x["flat"], x["src"]) for x in k3a],
+            bound=bound_ms(sum(x["nbytes"] for x in k3a),
+                           float(sum(x["src"].numel() for x in k3a))),
+            shape="; ".join(x["shape"] for x in k3a),
+        ))
+        listed = [x for x in k3a if x["listed"]]
+        if listed:
+            recs["Part"].append(partition_record(
+                torch, "Part of K3a's listed groups "
+                + "+".join(str(x["gid"]) for x in listed),
+                [dict(ids=x["args"][1], caps=x["args"][2], info=x["info"])
+                 for x in listed]))
     # X1b: every gather group in one launch, the second run into
     # outputs filled with NaN
     entries = [x["args"] for x in x1b]
@@ -2089,7 +2124,162 @@ def backward_calls(torch, eng, arrays, bp: int, cotangent):
              [x for x in x1b if x["large"]])) if xs],
         shape="; ".join(x["shape"] for x in x1b),
     ))
+    recs["Part"].append(partition_record(
+        torch, "Part of X1b's groups " + "+".join(str(x["gid"])
+                                                  for x in x1b),
+        x1b_partition_groups(entries)))
     return recs
+
+
+def partition_record(torch, what: str, groups) -> dict:
+    """A record of the partition pass (Part) over ``groups`` (dicts of
+    ``item_lists.partition`` on the card): its bound counts the values
+    read once (ids and caps, or raw values and their boundary rows) and
+    the slots, values and offsets written once."""
+    from recom_tpu_torch.ops.item_lists import off_rows, segments
+
+    nbytes = 0
+    for g in groups:
+        src = g["ids"] if "ids" in g else g["raw"]
+        c, s = src.shape
+        nbytes += 4 * (3 * c * s + c + off_rows(g["info"]) * segments(s))
+        nbytes += 4 * (g["hi"].numel() + g["counts"].numel()) \
+            if "hi" in g else 0
+    shape = "; ".join(
+        f"[{(g['ids'] if 'ids' in g else g['raw']).shape[0]}, "
+        f"{(g['ids'] if 'ids' in g else g['raw']).shape[1]}] entries, "
+        f"{int(g['info'][:, 1].sum())} items" for g in groups)
+    return dict(what=what, groups=groups, bound=bound_ms(nbytes, 0.0),
+                shape=shape)
+
+
+def check_partition(torch, what: str, groups) -> None:
+    """Part on the card over ``groups``: two runs give the same integers,
+    equal to its plain version on CPU copies of the inputs and to the
+    plain version on the card (``==``: slots, values and offsets)."""
+    from recom_tpu_torch.ops.item_lists import partition, partition_plain
+    from recom_tpu_torch.ops.item_lists import plain_values
+
+    got = [partition(groups) for _ in range(2)]
+    torch.cuda.synchronize()
+    cpu = [{k: v.cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in g.items()} for g in groups]
+    wants = partition(cpu)
+    for k, g in enumerate(groups):
+        card_plain = partition_plain(plain_values(g), g["info"])
+        for a, b, w, p in zip(got[0][k], got[1][k], wants[k], card_plain):
+            require(torch.equal(a, b), f"{what}: two runs differ")
+            require(torch.equal(a.cpu(), w), f"{what}: kernel != plain "
+                    "version on CPU copies")
+            require(torch.equal(a, p), f"{what}: kernel != plain version "
+                    "on the card")
+
+
+def measure_partition(torch, recs) -> dict:
+    """Part's records checked (``check_partition``) and timed, warm, cold
+    L2 and plain; summed as ``measure_backward`` sums its kernels (no one
+    PyTorch call computes the lists and offsets: library null)."""
+    from recom_tpu_torch.ops.item_lists import partition, partition_plain
+    from recom_tpu_torch.ops.item_lists import plain_values
+
+    tot = dict(err=0.0, ms=0.0, cold_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               lib=None)
+    for r in recs:
+        check_partition(torch, r["what"], r["groups"])
+        kern = lambda r=r: partition(r["groups"])
+        ms = time_ms(torch, kern)
+        cold = time_cold_ms(torch, kern)
+        pms = time_ms(torch, lambda r=r: [partition_plain(
+            plain_values(g), g["info"]) for g in r["groups"]],
+            iters=5, warmup=1)
+        bms, _ = r["bound"]
+        for k, v in (("ms", ms), ("cold_ms", cold), ("plain_ms", pms),
+                     ("bound_ms", bms)):
+            tot[k] += v
+        log(f"{r['what']} ({r['shape']}): kernel {ms:.4f} ms warm, "
+            f"{cold:.4f} ms cold L2, plain {pms:.4f} ms, bound {bms:.4f} ms "
+            "(bytes); == plain on CPU copies and on the card, twice")
+    log(f"Part summed over {len(recs)} launch(es): kernel {tot['ms']:.4f} ms "
+        f"warm, {tot['cold_ms']:.4f} ms cold, bound {tot['bound_ms']:.4f} ms")
+    return dict(tot, bound_by="bytes")
+
+
+def k3a_group_cases(torch, cotangent) -> None:
+    """K3a over several groups in one launch against the plain versions
+    (``check_backward``): every shape of ``K3A_EDGES`` in one launch (listed
+    and unlisted groups mixed); the Criteo DLRM's one-hot vocabularies at
+    d = 64 with a column whose 2048 entries all select one row (one item
+    holds them all, every other item of the column none) and a column with
+    no entry; and X1b with every slot of a member on one row (a dense tile
+    and a sparse range that hold all the slots, the rest none), each
+    group's partition == its plain version."""
+    import numpy as np
+
+    from recom_tpu_torch.ops.lookup_gather import (
+        group_pooled_grad_plain,
+        groups_pooled_grad,
+        x1b_partition_groups,
+    )
+    from recom_tpu_torch.ops.lookup_onehot import (
+        k3_listed,
+        k3_member_info,
+        onehot_lookup_grad_plain,
+        onehot_lookups_grad,
+    )
+
+    dev = torch.device("cuda")
+    fn = lambda *e: onehot_lookups_grad(e)
+    plain = lambda *e: [onehot_lookup_grad_plain(*a) for a in e]
+    mag = lambda e: tuple((a[0].abs(),) + a[1:] for a in e)
+    edges = []
+    for cc, v, bb, d in K3A_EDGES:
+        t3, ids_np, caps_np = k1_edge_case(cc, v, d, 700, seed=d + cc,
+                                           specials=False)
+        edges.append((cotangent(700, cc, d),
+                      torch.from_numpy(ids_np).to(dev),
+                      torch.from_numpy(caps_np).to(dev), t3.shape[0],
+                      t3.shape[1]))
+    check_backward(torch, f"K3a, the {len(edges)} edge shapes in one launch",
+                   fn, plain, tuple(edges), mag(edges))
+    rng = np.random.default_rng(31)
+    hot = []
+    for c, v in ((7, 128), (1, 2304), (1, 1664), (1, 1024), (1, 256)):
+        ids_np = rng.integers(0, v - 30, (c, 2048)).astype(np.int32)
+        caps_np = np.full(c, v - 40, np.int32)
+        if v == 2304:
+            ids_np[0] = 1500                  # 2048 entries on one row
+        if v == 1664:
+            ids_np[0] = -1                    # no entry
+        c_pad = -(-c // 8) * 8
+        hot.append((cotangent(2048, c, 64), torch.from_numpy(ids_np).to(dev),
+                    torch.from_numpy(caps_np).to(dev), c_pad, v))
+    check_backward(torch, "K3a, the Criteo DLRM's one-hot vocabularies in "
+                   "one launch, a column on one row and one with no entry",
+                   fn, plain, tuple(hot), mag(hot))
+    check_partition(torch, "Part of K3a's hot and empty columns", [
+        dict(ids=a[1], caps=a[2], info=k3_member_info(a[1].shape[0], a[4],
+                                                      64))
+        for a in hot if k3_listed(a[4], 64)])
+    for rows, d in ((20_000, 8), (1 << 20, 32)):
+        ids = torch.full((1, 2048, 1), 12_345, dtype=torch.int32, device=dev)
+        args = (cotangent(2048, 1, d), rows, ids, np.zeros(1, np.int32),
+                np.zeros(1, np.int32), None, np.zeros(1, bool),
+                np.asarray([rows - 1], np.int32))
+        check_backward(
+            torch, f"X1b, 2048 slots on one row of {rows}",
+            lambda *e: groups_pooled_grad(e),
+            lambda *e: [group_pooled_grad_plain(*a) for a in e], (args,),
+            ((args[0].abs(),) + args[1:],),
+            into=lambda e: groups_pooled_grad(e, out=[torch.full(
+                (a[1], a[0].shape[2]), float("nan"), device=dev)
+                for a in e]))
+        check_partition(torch, f"Part of X1b's hot member of {rows} rows",
+                        x1b_partition_groups([args]))
+    log(f"K3a in one launch: the {len(edges)} edge shapes; the Criteo "
+        "DLRM's vocabularies with a column on one row and one with no "
+        "entry; X1b with 2048 slots on one row (a dense tile, a sparse "
+        "range): == plain on CPU copies, repeatable bit for bit; their "
+        "partitions == plain")
 
 
 def check_backward(torch, what: str, fn, plain, args, mag_args,
@@ -2137,6 +2327,9 @@ def measure_backward(torch, recs):
     results = {}
     for kid, rs in recs.items():
         require(bool(rs), f"no main-path call of {kid}")
+        if kid == "Part":
+            results[kid] = measure_partition(torch, rs)
+            continue
         tot = dict(err=0.0, ms=0.0, cold_ms=0.0, plain_ms=0.0,
                    bound_ms=0.0, lib=0.0)
         bound_by = {"bytes": 0.0, "operations": 0.0}
@@ -2205,6 +2398,8 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     from recom_tpu_torch.ops.lookup_onehot import (
         bucket_bounds,
         bucket_ids_plain,
+        k3_listed,
+        k3_member_info,
         onehot_bucketize_lookup_grad,
         onehot_bucketize_lookup_grad_plain,
         onehot_lookup_grad,
@@ -2252,7 +2447,7 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     eng, eng_bz = tr.engine, tr_bz.engine
 
     # ---- phase 8: the backward kernels against their plain versions -------
-    recs = {"K3a": [], "K3b": [], "X1b": []}
+    recs = {"K3a": [], "K3b": [], "X1b": [], "Part": []}
     with torch.no_grad():
         prep = eng.prepare(batch_big)
         bp = prep.batch_padded
@@ -2310,6 +2505,7 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
             "of the columns an item takes; Bp past a stage and a pass; V_pad "
             "384 and 2304; an all-missing column, ids past caps and below "
             "-1): == plain on CPU copies, repeatable bit for bit")
+        k3a_group_cases(torch, cotangent)
         for v_pad, d, bb in [(v, dd, 100) for v in (128, 256, 384)
                              for dd in (1, 3, 8, 32)] + [(128, 8, 700),
                                                          (384, 3, 700)]:
@@ -2322,11 +2518,17 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
                                onehot_bucketize_lookup_grad,
                                onehot_bucketize_lookup_grad_plain, a,
                                (a[0].abs(),) + a[1:])
+                if k3_listed(v_pad, d):
+                    check_partition(torch, f"Part of K3b edge V_pad={v_pad} "
+                                    f"d={d}", [dict(
+                                        raw=a[1], hi=a[3], counts=a[4],
+                                        info=k3_member_info(45, v_pad, d))])
         log("K3b edge cases (K2's 12 edge planes at Bp 100, two at Bp 700, "
             "past a stage: counts 0 and V_pad - 1, repeated, -inf-only and "
             "merged boundaries; NaN, +-inf, +-0.0, subnormals, boundaries and "
-            "the floats below them): == plain on CPU copies, repeatable bit "
-            "for bit")
+            "the floats below them; V_pad 384 at d = 32 in 3 listed tiles, "
+            "its partition == plain): == plain on CPU copies, repeatable "
+            "bit for bit")
         n_edge = 0
         for d in X1_EDGE_D:
             for ll in X1_EDGE_L:
@@ -2399,12 +2601,15 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     log(f"model E, step 1 (batch 512): loss {loss0:.6f}, the oracle's BCE "
         f"{want:.6f} (within rtol 1e-4); predict after the step differs")
     lab_big = rng.integers(0, 2, 2048).astype(np.float32)
-    path_e = dict(exactly={"K1": 1, "X1": 1, "X2": 3, "K3a": 1, "X1b": 1})
+    # K3a 1 (model E's one-hot group is one vocab tile: not listed); X1b
+    # 1, after the one partition launch of its groups
+    path_e = dict(exactly={"K1": 1, "X1": 1, "X2": 3, "K3a": 1, "X1b": 1,
+                           "Part": 1})
     kernels.reset_launches()
     losses = [tr.step(batch_big, lab_big)]      # eager pass + capture
     torch.cuda.synchronize()
     counts_first = dict(kernels.launches)
-    require_launches(counts_first, ("K1", "X1", "X2", "K3a", "X1b"),
+    require_launches(counts_first, ("K1", "X1", "X2", "K3a", "X1b", "Part"),
                      "training, model E, a signature's first step", **path_e)
     # the main path of training: a step replaying its captured program
     kernels.reset_launches()
@@ -2415,7 +2620,7 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
         f"signature's first (eager pass + capture) "
         f"{ {k: n for k, n in counts_first.items() if n} }, a replayed one "
         f"{counts_train}")
-    require_launches(counts_train, ("K1", "X1", "X2", "K3a", "X1b"),
+    require_launches(counts_train, ("K1", "X1", "X2", "K3a", "X1b", "Part"),
                      "training, model E, a replayed step", **path_e)
     losses += [tr.step(batch_big, lab_big) for _ in range(3)]
     require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
@@ -2438,7 +2643,7 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     gate_e = train_program_gate(
         torch, *pair_e, [(bs, shuffled(batch_big, bs, seed=300 + bs))
                          for bs in buckets],
-        "model E, dlrm_optimizer", ("K3a", "X1b"))
+        "model E, dlrm_optimizer", ("K3a", "X1b", "Part"))
     times_e = step_times(torch, pair_e, "model E",
                          ((512, batch_small, lab_small),
                           (2048, batch_big, lab_big)))
@@ -2455,8 +2660,10 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
                                  "bucketize-880, host_bucketize=False",
                                  ("K3b",))
     for counts_bz in gate_bz["counts"]:
+        # one vocab tile of 4 columns at d = 8: K3b takes its columns'
+        # batch rows whole, with no partition launch
         require_launches(counts_bz, ("K2", "K3b"), "training, bucketize-880",
-                         exactly={"K2": 1, "K3b": 1})
+                         exactly={"K2": 1, "K3b": 1, "Part": 0})
     losses = gate_bz["losses"]
     log(f"launches in each of 3 training steps (bucketize-880, batch "
         f"2048; a capture and two replays): {counts_bz}")
@@ -2700,20 +2907,24 @@ def x1b_member_classes(torch, rec) -> list:
     """X1b at one gather group's shapes (``rec``: the group's X1b record
     from ``backward_calls``) timed with only some of its members' ids, the
     other members' slots missing (-1): none (each row of the dense
-    gradient written as a zero), the members of at most 32768 rows (dense
-    tiles), and the larger members (sparse ranges).  One launch each; the
+    gradient written as a zero), the members of dense tiles, and the
+    members of sparse ranges (``x1b_sparse``).  One launch each; the
     dense output is the same size in all three."""
-    from recom_tpu_torch.ops.lookup_gather import groups_pooled_grad
+    from recom_tpu_torch.ops.lookup_gather import (
+        groups_pooled_grad,
+        x1b_sparse,
+    )
 
     (entry,) = rec["args"]
     cot, r, ids, offs, codes, w, wt, caps = entry
-    big = (caps.long() + 1) > 32768
+    slots = ids.shape[1] * ids.shape[2]
+    big = torch.tensor([x1b_sparse(int(c) + 1, cot.shape[2], slots)
+                        for c in caps.tolist()], device=ids.device)
     out = []
     for name, keep in (("no ids (the zero stream alone)", big & ~big),
-                       (f"{int((~big).sum())} members of <= 32768 rows "
-                        "(dense tiles)", ~big),
-                       (f"{int(big.sum())} members past 32768 rows (sparse "
-                        "ranges)", big)):
+                       (f"{int((~big).sum())} members of dense tiles",
+                        ~big),
+                       (f"{int(big.sum())} members of sparse ranges", big)):
         ids_k = torch.where(keep[:, None, None], ids, torch.full_like(ids, -1))
         ms = time_ms(torch, lambda e=(cot, r, ids_k, offs, codes, w, wt, caps):
                      groups_pooled_grad([e]))
@@ -2852,9 +3063,13 @@ def criteo_phases(torch):
     train_counts = dict(kernels.launches)
     log(f"launches in one training step (Criteo, batch 2048): "
         f"{train_counts}")
-    require_launches(train_counts, ("K1", "X1", "K3a", "X1b"),
+    # K1 a one-hot group; K3a once for all of them, after one partition
+    # launch (every one-hot group at d = 64 is cut into vocab tiles of 64
+    # rows); X1b once, after one partition launch of its group
+    require_launches(train_counts, ("K1", "X1", "K3a", "X1b", "Part"),
                      "training, Criteo", exactly={
-                         "K1": n_onehot, "X1": 1, "K3a": n_onehot, "X1b": 1})
+                         "K1": n_onehot, "X1": 1, "K3a": 1, "X1b": 1,
+                         "Part": 2})
     losses += [tr.step(batches[2048], lab_big) for _ in range(3)]
     require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
             f"Criteo losses on one batch do not decrease: {losses}")
@@ -2869,13 +3084,14 @@ def criteo_phases(torch):
                          params=params) for _ in range(2))
     pair[1]._capture = None
     gate = train_program_gate(torch, *pair, list(batches.items()),
-                              "Criteo DLRM", ("K3a", "X1b"))
+                              "Criteo DLRM", ("K3a", "X1b", "Part"))
     times = step_times(torch, pair, "Criteo DLRM",
                        ((512, batches[512], lab_small),
                         (2048, batches[2048], lab_big)))
     del pair
     launches = {"K1": serve_counts["K1"], "X1": serve_counts["X1"],
-                "K3a": train_counts["K3a"], "X1b": train_counts["X1b"]}
+                "K3a": train_counts["K3a"], "X1b": train_counts["X1b"],
+                "Part": train_counts["Part"]}
     out = {k: dict(results[k], launches=launches[k]) for k in launches}
     out["training"] = {"gate": gate, "times": times}
     return out
@@ -3309,8 +3525,8 @@ def reload_phase(torch, model, np_params, served, eng):
 def reload_trainer_phase(torch, model, np_params, p2, served):
     """A Trainer steps, then ``trainer.engine.reload_params(p2)``: its
     tensors stay the same objects, and the next step's loss == a fresh
-    Trainer's first loss on p2 at rtol 1e-6, launching K3a 1 and X1b 1.
-    Returns that step's launch counts."""
+    Trainer's first loss on p2 at rtol 1e-6, launching K3a 1, X1b 1 and
+    Part 1.  Returns that step's launch counts."""
     import numpy as np
 
     from recom_tpu_torch import EngineConfig
@@ -3333,9 +3549,10 @@ def reload_trainer_phase(torch, model, np_params, p2, served):
     loss = tr.step(small, labels)
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
-    require_launches(counts, ("K1", "X1", "X2", "K3a", "X1b"),
+    require_launches(counts, ("K1", "X1", "X2", "K3a", "X1b", "Part"),
                      "Trainer step after reload_params",
-                     exactly={"K1": 1, "X1": 1, "X2": 3, "K3a": 1, "X1b": 1})
+                     exactly={"K1": 1, "X1": 1, "X2": 3, "K3a": 1, "X1b": 1,
+                              "Part": 1})
     del tr, leaves
     free_engines()
     tr2 = Trainer(model, EngineConfig(), optimizer=dlrm_optimizer(),
@@ -3908,6 +4125,41 @@ def tools_phases(torch, model_e, params_e, base_e):
                 ragged=rag["rungs"])
 
 
+def overwrite_freed(torch, streams) -> list:
+    """Write -1 over every free block of the caching allocator's small pool
+    on each of ``streams``: 512-byte tensors until the pool reserves a new
+    segment (a free block of that stream would have been taken first).
+    Returns the tensors, to be held while the freed memory must stay
+    overwritten."""
+    stat = "reserved_bytes.small_pool.current"
+    junk = []
+    for stream in streams:
+        with torch.cuda.stream(stream):
+            before = torch.cuda.memory_stats()[stat]
+            for k in range(1, 1 << 20):
+                junk.append(torch.full((128,), -1, dtype=torch.int32,
+                                       device="cuda"))
+                if k % 256 == 0 and torch.cuda.memory_stats()[stat] > before:
+                    break
+    torch.cuda.synchronize()
+    return junk
+
+
+def evict_plan_caches(torch, streams) -> list:
+    """Clear the bounded caches of device plan arrays that kernel launches
+    point into (X1b's work items, the partition's member rows) and write
+    over the memory they free (``overwrite_freed``): a captured graph that
+    did not hold its own would then read junk on replay."""
+    import gc
+
+    from recom_tpu_torch.ops import item_lists, lookup_gather
+
+    lookup_gather._x1b_work_on.cache_clear()
+    item_lists._info_on.cache_clear()
+    gc.collect()
+    return overwrite_freed(torch, streams)
+
+
 def train_program_gate(torch, graphed, eager, cases, what: str,
                        backward) -> dict:
     """The captured training step against the eager one (ROADMAP item 19).
@@ -3922,10 +4174,14 @@ def train_program_gate(torch, graphed, eager, cases, what: str,
     optimizer state leaf ``==`` as bits.  Each program's kernel nodes, read
     back from its graph (``graphs.graph_launches``), are the launches its
     capture recorded, among them the backward kernels ``backward``, and
-    every step counts exactly those.  Returns the readings: the losses and
-    launch counts of ``graphed``'s steps, the first step of each signature
-    and the replayed ones (host ms, ending in the loss read), and each
-    trainer's reserved device memory over its steps."""
+    every step counts exactly those.  After each capture the plan caches
+    are cleared and the memory they free overwritten
+    (``evict_plan_caches``), so the two replays show that the program holds
+    the plan arrays its launches read (``Program.kept``).  Returns the
+    readings: the losses and launch counts of ``graphed``'s steps, the
+    first step of each signature and the replayed ones (host ms, ending in
+    the loss read), and each trainer's reserved device memory over its
+    steps (the overwrite's few small blocks among them)."""
     import numpy as np
 
     from recom_tpu_torch.ops import kernels
@@ -3965,6 +4221,15 @@ def train_program_gate(torch, graphed, eager, cases, what: str,
         read["counts"].append(counts)
         key = "first_step_ms" if i % 3 == 0 else "replayed_step_ms"
         read[key].setdefault(bs, []).append(ms)
+        if i % 3 == 0:
+            require(bool(prog.kept) or not (counts.get("X1b")
+                                            or counts.get("Part")),
+                    f"{what}, batch {bs}: the program holds none of the "
+                    "plan arrays its X1b / Part launches read")
+            junk = evict_plan_caches(torch, [torch.cuda.current_stream(),
+                                             graphed._capture.stream])
+        elif i % 3 == 2:
+            del junk
     torch.cuda.synchronize()
     read["captured_reserved_gib"] = (torch.cuda.memory_reserved()
                                      - base_mem) / 2**30
@@ -3998,7 +4263,9 @@ def train_program_gate(torch, graphed, eager, cases, what: str,
             "the eager trainer's after the steps")
     log(f"{what}: captured training steps == eager as bits (3 steps at "
         f"each of batch {[bs for bs, _ in cases]}: every loss, {len(leaves)}"
-        f" params, {len(state)} optimizer state leaves); {len(cases)} "
+        f" params, {len(state)} optimizer state leaves; the plan caches "
+        f"cleared and their freed memory overwritten after each capture); "
+        f"{len(cases)} "
         f"programs, each graph's kernel nodes == its recorded launches "
         f"({prog.launches} at batch {cases[-1][0]}), counted by each step; "
         f"first step of a signature (eager pass + capture) ms "
@@ -4357,10 +4624,10 @@ def mesh_train_launches(cfg) -> dict:
     on the rank's data slice), X1b once for the gather groups (the psum
     path's partial sums on the stripe among them), and under the exchange
     twice more: its pool into the receive buffer and the owner's scatter
-    into the stripe."""
+    into the stripe; a partition launch (Part) before each X1b launch."""
     a2a = cfg.get("shard_comm") == "all_to_all"
     return {"K1": 1, "X1": 2 if a2a else 1, "K3a": 1,
-            "X1b": 3 if a2a else 1}
+            "X1b": 3 if a2a else 1, "Part": 3 if a2a else 1}
 
 
 def big_group(eng):
@@ -4624,6 +4891,7 @@ def x1b_role(torch, label: str, args, launches: str) -> dict:
         group_pooled_grad_plain,
         groups_pooled_grad,
         slot_contributions,
+        x1b_partition_groups,
     )
 
     g, num_rows, ids = args[0], args[1], args[2]
@@ -4636,6 +4904,8 @@ def x1b_role(torch, label: str, args, launches: str) -> dict:
         (num_rows, d), float("nan"), device=g.device)])[0]
     err = check_backward(torch, f"X1b as {label}", fn,
                          group_pooled_grad_plain, args, mag, into)
+    check_partition(torch, f"Part of X1b as {label}",
+                    x1b_partition_groups([args]))
     rows, contrib = slot_contributions(g, ids, *args[3:])
     lib_fn = lambda: torch.zeros((num_rows, d), device=g.device).index_add_(
         0, rows, contrib)
@@ -4654,7 +4924,8 @@ def x1b_role(torch, label: str, args, launches: str) -> dict:
         f"L2, plain {plain_ms:.4f} ms, library (torch.zeros + index_add_) "
         f"{lib:.4f} ms, bound {bms:.4f} ms ({by}, share {bms / ms:.0%}); "
         f"launches {launches}; == plain on CPU copies, max abs diff from "
-        f"the card's plain version {err:.3g}")
+        f"the card's plain version {err:.3g}; its partition (Part) == "
+        "plain")
     return dict(name=label, ms=ms, cold_ms=cold, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=lib, max_abs_err=err,
                 share=bms / ms, shape=shape, launches=launches)
@@ -4701,18 +4972,19 @@ def x1b_mesh_roles(torch, tr, batch, rank: int) -> list:
         bp, cc = ids.shape[1], ids.shape[0]
         out.append(x1b_role(torch, "psum partial (stripe)", (
             rand(bp, cc, g.dim), rows) + tuple(pa[1:]),
-            "0 more: it joins the gather groups' launch (X1b 1 a step)"))
+            "0 more: it joins the gather groups' launch (X1b 1, Part 1 a "
+            "step)"))
         po = pool_args(buf, route, m, chunks, c["codes"], weights,
                        c["weighted"], k)
         b_my = po[1].shape[1]
         out.append(x1b_role(torch, "a2a pool (receive buffer)", (
             rand(b_my, cc, g.dim), buf.shape[0]) + tuple(po[1:]),
-            "1 more (X1b 3 a step)"))
+            "1 more (X1b 3, Part 3 a step)"))
         zero, no_cap, flags = shared_rows_consts(1, "cuda")
         n = recv.numel()
         out.append(x1b_role(torch, "owner scatter (stripe)", (
             rand(n, 1, g.dim), rows, recv.reshape(1, n, 1), zero, zero,
-            None, flags, no_cap), "1 more (X1b 3 a step)"))
+            None, flags, no_cap), "1 more (X1b 3, Part 3 a step)"))
     dist.barrier()
     return out
 
@@ -4751,7 +5023,8 @@ def x1b_mesh_edges(torch) -> None:
                   flags, no_cap)]
         # (b): pool positions into [m * cap + 1] rows, pads, duplicates,
         # the zero row; 3 columns SUM / MEAN / SQRTN, weighted; the last
-        # buffer has 70 001 rows, 3 members of dense tiles
+        # buffer has 70 001 rows, one member of dense tiles (at most 4 rows
+        # a slot), each tile reading only its own slots
         c, ll = 3, 5
         b, buf_rows = (40, 2 * 64 + 1) if seed < 2 else (1200, 70_001)
         pos = rng.integers(0, buf_rows // 6, (c, b, ll)).astype(np.int32)
@@ -4770,8 +5043,9 @@ def x1b_mesh_edges(torch) -> None:
         local[rng.random(local.shape) < 0.5] = -1
         local[:, 3] = rows - 1
         cases.append((t(gb), rows, t(local), z3, z3, t(w), f3, nc3))
-        require(lg.shared_rows_members(buf_rows, pos.size) == (
-            3 if seed == 2 else 1), "the buffer's members")
+        plan = lg.x1b_plan(buf_rows, d, [0], None, pos.size)
+        require(bool((plan[plan[:, 3] >= 0, 4] == 1).all()),
+                "the buffer: one member of dense tiles")
         for args in cases:
             w_ = args[5]
             mag = (args[0].abs(),) + tuple(args[1:5]) + (
@@ -4784,7 +5058,7 @@ def x1b_mesh_edges(torch) -> None:
     log(f"X1b mesh roles: {n} edge cases (owner scatter with one hot row "
         "from both source ranks, row 0 and unfilled slots; pool with pads, "
         "duplicate rows, the zero row, SUM / MEAN / SQRTN, weights, a 70 001-"
-        "row buffer in 3 dense members; psum partials with masked ids; "
+        "row buffer as one member of dense tiles; psum partials with masked ids; "
         "stripes of 300 / 50 000 / 70 000 rows, d 3 / 8 / 32) == the plain "
         "version on CPU copies, twice, into NaN-filled outputs")
 
@@ -5524,19 +5798,24 @@ def fuzz_launches(compiled, cfg, prep, train: bool = False) -> dict:
       id LUT (``g.lut_matrix``) and its raw floats reach the device (the
       structured arrays, or the wire, which one device takes under
       ``wire_pack``, with ``host_bucketize=False``), else K1; the bf16
-      variants for bf16 tables; backward K3b or K3a;
+      variants for bf16 tables; backward K3b a group, and K3a once for up
+      to 16 of the K1 groups (``K3_MAX_GROUPS``);
     * X1 once for every other gather group together (X1-bf16, X1-int8 by
       the stored dtype; on a mesh with the psum path's partial sums), and
       once more (X1: the rows return as f32) to pool the rows the
       all-to-all exchange returned for the striped groups; backward (one
       device) X1b once; each launch takes up to 8 groups
       (``X1_MAX_GROUPS``, ``X1B_MAX_GROUPS``);
+    * Part (the partition) before each X1b launch, before each K3a launch
+      that holds a group cut into several vocab tiles (``k3_listed``),
+      and before each K3b launch of such a group;
     * X2 once for each group whose strings the card hashes: the wire's
       ``prep.wsig``, which the batch's string widths decide."""
     from recom_tpu_torch.ops.lookup_gather import (
         X1_MAX_GROUPS,
         X1B_MAX_GROUPS,
     )
+    from recom_tpu_torch.ops.lookup_onehot import K3_MAX_GROUPS, k3_listed
 
     sfx = {"float32": "", "bfloat16": "-bf16", "int8": "-int8"}[
         cfg.table_dtype]
@@ -5553,14 +5832,19 @@ def fuzz_launches(compiled, cfg, prep, train: bool = False) -> dict:
 
     n = dict.fromkeys(KERNEL_META, 0)
     gather = routed = 0
+    k1_listed = []          # the K1 groups in order: cut into vocab tiles
     for g in compiled.groups:
         striped = model_ranks > 1 and g.stacked_rows > cfg.shard_rows_above
         if g.pallas_vocab is not None and not striped:
             fused = (raw and g.n_bucketize == g.num_columns
                      and g.lut_matrix is None)
             n[("K2" if fused else "K1") + sfx] += 1
-            if train:
-                n["K3b" if fused else "K3a"] += 1
+            listed = k3_listed(g.pallas_vocab, g.dim)
+            if fused and train:
+                n["K3b"] += 1
+                n["Part"] += listed
+            elif not fused:
+                k1_listed.append(listed)
         elif striped and exchange:
             routed += 1
         else:
@@ -5568,7 +5852,12 @@ def fuzz_launches(compiled, cfg, prep, train: bool = False) -> dict:
     n["X1" + sfx] = launches(gather, X1_MAX_GROUPS)
     # the exchange returns rows as f32 (gather_rows_f32 on the owner)
     n["X1"] += launches(routed, X1_MAX_GROUPS)
-    n["X1b"] = launches(gather, X1B_MAX_GROUPS) if train else 0
+    if train:
+        n["K3a"] = launches(len(k1_listed), K3_MAX_GROUPS)
+        n["Part"] += sum(any(k1_listed[i: i + K3_MAX_GROUPS])
+                         for i in range(0, len(k1_listed), K3_MAX_GROUPS))
+        n["X1b"] = launches(gather, X1B_MAX_GROUPS)
+        n["Part"] += n["X1b"]
     n["X2"] = sum(1 for w in prep.wsig if any(w)) if wire else 0
     return n
 
@@ -5880,12 +6169,12 @@ def fuzz_phases(torch) -> dict:
 # ROADMAP item 18: each example's arguments on the card, the line its
 # check prints, and the kernels its model's path launches (dlrm: model E's
 # predict, twice, K1 1, X1 1, X2 3, and each of its 2 training steps those
-# and K3a 1, X1b 1)
+# and K3a 1, X1b 1, Part 1)
 EXAMPLES = (
     ("dlrm", ["--model", "E", "--scale", "1.0", "--batch", "2048",
               "--train-steps", "2"],
      "all pooled embedding outputs bit-exact vs oracle",
-     {"K1": 4, "X1": 4, "X2": 12, "K3a": 2, "X1b": 2}),
+     {"K1": 4, "X1": 4, "X2": 12, "K3a": 2, "X1b": 2, "Part": 2}),
     ("microbenchmark", ["--columns", "1000", "--batch", "2048",
                         "--random-boundary"],
      "bit-exact vs oracle: 1000 columns OK", {"K1": None}),
@@ -6034,6 +6323,7 @@ def main() -> int:
         "K3a": trained["counts_train"]["K3a"],
         "K3b": trained["counts_bz"]["K3b"],
         "X1b": trained["counts_train"]["X1b"],
+        "Part": trained["counts_train"]["Part"],
         **{kid: r["launches"] for kid, r in stored.items()},
     }
 

@@ -39,29 +39,45 @@
 // every group's rows into work items (ops/lookup_gather.py::x1b_plan), a
 // block each:
 // - dense: a tile of at most kMaxKeys rows of a member with a small vocab
-//   (model E: 10 000 rows x d 8, tiles of 512 rows), its sums in shared
-//   memory;
+//   (model E: 10 000 rows x d 8, tiles of 512 rows), or of a member whose
+//   rows are few beside its slots (the all-to-all exchange's receive
+//   buffer), its sums in shared memory;
 // - sparse: a range of at most kRangeRows rows of a member with a large
 //   vocab (model E: 2^23 rows x d 32), whose touched rows a bitmap marks
-//   and a scan of the words' popcounts numbers;
+//   and a scan of the words' popcounts numbers; the host sizes a member's
+//   ranges so that its slots, spread evenly, fill about one window of
+//   touched rows each (x1b_range_rows: the Criteo DLRM's 39 060-row member
+//   takes ranges of 1024 rows, model E's 2^23-row lists 32 768);
 // - zero: rows that no member owns.
-// A block reads its member's ids once, 16 bytes a lane where they allow,
-// gathering its item's hits (shared-memory atomics, any order) while
-// kCompact hold them, and marking a sparse item's touched rows.  The hits
-// are then put in slot order (each one's rank among them), and the stable
-// counting sort of ordered_runs.cuh (K3's) orders them by key (the row in
-// the tile, or the touched row's number), a run per key in slot order; a
-// thread per (run, element) adds its run's terms in order.  A MEAN or
-// SQRTN slot's denominator is summed once a slot.  An item with more hits,
-// or a sparse range crowded past kMaxKeys touched rows, takes the same
-// sort over all its member's slots, kSeg at a time (and, crowded, window
-// by window).  Then the block streams its rows out once, in order, a
-// bitmap word's 32 rows a warp, 16 bytes a lane with the evict-first hint
-// (__stcs) where d % 4 == 0: each row its sum if touched, else +0.0.
-// Sparse blocks of the large group spend most of their time in that
-// stream; two blocks an SM let one's ordering overlap the other's writes,
-// and the work list puts sparse items first so that the short dense and
-// zero items fill the SMs that the last sparse ones leave.
+// The partition pass (partition.cu, a launch before this one) has ordered
+// each member's slots by item, in slot order within each, so a block walks
+// only its item's list (item_lists.cuh): a sparse item marks its touched
+// rows from it, and the stable counting sort of ordered_runs.cuh (K3's)
+// orders it by key (the row in the tile, or the touched row's number), a
+// run per key in slot order, kSeg slots at a time; a thread per (run,
+// element) adds its run's terms in order.  A MEAN or SQRTN slot's
+// denominator is summed once a slot.  A sparse range crowded past
+// kMaxKeys touched rows takes the same sort window by window, each window
+// walking the item's list again (its own slots only).  Then the block
+// streams its rows out once, in order, a bitmap word's 32 rows a warp, 16
+// bytes a lane with the evict-first hint (__stcs) where d % 4 == 0: each
+// row its sum if touched, else +0.0.  Sparse blocks of the large group
+// spend most of their time in that stream; two blocks an SM let one's
+// ordering overlap the other's writes, and the work list puts sparse
+// items first so that the short dense and zero items fill the SMs that
+// the last sparse ones leave.  The cost of finding the slots falls from
+// items x slots to slots + items.
+//
+// The design before (PERF.md): every block read its
+// member's whole [Bp, L] id plane to collect its hits, ranked them by an
+// O(n^2) count, and a crowded range rescanned every slot of the member a
+// window at a time; the exchange's receive buffer was cut into 4 members
+// of 32 768 rows, each given every slot (the cotangent copied 4x).  On an
+// NVIDIA H100 80GB HBM3 at 700 W it read 0.3926 ms as the exchange pool's
+// backward (library 0.0135), 1.3542 as the psum partial's backward
+// (library 0.8283), 1.0088 as the owner's scatter (library 0.8282),
+// 0.9988 at the Criteo DLRM (library 0.5954) and 1.7877 at model E
+// (library 1.6892).
 //
 // The first port (PERF.md) sorted each group's slots with a stable
 // torch.sort, zero-filled the output with torch.zeros, then wrote the
@@ -71,6 +87,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "item_lists.cuh"
 #include "ordered_runs.cuh"
 
 namespace {
@@ -84,15 +101,15 @@ constexpr int kAccFloats = 4096;     // a tile's or window's sums (16 KB)
 constexpr int kSeg = 4096;           // slots a block orders at a time
 constexpr int kRangeRows = 32768;    // rows of a sparse item
 constexpr int kWords = kRangeRows / 32;
-constexpr int kLoads = 16;           // id loads a thread keeps in flight
+constexpr int kLoads = 16;           // list loads a thread keeps in flight
 constexpr int kUnroll = 4;           // terms read ahead of the ordered adds
-constexpr int kCompact = 1024;       // hits an item gathers in one scan
 
 constexpr size_t kSmemBytes =
     sizeof(float) * kAccFloats +
     sizeof(int) * (kWarps * kMaxKeys + 2 * kMaxKeys) +
-    (2 * sizeof(int16_t) + sizeof(float)) * kSeg +
-    sizeof(uint32_t) * kWords + sizeof(int) * (kWords + 1 + kCompact);
+    (2 * sizeof(int16_t) + sizeof(float) + sizeof(int32_t)) * kSeg +
+    sizeof(uint32_t) * kWords + sizeof(int) * (kWords + 1) +
+    sizeof(int) * lists::kWinInts;
 
 // One group of a launch; the layout of ops/lookup_gather.py::X1B_DESC.
 struct X1bGroup {
@@ -107,8 +124,16 @@ struct X1bGroup {
   int64_t C, Bp, L, d;
 };
 
+// A group's item lists (partition.cu); the layout of
+// ops/lookup_gather.py::X1B_LISTS.
+struct X1bLists {
+  lists::Lists l;          // slot, val, off, S = Bp L, nseg
+  const int32_t* minfo;    // [C, 4]: unit, items, lim, ibase
+};
+
 struct X1bLaunch {
   X1bGroup g[kMaxGroups];
+  X1bLists l[kMaxGroups];
   int32_t n;
 };
 
@@ -118,14 +143,6 @@ struct X1bLaunch {
 struct Work {
   int64_t row_lo, local_lo, nrows, kind;
 };
-
-// A member's slot: its clamped id's row relative to the item, or -1.
-__device__ __forceinline__ int item_row(int32_t id, int32_t cap,
-                                        int64_t local_lo, int nrows) {
-  const int32_t i = id < cap ? id : cap;
-  const int64_t r = static_cast<int64_t>(i) - local_lo;
-  return i >= 0 && r >= 0 && r < nrows ? static_cast<int>(r) : -1;
-}
 
 // The combiner denominator of the bag whose slots start at ids[bag], as the
 // forward sums it.
@@ -151,9 +168,10 @@ struct Shared {
   float* den;       // [kSeg] a slot's combiner denominator
   int16_t* place;   // [kSeg] a segment slot's key
   uint16_t* list;   // [kSeg] segment slots by key
+  int32_t* cslot;   // [kSeg] a segment entry's slot
   uint32_t* bitmap; // [kWords] touched rows of a sparse item
   int* wpre;        // [kWords + 1] touched rows before each word
-  int* hits;        // [kCompact] the item's slots in slot order
+  lists::Window win;
 };
 
 // The touched row's number among the item's touched rows.
@@ -162,127 +180,157 @@ __device__ __forceinline__ int touched_rank(const Shared& sh, int r) {
   return sh.wpre[r >> 5] + __popc(bits & ((1u << (r & 31)) - 1u));
 }
 
-// Sum member c's slots into acc[key * d + e], in slot order, for the keys
-// of rows [r_lo, r_hi) of the item: the row itself (dense) or its number
-// among the touched rows less k0 (sparse).  nk keys.  The slots: the
-// first nhits of sh.hits (the item's, in order) where nhits >= 0, else
-// all the member's Bp x L slots, kSeg at a time.
+// Sum the item's entries into acc[key * d + e], in slot order, for the
+// keys of rows [r_lo, r_hi) of the item: the row itself (dense) or its
+// number among the touched rows less k0 (sparse).  nk keys.  The entries:
+// the item's lists (row gi of off), window after window, kSeg at a time.
 template <bool kDense>
-__device__ void accumulate(const X1bGroup& a, const Shared& sh, int c,
-                           int64_t local_lo, int nrows, int r_lo, int r_hi,
-                           int k0, int nk, int nhits) {
+__device__ void accumulate(const X1bGroup& a, const lists::Lists& L,
+                           Shared& sh, int c, int64_t gi, int64_t local_lo,
+                           int r_lo, int r_hi, int k0, int nk) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int d = static_cast<int>(a.d);
-  const int64_t S = a.Bp * a.L;
-  const int64_t mbase = static_cast<int64_t>(c) * S;
+  const int64_t mbase = static_cast<int64_t>(c) * L.S;
   const int32_t cap = __ldg(a.caps + c);
   const int code = __ldg(a.codes + c);
   const bool divide = __ldg(a.weighted + c) != 0;
   int* mine = sh.wcnt + warp * nk;
-  const int64_t entries = nhits >= 0 ? nhits : S;
   // a slot's bag, s / L, by the reciprocal where S < 2^20
-  const bool small_s = S < (1 << 20);
+  const bool small_s = L.S < (1 << 20);
   const float inv_l = runs::recip(static_cast<int>(small_s ? a.L : 1));
   auto bag_of = [&](int64_t s) -> int64_t {
     return small_s ? runs::quot(static_cast<int>(s), inv_l) : s / a.L;
   };
-  const int* hits = nhits >= 0 ? sh.hits : nullptr;
   __syncthreads();
   for (int p = tid; p < nk * d; p += kThreads) sh.acc[p] = 0.0f;
-  for (int64_t base = 0; base < entries; base += kSeg) {
-    const int n =
-        static_cast<int>(entries - base < kSeg ? entries - base : kSeg);
-    for (int j = tid; j < kWarps * nk; j += kThreads) sh.wcnt[j] = 0;
-    const int span = runs::warp_span(n);
-    const int lo = min(warp * span, n);
-    const int hi = min(lo + span, n);
-    __syncthreads();
-    // 1. each slot's key, counted; a MEAN / SQRTN slot's denominator
-    for (int i0 = lo; i0 < hi; i0 += 32 * kLoads) {
-      int32_t id[kLoads];
+  const int nwin = lists::windows(L.nseg);
+  for (int w = 0; w < nwin; ++w) {
+    const int entries = lists::load_window(L, gi, c, w, sh.win);
+    for (int base = 0; base < entries; base += kSeg) {
+      const int n = min(entries - base, kSeg);
+      for (int j = tid; j < kWarps * nk; j += kThreads) sh.wcnt[j] = 0;
+      const int span = runs::warp_span(n);
+      const int lo = min(warp * span, n);
+      const int hi = min(lo + span, n);
+      __syncthreads();
+      // 1. each entry's slot and key, counted; a MEAN / SQRTN slot's
+      // denominator
+      for (int i0 = lo; i0 < hi; i0 += 32 * kLoads) {
+        int64_t at[kLoads];
 #pragma unroll
-      for (int k = 0; k < kLoads; ++k) {
-        const int i = i0 + k * 32 + lane;
-        id[k] = i < hi ? __ldg(a.ids + mbase +
-                               (hits ? hits[i] : base + i))
-                       : -1;
-      }
-#pragma unroll
-      for (int k = 0; k < kLoads; ++k) {
-        const int i = i0 + k * 32 + lane;
-        int key = -1;
-        if (i < hi) {
-          const int r = item_row(id[k], cap, local_lo, nrows);
-          if (r >= r_lo && r < r_hi) {
-            key = kDense ? r : touched_rank(sh, r) - k0;
-          }
-          sh.place[i] = static_cast<int16_t>(key);
-          if (key >= 0 && code != 0) {
-            const int64_t s = hits ? hits[i] : base + i;
-            sh.den[i] = bag_den(a, mbase + bag_of(s) * a.L, cap, code);
-          }
+        for (int k = 0; k < kLoads; ++k) {
+          const int i = i0 + k * 32 + lane;
+          at[k] = i < hi ? lists::place(sh.win, base + i) : -1;
         }
-        runs::count_key(mine, key);
-      }
-    }
-    __syncthreads();
-    // 2. totals, starts, each warp's first places
-    runs::starts(sh.total, sh.start, sh.wcnt, nk);
-    // 3. each warp places its slots, in slot order
-    for (int i0 = lo; i0 < hi; i0 += 32) {
-      const int i = i0 + lane;
-      const int key = i < hi ? sh.place[i] : -1;
-      const int at = runs::place_of(mine, key, lane);
-      if (at >= 0) sh.list[at] = static_cast<uint16_t>(i);
-    }
-    __syncthreads();
-    // 4. a thread per (run, element) adds the run's terms in slot order:
-    // the thread of the run's first place walks it
-    const int nhit = sh.start[nk - 1] + sh.total[nk - 1];
-    const bool small_p = nhit * d < (1 << 20);
-    const float inv_d = runs::recip(small_p ? d : 1);
-    for (int p = tid; p < nhit * d; p += kThreads) {
-      const int j = small_p ? runs::quot(p, inv_d) : p / d;
-      const int e = p - j * d;
-      const int key = sh.place[sh.list[j]];
-      if (j != sh.start[key]) continue;
-      const uint16_t* run = sh.list + j;
-      const int m = sh.total[key];
-      const int q = key * d + e;
-      float acc = sh.acc[q];
-      for (int j0 = 0; j0 < m; j0 += kUnroll) {
-        float t[kUnroll];
+        int32_t sl[kLoads], v[kLoads];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          t[u] = 0.0f;
-          if (j0 + u < m) {
-            const int i = run[j0 + u];
-            const int64_t s = hits ? hits[i] : base + i;
-            const int64_t b = bag_of(s);
-            const float gv = __ldg(a.g + b * a.gs +
-                                   static_cast<int64_t>(c) * d + e);
-            float dacc = gv;
-            if (code != 0) {
-              const float den = sh.den[i];
-              dacc = !(den > 0.0f) ? 0.0f
-                     : divide      ? __fdiv_rn(gv, den)
-                                   : __fmul_rn(gv, __fdiv_rn(1.0f, den));
+        for (int k = 0; k < kLoads; ++k) {
+          sl[k] = at[k] >= 0 ? __ldg(L.slot + at[k]) : -1;
+          v[k] = at[k] >= 0 ? __ldg(L.val + at[k]) : -1;
+        }
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+          const int i = i0 + k * 32 + lane;
+          int key = -1;
+          if (i < hi) {
+            const int64_t r64 = static_cast<int64_t>(v[k]) - local_lo;
+            const int r = static_cast<int>(r64);
+            if (r64 >= r_lo && r64 < r_hi) {
+              key = kDense ? r : touched_rank(sh, r) - k0;
             }
-            const float w = a.weights ? __ldg(a.weights + mbase + s) : 1.0f;
-            t[u] = __fmul_rn(dacc, w);
+            sh.place[i] = static_cast<int16_t>(key);
+            sh.cslot[i] = sl[k];
+            if (key >= 0 && code != 0) {
+              sh.den[i] = bag_den(a, mbase + bag_of(sl[k]) * a.L, cap, code);
+            }
           }
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          if (j0 + u < m) acc = __fadd_rn(acc, t[u]);
+          runs::count_key(mine, key);
         }
       }
-      sh.acc[q] = acc;
+      __syncthreads();
+      // 2. totals, starts, each warp's first places
+      runs::starts(sh.total, sh.start, sh.wcnt, nk);
+      // 3. each warp places its entries, in slot order
+      for (int i0 = lo; i0 < hi; i0 += 32) {
+        const int i = i0 + lane;
+        const int key = i < hi ? sh.place[i] : -1;
+        const int at = runs::place_of(mine, key, lane);
+        if (at >= 0) sh.list[at] = static_cast<uint16_t>(i);
+      }
+      __syncthreads();
+      // 4. a thread per (run, element) adds the run's terms in slot order:
+      // the thread of the run's first place walks it
+      const int nhit = sh.start[nk - 1] + sh.total[nk - 1];
+      const bool small_p = nhit * d < (1 << 20);
+      const float inv_d = runs::recip(small_p ? d : 1);
+      for (int p = tid; p < nhit * d; p += kThreads) {
+        const int j = small_p ? runs::quot(p, inv_d) : p / d;
+        const int e = p - j * d;
+        const int key = sh.place[sh.list[j]];
+        if (j != sh.start[key]) continue;
+        const uint16_t* run = sh.list + j;
+        const int m = sh.total[key];
+        const int q = key * d + e;
+        float acc = sh.acc[q];
+        for (int j0 = 0; j0 < m; j0 += kUnroll) {
+          float t[kUnroll];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            t[u] = 0.0f;
+            if (j0 + u < m) {
+              const int i = run[j0 + u];
+              const int64_t s = sh.cslot[i];
+              const int64_t b = bag_of(s);
+              const float gv = __ldg(a.g + b * a.gs +
+                                     static_cast<int64_t>(c) * d + e);
+              float dacc = gv;
+              if (code != 0) {
+                const float den = sh.den[i];
+                dacc = !(den > 0.0f) ? 0.0f
+                       : divide      ? __fdiv_rn(gv, den)
+                                     : __fmul_rn(gv, __fdiv_rn(1.0f, den));
+              }
+              const float w = a.weights ? __ldg(a.weights + mbase + s) : 1.0f;
+              t[u] = __fmul_rn(dacc, w);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            if (j0 + u < m) acc = __fadd_rn(acc, t[u]);
+          }
+        }
+        sh.acc[q] = acc;
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
+}
+
+// Mark a sparse item's touched rows in the bitmap, from its lists.
+__device__ void mark_rows(const lists::Lists& L, Shared& sh, int c,
+                          int64_t gi, int64_t local_lo, int nrows) {
+  const int nwin = lists::windows(L.nseg);
+  for (int w = 0; w < nwin; ++w) {
+    const int entries = lists::load_window(L, gi, c, w, sh.win);
+    for (int j0 = threadIdx.x; j0 < entries; j0 += kThreads * kLoads) {
+      int32_t v[kLoads];
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k) {
+        const int j = j0 + k * kThreads;
+        v[k] = j < entries ? __ldg(L.val + lists::place(sh.win, j)) : -1;
+      }
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k) {
+        const int64_t r = static_cast<int64_t>(v[k]) - local_lo;
+        if (v[k] >= 0 && r >= 0 && r < nrows) {
+          atomicOr(sh.bitmap + (r >> 5), 1u << (r & 31));
+        }
+      }
+    }
+  }
+  __syncthreads();
 }
 
 // Stream rows [r_lo, r_hi) of the item out, in order, a bitmap word's 32
@@ -383,15 +431,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   sh.total = sh.wcnt + kWarps * kMaxKeys;
   sh.start = sh.total + kMaxKeys;
   sh.den = reinterpret_cast<float*>(sh.start + kMaxKeys);
-  sh.place = reinterpret_cast<int16_t*>(sh.den + kSeg);
+  sh.cslot = reinterpret_cast<int32_t*>(sh.den + kSeg);
+  sh.place = reinterpret_cast<int16_t*>(sh.cslot + kSeg);
   sh.list = reinterpret_cast<uint16_t*>(sh.place + kSeg);
   sh.bitmap = reinterpret_cast<uint32_t*>(sh.list + kSeg);
   sh.wpre = reinterpret_cast<int*>(sh.bitmap + kWords);
-  sh.hits = sh.wpre + kWords + 1;
+  sh.win.bind(sh.wpre + kWords + 1);
 
   const Work wk = work[blockIdx.x];
   const int64_t member = (wk.kind >> 4) - 1;
-  const X1bGroup& a = batch.g[(wk.kind >> 1) & 7];
+  const int gk = static_cast<int>((wk.kind >> 1) & 7);
+  const X1bGroup& a = batch.g[gk];
   const int nrows = static_cast<int>(wk.nrows);
   if (member < 0) {
     write_out(a, sh, wk.row_lo, 0, nrows, 0, 0);
@@ -400,91 +450,30 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int c = static_cast<int>(member);
   const int d = static_cast<int>(a.d);
   const bool dense = wk.kind & 1;
-  // the one pass over the member's ids: the item's hits, in any order,
-  // while kCompact hold them (in wcnt); a sparse item's touched rows
-  __shared__ int nhit;
-  const int nw = (nrows + 31) / 32;
-  if (!dense) {
-    for (int w = threadIdx.x; w < nw; w += kThreads) sh.bitmap[w] = 0u;
-  }
-  if (threadIdx.x == 0) nhit = 0;
-  __syncthreads();
-  const int64_t S = a.Bp * a.L;
-  const int64_t mbase = static_cast<int64_t>(c) * S;
-  const int32_t cap = __ldg(a.caps + c);
-  // note one slot: a sparse item's touched row, and the hit while kCompact
-  // hold the hits (in wcnt, in any order)
-  auto note = [&](int32_t id, int64_t slot) {
-    const int r = item_row(id, cap, wk.local_lo, nrows);
-    if (r >= 0) {
-      if (!dense) atomicOr(sh.bitmap + (r >> 5), 1u << (r & 31));
-      const int at = atomicAdd(&nhit, 1);
-      if (at < kCompact) sh.wcnt[at] = static_cast<int>(slot);
-    }
-  };
-  const int32_t* mids = a.ids + mbase;
-  if (S % 4 == 0 && reinterpret_cast<uintptr_t>(mids) % 16 == 0) {
-    const int4* ids4 = reinterpret_cast<const int4*>(mids);
-    constexpr int kVec = kLoads / 4;
-    for (int64_t q0 = threadIdx.x; q0 < S / 4; q0 += kThreads * kVec) {
-      int4 v[kVec];
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        const int64_t q = q0 + k * kThreads;
-        v[k] = q < S / 4 ? __ldg(ids4 + q) : make_int4(-1, -1, -1, -1);
-      }
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        const int64_t s4 = 4 * (q0 + k * kThreads);
-        note(v[k].x, s4);
-        note(v[k].y, s4 + 1);
-        note(v[k].z, s4 + 2);
-        note(v[k].w, s4 + 3);
-      }
-    }
-  } else {
-    for (int64_t s0 = threadIdx.x; s0 < S; s0 += kThreads * kLoads) {
-      int32_t id[kLoads];
-#pragma unroll
-      for (int k = 0; k < kLoads; ++k) {
-        const int64_t s = s0 + k * kThreads;
-        id[k] = s < S ? __ldg(mids + s) : -1;
-      }
-#pragma unroll
-      for (int k = 0; k < kLoads; ++k) note(id[k], s0 + k * kThreads);
-    }
-  }
-  __syncthreads();
-  const int n = nhit;
-  if (!dense) number_words(sh, nw);
-  const int runs_max = min(kMaxKeys, kAccFloats / d);
-  if (n <= kCompact && S <= 2147483647 &&
-      (dense || sh.wpre[nw] <= runs_max)) {
-    // the hits in slot order (each one's rank among them), then one pass
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const int si = sh.wcnt[i];
-      int rank = 0;
-      for (int j = 0; j < n; ++j) rank += sh.wcnt[j] < si;
-      sh.hits[rank] = si;
-    }
-    __syncthreads();
-    const int nk = dense ? nrows : sh.wpre[nw];
-    if (nk > 0) {
-      if (dense) {
-        accumulate<true>(a, sh, c, wk.local_lo, nrows, 0, nrows, 0, nk, n);
-      } else {
-        accumulate<false>(a, sh, c, wk.local_lo, nrows, 0, nrows, 0, nk, n);
-      }
-    }
-    write_out(a, sh, wk.row_lo, 0, nrows, nk > 0 ? (dense ? 1 : 2) : 0, 0);
-    return;
-  }
+  const lists::Lists& L = batch.l[gk].l;
+  // the item's row of off: the member's first plus the item's number
+  const int32_t* mi = batch.l[gk].minfo + 4 * c;
+  const int64_t gi = __ldg(mi + 3) + wk.local_lo / __ldg(mi);
   if (dense) {
-    accumulate<true>(a, sh, c, wk.local_lo, nrows, 0, nrows, 0, nrows, -1);
+    accumulate<true>(a, L, sh, c, gi, wk.local_lo, 0, nrows, 0, nrows);
     write_out(a, sh, wk.row_lo, 0, nrows, 1, 0);
     return;
   }
-  // a crowded sparse item: window by window, each a pass over all slots
+  // a sparse item: its touched rows, numbered
+  const int nw = (nrows + 31) / 32;
+  for (int w = threadIdx.x; w < nw; w += kThreads) sh.bitmap[w] = 0u;
+  mark_rows(L, sh, c, gi, wk.local_lo, nrows);
+  number_words(sh, nw);
+  const int runs_max = min(kMaxKeys, kAccFloats / d);
+  const int touched = sh.wpre[nw];
+  if (touched <= runs_max) {
+    if (touched > 0) {
+      accumulate<false>(a, L, sh, c, gi, wk.local_lo, 0, nrows, 0, touched);
+    }
+    write_out(a, sh, wk.row_lo, 0, nrows, touched > 0 ? 2 : 0, 0);
+    return;
+  }
+  // crowded: window by window, each a walk of the item's own list
   for (int w0 = 0; w0 < nw;) {
     // the last word w1 whose touched rows since w0 fit the window
     int lo = w0 + 1, hi = nw;
@@ -497,8 +486,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const int nk = sh.wpre[w1] - k0;
     const int r_lo = w0 * 32, r_hi = min(w1 * 32, nrows);
     if (nk > 0) {
-      accumulate<false>(a, sh, c, wk.local_lo, nrows, r_lo, r_hi, k0, nk,
-                        -1);
+      accumulate<false>(a, L, sh, c, gi, wk.local_lo, r_lo, r_hi, k0, nk);
     }
     write_out(a, sh, wk.row_lo, r_lo, r_hi, nk > 0 ? 2 : 0, k0);
     __syncthreads();
@@ -508,11 +496,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
 }  // namespace
 
-// Launch X1b over n <= kMaxGroups groups described by the host array
-// `groups` (X1bGroup records) and the device array `work` of n_work Work
-// records, a block each (ops/lookup_gather.py::x1b_plan).  Returns the
-// launch's cudaError_t.
+// Launch X1b over n <= kMaxGroups groups described by the host arrays
+// `groups` (X1bGroup records) and `item_lists` (X1bLists records: each
+// group's lists, written by the partition launch before this one) and
+// the device array `work` of n_work Work records, a block each
+// (ops/lookup_gather.py::x1b_plan).  Returns the launch's cudaError_t.
 extern "C" int rt_pooled_gather_grad_f32(const void* groups, int64_t n,
+                                         const void* item_lists,
                                          const void* work, int64_t n_work,
                                          void* stream) {
   if (n < 1 || n > kMaxGroups || n_work < 0 || n_work > 2147483647) {
@@ -520,10 +510,14 @@ extern "C" int rt_pooled_gather_grad_f32(const void* groups, int64_t n,
   }
   X1bLaunch batch = {};
   const X1bGroup* src = static_cast<const X1bGroup*>(groups);
+  const X1bLists* ls = static_cast<const X1bLists*>(item_lists);
   for (int64_t i = 0; i < n; ++i) {
     batch.g[i] = src[i];
+    batch.l[i] = ls[i];
     const int64_t d = src[i].d;
-    if (d < 1 || d > kAccFloats || src[i].L < 1 || src[i].gs < 0) {
+    if (d < 1 || d > kAccFloats || src[i].L < 1 || src[i].gs < 0 ||
+        ls[i].l.S != src[i].Bp * src[i].L || ls[i].l.S > 2147483647 ||
+        ls[i].l.nseg < 1 || ls[i].l.nseg * lists::kSeg < ls[i].l.S) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -551,7 +545,7 @@ extern "C" int rt_pooled_gather_grad_f32(const void* groups, int64_t n,
 
 // The kernel's constants the host plans with, in the order of
 // ops/lookup_gather.py::X1B_LIMITS: kMaxGroups, kMaxKeys, kAccFloats,
-// kRangeRows, sizeof(X1bGroup), sizeof(Work).
+// kRangeRows, sizeof(X1bGroup), sizeof(Work), sizeof(X1bLists).
 extern "C" void rt_pooled_gather_grad_limits(int64_t* out) {
   out[0] = kMaxGroups;
   out[1] = kMaxKeys;
@@ -559,6 +553,7 @@ extern "C" void rt_pooled_gather_grad_limits(int64_t* out) {
   out[3] = kRangeRows;
   out[4] = sizeof(X1bGroup);
   out[5] = sizeof(Work);
+  out[6] = sizeof(X1bLists);
 }
 
 extern "C" const char* rt_cuda_error_string(int err) {

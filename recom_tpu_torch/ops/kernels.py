@@ -15,7 +15,8 @@ the kernels spell the rounding out with ``__fmul_rn``/``__fadd_rn`` besides.
 Every entry point returns the ``cudaError_t`` of its launch, which
 ``launch`` turns into an exception.  ``launches`` counts the launches of each
 kernel (the forwards K1, K2, X1, X2, the stored-dtype variants K1-bf16,
-K2-bf16, X1-bf16 and X1-int8, and the backwards K3a, K3b, X1b): a
+K2-bf16, X1-bf16 and X1-int8, the backwards K3a, K3b, X1b, and the
+partition pass Part that lists their work items' entries): a
 wrapper adds one where it launches, and nowhere else, so a run can show that
 a path went through its kernels.  Only launches that run on the card count:
 while a CUDA graph is captured (``recording``) the launches queued on the
@@ -38,7 +39,7 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -59,6 +60,7 @@ LIBRARIES = {
     "hash_device": "hash_device.cu",
     "onehot_grad": "onehot_grad.cu",
     "pooled_gather_grad": "pooled_gather_grad.cu",
+    "partition": "partition.cu",
 }
 
 # kernel id -> (library, C entry point, argtypes)
@@ -78,23 +80,25 @@ KERNELS = {
     "X1-int8": ("pooled_gather", "rt_pooled_gather_int8", [_P, _I, _I, _P]),
     "X2": ("hash_device", "rt_hash_rows",
            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "K3a": ("onehot_grad", "rt_onehot_lookup_grad_f32",
-            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "K3b": ("onehot_grad", "rt_onehot_bucketize_grad_f32",
-            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "K3a": ("onehot_grad", "rt_onehot_lookup_grad_f32", [_P, _I, _P]),
+    "K3b": ("onehot_grad", "rt_onehot_bucketize_grad_f32", [_P, _I, _P]),
     "X1b": ("pooled_gather_grad", "rt_pooled_gather_grad_f32",
-            [_P, _I, _P, _I, _P]),
+            [_P, _I, _P, _P, _I, _P]),
+    # the partition pass that lists each work item's entries for X1b, K3a
+    # and K3b (ops/item_lists.py)
+    "Part": ("partition", "rt_partition", [_P, _I, _I, _I, _P]),
 }
 
 launches: Dict[str, int] = {kid: 0 for kid in KERNELS}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-# per thread: the launches recorded by the capture under way, if any
+# per thread: the capture under way, if any, as (the launches it recorded,
+# the tensors those launches point into: ``launch``'s ``keep``)
 _capturing = threading.local()
-# CUDA stream handle -> the launches recorded by the capture under way on
-# that stream, for launches queued on it from other threads
-_by_stream: Dict[int, Dict[str, int]] = {}
+# CUDA stream handle -> the capture under way on that stream, for launches
+# queued on it from other threads
+_by_stream: Dict[int, Tuple[Dict[str, int], list]] = {}
 _by_stream_lock = threading.Lock()
 
 
@@ -104,30 +108,33 @@ def reset_launches() -> None:
 
 
 @contextlib.contextmanager
-def recording(stream=None):
+def recording(stream=None, kept: Optional[list] = None):
     """Within it, this thread's launches are recorded in the yielded dict
     ({kernel id: launches}) instead of counted: the capture of a CUDA
     graph, whose launches run only when it is replayed.  ``stream``: the
     capturing ``torch.cuda.Stream``, whose launches from other threads are
-    recorded here too.  A recording within another adds what it recorded
-    to the outer one when it ends."""
-    counts: Dict[str, int] = {}
-    outer = getattr(_capturing, "counts", None)
-    _capturing.counts = counts
+    recorded here too.  ``kept``: a list that takes the tensors each
+    recorded launch names in its ``keep``, for the graph's owner to hold
+    while the graph lives.  A recording within another adds what it
+    recorded to the outer one when it ends."""
+    rec = ({}, [] if kept is None else kept)
+    outer = getattr(_capturing, "rec", None)
+    _capturing.rec = rec
     key = None if stream is None else int(stream.cuda_stream)
     if key is not None:
         with _by_stream_lock:
-            _by_stream[key] = counts
+            _by_stream[key] = rec
     try:
-        yield counts
+        yield rec[0]
     finally:
-        _capturing.counts = outer
+        _capturing.rec = outer
         if key is not None:
             with _by_stream_lock:
                 del _by_stream[key]
         if outer is not None:
-            for kid, n in counts.items():
-                outer[kid] = outer.get(kid, 0) + n
+            for kid, n in rec[0].items():
+                outer[0][kid] = outer[0].get(kid, 0) + n
+            outer[1].extend(rec[1])
 
 
 def add_launches(counts: Dict[str, int]) -> None:
@@ -153,6 +160,7 @@ _FUNCTIONS = tuple((re.compile(p), kid) for p, kid in (
     (r"\bonehot_grad_kernel<false,", "K3a"),
     (r"\bonehot_grad_kernel<true,", "K3b"),
     (r"\bpooled_gather_grad_kernel\b", "X1b"),
+    (r"\bpartition_kernel\b", "Part"),
 ))
 
 
@@ -268,27 +276,36 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(kid: str, *args) -> None:
+def launch(kid: str, *args, keep=()) -> None:
     """Call kernel ``kid``'s entry point (``args``, its stream last), raise
     on a launch error, and count the launch (record it, under
-    ``recording`` on this thread or on its stream)."""
+    ``recording`` on this thread or on its stream).  ``keep``: the tensors
+    the launch points into that only a bounded cache holds (a plan made
+    once per shape): a recording keeps them, so that a captured graph's
+    replays never read memory the cache has since given back."""
     name, fn, _ = KERNELS[kid]
     lib = library(name)
     err = getattr(lib, fn)(*args)
     if err != 0:
         msg = lib.rt_cuda_error_string(err).decode()
         raise RuntimeError(f"kernel {kid} ({fn}) launch failed: {msg} ({err})")
-    counts = getattr(_capturing, "counts", None)
-    if counts is None and _by_stream:
+    rec = getattr(_capturing, "rec", None)
+    if rec is None and _by_stream:
         with _by_stream_lock:
-            counts = _by_stream.get(args[-1])
-            if counts is not None:
-                counts[kid] = counts.get(kid, 0) + 1
+            rec = _by_stream.get(args[-1])
+            if rec is not None:
+                _record(rec, kid, keep)
                 return
-    if counts is None:
+    if rec is None:
         launches[kid] += 1
     else:
-        counts[kid] = counts.get(kid, 0) + 1
+        _record(rec, kid, keep)
+
+
+def _record(rec, kid: str, keep) -> None:
+    counts, kept = rec
+    counts[kid] = counts.get(kid, 0) + 1
+    kept.extend(keep)
 
 
 def ptr(t) -> Optional[int]:

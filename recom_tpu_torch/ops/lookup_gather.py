@@ -36,7 +36,8 @@ csrc/pooled_gather.cu).
 
 Gradient (training): ``groups_pooled`` is differentiable in each group's
 f32 table.  X1b (``groups_pooled_grad``, one launch for every group of a
-backward; csrc/pooled_gather_grad.cu) is the
+backward, after one launch of the partition Part that lists each work
+item's slots, ops/item_lists.py; csrc/pooled_gather_grad.cu) is the
 transpose of the reference's arithmetic, each step rounded on its own: the
 pooled cotangent scaled as the combiner divided (times the rounded
 reciprocal, or divided, by the bag's denominator; 0 where it is not > 0),
@@ -59,7 +60,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from recom_tpu_torch.ops import kernels
+from recom_tpu_torch.ops import item_lists, kernels
 from recom_tpu_torch.ops.quant import QuantizedTable, dequantize_rows
 
 
@@ -602,20 +603,28 @@ def group_pooled_grad_plain(
 
 # The host side of kernel X1b's launch (csrc/pooled_gather_grad.cu): one
 # launch serves up to X1B_MAX_GROUPS groups, each described by one
-# X1B_DESC record (the kernel's struct X1bGroup, field for field), and a
-# device array of work items, a block each, that cut every group's rows
-# (x1b_plan).  The kernel's constants: a dense tile or a sparse window sums
-# at most X1B_MAX_KEYS rows and X1B_ACC_FLOATS floats in shared memory,
-# and a sparse item spans at most X1B_RANGE_ROWS rows (its bitmap).
+# X1B_DESC record (the kernel's struct X1bGroup, field for field) and one
+# X1B_LISTS record (struct X1bLists: the group's item lists, which one
+# partition launch writes first, ops/item_lists.py), and a device array of
+# work items, a block each, that cut every group's rows (x1b_plan).  The
+# kernel's constants: a dense tile or a sparse window sums at most
+# X1B_MAX_KEYS rows and X1B_ACC_FLOATS floats in shared memory, and a
+# sparse item spans at most X1B_RANGE_ROWS rows (its bitmap).
 X1B_MAX_GROUPS = 8
 X1B_DESC = struct.Struct("<7Q5q")
+# slot, val, off, S, nseg, member info
+X1B_LISTS = struct.Struct("<3Q2qQ")
 X1B_MAX_KEYS = 512
 X1B_ACC_FLOATS = 4096
 X1B_RANGE_ROWS = 32768
+# a member takes dense tiles when its rows are at most this many a slot
+# (the all-to-all exchange's receive buffer, most of whose rows the pool
+# reads): sparse ranges would be crowded past their windows
+X1B_DENSE_ROWS_PER_SLOT = 4
 # what rt_pooled_gather_grad_limits reports, in its order (32: the bytes
 # of a work item, the kernel's struct Work)
 X1B_LIMITS = (X1B_MAX_GROUPS, X1B_MAX_KEYS, X1B_ACC_FLOATS, X1B_RANGE_ROWS,
-              X1B_DESC.size, 32)
+              X1B_DESC.size, 32, X1B_LISTS.size)
 
 
 def x1b_tile_rows(d: int) -> int:
@@ -624,40 +633,43 @@ def x1b_tile_rows(d: int) -> int:
     return min(X1B_MAX_KEYS, X1B_ACC_FLOATS // d)
 
 
-def x1b_sparse(extent: int, d: int) -> bool:
-    """Whether a member of ``extent`` rows takes sparse ranges (a large
-    vocab) rather than dense tiles: its rows outnumber one range's bitmap,
-    and a window holds a bitmap word's 32 rows."""
-    return extent > X1B_RANGE_ROWS and x1b_tile_rows(d) >= 32
+def x1b_sparse(extent: int, d: int, slots: int) -> bool:
+    """Whether a member of ``extent`` rows and ``slots`` slots takes sparse
+    ranges (a large vocab) rather than dense tiles: its rows outnumber one
+    range's bitmap, a window holds a bitmap word's 32 rows, and its rows
+    are more than X1B_DENSE_ROWS_PER_SLOT a slot."""
+    return (extent > X1B_RANGE_ROWS and x1b_tile_rows(d) >= 32 and
+            extent > X1B_DENSE_ROWS_PER_SLOT * slots)
 
 
-def x1b_plan(num_rows: int, d: int, row_offsets,
-             vocab_caps=None) -> np.ndarray:
-    """X1b's work items for one group's [R, d] gradient: [n, 5] int64 rows
-    (row_lo, local_lo, nrows, member, dense), every row of [0, R) in exactly
-    one item.
+def x1b_range_rows(extent: int, d: int, slots: int) -> int:
+    """Rows of each sparse range of a member of ``extent`` rows: the largest
+    power of two, at most X1B_RANGE_ROWS and at least 32, whose share of
+    the member's ``slots`` (spread evenly) fills at most one window of
+    ``x1b_tile_rows(d)`` touched rows, so that a range is seldom crowded
+    (a crowded range sums window by window, each window a pass over the
+    range's slots)."""
+    rows = 32
+    while (rows < X1B_RANGE_ROWS and
+           2 * rows * slots <= x1b_tile_rows(d) * extent):
+        rows *= 2
+    return rows
 
-    Member c owns its rows [row_offsets[c], row_offsets[c] + caps[c] + 1)
-    (without caps: up to the next member's offset, or R), where its clamped
-    ids land; raises ValueError where two members' rows overlap or a
-    member's run past R.  A member with a small vocab takes dense tiles of
-    ``x1b_tile_rows(d)`` rows; one with a large vocab (``x1b_sparse``)
-    sparse ranges of X1B_RANGE_ROWS rows; rows no member owns, zero items
-    (member -1).  Dense items come first, then sparse, then zero ones."""
+
+def _x1b_members(num_rows: int, d: int, row_offsets, vocab_caps,
+                 slots: int):
+    """[(member, first row, rows, item rows, sparse)] in row order (item
+    rows: a dense tile's, or a sparse range's, ``x1b_range_rows``), and
+    the rows each member owns checked (ValueError where two overlap or one
+    runs past R)."""
     offs = np.asarray(row_offsets, np.int64).reshape(-1)
     c = offs.size
     caps = (np.full(c, np.iinfo(np.int32).max, np.int64) if vocab_caps is None
             else np.asarray(vocab_caps, np.int64).reshape(-1))
     if caps.size != c:
         raise ValueError(f"vocab_caps must have {c} entries, got {caps.size}")
-    tile = x1b_tile_rows(d)
-    dense, sparse, zero = [], [], []
-
-    def zeros(lo, hi):
-        for r in range(lo, hi, X1B_RANGE_ROWS):
-            zero.append((r, 0, min(X1B_RANGE_ROWS, hi - r), -1, 0))
-
     order = np.argsort(offs, kind="stable")
+    out = []
     row = 0
     for k, m in enumerate(order):
         lo = int(offs[m])
@@ -677,25 +689,74 @@ def x1b_plan(num_rows: int, d: int, row_offsets,
                     f"X1b: member {m}'s rows [{lo}, {lo + int(caps[m]) + 1})"
                     f" overlap the next member's or run past R = {num_rows}")
             extent = max(int(caps[m]) + 1, 0)
+        sparse = x1b_sparse(extent, d, slots)
+        unit = (x1b_range_rows(extent, d, slots) if sparse
+                else x1b_tile_rows(d))
+        out.append((int(m), lo, extent, unit, sparse))
+        row = lo + extent
+    return out
+
+
+def x1b_plan(num_rows: int, d: int, row_offsets, vocab_caps,
+             slots: int) -> np.ndarray:
+    """X1b's work items for one group's [R, d] gradient: [n, 5] int64 rows
+    (row_lo, local_lo, nrows, member, dense), every row of [0, R) in exactly
+    one item.
+
+    Member c owns its rows [row_offsets[c], row_offsets[c] + caps[c] + 1)
+    (``vocab_caps`` None: up to the next member's offset, or R), where its
+    clamped ids land; raises ValueError where two members' rows overlap or
+    a member's run past R.  ``slots``: a member's slots (Bp x L).  A
+    member with a small vocab, or with few rows a slot, takes dense tiles of
+    ``x1b_tile_rows(d)`` rows; one with a large vocab (``x1b_sparse``)
+    sparse ranges of ``x1b_range_rows`` rows; rows no member owns, zero
+    items (member -1).  Dense items come first, then sparse, then zero
+    ones."""
+    dense, sparse, zero = [], [], []
+
+    def zeros(lo, hi):
+        for r in range(lo, hi, X1B_RANGE_ROWS):
+            zero.append((r, 0, min(X1B_RANGE_ROWS, hi - r), -1, 0))
+
+    row = 0
+    for m, lo, extent, unit, is_sparse in _x1b_members(
+            num_rows, d, row_offsets, vocab_caps, slots):
         zeros(row, lo)
-        if x1b_sparse(extent, d):
-            for r in range(0, extent, X1B_RANGE_ROWS):
-                sparse.append((lo + r, r, min(X1B_RANGE_ROWS, extent - r),
-                               m, 0))
-        else:
-            for r in range(0, extent, tile):
-                dense.append((lo + r, r, min(tile, extent - r), m, 1))
+        for r in range(0, extent, unit):
+            (sparse if is_sparse else dense).append(
+                (lo + r, r, min(unit, extent - r), m, int(not is_sparse)))
         row = lo + extent
     zeros(row, num_rows)
     items = dense + sparse + zero
     return np.asarray(items, np.int64).reshape(-1, 5)
 
 
+def x1b_member_info(num_rows: int, d: int, row_offsets, vocab_caps,
+                    slots: int) -> np.ndarray:
+    """The partition's member rows of one group (ops/item_lists.py): each
+    member's item rows (its dense tile or sparse range rows), its items as
+    ``x1b_plan`` cuts them, and its rows (its ids' bound), in member
+    order."""
+    members = sorted(_x1b_members(num_rows, d, row_offsets, vocab_caps,
+                                  slots))
+    return item_lists.member_info(
+        [u for _, _, _, u, _ in members],
+        [-(-e // u) for _, _, e, u, _ in members],
+        [e for _, _, e, _, _ in members])
+
+
 @functools.lru_cache(maxsize=64)
-def _x1b_plan_cached(num_rows, d, offs_bytes, caps_bytes):
+def _x1b_plan_cached(num_rows, d, offs_bytes, caps_bytes, slots):
     offs = np.frombuffer(offs_bytes, np.int64)
     caps = None if caps_bytes is None else np.frombuffer(caps_bytes, np.int64)
-    return x1b_plan(num_rows, d, offs, caps)
+    return x1b_plan(num_rows, d, offs, caps, slots)
+
+
+@functools.lru_cache(maxsize=64)
+def _x1b_info_cached(num_rows, d, offs_bytes, caps_bytes, slots):
+    offs = np.frombuffer(offs_bytes, np.int64)
+    caps = None if caps_bytes is None else np.frombuffer(caps_bytes, np.int64)
+    return x1b_member_info(num_rows, d, offs, caps, slots)
 
 
 def x1b_work(plans) -> np.ndarray:
@@ -721,7 +782,8 @@ def x1b_work(plans) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def _x1b_work_on(keys, device) -> torch.Tensor:
     """The work array of one launch on the card, made once per set of
-    group plans."""
+    group plans (X1b's launch names it in ``kernels.launch``'s ``keep``,
+    so that a captured graph holds it past its eviction)."""
     work = x1b_work([_x1b_plan_cached(*k) for k in keys])
     return torch.from_numpy(np.ascontiguousarray(work)).to(device)
 
@@ -762,7 +824,7 @@ def _x1b_library() -> None:
     lib.rt_pooled_gather_grad_limits(got)
     for name, want, have in zip(
             ("groups", "keys", "acc floats", "range rows", "X1bGroup size",
-             "Work size"), X1B_LIMITS, got):
+             "Work size", "X1bLists size"), X1B_LIMITS, got):
         if want != have:
             raise RuntimeError(f"csrc/pooled_gather_grad.cu's {name} is "
                                f"{have}, ops/lookup_gather.py plans with "
@@ -791,27 +853,66 @@ def _x1b_check(g, num_rows, ids, row_offsets, combiner_code, weights=None,
             weighted_cols, vocab_caps)
 
 
-def _x1b_group(gi_args, out=None):
-    """One group's X1B_DESC record, its plan key, its output (``out``, or a
-    new one), and the tensors its pointers refer to (held until the launch
-    is queued)."""
-    (g, gs, num_rows, ids, row_offsets, combiner_code, weights,
+def _x1b_key(num_rows, d, row_offsets, vocab_caps, slots):
+    """A group's plan key: its rows, row length, host offsets and caps, and
+    slots a member."""
+    offs = np.ascontiguousarray(_host_array(row_offsets), np.int64)
+    caps_h = _host_array(vocab_caps)
+    return (num_rows, d, offs.tobytes(),
+            None if caps_h is None else
+            np.ascontiguousarray(caps_h, np.int64).tobytes(), slots)
+
+
+def _x1b_entry(ids, caps, key) -> dict:
+    """The partition's entry (ops/item_lists.py) of one group as X1b lists
+    it: its contiguous ids as ``[C, Bp L]``, its caps on its device, and
+    its member rows under its plan key ``key`` (``x1b_member_info``)."""
+    return dict(ids=ids.view(ids.shape[0], -1), caps=caps,
+                info=_x1b_info_cached(*key))
+
+
+def x1b_partition_groups(groups):
+    """The partition's entries that ``groups_pooled_grad`` lists for
+    ``groups`` (its arguments), one a group, made as it makes them: to
+    hold Part on its own to its plain version."""
+    out = []
+    for grp in groups:
+        ids, _, caps, _, _, key = _x1b_columns(_x1b_check(*_one_column(grp)))
+        out.append(_x1b_entry(ids, caps, key))
+    return out
+
+
+def _x1b_columns(gi_args):
+    """One checked group's contiguous ids and weights, its per-column
+    arguments on its device (caps, codes, wcols) and its plan key, with
+    its row length and slots checked against the kernel's limits."""
+    (g, _, num_rows, ids, row_offsets, combiner_code, weights,
      weighted_cols, vocab_caps) = gi_args
     c, bp, l = ids.shape
     d = g.shape[2]
     if d > X1B_ACC_FLOATS:
         raise ValueError(f"X1b takes rows of at most {X1B_ACC_FLOATS} "
                          f"floats, got d={d}")
-    dev = g.device
-    _, caps, codes, wcols = _column_args(c, dev, row_offsets, combiner_code,
-                                         weights, weighted_cols, vocab_caps)
-    ids = ids.contiguous()
+    if bp * l >= 1 << 31:
+        raise ValueError(f"X1b takes at most 2^31 - 1 slots a member, got "
+                         f"{bp} x {l}")
+    _, caps, codes, wcols = _column_args(c, g.device, row_offsets,
+                                         combiner_code, weights,
+                                         weighted_cols, vocab_caps)
     weights = None if weights is None else weights.contiguous()
-    offs = np.ascontiguousarray(_host_array(row_offsets), np.int64)
-    caps_h = _host_array(vocab_caps)
-    key = (num_rows, d, offs.tobytes(),
-           None if caps_h is None else
-           np.ascontiguousarray(caps_h, np.int64).tobytes())
+    return (ids.contiguous(), weights, caps, codes, wcols,
+            _x1b_key(num_rows, d, row_offsets, vocab_caps, bp * l))
+
+
+def _x1b_group(gi_args, out=None):
+    """One group's X1B_DESC record, its plan key, its output (``out``, or a
+    new one), and the tensors its pointers refer to (g, ids, weights, caps,
+    codes, wcols: held until the launch is queued)."""
+    g, gs, num_rows = gi_args[:3]
+    ids, weights, caps, codes, wcols, key = _x1b_columns(gi_args)
+    c, bp, l = ids.shape
+    d = g.shape[2]
+    dev = g.device
     if out is None:
         out = torch.empty((num_rows, d), dtype=torch.float32, device=dev)
     elif (out.dtype != torch.float32 or tuple(out.shape) != (num_rows, d)
@@ -848,18 +949,6 @@ def shares_rows(row_offsets, c: int) -> bool:
     return c > 1 and np.unique(np.asarray(offs)).size < c
 
 
-def shared_rows_members(num_rows: int, slots: int) -> int:
-    """Into how many members of X1B_RANGE_ROWS rows ``shared_rows_grad_args``
-    cuts the one column of a group whose columns share ``num_rows`` rows,
-    read by ``slots`` slots: 1 (sparse ranges, or one member of dense
-    tiles) unless the rows are few beside the slots (at most 4 rows a
-    slot: the all-to-all exchange's receive buffer, most of whose rows the
-    pool reads), where sparse ranges would be crowded past their windows;
-    then each member of at most X1B_RANGE_ROWS rows takes dense tiles."""
-    k = -(-num_rows // X1B_RANGE_ROWS)
-    return k if k > 1 and num_rows <= 4 * slots else 1
-
-
 def shared_rows_grad_args(g, num_rows, ids, row_offsets, combiner_code,
                           weights=None, weighted_cols=None, vocab_caps=None):
     """The arguments of one group whose columns share rows, rewritten as
@@ -867,10 +956,10 @@ def shared_rows_grad_args(g, num_rows, ids, row_offsets, combiner_code,
     place (-1 stays), the ``[C, Bp, L]`` slots as ``[1, C * Bp, L]`` (so
     slot order is kept), and the cotangent scaled by the combiner first
     (``combiner_cotangent``), ``[C * Bp, 1, d]``.  X1b then sums each row
-    in the same slot order, with the same rounded terms.  Where
-    ``shared_rows_members`` gives k > 1, the column is k members of
-    X1B_RANGE_ROWS rows, each given every slot (its ids shifted to its
-    rows; a slot outside them adds nothing to it)."""
+    in the same slot order, with the same rounded terms.  The column's
+    rows are one member: dense tiles where they are few beside its slots
+    (the all-to-all exchange's receive buffer, ``x1b_sparse``), else
+    sparse ranges, each item reading only its own slots."""
     dev = ids.device
     c, bp, l = ids.shape
     if vocab_caps is not None:
@@ -880,31 +969,20 @@ def shared_rows_grad_args(g, num_rows, ids, row_offsets, combiner_code,
     ids = torch.where(ids >= 0, ids + offs, torch.full_like(ids, -1))
     dacc = combiner_cotangent(g, ids, _host_array(combiner_code), weights,
                               _weighted_mask(weighted_cols, weights, c))
-    k = shared_rows_members(num_rows, ids.numel())
     dacc = dacc.reshape(c * bp, 1, dacc.shape[2])
     ids = ids.reshape(1, c * bp, l)
     if weights is not None:
         weights = weights.reshape(1, c * bp, l)
-    zero, no_cap, flags = shared_rows_consts(k, str(dev))
-    offs = zero
-    if k > 1:
-        offs = _member_starts(k, str(dev))
-        local = ids - offs[:, None, None]
-        ids = torch.where((ids >= 0) & (local >= 0)
-                          & (local < X1B_RANGE_ROWS), local,
-                          torch.full_like(local, -1))
-        dacc = dacc.expand(-1, k, -1).contiguous()
-        if weights is not None:
-            weights = weights.expand(k, -1, -1).contiguous()
-    return (dacc, num_rows, ids, offs, zero, weights, flags, no_cap)
+    zero, no_cap, flags = shared_rows_consts(1, str(dev))
+    return (dacc, num_rows, ids, zero, zero, weights, flags, no_cap)
 
 
-@functools.lru_cache(maxsize=None)
-def _member_starts(k: int, device: str) -> torch.Tensor:
-    """[k] int32: member j's first row, j * X1B_RANGE_ROWS, made once."""
-    with torch.inference_mode(False):
-        return torch.arange(k, dtype=torch.int32, device=device) * \
-            X1B_RANGE_ROWS
+def _one_column(grp):
+    """A group's arguments, as one SUM column where its columns share rows
+    (``shared_rows_grad_args``)."""
+    if shares_rows(grp[3], grp[2].shape[0]):
+        return shared_rows_grad_args(*grp)
+    return grp
 
 
 def groups_pooled_grad(groups, out=None) -> List[torch.Tensor]:
@@ -916,10 +994,7 @@ def groups_pooled_grad(groups, out=None) -> List[torch.Tensor]:
     the kernel writes every element once, into ``out`` (one [R, d] tensor a
     group) where given.  A group whose columns share rows (``shares_rows``)
     is taken as one SUM column (``shared_rows_grad_args``)."""
-    groups = [shared_rows_grad_args(*grp)
-              if shares_rows(grp[3], grp[2].shape[0]) else grp
-              for grp in groups]
-    checked = [_x1b_check(*grp) for grp in groups]
+    checked = [_x1b_check(*_one_column(grp)) for grp in groups]
     if not checked:
         return []
     dev = checked[0][0].device
@@ -940,9 +1015,19 @@ def groups_pooled_grad(groups, out=None) -> List[torch.Tensor]:
         made = [_x1b_group(a, None if out is None else out[i + k])
                 for k, a in enumerate(checked[i: i + X1B_MAX_GROUPS])]
         work = _x1b_work_on(tuple(k for _, k, _, _ in made), dev)
-        kernels.launch("X1b", b"".join(m[0] for m in made), len(made),
+        # each group's slots listed by work item (one launch of Part)
+        entries = [_x1b_entry(keep[1], keep[3], key)
+                   for _, key, _, keep in made]
+        parts = item_lists.partition(entries)   # held until X1b is queued
+        infos = [item_lists.info_on(e["info"], dev) for e in entries]
+        lists = b"".join(X1B_LISTS.pack(
+            slot.data_ptr(), val.data_ptr(), off.data_ptr(), slot.shape[1],
+            off.shape[1], info.data_ptr())
+            for (slot, val, off), info in zip(parts, infos))
+        kernels.launch("X1b", b"".join(m[0] for m in made), len(made), lists,
                        work.data_ptr(), work.shape[0],
-                       kernels.stream_of(checked[i][0]))
+                       kernels.stream_of(checked[i][0]),
+                       keep=[work] + infos)
         outs += [o for _, _, o, _ in made]
     return outs
 

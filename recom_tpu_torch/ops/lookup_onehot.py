@@ -39,15 +39,24 @@ row.  K3b (``onehot_bucketize_lookup_grad``, the port of
 K2's own search (csrc/bucket_search.cuh) and scatters the same way; raw
 values get no gradient.  Both kernels sum each row in batch order without
 float atomics (csrc/onehot_grad.cu), so they are repeatable bit for bit
-and equal their plain versions.
+and equal their plain versions.  One launch of K3a serves every one-hot
+group of a backward (``onehot_lookups``, whose backward collects them);
+a group whose vocab is cut into several tiles first has each column's
+entries listed by tile (the partition pass Part, ops/item_lists.py), so
+each tile reads only the batch rows that select it.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import struct
+from typing import List
+
 import numpy as np
 import torch
 
-from recom_tpu_torch.ops import kernels
+from recom_tpu_torch.ops import item_lists, kernels
 
 
 # the kernel of each stored dtype of table3; the output is f32 in both
@@ -106,10 +115,19 @@ def onehot_lookup(table3: torch.Tensor, ids: torch.Tensor,
     take the plain version; CUDA tensors launch kernel K1 (K1-bf16 for a
     bf16 table3).  Differentiable in an f32 table3 (backward:
     ``onehot_lookup_grad``)."""
-    _check(table3, ids, caps)
-    if table3.requires_grad and torch.is_grad_enabled():
-        return _OnehotLookup.apply(table3, ids, caps)
-    return _onehot_lookup(table3, ids, caps)
+    return onehot_lookups([(table3, ids, caps)])[0]
+
+
+def onehot_lookups(groups) -> List[torch.Tensor]:
+    """``onehot_lookup`` of several groups, one (table3, ids, caps) each:
+    one launch of K1 a group, and, under autograd, one launch of K3a for
+    every group whose table3 needs a gradient (``onehot_lookups_grad``)."""
+    groups = [tuple(g) for g in groups]
+    for g in groups:
+        _check(*g)
+    if torch.is_grad_enabled() and any(t.requires_grad for t, _, _ in groups):
+        return list(_OnehotLookups.apply(groups, *(t for t, _, _ in groups)))
+    return [_onehot_lookup(*g) for g in groups]
 
 
 def _onehot_lookup(table3, ids, caps):
@@ -294,27 +312,139 @@ def onehot_lookup_grad(g: torch.Tensor, ids: torch.Tensor, caps: torch.Tensor,
     for the cotangent g [Bp, C, d]: g's rows summed per (column, clamped
     id) in batch order; missing ids, padded planes and rows no id selects
     give 0.  CPU tensors take the plain version; CUDA tensors launch kernel
-    K3a."""
-    c, bp = ids.shape
-    d = g.shape[2] if g.dim() == 3 else -1
-    g, gs = cotangent_rows(g, bp, c, d)
-    if ids.dtype != torch.int32 or caps.dtype != torch.int32 or \
-            tuple(caps.shape) != (c,) or c > c_pad:
-        raise ValueError("ids must be int32 [C, Bp], caps int32 [C], C <= "
-                         "C_pad")
-    for name, t in (("ids", ids), ("caps", caps)):
-        if t.device != g.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {g.device}")
-    if g.device.type == "cpu":
-        return onehot_lookup_grad_plain(g, ids, caps, c_pad, v_pad)
-    if g.device.type != "cuda":
-        raise ValueError(f"unsupported device {g.device}")
-    out = torch.empty((c_pad, v_pad, d), dtype=torch.float32, device=g.device)
-    kernels.launch(
-        "K3a", kernels.ptr(g), kernels.ptr(ids), kernels.ptr(caps),
-        kernels.ptr(out), c, c_pad, bp, v_pad, d, gs, kernels.stream_of(g),
-    )
-    return out
+    K3a (``onehot_lookups_grad``)."""
+    return onehot_lookups_grad([(g, ids, caps, c_pad, v_pad)])[0]
+
+
+def onehot_lookups_grad(groups) -> List[torch.Tensor]:
+    """``onehot_lookup_grad`` of several groups, one (g, ids, caps, c_pad,
+    v_pad) each, all on one device.  CPU tensors take the plain version; on
+    CUDA one launch of K3a serves up to K3_MAX_GROUPS groups, after one
+    launch of Part for those cut into several vocab tiles."""
+    recs = []
+    for g, ids, caps, c_pad, v_pad in groups:
+        c, bp = ids.shape if ids.dim() == 2 else (-1, -1)
+        d = g.shape[2] if g.dim() == 3 else -1
+        g, gs = cotangent_rows(g, bp, c, d)
+        if ids.dtype != torch.int32 or caps.dtype != torch.int32 or \
+                tuple(caps.shape) != (c,) or c > c_pad:
+            raise ValueError("ids must be int32 [C, Bp], caps int32 [C], C "
+                             "<= C_pad")
+        for name, t in (("ids", ids), ("caps", caps)):
+            if t.device != g.device or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous on {g.device}")
+        recs.append(dict(g=g, gs=gs, ids=ids, caps=caps, c_pad=int(c_pad),
+                         v=int(v_pad)))
+    if not recs:
+        return []
+    dev = recs[0]["g"].device
+    if any(r["g"].device != dev for r in recs):
+        raise ValueError("groups on more than one device")
+    if dev.type == "cpu":
+        return [onehot_lookup_grad_plain(r["g"], r["ids"], r["caps"],
+                                         r["c_pad"], r["v"]) for r in recs]
+    return _k3_launch("K3a", recs, dev)
+
+
+# The host side of K3a's and K3b's launch (csrc/onehot_grad.cu): one launch
+# serves up to K3_MAX_GROUPS groups, each described by one K3_DESC record
+# (the kernel's struct HostGroup, field for field).  An item is cb columns
+# x a tile of nv vocab rows (``k3_geometry``); a group of several tiles
+# (cb = 1) has its columns' entries listed by tile by one launch of Part
+# first.  The kernel's constants: an item holds at most K3_MAX_KEYS
+# (column, row) keys and K3_ACC_FLOATS sums, and a batch row's slice of
+# at most K3_ROW_FLOATS floats where it takes several columns.
+K3_MAX_GROUPS = 16
+K3_MAX_KEYS = 512
+K3_ACC_FLOATS = 4096
+K3_ROW_FLOATS = 32
+# g, ids, caps, raw, hi, counts, dtable, slot, val, off; gs, C, C_pad,
+# Bp, V, d, cb, nv, v_tiles, nseg, item_begin
+K3_DESC = struct.Struct("<10Q11q")
+# what rt_onehot_grad_limits reports, in its order
+K3_LIMITS = (K3_MAX_GROUPS, K3_MAX_KEYS, K3_ACC_FLOATS, K3_ROW_FLOATS,
+             K3_DESC.size)
+
+
+def k3_geometry(v: int, d: int):
+    """(cb, nv, v_tiles) of a group of vocab V and row length d: the
+    columns of an item (a batch row's slice of them at most K3_ROW_FLOATS
+    floats, and their keys at most K3_MAX_KEYS), its vocab rows, and the
+    tiles that cut a column."""
+    if not 1 <= d <= K3_ACC_FLOATS or v < 1:
+        raise ValueError(f"K3a / K3b take 1 <= d <= {K3_ACC_FLOATS} and V "
+                         f">= 1, got d={d}, V={v}")
+    keys = min(K3_MAX_KEYS, K3_ACC_FLOATS // d)
+    cb = max(1, min(K3_ROW_FLOATS // d, keys // v))
+    nv = min(v, keys // cb)
+    return cb, nv, -(-v // nv)
+
+
+def k3_listed(v: int, d: int) -> bool:
+    """Whether a group of vocab V and row length d is cut into several
+    vocab tiles, so that its entries are listed by tile (one launch of
+    Part before K3a or K3b)."""
+    return k3_geometry(v, d)[2] > 1
+
+
+@functools.lru_cache(maxsize=None)
+def _k3_library() -> None:
+    """Load K3's library and check, once, that its constants and record
+    size are the ones this module plans with."""
+    lib = kernels.library("onehot_grad")
+    got = (ctypes.c_int64 * len(K3_LIMITS))()
+    lib.rt_onehot_grad_limits(got)
+    for name, want, have in zip(
+            ("groups", "keys", "acc floats", "row floats", "HostGroup size"),
+            K3_LIMITS, got):
+        if want != have:
+            raise RuntimeError(f"csrc/onehot_grad.cu's {name} is {have}, "
+                               f"ops/lookup_onehot.py plans with {want}")
+
+
+@functools.lru_cache(maxsize=64)
+def k3_member_info(c: int, v: int, d: int) -> np.ndarray:
+    """The partition's member rows of a listed group of C columns
+    (ops/item_lists.py): each column's items are its vocab tiles."""
+    _, nv, tiles = k3_geometry(v, d)
+    return item_lists.member_info(np.full(c, nv), np.full(c, tiles),
+                                  np.full(c, v))
+
+
+def _k3_launch(kid: str, recs, dev) -> List[torch.Tensor]:
+    """K3a's or K3b's launches on the card for the groups ``recs`` (dicts:
+    g, gs, c_pad, v and ids / caps, or raw / hi / counts): for each
+    K3_MAX_GROUPS of them, one launch of Part for those cut into several
+    vocab tiles (the dict is its entry), then one of the kernel."""
+    _k3_library()
+    outs = []
+    stream = kernels.stream_of(recs[0]["g"])
+    for i in range(0, len(recs), K3_MAX_GROUPS):
+        part = recs[i: i + K3_MAX_GROUPS]
+        for r in part:
+            r["c"], r["bp"] = (r["ids"] if "ids" in r else r["raw"]).shape
+            r["d"] = r["g"].shape[2]
+            r["geo"] = k3_geometry(r["v"], r["d"])
+        listed = [r for r in part if r["geo"][2] > 1 and r["c"] > 0]
+        entries = [dict(r, info=k3_member_info(r["c"], r["v"], r["d"]))
+                   for r in listed]
+        lists = dict(zip(map(id, listed), item_lists.partition(entries)))
+        records, items = [], 0
+        for r in part:
+            cb, nv, tiles = r["geo"]
+            out = torch.empty((r["c_pad"], r["v"], r["d"]),
+                              dtype=torch.float32, device=dev)
+            slot, val, off = lists.get(id(r), (None, None, None))
+            records.append(K3_DESC.pack(
+                r["g"].data_ptr(), *(kernels.ptr(r.get(k)) or 0 for k in (
+                    "ids", "caps", "raw", "hi", "counts")), out.data_ptr(),
+                *(kernels.ptr(t) or 0 for t in (slot, val, off)), r["gs"],
+                r["c"], r["c_pad"], r["bp"], r["v"], r["d"], cb, nv, tiles,
+                0 if off is None else off.shape[1], items))
+            items += -(-r["c_pad"] // cb) * tiles
+            outs.append(out)
+        kernels.launch(kid, b"".join(records), len(part), stream)
+    return outs
 
 
 def bucket_ids_plain(raw: torch.Tensor, hi: torch.Tensor,
@@ -345,7 +475,8 @@ def onehot_bucketize_lookup_grad(g: torch.Tensor, raw: torch.Tensor,
                                  counts: torch.Tensor) -> torch.Tensor:
     """d(table3) [C_pad, V_pad, d] of ``onehot_bucketize_lookup(table3,
     raw, lo, hi, counts)`` for the cotangent g [Bp, C, d].  CPU tensors
-    take the plain version; CUDA tensors launch kernel K3b."""
+    take the plain version; CUDA tensors launch kernel K3b (after one
+    launch of Part where V_pad is cut into several vocab tiles)."""
     c, bp = raw.shape
     c_pad, v_pad = hi.shape
     d = g.shape[2] if g.dim() == 3 else -1
@@ -355,28 +486,32 @@ def onehot_bucketize_lookup_grad(g: torch.Tensor, raw: torch.Tensor,
         return onehot_bucketize_lookup_grad_plain(g, raw, lo, hi, counts)
     if g.device.type != "cuda":
         raise ValueError(f"unsupported device {g.device}")
-    out = torch.empty((c_pad, v_pad, d), dtype=torch.float32, device=g.device)
-    kernels.launch(
-        "K3b", kernels.ptr(g), kernels.ptr(raw), kernels.ptr(hi),
-        kernels.ptr(counts), kernels.ptr(out), c, c_pad, bp, v_pad, d, gs,
-        kernels.stream_of(g),
-    )
-    return out
+    return _k3_launch("K3b", [dict(g=g, gs=gs, raw=raw, hi=hi, counts=counts,
+                                   c_pad=int(c_pad), v=int(v_pad))],
+                      g.device)[0]
 
 
-class _OnehotLookup(torch.autograd.Function):
-    """K1 forward, K3a backward; saves the ids, not the output."""
+class _OnehotLookups(torch.autograd.Function):
+    """K1 forward, one launch a group; K3a backward, one launch for every
+    group (the backward skips groups whose table3 needs no gradient).
+    Saves the ids and caps, not the outputs."""
 
     @staticmethod
-    def forward(ctx, table3, ids, caps):
-        ctx.save_for_backward(ids, caps)
-        ctx.planes = (table3.shape[0], table3.shape[1])
-        return _onehot_lookup(table3, ids, caps)
+    def forward(ctx, groups, *tables):
+        ctx.groups = [(ids, caps, t.shape[0], t.shape[1])
+                      for t, (_, ids, caps) in zip(tables, groups)]
+        return tuple(_onehot_lookup(t, ids, caps)
+                     for t, (_, ids, caps) in zip(tables, groups))
 
     @staticmethod
-    def backward(ctx, g):
-        ids, caps = ctx.saved_tensors
-        return onehot_lookup_grad(g, ids, caps, *ctx.planes), None, None
+    def backward(ctx, *grads):
+        need = [i for i, gr in enumerate(grads)
+                if ctx.needs_input_grad[1 + i] and gr is not None]
+        got = onehot_lookups_grad([(grads[i],) + ctx.groups[i] for i in need])
+        out = [None] * (1 + len(grads))
+        for i, gr in zip(need, got):
+            out[1 + i] = gr
+        return tuple(out)
 
 
 class _OnehotBucketizeLookup(torch.autograd.Function):

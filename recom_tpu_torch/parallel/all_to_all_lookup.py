@@ -193,12 +193,14 @@ def owner_rows(table, recv: torch.Tensor) -> torch.Tensor:
 class _OwnerGather(torch.autograd.Function):
     """The owner's gather (``owner_rows``).  Backward: X1b scatters the
     rows' cotangents into the stripe, the received ids taken as one SUM
-    column of L = 1 over ``n`` batch rows (``group_pooled_grad``), so each
-    row's terms add in slot order (the stable sort of
-    csrc/ordered_runs.cuh), with no float atomics.  The unfilled slots (-1)
-    add nothing: JAX adds their +0.0 cotangents to row 0, and X1b, whose
-    sums start at +0.0, gives the same bits either way, without summing
-    tens of thousands of zero terms into one row."""
+    column of L = 1 over ``n`` batch rows (``group_pooled_grad``): one
+    member of sparse ranges, each reading only the slots that land in it
+    (the partition pass lists them, ops/item_lists.py), so each row's
+    terms add in slot order (the stable sort of csrc/ordered_runs.cuh),
+    with no float atomics.  The unfilled slots (-1) add nothing: JAX adds
+    their +0.0 cotangents to row 0, and X1b, whose sums start at +0.0,
+    gives the same bits either way, without summing tens of thousands of
+    zero terms into one row."""
 
     @staticmethod
     def forward(ctx, table, recv):

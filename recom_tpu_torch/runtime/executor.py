@@ -55,7 +55,7 @@ from recom_tpu_torch.ops.lookup_gather import device_bucketize, groups_pooled
 from recom_tpu_torch.ops.lookup_onehot import (
     bucket_bounds,
     onehot_bucketize_lookup,
-    onehot_lookup,
+    onehot_lookups,
 )
 from recom_tpu_torch.ops.quant import QuantizedTable, quantize_rows_chunked
 from recom_tpu_torch.parallel.all_to_all_lookup import (
@@ -815,6 +815,7 @@ class Engine:
         psums = []              # (slot, group, valid, weights)
         splits = []             # slots of column-split groups
         routed = []             # (slot, group, route, weights)
+        onehots = []            # (slot, onehot_lookup args)
         m_ax, k = self._model_split()
         for g, packed in zip(self.compiled.groups, arrays["groups"]):
             c = self._consts[g.gid]
@@ -835,8 +836,8 @@ class Engine:
             if self._onehot(g):
                 # one id per entry: every combiner passes the row through
                 # (divisor 1) or gives 0 for a missing id
-                pooled_list[slot] = onehot_lookup(
-                    table, ids[:, :, 0].contiguous(), c["caps"])
+                onehots.append((slot, (table, ids[:, :, 0].contiguous(),
+                                       c["caps"])))
             elif g.gid in self._sharded_gids and self._takes_a2a(ids):
                 factor = (float(m_ax) if lossless
                           else self.config.a2a_capacity_factor)
@@ -856,6 +857,10 @@ class Engine:
                     table, ids, c["row_offsets"], c["codes"], weights,
                     c["weighted"], c["caps"],
                 )))
+        # K1 a one-hot group; under autograd one K3a launch for them all
+        for (slot, _), pooled in zip(
+                onehots, onehot_lookups([a for _, a in onehots])):
+            pooled_list[slot] = pooled
         # every gather group in one launch of X1
         for (slot, _), pooled in zip(
                 gathers, groups_pooled([a for _, a in gathers])):

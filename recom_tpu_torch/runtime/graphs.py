@@ -10,8 +10,11 @@ array), the captured ``torch.cuda.CUDAGraph``, the graph's own output
 tensors, and the kernel launches the graph holds.  A replay reads the
 static inputs and writes the static outputs: every pointer baked into the
 graph (the kernels' arguments, X1's by-value descriptors) points into
-them, into the graph's memory pool, or into the Engine's live parameter
-tensors, which are only ever written in place.
+them, into the graph's memory pool, into the Engine's live parameter
+tensors, which are only ever written in place, or into the plan arrays
+that the program itself holds (``kept``: what the recorded launches named
+in their ``keep``, such as X1b's work items and Part's member rows, which
+otherwise only a bounded cache holds).
 
 ``Program.capture`` makes one.  The request's pinned host arrays are
 copied into fresh static inputs; one eager pass of the forward then runs
@@ -163,14 +166,16 @@ class CudaCapture:
 class Program:
     """One captured forward: ``inputs`` (static device buffers, in the
     prepared arrays' tree), ``graph``, ``outputs`` (the forward's result
-    tree, written by each replay) and ``launches`` ({kernel id: launches
-    the graph holds})."""
+    tree, written by each replay), ``launches`` ({kernel id: launches the
+    graph holds}) and ``kept`` (the cached device arrays its launches point
+    into, held as long as the program)."""
 
     def __init__(self, inputs, graph, outputs, launches: Dict[str, int]):
         self.inputs = inputs
         self.graph = graph
         self.outputs = outputs
         self.launches = launches
+        self.kept: list = []
 
     @classmethod
     def capture(cls, capturer, device: torch.device, host,
@@ -186,8 +191,8 @@ class Program:
         prog = cls(inputs, None, None, {})
         prog.load(host)
         first = capturer.warm(lambda: forward(inputs))
-        with kernels.recording(getattr(capturer, "stream", None)) \
-                as recorded:
+        with kernels.recording(getattr(capturer, "stream", None),
+                               kept=prog.kept) as recorded:
             prog.graph, prog.outputs, held = capturer.capture(
                 lambda: forward(inputs))
         if held != recorded:

@@ -317,19 +317,20 @@ def _plan_rows(plan, num_rows):
     return cover
 
 
-@pytest.mark.parametrize("vocab,d,caps_less", [
-    ([10_000] * 3, 8, 0),                       # model E's small groups
-    ([1 << 20, 1 << 19], 32, 0),                # large vocabs
-    ([300, 200_000, 150_000, 90_000], 8, 0),    # both classes in a group
-    ([40, 33_000, 7], 3, 2),                    # caps below the vocab: gaps
-    ([70_000], 512, 0),                         # d past a window's words
+@pytest.mark.parametrize("vocab,d,caps_less,slots", [
+    ([10_000] * 3, 8, 0, 2048),                 # model E's small groups
+    ([1 << 20, 1 << 19], 32, 0, 2048),          # large vocabs
+    ([300, 200_000, 150_000, 90_000], 8, 0,     # both classes in a group,
+     40_000),                                   # by rows a slot as well
+    ([40, 33_000, 7], 3, 2, 100),               # caps below the vocab: gaps
+    ([70_000], 512, 0, 1000),                   # d past a window's words
 ])
-def test_x1b_plan_covers_every_row_once(vocab, d, caps_less):
+def test_x1b_plan_covers_every_row_once(vocab, d, caps_less, slots):
     vocab = np.asarray(vocab, np.int64)
     offs = np.concatenate([[0], np.cumsum(vocab)[:-1]])
     caps = vocab - 1 - caps_less
     r = int(vocab.sum()) + 5                    # rows past the last member
-    plan = tg.x1b_plan(r, d, offs, caps)
+    plan = tg.x1b_plan(r, d, offs, caps, slots)
     assert (_plan_rows(plan, r) == 1).all()
     tile = tg.x1b_tile_rows(d)
     for row_lo, local_lo, nrows, member, dense in plan:
@@ -338,11 +339,12 @@ def test_x1b_plan_covers_every_row_once(vocab, d, caps_less):
             continue
         assert row_lo == offs[member] + local_lo
         assert local_lo + nrows <= caps[member] + 1
-        sparse = tg.x1b_sparse(int(caps[member]) + 1, d)
+        sparse = tg.x1b_sparse(int(caps[member]) + 1, d, slots)
         assert bool(dense) != sparse
-        assert nrows <= (tg.X1B_RANGE_ROWS if sparse else tile)
+        assert nrows <= (tg.x1b_range_rows(int(caps[member]) + 1, d, slots)
+                         if sparse else tile)
     kinds = plan[:, 4][plan[:, 3] >= 0]
-    small = (caps + 1 <= tg.X1B_RANGE_ROWS) | (tile < 32)
+    small = [not tg.x1b_sparse(int(c) + 1, d, slots) for c in caps]
     assert (kinds == 1).sum() == sum(-(-int(c + 1) // tile)
                                      for c, s in zip(caps, small) if s)
 
@@ -355,12 +357,12 @@ def test_x1b_plan_covers_every_row_once(vocab, d, caps_less):
 ])
 def test_x1b_plan_raises_on_overlapping_members(offs, caps, r):
     with pytest.raises(ValueError, match="X1b"):
-        tg.x1b_plan(r, 8, offs, caps)
+        tg.x1b_plan(r, 8, offs, caps, 64)
 
 
 def test_x1b_work_packs_every_group_sparse_first():
-    plans = [tg.x1b_plan(300_000, 8, [0, 100], [99, 299_899]),
-             tg.x1b_plan(50, 3, [0, 20], [9, 9])]
+    plans = [tg.x1b_plan(300_000, 8, [0, 100], [99, 299_899], 2048),
+             tg.x1b_plan(50, 3, [0, 20], [9, 9], 2048)]
     work = tg.x1b_work(plans)
     assert work.shape == (sum(len(p) for p in plans), 4)
     kind = work[:, 3]
@@ -452,8 +454,9 @@ def test_x1b_descriptors_describe_each_group():
     assert key[:2] == (x["rows"], 8)
     plan = tg._x1b_plan_cached(*key)
     assert plan is tg._x1b_plan_cached(*key)
+    assert key[4] == 40 * 6                     # slots a member: Bp x L
     np.testing.assert_array_equal(plan, tg.x1b_plan(x["rows"], 8, x["offs"],
-                                                    x["caps"]))
+                                                    x["caps"], 40 * 6))
 
 
 def test_groups_pooled_backward_is_one_call(monkeypatch):

@@ -219,6 +219,122 @@ def test_launch_accounting_replay_adds_recorded_capture_adds_none(
     kernels.reset_launches()
 
 
+class _ReadingLib:
+    """ctypes library stand-in whose X1b entry point reads the plan arrays
+    its launch points at, as the kernel does: the work items (pointer and
+    rows) and each group's member rows (the ``X1B_LISTS`` record's info
+    pointer).  ``calls`` keeps every call's arguments, ``reads`` what each
+    call read."""
+
+    def __init__(self):
+        self.calls, self.reads = [], []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append(args)
+            self.reads.append(self.read(*args))
+            return 0
+        return entry
+
+    @staticmethod
+    def read(desc, ngroups, lists, work, nwork, stream):
+        import ctypes
+
+        from recom_tpu_torch.ops import lookup_gather as tg
+
+        info = tg.X1B_LISTS.unpack(lists)[5]
+        return (bytes((ctypes.c_int64 * (4 * nwork)).from_address(work)),
+                bytes((ctypes.c_int32 * 4).from_address(info)))
+
+
+class _CallsGraph:
+    """A graph that replays the library calls its capture made, with the
+    arguments they were made with, pointers and all, as a CUDA graph does."""
+
+    def __init__(self, lib, calls):
+        self.lib, self.calls = lib, calls
+
+    def replay(self):
+        for args in self.calls:
+            self.lib.calls.append(args)
+            self.lib.reads.append(self.lib.read(*args))
+
+
+class _CallsCapture:
+    """A capturer whose graph is a ``_CallsGraph`` of its capture's calls."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def warm(self, fn):
+        return fn()
+
+    def capture(self, fn):
+        start = len(self.lib.calls)
+        with kernels.recording() as made:
+            out = fn()
+        return _CallsGraph(self.lib, self.lib.calls[start:]), out, dict(made)
+
+
+def test_program_keeps_the_cached_plans_its_launches_read(monkeypatch):
+    """A captured program holds the cached plan arrays its launches point
+    into (X1b's work items, the partition's member rows: bounded caches
+    made once per plan, named in ``kernels.launch``'s ``keep``).  After
+    the capture the caches are cleared and fresh arrays of the same sizes
+    written: each replay still reads the plan it was captured with, and
+    once the program goes, nothing holds the arrays."""
+    import gc
+    import weakref
+
+    from recom_tpu_torch.ops import item_lists
+    from recom_tpu_torch.ops import lookup_gather as tg
+
+    lib = _ReadingLib()
+    monkeypatch.setattr(kernels, "library", lambda name: lib)
+    kernels.reset_launches()
+    key = (300, 8, np.asarray([0, 100], np.int64).tobytes(),
+           np.asarray([99, 199], np.int64).tobytes(), 2048)
+    info = tg._x1b_info_cached(*key)
+
+    def forward(inputs):
+        work = tg._x1b_work_on((key,), "cpu")
+        info_d = item_lists.info_on(info, "cpu")
+        lists = tg.X1B_LISTS.pack(0, 0, 0, 0, 0, info_d.data_ptr())
+        kernels.launch("X1b", b"", 1, lists, work.data_ptr(),
+                       work.shape[0], 0, keep=[work, info_d])
+        return {"output": inputs["blob"].float()}
+
+    tg._x1b_work_on.cache_clear()
+    item_lists._info_on.cache_clear()
+    prog, _ = Program.capture(_CallsCapture(lib), torch.device("cpu"),
+                              {"blob": torch.zeros(4, dtype=torch.uint8)},
+                              forward)
+    want = lib.reads[-1]
+    assert want == (tg.x1b_work([tg.x1b_plan(300, 8, [0, 100], [99, 199],
+                                             2048)]).tobytes(),
+                    info[0].tobytes())
+    held = [tg._x1b_work_on((key,), "cpu"), item_lists.info_on(info, "cpu")]
+    assert len(prog.kept) == 2 and all(
+        any(k is h for k in prog.kept) for h in held)
+    refs = [weakref.ref(t) for t in held]
+    del held
+    tg._x1b_work_on.cache_clear()
+    item_lists._info_on.cache_clear()
+    gc.collect()
+    junk = [torch.full((n,), -1, dtype=dt) for _ in range(64)
+            for n, dt in ((len(want[0]) // 8, torch.int64),
+                          (4, torch.int32))]
+    for _ in range(2):
+        prog.replay()
+        assert lib.reads[-1] == want
+    assert all(r() is not None for r in refs)
+    assert kernels.launches["X1b"] == 1 + 2      # the eager pass, 2 replays
+    del prog, junk
+    gc.collect()
+    assert all(r() is None for r in refs)
+    kernels.reset_launches()
+
+
 @pytest.mark.parametrize("off", [{"X2": -1}, {"K1": -1}, {"X1": 1}])
 def test_capture_raises_when_graph_lacks_a_recorded_launch(monkeypatch,
                                                            off):

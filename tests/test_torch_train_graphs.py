@@ -474,6 +474,53 @@ def test_replayed_step_equals_eager_bit_for_bit(cuda, shape, cfg, opt):
             assert x == y
 
 
+def _overwrite_freed(streams):
+    """-1 over every free block of the caching allocator's small pool on
+    each of ``streams`` (512-byte tensors until the pool reserves a new
+    segment); the tensors, to hold while it must stay so."""
+    stat = "reserved_bytes.small_pool.current"
+    junk = []
+    for stream in streams:
+        with torch.cuda.stream(stream):
+            before = torch.cuda.memory_stats()[stat]
+            for k in range(1, 1 << 20):
+                junk.append(torch.full((128,), -1, dtype=torch.int32,
+                                       device="cuda"))
+                if k % 256 == 0 and torch.cuda.memory_stats()[stat] > before:
+                    break
+    torch.cuda.synchronize()
+    return junk
+
+
+@pytest.mark.cuda
+def test_replays_outlive_the_evicted_plan_caches(cuda):
+    """The cached plan arrays a captured step's launches read (X1b's work
+    items, the partition's member rows) are held by its program: with the
+    caches cleared after the capture and the memory they free overwritten,
+    the replayed steps still equal the eager ones bit for bit."""
+    import gc
+
+    from recom_tpu_torch.ops import item_lists, lookup_gather
+
+    jm, eager, graphed = _card_pair(cuda, MINI_E, {})
+    steps = _steps(jm, sizes=(50,))
+    want = [eager.step(b, lab) for b, lab in steps]
+    got = [graphed.step(*steps[0])]
+    prog = graphed._programs[(graphed.engine.prepare(steps[0][0]).signature,
+                              "train")]
+    assert prog.launches.get("X1b") == 1 and len(prog.kept) >= 2
+    lookup_gather._x1b_work_on.cache_clear()
+    item_lists._info_on.cache_clear()
+    gc.collect()
+    junk = _overwrite_freed([torch.cuda.current_stream(),
+                             graphed._capture.stream])
+    got += [graphed.step(b, lab) for b, lab in steps[1:]]
+    assert got == want
+    for x, y in zip(tree_leaves(graphed.params), tree_leaves(eager.params)):
+        np.testing.assert_array_equal(_card_bits(x), _card_bits(y))
+    del junk
+
+
 @pytest.mark.cuda
 def test_warmed_step_syncs_only_to_read_the_loss(cuda):
     jm, _, graphed = _card_pair(cuda, MINI_E, {})
