@@ -15,8 +15,10 @@ through ``Engine(..., device="cuda")``, random weights from a seed:
   step;
 * full-size model E (1000 embedding columns, five 2^23 x 32 tables) with
   the default ``EngineConfig()`` (kernels K1, X1, X2) and with
-  ``host_bucketize=False`` (its 880 bucketize columns bucketized on the
-  card, then K1);
+  ``host_bucketize=False`` (its 880 bucketize columns searched in K1's id
+  read, beside the 50 int-hash ids of its one-hot group: at 512 and 2048
+  and on a batch of NaN, +-inf, +-0.0, subnormal and boundary values,
+  pooled ``==`` the oracle; no torch comparison in the replay);
 * the microbenchmark model at 1000 columns with random boundaries (two
   pure-bucketize one-hot groups, vocab padded to 128 and 256) with
   ``host_bucketize=False`` and with ``wire_pack=False``: raw floats reach
@@ -124,8 +126,8 @@ rows +0.0 by count; column slices within atol 1e-5; the tower and the
 replicated leaves within rtol 1e-5 / atol 1e-6), the three losses within
 rtol 1e-5, the params after the steps within atol 1e-5 (the stripe at
 the touched rows, 64 other rows unchanged); each step's launches asserted
-(K1 1, X1 2 or 1, K3a 1, X1b 3 under the exchange or 1 under psum, a
-partition launch Part before each X1b) and
+(K1 1, X1 2 or 1, K3a 1, X1b 3 under the exchange or 1 under psum, one
+partition launch Part in the forward for all of them) and
 timed (forward, backward, the gradients' all_reduce over "data",
 optimizer), with each collective's p50 and each rank's peak memory.  X1b
 in its three mesh roles (the psum path's partial sums on the stripe, the
@@ -138,9 +140,11 @@ and ``tools.train_multi`` for 4 steps on (2, 2).
 Then it trains, through ``Trainer(...,
 optimizer=dlrm_optimizer())`` on the card:
 
-* model E with the default config (forward K1, X1, X2; backward K3a, and
-  X1b once for all three gather groups after one Part), a step at batch
-  512 and five at 2048;
+* model E with the default config (forward K1, X1, X2 and the step's one
+  Part; backward K3a, and X1b once for all three gather groups), a step at
+  batch 512 and five at 2048; under ``host_bucketize=False`` (K1 writes
+  the searched ids K3a reads): loss and gradients ``==`` the default
+  config's, the captured steps ``==`` eager at 512 and 2048;
 * model E's 880 bucketize columns and tower alone
   (``make_dlrm_model(880, 0, 0, 0, 0, 32, [32], [1024, 1024, 128])``) with
   ``host_bucketize=False`` (forward K2, backward K3b), three steps.
@@ -162,11 +166,11 @@ Last, the Criteo DLRM (``make_criteo_dlrm()``: 26 columns at d = 64, 1.90
 GB of tables, a ``dlrm_dot`` tower) at full width, on batches shaped as
 ``read_criteo_tsv`` gives them (``criteo_batch``: each cat id a uniform
 32-bit token, spread by HashBucket over its whole vocab; the ints
-log(1 + x)): served at batch 512 and 2048 (K1 once for each of its five
-one-hot groups, X1 once), its
+log(1 + x)): served at batch 512 and 2048 (K1 once for its five one-hot
+groups, X1 once), its
 four kernels held against their plain versions and timed at batch 2048,
 and trained (backward K3a once for its five one-hot groups, X1b once,
-each after one Part), a step at 512 and four at 2048.
+after the forward's one Part), a step at 512 and four at 2048.
 
 Then the measurement tools and entry points (``tools_phases``), each
 tool's JSON printed: ``tools/ae_sweep`` on model E at batch 32, 512 and
@@ -213,7 +217,10 @@ It checks:
    +-inf, -0.0 and exact boundary values, and on ragged tiles with d in
    {1, 3, 8, 32}, V_pad 128 / 256 / 384 and edge boundary sets; K1 also on
    ragged tiles, d in {1, 3, 8, 32, 64}, V_pad 128 and 2304, missing and
-   out-of-range ids and -0.0 / NaN rows; X1 also on d in {1, 3, 8, 32, 64}
+   out-of-range ids and -0.0 / NaN rows, and over several groups in one
+   launch, f32 and bf16: Criteo's shapes, narrow and wide groups mixed,
+   searched groups with and without an id LUT on NaN, +-inf, +-0.0,
+   subnormal and boundary values, their ids ``==`` too; X1 also on d in {1, 3, 8, 32, 64}
    x L in {1, 2, 12, 33}, all-missing and zero-weight bags, -0.0 / NaN /
    +-inf rows; X2 also on
    512-byte rows with more than L = 128 pieces, delimiters first, last,
@@ -266,9 +273,10 @@ It checks:
    the Criteo DLRM);
 4. that each ``predict``, pipelined request and training step (also on
    the mesh layouts, per rank) went through its path's kernels and no other (model E: one launch of X1 a predict; a training
-   step K1 1, X1 1, X2 3, K3a 1, X1b 1 and Part 1; the bucketize path K2
-   1 and K3b 1 a step (its one vocab tile needs no Part); Criteo: K1 5 and
-   X1 1 a predict, and K3a 1, X1b 1 and Part 2 more a step; each PostPool model: K1 a one-hot group, X1 once, X2 a group of
+   step K1 1, X1 1, X2 3, K3a 1, X1b 1 and Part 1, under
+   ``host_bucketize=False`` too; the bucketize path K2 1 and K3b 1 a step
+   (its one vocab tile needs no Part); Criteo: K1 1 and X1 1 a predict,
+   and K3a 1, X1b 1 and Part 1 more a step; each PostPool model: K1 once, X1 once, X2 a group of
    strings hashed on the card, and K3a and X1b to match a step): the
    launch counts are zeroed just before and read just after;
 5. pooled outputs of every column against the port's NumPy oracle
@@ -717,6 +725,129 @@ X1_EDGE_D = (1, 3, 8, 32, 64)
 X1_EDGE_L = (1, 2, 12, 33)
 
 
+def k1_searched_case(rng, nbz: int, nhost: int, v: int, d: int, b: int,
+                     lut: bool):
+    """A one-hot group whose first nbz columns K1 searches: (table3, host
+    ids, caps, ``Searched`` fields as numpy: raw, hi, counts, lut).  Every
+    member has more buckets than rows under a LUT (it maps them), at most
+    V - 1 boundaries without; the raw values hold NaN, +-inf, +-0.0,
+    subnormals, exact boundaries (a repeated one among them) and the
+    floats just below them."""
+    import numpy as np
+
+    from recom_tpu_torch.ops.lookup_onehot import searched_bounds
+
+    c = nbz + nhost
+    t3 = rng.standard_normal((c + 1, v, d)).astype(np.float32)
+    t3[-1] = 0.0
+    kmax = 2 * v if lut else v - 1
+    bm = np.full((nbz, kmax), np.inf, np.float32)
+    cnt = rng.integers(0, kmax + 1, nbz).astype(np.int32)
+    cnt[0] = kmax
+    for i in range(nbz):
+        bm[i, :cnt[i]] = np.sort(rng.standard_normal(cnt[i])
+                                 .astype(np.float32))
+    if cnt[0] > 3:
+        bm[0, 2] = bm[0, 1]
+    raw = rng.standard_normal((nbz, b)).astype(np.float32)
+    specials = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-40, -1e-40,
+                         1.4e-45], np.float32)
+    raw[:, :len(specials)] = specials
+    n = (b - len(specials)) // 2
+    for i in range(nbz):
+        if cnt[i]:
+            hits = bm[i, (np.arange(n) * 7) % cnt[i]]
+            raw[i, len(specials): len(specials) + n] = hits
+            raw[i, len(specials) + n: len(specials) + 2 * n] = np.nextafter(
+                hits, np.float32(-np.inf))
+    lm = rng.integers(-1, v, (nbz, kmax + 1)).astype(np.int32) if lut \
+        else None
+    hi, counts, lm = searched_bounds(bm, cnt, lm)
+    host = rng.integers(-2, v + 3, (nhost, b)).astype(np.int32)
+    caps = rng.integers(v // 2, v, c).astype(np.int32)
+    return t3, host, caps, (raw, hi, counts, lm)
+
+
+# K1's launches of several groups: (name, [(C, nbz, V, d, lut)], Bp): the
+# Criteo DLRM's five one-column groups at d = 64; narrow and wide groups
+# mixed, off and on the float4 path; searched groups (model E's 880 + 50
+# shape, with and without a LUT) among plain ones
+K1_GROUP_CASES = (
+    ("criteo", [(1, 0, v, 64, False) for v in (3, 155, 976, 2209, 5000)],
+     2048),
+    ("narrow and wide", [(1, 0, 10, 64, False), (45, 0, 101, 8, False),
+                         (3, 0, 7, 3, False), (64, 0, 384, 12, False),
+                         (2, 0, 40, 1, False)], 513),
+    ("searched", [(930, 880, 128, 8, True), (930, 880, 101, 8, False),
+                  (5, 5, 50, 8, True), (7, 3, 40, 3, True),
+                  (1, 0, 155, 64, False)], 2048),
+)
+
+
+def k1_group_cases(torch) -> None:
+    """K1 over several groups in one launch (``K1_GROUP_CASES``), f32 and
+    bf16 tables: the outputs and, under autograd, the searched groups'
+    [C, Bp] ids ``==`` the wrapper on CPU copies (the plain version) as
+    bits; one launch a case."""
+    import numpy as np
+
+    from recom_tpu_torch.ops import kernels
+    from recom_tpu_torch.ops.lookup_onehot import Searched, _onehot_lookups
+
+    rng = np.random.default_rng(18)
+    for name, shapes, bp in K1_GROUP_CASES:
+        groups = []
+        for c, nbz, v, d, lut in shapes:
+            if nbz:
+                t3, host, caps, srch = k1_searched_case(rng, nbz, c - nbz, v,
+                                                        d, bp, lut)
+                groups.append((t3, host, caps, srch))
+            else:
+                t3 = rng.standard_normal((c + 1, v, d)).astype(np.float32)
+                t3[-1] = 0.0
+                t3[0, 0, 0] = np.float32(-0.0)
+                ids = rng.integers(-2, v + 3, (c, bp)).astype(np.int32)
+                caps = rng.integers(v // 2, v, c).astype(np.int32)
+                groups.append((t3, ids, caps))
+        for dtype in (torch.float32, torch.bfloat16):
+            def on(dev):
+                out = []
+                for g in groups:
+                    t = torch.from_numpy(g[0]).to(dev, dtype)
+                    rest = [torch.from_numpy(x).to(dev) for x in g[1:3]]
+                    if len(g) == 4:
+                        rest.append(Searched(*(
+                            None if x is None else torch.from_numpy(x).to(dev)
+                            for x in g[3])))
+                    out.append((t, *rest))
+                return out
+
+            card = on("cuda")
+            before = dict(kernels.launches)
+            got, ids = _onehot_lookups(card, want_ids=True)
+            torch.cuda.synchronize()
+            kid = "K1" if dtype == torch.float32 else "K1-bf16"
+            require(kernels.launches[kid] - before[kid] == 1,
+                    f"K1 group case {name}: one launch")
+            want, want_ids = _onehot_lookups(on("cpu"), want_ids=True)
+            for k, (a, b) in enumerate(zip(got, want)):
+                require(a.shape == b.shape and torch.equal(
+                    a.cpu().view(torch.int32), b.view(torch.int32)),
+                    f"K1 group case {name} ({dtype}), group {k}: kernel != "
+                    "plain as bits")
+            for k, (a, b) in enumerate(zip(ids, want_ids)):
+                require(torch.equal(a.cpu(), b), f"K1 group case {name}, "
+                        f"group {k}: ids != plain")
+            served = _onehot_lookups(card)[0]
+            torch.cuda.synchronize()
+            require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                        for a, b in zip(served, got)),
+                    f"K1 group case {name}: serving (no ids) != autograd's")
+        log(f"K1 group case {name} (Bp {bp}; (C, searched, V, d, LUT) "
+            f"{shapes}): f32 and bf16, one launch each, == plain as bits, "
+            "searched ids == plain")
+
+
 def x1_edge_case(d: int, l: int, seed: int, specials: bool = True):
     """X1 inputs on a ragged tile (C = 6 members, Bp = 100): a stacked
     [R, d] table (with ``specials``, -0.0 rows and NaN / +-inf rows, never
@@ -904,47 +1035,132 @@ KERNEL_META = {
 }
 
 
-def k1_call(torch, eng, g, ids, bp: int):
-    """K1's record for one-hot group ``g`` of ``eng`` on its [C, Bp, 1]
-    ids (K1-bf16's for a bf16 table3): the kernel, its plain version, the
-    library yardstick (``F.embedding`` over the flattened table3, missing
-    ids pointed at a zero padding plane; then ``.float()`` for bf16, the
-    same function, since the rows are copies) and the bound (ids, caps,
-    the distinct rows selected at their stored width and the f32 output,
-    each once)."""
+def k1_call(torch, eng, pairs, bp: int):
+    """K1's record for the one-hot groups ``pairs`` ([(group, its [C, Bp,
+    1] ids)]) of ``eng``, one launch for all of them (K1-bf16's for bf16
+    tables): the kernel, its plain version, the library yardstick
+    (``F.embedding`` over each flattened table3, missing ids pointed at a
+    zero padding plane; then ``.float()`` for bf16, the same function,
+    since the rows are copies) and the bound (ids, caps, the distinct rows
+    selected at their stored width and the f32 output, each once)."""
     import torch.nn.functional as F
 
     from recom_tpu_torch.ops.lookup_onehot import (
-        onehot_lookup,
         onehot_lookup_plain,
+        onehot_lookups,
     )
 
-    dev = ids.device
+    args, libs, nbytes, shapes = [], [], 0, []
+    for g, ids in pairs:
+        dev = ids.device
+        c = eng._consts[g.gid]
+        table = eng.device_params["stacked"][str(g.gid)]
+        ids2 = ids[:, :, 0].contiguous()
+        caps = c["caps"]
+        cc, v, d = g.num_columns, table.shape[1], table.shape[2]
+        zero_row = (table.shape[0] - 1) * v
+        require(table.shape[0] > cc and bool((table[-1] == 0).all()),
+                "zero padding plane")
+        clamped = torch.minimum(ids2, caps[:, None]).long()
+        flat = torch.where(
+            clamped >= 0,
+            clamped + torch.arange(cc, device=dev)[:, None] * v,
+            torch.full_like(clamped, zero_row),
+        ).T.contiguous()
+        t2 = table.reshape(-1, d)
+        valid = clamped >= 0
+        uniq = torch.unique(flat[valid.T]).numel()
+        nbytes += (ids2.numel() * 4 + cc * 4
+                   + uniq * d * table.element_size() + bp * cc * d * 4)
+        args.append((table, ids2, caps))
+        libs.append(lambda f=flat, t=t2: F.embedding(f, t).float())
+        shapes.append(f"ids [{cc}, {bp}], V_pad {v} -> [{bp}, {cc}, {d}]")
+    return dict(
+        group="+".join(str(g.gid) for g, _ in pairs),
+        kern=lambda: onehot_lookups(args),
+        plain=lambda: [onehot_lookup_plain(*a) for a in args],
+        lib=lambda: [f() for f in libs], bound=bound_ms(nbytes),
+        shape="; ".join(shapes),
+    )
+
+
+def k1_searched_call(torch, eng, g, packed):
+    """K1's record on a one-hot group whose bucketize members reach the
+    card raw (``EngineConfig(host_bucketize=False)``): the raw [n_bz, Bp]
+    plane and the host ids, the bucketize searched in K1's id read.  Its
+    plain version: ``device_bucketize`` (+ LUT) joined to the host ids,
+    then ``onehot_lookup_plain``.  Library: none (no single call); for
+    reference, ``torch.searchsorted`` + ``F.embedding`` (the same ids but
+    for NaN, which no row of this batch holds) timed beside it.  Bound:
+    the raw values, host ids and caps read, each member's boundaries, the
+    distinct rows selected and the f32 output written, each once."""
+    import torch.nn.functional as F
+
+    from recom_tpu_torch.ops.lookup_onehot import (
+        Searched,
+        onehot_lookup_plain,
+        onehot_lookups,
+        searched_ids_plain,
+    )
+
     c = eng._consts[g.gid]
+    require("k1_hi" in c and "raw_bz" in packed,
+            f"group {g.gid} should be searched in K1's id read")
     table = eng.device_params["stacked"][str(g.gid)]
-    ids2 = ids[:, :, 0].contiguous()
+    raw = packed["raw_bz"].contiguous()
+    nbz, bp = raw.shape
+    host = packed["host_ids"][:, :, 0].to(torch.int32).contiguous()
+    s = Searched(raw, c["k1_hi"], c["k1_counts"], c.get("k1_lut"))
     caps = c["caps"]
     cc, v, d = g.num_columns, table.shape[1], table.shape[2]
-    zero_row = (table.shape[0] - 1) * v
-    require(table.shape[0] > cc and bool((table[-1] == 0).all()),
-            "zero padding plane")
-    clamped = torch.minimum(ids2, caps[:, None]).long()
-    flat = torch.where(
-        clamped >= 0,
-        clamped + torch.arange(cc, device=dev)[:, None] * v,
-        torch.full_like(clamped, zero_row),
-    ).T.contiguous()
+    ids = torch.minimum(torch.cat([searched_ids_plain(s), host]),
+                        caps[:, None]).long()
+    cols = torch.arange(cc, device=raw.device)[:, None] * v
+    uniq = torch.unique((ids + cols)[ids >= 0]).numel()
+    nbytes = (raw.numel() * 4 + host.numel() * 4 + cc * 4
+              + int(c["k1_counts"].sum()) * 4
+              + uniq * d * table.element_size() + bp * cc * d * 4)
     t2 = table.reshape(-1, d)
-    valid = clamped >= 0
-    uniq = torch.unique(flat[valid.T]).numel()
-    nbytes = (ids2.numel() * 4 + cc * 4 + uniq * d * table.element_size()
-              + bp * cc * d * 4)
+    hi = c["k1_hi"]
+
+    def reference():
+        bz = torch.searchsorted(hi, raw, right=True).int()
+        flat = (torch.cat([bz, host]) + cols).T
+        return F.embedding(flat, t2)
+
     return dict(
-        group=g.gid, kern=lambda: onehot_lookup(table, ids2, caps),
-        plain=lambda: onehot_lookup_plain(table, ids2, caps),
-        lib=lambda: F.embedding(flat, t2).float(), bound=bound_ms(nbytes),
-        shape=f"ids [{cc}, {bp}], V_pad {v} -> [{bp}, {cc}, {d}]",
+        group=g.gid, kern=lambda: onehot_lookups([(table, host, caps, s)]),
+        plain=lambda: [onehot_lookup_plain(
+            table, torch.cat([searched_ids_plain(s), host]), caps)],
+        lib=None, reference=reference, bound=bound_ms(nbytes),
+        shape=f"raw [{nbz}, {bp}] searched + ids [{cc - nbz}, {bp}], "
+        f"V_pad {v} -> [{bp}, {cc}, {d}]",
     )
+
+
+def searched_edge_batch(batch, g, rows: int):
+    """``batch`` with the bucketize members of one-hot group ``g`` fed
+    the searched route's edge values on its first rows: NaN, +-inf,
+    +-0.0, subnormals, then each member's boundaries exactly (as the f32
+    boundaries the card compares) and the floats just below them."""
+    import numpy as np
+
+    out = {k: np.array(v, copy=True) for k, v in batch.items()}
+    specials = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-40, -1e-40,
+                         1.4e-45], np.float32)
+    for i, m in enumerate(g.members[:g.n_bucketize]):
+        x = out[m.column.source.field]
+        x[:len(specials)] = specials
+        k = int(g.boundary_counts[i])
+        if k:
+            hits = g.boundary_matrix[i, (np.arange(rows) * 7) % k]
+            n = (len(x) - len(specials)) // 2
+            hits = hits[:n]
+            x[len(specials): len(specials) + len(hits)] = hits
+            below = np.nextafter(hits, np.float32(-np.inf))
+            x[len(specials) + len(hits): len(specials) + 2 * len(hits)] = \
+                below
+    return out
 
 
 def k2_call(torch, eng, g, raw):
@@ -1309,10 +1525,11 @@ def serve_phases(torch, model, np_params, int_rate: float):
 
     calls = {"K1": [], "K2": [], "X1": [], "X2": []}   # per-call records
     x1_groups = []          # model E's gather groups, one launch of X1
+    k1_groups = []          # its one-hot groups, one launch of K1
     for g, packed in zip(eng.compiled.groups, arrays["groups"]):
         ids, weights = eng.group_ids(g, packed)
         if g.pallas_vocab is not None:
-            calls["K1"].append(k1_call(torch, eng, g, ids, bp))
+            k1_groups.append((g, ids))
         else:
             x1_groups.append(x1_member(torch, eng, g, ids, weights, bp))
         gi = g.gid
@@ -1344,8 +1561,10 @@ def serve_phases(torch, model, np_params, int_rate: float):
                 f"{int_ops / 1e6:.2f} M int ops",
             ))
 
-    # X1's one launch serves every gather group of the path
+    # X1's one launch serves every gather group of the path, K1's every
+    # one-hot group
     calls["X1"].append(x1_call(x1_groups))
+    calls["K1"].append(k1_call(torch, eng, k1_groups, bp))
 
     # K1 and X2 on their edge inputs (exact, as bits for K1)
     with torch.inference_mode():
@@ -1378,6 +1597,7 @@ def serve_phases(torch, model, np_params, int_rate: float):
         log(f"K1 edge cases ((C, V, Bp, d) in {K1_EDGES}: ragged tiles, V_pad "
             "128 and 2304, an all-missing column, ids past caps and below "
             "-1, -0.0 and NaN rows): kernel == plain bit for bit")
+        k1_group_cases(torch)
         # X1: every (d, L) pair, unweighted and weighted, through launches
         # of 8 groups each (float and float4 rows, 1 to 32 lanes a bag,
         # mixed in one launch); == with NaN where the plain version has it
@@ -1530,21 +1750,63 @@ def serve_phases(torch, model, np_params, int_rate: float):
     # ---- phase 4: predict latency and where it goes ----------------------
     latency(torch, eng, "model E", ((512, batch_small), (2048, batch_big)))
 
-    # ---- phase 5: model E with device bucketize (then K1), counted --------
+    # ---- phase 5: model E with device bucketize, searched in K1's id read -
     t = time.perf_counter()
     eng_bz = Engine(model, EngineConfig(host_bucketize=False),
                     params=np_params, device="cuda")
     torch.cuda.synchronize()
     log(f"Engine(model E, host_bucketize=False): "
         f"{time.perf_counter() - t:.1f} s")
-    kernels.reset_launches()
-    out_bz = eng_bz.predict(batch_small, return_pooled=True)
-    torch.cuda.synchronize()
-    counts_bz = dict(kernels.launches)
-    log(f"launches in predict(batch 512), host_bucketize=False: {counts_bz}")
-    require_launches(counts_bz, ("K1", "X1", "X2"), "model E, device bz",
-                     exactly={"X1": 1})
-    check_pooled(ref, out_bz, "model E, host_bucketize=False, batch 512")
+    gi_mixed, g_mixed = [(i, g) for i, g in enumerate(eng_bz.compiled.groups)
+                         if g.pallas_vocab is not None][0]
+    require(0 < g_mixed.n_bucketize < g_mixed.num_columns
+            and "k1_hi" in eng_bz._consts[g_mixed.gid],
+            "model E's one-hot group: bucketize and int-hash members, the "
+            "bucketize searched in K1's id read")
+    t = time.perf_counter()
+    ref_big = OracleModel(model, np_params).forward(batch_big)
+    log(f"oracle forward (batch 2048): {time.perf_counter() - t:.1f} s")
+    edge = searched_edge_batch(batch_small, g_mixed, 512)
+    ref_edge = OracleModel(model, np_params).forward(edge)
+    counts_bz = {}
+    for bs, b, r in ((512, batch_small, ref), (2048, batch_big, ref_big),
+                     (512, edge, ref_edge)):
+        eng_bz.predict(b)                    # the signature's capture
+        kernels.reset_launches()
+        out_bz = eng_bz.predict(b, return_pooled=True)
+        torch.cuda.synchronize()
+        counts_bz[bs] = dict(kernels.launches)
+        require_launches(counts_bz[bs], ("K1", "X1", "X2"),
+                         "model E, device bz", exactly={"K1": 1, "X1": 1})
+        check_pooled(r, out_bz, f"model E, host_bucketize=False, batch {bs}"
+                     + (" (NaN, +-inf, +-0.0, subnormal and boundary "
+                        "values)" if b is edge else ""))
+    log(f"launches in a replayed predict, host_bucketize=False: {counts_bz}")
+    # the replay at 2048 holds no torch comparison (device_bucketize's) and
+    # no reduction; its device ops beside the default config's replay's
+    _, names_bz = profiled_ops(torch, lambda: eng_bz.predict(batch_big))
+    _, names_e = profiled_ops(torch, lambda: eng.predict(batch_big))
+    torch_cmp = [n for n in names_bz if "ompare" in n
+                 or ("reduce_kernel" in n and n not in names_e)]
+    require(not torch_cmp, f"model E, host_bucketize=False: the replay "
+            f"holds torch comparisons or reductions: {torch_cmp[:3]}")
+    log(f"model E replay at 2048: {sum(names_bz.values())} device ops under "
+        f"host_bucketize=False, {sum(names_e.values())} in the default "
+        f"config; no torch comparison or reduction; ops the default's "
+        f"lacks: {sorted(set(names_bz) - set(names_e))}")
+    with torch.inference_mode():
+        prep_bz = eng_bz.prepare(batch_big)
+        arrays_bz = unpack_blob(eng_bz.compiled,
+                                eng_bz.to_device(prep_bz)["blob"], 2048,
+                                prep_bz.rowlens, prep_bz.wsig)
+        searched = k1_searched_call(torch, eng_bz, g_mixed,
+                                    arrays_bz["groups"][gi_mixed])
+        searched_res = measure_forward(torch, {"K1": [searched]})["K1"]
+        searched_res["reference_ms"] = time_ms(torch, searched["reference"])
+    searched_res["launches"] = counts_bz[2048]["K1"]
+    log(f"K1 searched (model E, host_bucketize=False, 2048): "
+        f"{searched_res['ms']:.4f} ms warm; torch.searchsorted + "
+        f"F.embedding for reference {searched_res['reference_ms']:.4f} ms")
     latency(torch, eng_bz, "model E, host_bucketize=False",
             ((512, batch_small), (2048, batch_big)))
     log(f"peak device memory (two model E engines): "
@@ -1592,6 +1854,7 @@ def serve_phases(torch, model, np_params, int_rate: float):
 
     return dict(results=results, counts_2048=counts_2048,
                 counts_mb=counts_mb, ref=ref, batch_small=batch_small,
+                searched=searched_res,
                 batch_big=batch_big, out_512=out, out_2048=out_big,
                 groups=group_layout(eng.compiled))
 
@@ -1613,7 +1876,7 @@ def free_engines() -> None:
 
 def stored_records(torch, eng, batch, k1_kid: str, x1_kid: str):
     """The lookup kernels' records at ``eng``'s path shapes for ``batch``:
-    ``k1_kid`` for each one-hot group (None: the engine has none),
+    ``k1_kid`` once for every one-hot group (None: the engine has none),
     ``x1_kid`` once for every gather group (one launch)."""
     from recom_tpu_torch.runtime.wire import unpack_blob
 
@@ -1622,15 +1885,16 @@ def stored_records(torch, eng, batch, k1_kid: str, x1_kid: str):
     with torch.inference_mode():
         arrays = unpack_blob(eng.compiled, eng.to_device(prepared)["blob"],
                              bp, prepared.rowlens, prepared.wsig)
-    calls, members = {}, []
+    calls, members, onehot = {}, [], []
     for g, packed in zip(eng.compiled.groups, arrays["groups"]):
         ids, weights = eng.group_ids(g, packed)
         if g.pallas_vocab is not None:
             require(k1_kid is not None, f"unexpected one-hot group {g.gid}")
-            calls.setdefault(k1_kid, []).append(k1_call(torch, eng, g, ids,
-                                                        bp))
+            onehot.append((g, ids))
         else:
             members.append(x1_member(torch, eng, g, ids, weights, bp))
+    if onehot:
+        calls[k1_kid] = [k1_call(torch, eng, onehot, bp)]
     calls[x1_kid] = [x1_call(members)]
     return calls
 
@@ -2017,16 +2281,18 @@ def backward_calls(torch, eng, arrays, bp: int, cotangent):
     a random cotangent ``cotangent(bp, C, d)``, the terms' magnitudes, the
     library yardstick (``torch.zeros`` + ``index_add_`` of precomputed
     contributions) and the bound (cotangent, ids and the whole gradient,
-    each once); and the partition launches that come before them (Part:
-    X1b's groups, and K3a's groups cut into several vocab tiles), as
-    ``partition_record``s.  Returns {"K3a": [...], "X1b": [...], "Part":
-    [...]}."""
+    each once); and the one partition launch of the step's forward that
+    lists their entries (Part: X1b's groups, and K3a's groups cut into
+    several vocab tiles), a ``partition_record``, whose lists the K3a and
+    X1b records are given, as the step gives them.  Returns {"K3a": [...],
+    "X1b": [...], "Part": [...]}."""
     from recom_tpu_torch.ops.lookup_gather import (
         group_pooled_grad_plain,
         groups_pooled_grad,
         slot_contributions,
         x1b_partition_groups,
     )
+    from recom_tpu_torch.ops.item_lists import partition
     from recom_tpu_torch.ops.lookup_onehot import (
         k3_listed,
         k3_member_info,
@@ -2082,12 +2348,27 @@ def backward_calls(torch, eng, arrays, bp: int, cotangent):
             shape=f"group {g.gid}: g [{bp}, {g.num_columns}, {g.dim}], "
             f"ids {list(ids.shape)} -> [{r}, {g.dim}]",
         ))
+    # the step's one launch of Part: K3a's listed groups and X1b's; the
+    # lists it writes, by the ids they were made from, for the K3a and X1b
+    # records (on CPU copies of their arguments the plain versions take
+    # no lists)
+    listed = [x for x in k3a if x["listed"]]
+    part = ([dict(ids=x["args"][1], caps=x["args"][2], info=x["info"])
+             for x in listed]
+            + x1b_partition_groups([x["args"] for x in x1b]))
+    recs["Part"].append(partition_record(
+        torch, "Part of the step: K3a's listed groups "
+        + "+".join(str(x["gid"]) for x in listed) + ", X1b's groups "
+        + "+".join(str(x["gid"]) for x in x1b), part))
+    made = dict(zip([id(x["args"][1]) for x in listed]
+                    + [id(x["args"][2]) for x in x1b], partition(part)))
     # K3a: every one-hot group in one launch
     if k3a:
         entries = [x["args"] for x in k3a]
         recs["K3a"].append(dict(
             what="K3a groups " + "+".join(str(x["gid"]) for x in k3a),
-            fn=lambda *e: onehot_lookups_grad(e),
+            fn=lambda *e: onehot_lookups_grad(
+                e, lists=[made.get(id(a[1])) for a in e]),
             plain=lambda *e: [onehot_lookup_grad_plain(*a) for a in e],
             args=tuple(entries),
             mag_args=tuple((a[0].abs(),) + a[1:] for a in entries),
@@ -2097,23 +2378,18 @@ def backward_calls(torch, eng, arrays, bp: int, cotangent):
                            float(sum(x["src"].numel() for x in k3a))),
             shape="; ".join(x["shape"] for x in k3a),
         ))
-        listed = [x for x in k3a if x["listed"]]
-        if listed:
-            recs["Part"].append(partition_record(
-                torch, "Part of K3a's listed groups "
-                + "+".join(str(x["gid"]) for x in listed),
-                [dict(ids=x["args"][1], caps=x["args"][2], info=x["info"])
-                 for x in listed]))
     # X1b: every gather group in one launch, the second run into
     # outputs filled with NaN
     entries = [x["args"] for x in x1b]
+    x1b_lists = lambda e: [made.get(id(a[2])) for a in e]
     recs["X1b"].append(dict(
         what="X1b groups " + "+".join(str(x["gid"]) for x in x1b),
-        fn=lambda *e: groups_pooled_grad(e),
+        fn=lambda *e: groups_pooled_grad(e, lists=x1b_lists(e)),
         plain=lambda *e: [group_pooled_grad_plain(*a) for a in e],
         args=tuple(entries), mag_args=tuple(x["mag"] for x in x1b),
         into=lambda e: groups_pooled_grad(e, out=[torch.full(
-            (a[1], a[0].shape[2]), float("nan"), device=dev) for a in e]),
+            (a[1], a[0].shape[2]), float("nan"), device=dev) for a in e],
+            lists=x1b_lists(e)),
         lib=lambda: [x["lib"]() for x in x1b],
         bound=bound_ms(sum(x["nbytes"] for x in x1b),
                        sum(x["flops"] for x in x1b)),
@@ -2124,10 +2400,6 @@ def backward_calls(torch, eng, arrays, bp: int, cotangent):
              [x for x in x1b if x["large"]])) if xs],
         shape="; ".join(x["shape"] for x in x1b),
     ))
-    recs["Part"].append(partition_record(
-        torch, "Part of X1b's groups " + "+".join(str(x["gid"])
-                                                  for x in x1b),
-        x1b_partition_groups(entries)))
     return recs
 
 
@@ -2179,8 +2451,8 @@ def measure_partition(torch, recs) -> dict:
     """Part's records checked (``check_partition``) and timed, warm, cold
     L2 and plain; summed as ``measure_backward`` sums its kernels (no one
     PyTorch call computes the lists and offsets: library null)."""
-    from recom_tpu_torch.ops.item_lists import partition, partition_plain
-    from recom_tpu_torch.ops.item_lists import plain_values
+    from recom_tpu_torch.ops.item_lists import member_info, partition
+    from recom_tpu_torch.ops.item_lists import partition_plain, plain_values
 
     tot = dict(err=0.0, ms=0.0, cold_ms=0.0, plain_ms=0.0, bound_ms=0.0,
                lib=None)
@@ -2201,6 +2473,13 @@ def measure_partition(torch, recs) -> dict:
             "(bytes); == plain on CPU copies and on the card, twice")
     log(f"Part summed over {len(recs)} launch(es): kernel {tot['ms']:.4f} ms "
         f"warm, {tot['cold_ms']:.4f} ms cold, bound {tot['bound_ms']:.4f} ms")
+    # the floor under a launch: one block of one entry and one item
+    one = [dict(ids=torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
+                caps=torch.zeros(1, dtype=torch.int32, device="cuda"),
+                info=member_info([1], [1], [1]))]
+    tot["floor_ms"] = time_ms(torch, lambda: partition(one))
+    log(f"Part of one block (one entry, one item): {tot['floor_ms']:.4f} ms "
+        "warm, the launch and one block's phases")
     return dict(tot, bound_by="bytes")
 
 
@@ -2653,6 +2932,46 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- phase 9c: model E under host_bucketize=False, trained ------------
+    # K1 searches the one-hot group's 880 bucketize members in its id read
+    # and writes the [C, Bp] ids that K3a reads
+    torch.cuda.reset_peak_memory_stats()
+    tr_ref = Trainer(model, EngineConfig(), optimizer=dlrm_optimizer(),
+                     params=np_params)
+    pair_s = tuple(Trainer(model, EngineConfig(host_bucketize=False),
+                           optimizer=dlrm_optimizer(), params=np_params)
+                   for _ in range(2))
+    pair_s[1]._capture = None
+    from recom_tpu_torch.utils.tree import tree_leaves
+
+    loss_r, grads_r = tr_ref.value_and_grad(batch_small, lab_small)
+    loss_s, grads_s = pair_s[1].value_and_grad(batch_small, lab_small)
+    same = [torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for a, b in zip(tree_leaves(grads_s), tree_leaves(grads_r))]
+    require(np.float64(loss_s).tobytes() == np.float64(loss_r).tobytes()
+            and all(same), f"model E, host_bucketize=False: loss or "
+            f"gradients != the default config's ({sum(same)} of "
+            f"{len(same)} leaves equal)")
+    log(f"model E, host_bucketize=False: loss and all {len(same)} gradient "
+        "leaves == the default config's as bits (K3a on the ids K1 wrote "
+        "== K3a on the host's ids)")
+    del tr_ref, grads_r, grads_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    gate_s = train_program_gate(
+        torch, *pair_s, [(512, batch_small), (2048, batch_big)],
+        "model E, host_bucketize=False", ("K1", "K3a", "X1b", "Part"))
+    for counts in gate_s["counts"]:
+        require_launches(counts, ("K1", "X1", "X2", "K3a", "X1b", "Part"),
+                         "training, model E, host_bucketize=False",
+                         exactly={"K1": 1, "X1": 1, "K3a": 1, "X1b": 1,
+                                  "Part": 1})
+    log(f"launches in a training step (model E, host_bucketize=False, "
+        f"2048): {gate_s['counts'][-1]}")
+    del pair_s
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- phase 10: training path 2, 880 bucketize columns (K2, K3b) --------
     b2 = make_random_batch(bz_model, 2048, seed=5)
     lab2 = rng.integers(0, 2, 2048).astype(np.float32)
@@ -2676,7 +2995,7 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
                           ((2048, b2, lab2),))
     return dict(results=results, counts_train=counts_train,
                 counts_bz=counts_bz, gate_e=gate_e, times_e=times_e,
-                gate_bz=gate_bz, times_bz=times_bz)
+                gate_bz=gate_bz, times_bz=times_bz, gate_searched=gate_s)
 
 
 def _with_pooled(tr, batch, labels):
@@ -2987,7 +3306,7 @@ def criteo_phases(torch):
         counts = dict(kernels.launches)
         log(f"launches in predict(Criteo, batch {bs}): {counts}")
         require_launches(counts, ("K1", "X1"), f"Criteo, batch {bs}",
-                         exactly={"K1": n_onehot, "X1": 1})
+                         exactly={"K1": 1, "X1": 1})
         t = time.perf_counter()
         refs[bs] = ref = oracle.forward(batch)
         require(len(ref["pooled"]) == 26, "26 pooled columns")
@@ -3013,13 +3332,15 @@ def criteo_phases(torch):
         arrays = unpack_blob(eng.compiled, eng.to_device(prep)["blob"], bp,
                              prep.rowlens, prep.wsig)
     calls = {"K1": [], "X1": []}
-    members = []
+    members, onehot = [], []
     for g, packed in zip(groups, arrays["groups"]):
         ids, weights = eng.group_ids(g, packed)
         if g.pallas_vocab is not None:
-            calls["K1"].append(k1_call(torch, eng, g, ids, bp))
+            onehot.append((g, ids))
         else:
             members.append(x1_member(torch, eng, g, ids, weights, bp))
+    # K1 one launch for the five one-hot groups, X1 one for the rest
+    calls["K1"].append(k1_call(torch, eng, onehot, bp))
     calls["X1"].append(x1_call(members))
     results = measure_forward(torch, calls)
     results["X1"]["oneid_f32_ab"] = x1_oneid_f32_ab(
@@ -3063,13 +3384,13 @@ def criteo_phases(torch):
     train_counts = dict(kernels.launches)
     log(f"launches in one training step (Criteo, batch 2048): "
         f"{train_counts}")
-    # K1 a one-hot group; K3a once for all of them, after one partition
-    # launch (every one-hot group at d = 64 is cut into vocab tiles of 64
-    # rows); X1b once, after one partition launch of its group
+    # K1 once for the five one-hot groups; K3a once for all of them and
+    # X1b once, after the forward's one partition launch (every one-hot
+    # group at d = 64 but the smallest is cut into vocab tiles of 64 rows,
+    # and X1b's group is listed too)
     require_launches(train_counts, ("K1", "X1", "K3a", "X1b", "Part"),
                      "training, Criteo", exactly={
-                         "K1": n_onehot, "X1": 1, "K3a": 1, "X1b": 1,
-                         "Part": 2})
+                         "K1": 1, "X1": 1, "K3a": 1, "X1b": 1, "Part": 1})
     losses += [tr.step(batches[2048], lab_big) for _ in range(3)]
     require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
             f"Criteo losses on one batch do not decrease: {losses}")
@@ -3589,6 +3910,24 @@ def profiled_kernels(torch, fn) -> tuple:
         if kid is not None:
             seen[kid] = seen.get(kid, 0) + 1
     return out, seen
+
+
+def profiled_ops(torch, fn) -> tuple:
+    """(``fn()``, {device kernel name: runs}) of what ``torch.profiler``
+    saw run on the card in the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            names[ev.name] = names.get(ev.name, 0) + 1
+    return out, names
 
 
 def served_outputs(rec) -> dict:
@@ -4624,10 +4963,11 @@ def mesh_train_launches(cfg) -> dict:
     on the rank's data slice), X1b once for the gather groups (the psum
     path's partial sums on the stripe among them), and under the exchange
     twice more: its pool into the receive buffer and the owner's scatter
-    into the stripe; a partition launch (Part) before each X1b launch."""
+    into the stripe; one partition launch (Part) in the forward for all
+    of X1b's groups (item_lists.StepLists)."""
     a2a = cfg.get("shard_comm") == "all_to_all"
     return {"K1": 1, "X1": 2 if a2a else 1, "K3a": 1,
-            "X1b": 3 if a2a else 1, "Part": 3 if a2a else 1}
+            "X1b": 3 if a2a else 1, "Part": 1}
 
 
 def big_group(eng):
@@ -4972,19 +5312,20 @@ def x1b_mesh_roles(torch, tr, batch, rank: int) -> list:
         bp, cc = ids.shape[1], ids.shape[0]
         out.append(x1b_role(torch, "psum partial (stripe)", (
             rand(bp, cc, g.dim), rows) + tuple(pa[1:]),
-            "0 more: it joins the gather groups' launch (X1b 1, Part 1 a "
-            "step)"))
+            "0 more: it joins the gather groups' launch (X1b 1 a step; "
+            "its lists in the step's one Part)"))
         po = pool_args(buf, route, m, chunks, c["codes"], weights,
                        c["weighted"], k)
         b_my = po[1].shape[1]
         out.append(x1b_role(torch, "a2a pool (receive buffer)", (
             rand(b_my, cc, g.dim), buf.shape[0]) + tuple(po[1:]),
-            "1 more (X1b 3, Part 3 a step)"))
+            "1 more (X1b 3 a step; its lists in the step's one Part)"))
         zero, no_cap, flags = shared_rows_consts(1, "cuda")
         n = recv.numel()
         out.append(x1b_role(torch, "owner scatter (stripe)", (
             rand(n, 1, g.dim), rows, recv.reshape(1, n, 1), zero, zero,
-            None, flags, no_cap), "1 more (X1b 3, Part 3 a step)"))
+            None, flags, no_cap),
+            "1 more (X1b 3 a step; its lists in the step's one Part)"))
     dist.barrier()
     return out
 
@@ -5797,25 +6138,33 @@ def fuzz_launches(compiled, cfg, prep, train: bool = False) -> dict:
       columns bucketize (``g.n_bucketize == g.num_columns``), it has no
       id LUT (``g.lut_matrix``) and its raw floats reach the device (the
       structured arrays, or the wire, which one device takes under
-      ``wire_pack``, with ``host_bucketize=False``), else K1; the bf16
-      variants for bf16 tables; backward K3b a group, and K3a once for up
-      to 16 of the K1 groups (``K3_MAX_GROUPS``);
+      ``wire_pack``, with ``host_bucketize=False``), else K1, once for up
+      to 16 K1 groups (``K1_MAX_GROUPS``; a group whose bucketize members
+      reach the device raw is searched in that launch); the bf16 variants
+      for bf16 tables; backward K3b a group, and K3a once for up to 16 of
+      the K1 groups (``K3_MAX_GROUPS``);
     * X1 once for every other gather group together (X1-bf16, X1-int8 by
       the stored dtype; on a mesh with the psum path's partial sums), and
       once more (X1: the rows return as f32) to pool the rows the
       all-to-all exchange returned for the striped groups; backward (one
       device) X1b once; each launch takes up to 8 groups
       (``X1_MAX_GROUPS``, ``X1B_MAX_GROUPS``);
-    * Part (the partition) before each X1b launch, before each K3a launch
-      that holds a group cut into several vocab tiles (``k3_listed``),
-      and before each K3b launch of such a group;
+    * Part (the partition), in the forward of a training step, once for
+      up to 16 of the step's listed groups (``PART_MAX_GROUPS``): each
+      X1b group, each K3a group and each K3b group cut into several vocab
+      tiles (``k3_listed``);
     * X2 once for each group whose strings the card hashes: the wire's
       ``prep.wsig``, which the batch's string widths decide."""
     from recom_tpu_torch.ops.lookup_gather import (
         X1_MAX_GROUPS,
         X1B_MAX_GROUPS,
     )
-    from recom_tpu_torch.ops.lookup_onehot import K3_MAX_GROUPS, k3_listed
+    from recom_tpu_torch.ops.item_lists import PART_MAX_GROUPS
+    from recom_tpu_torch.ops.lookup_onehot import (
+        K1_MAX_GROUPS,
+        K3_MAX_GROUPS,
+        k3_listed,
+    )
 
     sfx = {"float32": "", "bfloat16": "-bf16", "int8": "-int8"}[
         cfg.table_dtype]
@@ -5831,33 +6180,30 @@ def fuzz_launches(compiled, cfg, prep, train: bool = False) -> dict:
         return -(-groups // per)
 
     n = dict.fromkeys(KERNEL_META, 0)
-    gather = routed = 0
-    k1_listed = []          # the K1 groups in order: cut into vocab tiles
+    gather = routed = k1 = 0
+    listed = 0              # the step's groups whose entries Part lists
     for g in compiled.groups:
         striped = model_ranks > 1 and g.stacked_rows > cfg.shard_rows_above
         if g.pallas_vocab is not None and not striped:
             fused = (raw and g.n_bucketize == g.num_columns
                      and g.lut_matrix is None)
-            n[("K2" if fused else "K1") + sfx] += 1
-            listed = k3_listed(g.pallas_vocab, g.dim)
-            if fused and train:
-                n["K3b"] += 1
-                n["Part"] += listed
-            elif not fused:
-                k1_listed.append(listed)
+            n["K2" + sfx] += fused
+            k1 += not fused
+            listed += k3_listed(g.pallas_vocab, g.dim)
+            n["K3b"] += fused and train
         elif striped and exchange:
             routed += 1
         else:
             gather += 1
+    if k1:
+        n["K1" + sfx] = launches(k1, K1_MAX_GROUPS)
     n["X1" + sfx] = launches(gather, X1_MAX_GROUPS)
     # the exchange returns rows as f32 (gather_rows_f32 on the owner)
     n["X1"] += launches(routed, X1_MAX_GROUPS)
     if train:
-        n["K3a"] = launches(len(k1_listed), K3_MAX_GROUPS)
-        n["Part"] += sum(any(k1_listed[i: i + K3_MAX_GROUPS])
-                         for i in range(0, len(k1_listed), K3_MAX_GROUPS))
+        n["K3a"] = launches(k1, K3_MAX_GROUPS)
         n["X1b"] = launches(gather, X1B_MAX_GROUPS)
-        n["Part"] += n["X1b"]
+        n["Part"] = launches(listed + gather, PART_MAX_GROUPS)
     n["X2"] = sum(1 for w in prep.wsig if any(w)) if wire else 0
     return n
 
@@ -6291,7 +6637,8 @@ def main() -> int:
     trained = train_phases(torch, model, np_params, served["batch_small"],
                            served["batch_big"], served["ref"])
     print_json("training programs (model E, bucketize-880)", {
-        k: trained[k] for k in ("gate_e", "times_e", "gate_bz", "times_bz")})
+        k: trained[k] for k in ("gate_e", "times_e", "gate_bz", "times_bz",
+                                "gate_searched")})
     elapsed("training phases")
     gc.collect()
     torch.cuda.empty_cache()
@@ -6361,6 +6708,12 @@ def main() -> int:
             # the same kernel on the Criteo DLRM's path (d = 64)
             **({"criteo": entry(criteo[kid], criteo[kid]["launches"])}
                if kid in criteo else {}),
+            # K1 with model E's bucketize members searched in its id read
+            # (host_bucketize=False, batch 2048)
+            **({"searched": dict(
+                entry(served["searched"], served["searched"]["launches"]),
+                reference_ms=served["searched"]["reference_ms"])}
+               if kid == "K1" else {}),
             # on model F's path at batch 2048
             **({"model_f": entry(tools["f_results"][kid],
                                  tools["f_counts"][kid])}

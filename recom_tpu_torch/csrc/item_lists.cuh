@@ -9,12 +9,14 @@
 // slot and val holds segment s's entries that fall in an item, ordered by
 // item and, within an item, by e (a stable sort); the rest of the segment's
 // places hold -1.  slot is the entry's index e, val its value (the clamped
-// id, or the bucket).  For member c's item i, i in [0, items_c],
-//   off[(ibase_c + i) * nseg + s] = the first place of item i in segment
-// s's region (so item i's entries there are [off(i, s), off(i + 1, s)), and
-// off(items_c, s) counts the segment's placed entries).  ibase_c: the
-// member's first row of off, sum over c' < c of (items_c' + 1).
-//
+// id, or the bucket).  Member c's offsets are nseg rows of items_c + 1,
+// from ibase_c nseg on (ibase_c: the items + 1 of the members before it):
+//   off[ibase_c nseg + s (items_c + 1) + i] = the first place of item i in
+// segment s's region, i in [0, items_c] (so item i's entries there are
+// [off(i, s), off(i + 1, s)), and off(items_c, s) counts the segment's
+// placed entries).  A partition block (c, s) writes its row whole, with
+// consecutive threads on consecutive words.
+
 // A consumer takes an item's segments a window of kWin at a time: one
 // thread a segment reads its two offsets, and a block scan numbers the
 // item's entries across them (the exclusive scan over the item's segments,
@@ -28,7 +30,7 @@
 
 namespace lists {
 
-constexpr int kSeg = 4096;   // entries of a segment (a partition block's)
+constexpr int kSeg = 2048;   // entries of a segment (a partition block's)
 constexpr int kWin = 256;    // segments a consumer maps at once
 constexpr int kWinInts = 2 * kWin + 1 + 8;   // a Window's shared ints
 
@@ -36,7 +38,7 @@ constexpr int kWinInts = 2 * kWin + 1 + 8;   // a Window's shared ints
 struct Lists {
   const int32_t* slot;   // [C, S] entry index, or -1
   const int32_t* val;    // [C, S] its clamped id or bucket, or -1
-  const int32_t* off;    // [sum_c (items_c + 1), nseg]
+  const int32_t* off;    // [nseg sum_c (items_c + 1)]
   int64_t S;             // entries of a member
   int64_t nseg;          // segments of a member (>= 1)
 };
@@ -57,19 +59,40 @@ struct Window {
   }
 };
 
-// Map window w of item gi (a row of off) of member c: returns the item's
-// entries in segments [w kWin, w kWin + kWin).  All threads of a block of
-// kWin threads call it; it begins and ends with a barrier.
-__device__ __forceinline__ int load_window(const Lists& L, int64_t gi, int c,
-                                           int w, Window& win) {
+// The first word of member c's offsets row of segment s (c's ibase and
+// items; nseg: the group's segments a member).
+__host__ __device__ __forceinline__ int64_t row_of(int64_t ibase, int items,
+                                                   int64_t nseg, int64_t s) {
+  return ibase * nseg + s * (static_cast<int64_t>(items) + 1);
+}
+
+// Item i of a member whose offsets start at ibase and which has `items`
+// items: where its offset lies in each segment's row.
+struct Item {
+  int64_t base;     // ibase nseg + i
+  int64_t stride;   // items + 1
+};
+
+__device__ __forceinline__ Item item_of(const Lists& L, int64_t ibase,
+                                        int items, int64_t i) {
+  return Item{row_of(ibase, items, L.nseg, 0) + i,
+              static_cast<int64_t>(items) + 1};
+}
+
+// Map window w of item `it` of member c: returns the item's entries in
+// segments [w kWin, w kWin + kWin).  All threads of a block of kWin
+// threads call it; it begins and ends with a barrier.
+__device__ __forceinline__ int load_window(const Lists& L, const Item& it,
+                                           int c, int w, Window& win) {
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
   const int64_t s = static_cast<int64_t>(w) * kWin + t;
   int lo = 0, cnt = 0;
   if (s < L.nseg) {
-    lo = __ldg(L.off + gi * L.nseg + s);
-    cnt = __ldg(L.off + (gi + 1) * L.nseg + s) - lo;
+    const int32_t* at = L.off + it.base + s * it.stride;
+    lo = __ldg(at);
+    cnt = __ldg(at + 1) - lo;
   }
   int incl = cnt;
 #pragma unroll

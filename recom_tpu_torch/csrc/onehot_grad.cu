@@ -130,7 +130,7 @@ struct HostGroup {
   float* dtable;           // [C_pad, V, d], written whole
   const int32_t* slot;     // [C, Bp] listed batch rows, or null
   const int32_t* val;      // [C, Bp] their clamped ids / buckets
-  const int32_t* off;      // [C (v_tiles + 1), nseg]
+  const int32_t* off;      // [nseg C (v_tiles + 1)], item_lists.cuh
   int64_t gs, C, C_pad, Bp, V, d, cb, nv, v_tiles, nseg, item_begin;
 };
 
@@ -322,7 +322,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
     // the item's entries: a listed item's, window by window; else its
     // columns' Bp batch rows
-    const int64_t gi = static_cast<int64_t>(m.c0) * (G.v_tiles + 1) + m.tile;
+    const lists::Item gi = lists::item_of(
+        G.L, static_cast<int64_t>(m.c0) * (G.v_tiles + 1),
+        static_cast<int>(G.v_tiles), m.tile);
     const int nwin = listed ? (m.nc_in > 0 ? lists::windows(G.L.nseg) : 0)
                             : 1;
     for (int w = 0; w < nwin; ++w) {

@@ -22,17 +22,31 @@
 // the member's rows), or whose item is past the member's items, has none
 // and is dropped.
 //
-// One block a segment of kSeg consecutive entries of a member, a launch
-// for every group of one backward launch: the block loads the segment's
-// values, then orders them with the stable counting sort of
+// One block a segment of kSeg consecutive entries of a member, one launch
+// for every group of a training step (the forward's, ops/item_lists.py::
+// StepLists: K3a's, K3b's and X1b's groups together): the block loads the
+// segment's values, then orders them with the stable counting sort of
 // ordered_runs.cuh (each warp counts, then places, a contiguous range in
 // order), by the item's 12-bit digits, least significant first, where a
 // member has more than 4096 items (one pass otherwise); it writes the
-// placed entries, -1 for the rest of its places, and its column of each
+// placed entries, -1 for the rest of its places, and its row of each
 // item's first place (the counting sort's starts, or a binary search over
 // the sorted items after several passes).  Integers only, no atomics on
 // device memory: the output is the same every run, equal to its plain
 // version (ops/item_lists.py::partition_plain).
+//
+// A segment holds kSeg = 2048 entries (half of the first version's: a
+// block's phases, not its launch, set the pass's time, and smaller
+// segments cut it; A/B on the H100 at model E's and Criteo's shapes, where
+// 1024 slowed K3a's reading of the lists).  The block writes its offsets,
+// one per item (items + 1 ints), as one contiguous row (item_lists.cuh's
+// layout), a store of consecutive words by consecutive threads.  Tried
+// and taken out: digits as wide as the block's entries need (2^5 to 2^11
+// bins), so that zeroing and scanning the bins cost O(entries) a pass.
+// Where a member has more items than that, the extra pass and the
+// offsets' binary search cost more than one pass of 4096 bins (part_ab.py
+// on the H100: 0.0316 against 0.0263 ms for 4096-item members), and the
+// paths' shapes did not move.
 //
 // Why a launch of its own: every item of the backward kernels needs every
 // segment's placement done first, and blocks of one launch cannot wait on
@@ -42,8 +56,8 @@
 // of each member), so the pass captures into a CUDA graph unchanged.
 //
 // What bounds it on the H100: the bytes of the values read once and the
-// slots and values written once, and at the mesh roles' small sizes the
-// latency of one block's phases (a few microseconds).
+// slots, values and offsets written once, and at the paths' small sizes
+// the latency of one block's phases (a few microseconds).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -72,7 +86,7 @@ struct PartGroup {
   const int32_t* minfo;    // [C, 4]: unit, items, lim, ibase
   int32_t* slot;           // [C, S]
   int32_t* val;            // [C, S]
-  int32_t* off;            // [sum (items + 1), nseg]
+  int32_t* off;            // [sum nseg (items + 1)], item_lists.cuh
   int64_t S, C, nseg, V, half, kind, block_begin;
 };
 
@@ -200,9 +214,9 @@ __global__ void __launch_bounds__(kThreads)
     so[p] = e < 0 ? -1 : static_cast<int32_t>(e0 + e);
     vo[p] = e < 0 ? -1 : val[e];
   }
-  int32_t* oo = a.off + ibase * a.nseg + s;
+  int32_t* oo = a.off + lists::row_of(ibase, items, a.nseg, s);
   if (one_pass) {
-    for (int i = tid; i < items; i += kThreads) oo[i * a.nseg] = start[i];
+    for (int i = tid; i < items; i += kThreads) oo[i] = start[i];
   } else {
     for (int i = tid; i < items; i += kThreads) {
       int lo = 0, hi = m;     // the first place whose item is >= i
@@ -210,10 +224,10 @@ __global__ void __launch_bounds__(kThreads)
         const int mid = (lo + hi) >> 1;
         if (key[sorted[mid]] < i) lo = mid + 1; else hi = mid;
       }
-      oo[static_cast<int64_t>(i) * a.nseg] = lo;
+      oo[i] = lo;
     }
   }
-  if (tid == 0) oo[static_cast<int64_t>(items > 0 ? items : 0) * a.nseg] = m;
+  if (tid == 0) oo[items > 0 ? items : 0] = m;
 }
 
 }  // namespace
@@ -222,7 +236,8 @@ __global__ void __launch_bounds__(kThreads)
 // `groups` (PartGroup records, each group's C x nseg blocks numbered from
 // its block_begin), `blocks` blocks in all, and `bins` the bins of the
 // largest pass (the most items of any member, at most 4096; the shared
-// memory).  Returns the launch's cudaError_t.
+// memory; ops/item_lists.py::digit_bins).  Returns the launch's
+// cudaError_t.
 extern "C" int rt_partition(const void* groups, int64_t n, int64_t blocks,
                             int64_t bins, void* stream) {
   if (n < 1 || n > kMaxGroups || blocks < 0 || blocks > 2147483647 ||

@@ -183,10 +183,10 @@ __device__ __forceinline__ int touched_rank(const Shared& sh, int r) {
 // Sum the item's entries into acc[key * d + e], in slot order, for the
 // keys of rows [r_lo, r_hi) of the item: the row itself (dense) or its
 // number among the touched rows less k0 (sparse).  nk keys.  The entries:
-// the item's lists (row gi of off), window after window, kSeg at a time.
+// the item's lists (item gi of off), window after window, kSeg at a time.
 template <bool kDense>
 __device__ void accumulate(const X1bGroup& a, const lists::Lists& L,
-                           Shared& sh, int c, int64_t gi, int64_t local_lo,
+                           Shared& sh, int c, lists::Item gi, int64_t local_lo,
                            int r_lo, int r_hi, int k0, int nk) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -310,7 +310,7 @@ __device__ void accumulate(const X1bGroup& a, const lists::Lists& L,
 
 // Mark a sparse item's touched rows in the bitmap, from its lists.
 __device__ void mark_rows(const lists::Lists& L, Shared& sh, int c,
-                          int64_t gi, int64_t local_lo, int nrows) {
+                          lists::Item gi, int64_t local_lo, int nrows) {
   const int nwin = lists::windows(L.nseg);
   for (int w = 0; w < nwin; ++w) {
     const int entries = lists::load_window(L, gi, c, w, sh.win);
@@ -451,9 +451,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int d = static_cast<int>(a.d);
   const bool dense = wk.kind & 1;
   const lists::Lists& L = batch.l[gk].l;
-  // the item's row of off: the member's first plus the item's number
+  // the item's offsets: the member's first row and the item's number
   const int32_t* mi = batch.l[gk].minfo + 4 * c;
-  const int64_t gi = __ldg(mi + 3) + wk.local_lo / __ldg(mi);
+  const lists::Item gi = lists::item_of(L, __ldg(mi + 3), __ldg(mi + 1),
+                                        wk.local_lo / __ldg(mi));
   if (dense) {
     accumulate<true>(a, L, sh, c, gi, wk.local_lo, 0, nrows, 0, nrows);
     write_out(a, sh, wk.row_lo, 0, nrows, 1, 0);

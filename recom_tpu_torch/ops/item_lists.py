@@ -16,10 +16,12 @@ region of segment ``s`` of member ``c`` in ``slot`` and ``val`` ([C, S]
 int32) holds the segment's entries that have an item, ordered by item and
 within an item by entry index (a stable sort), then -1 for the rest;
 ``slot`` is the member-local entry index, ``val`` the value.  ``off``
-([sum over members of (items + 1), nseg] int32): row ``ibase + i``, column
-``s`` is item ``i``'s first place in segment ``s``'s region, row ``ibase
-+ items`` the segment's count of placed entries.  Integers only: the
-kernel and ``partition_plain`` agree with ``==``.
+(flat int32, nseg x the sum over members of (items + 1)): member ``c``'s
+offsets are ``nseg`` rows of ``items + 1`` from ``ibase * nseg`` on
+(``off_at``), and word ``i`` of row ``s`` is item ``i``'s first place in
+segment ``s``'s region, word ``items`` the segment's count of placed
+entries, so the kernel's block of a segment writes its row contiguously.
+Integers only: the kernel and ``partition_plain`` agree with ``==``.
 
 Every size is fixed by the host plan (``S``, each member's items), and the
 pass reads no count back to the host, so it captures into a CUDA graph.
@@ -30,14 +32,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import struct
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from recom_tpu_torch.ops import kernels
 
-PART_SEG = 4096          # entries of a segment, a block of the kernel
+PART_SEG = 2048          # entries of a segment, a block of the kernel
 PART_MAX_GROUPS = 16     # groups a launch
 PART_MAX_BINS = 4096     # items a counting-sort pass orders (12 bits)
 PART_WIN = 256           # segments a consumer maps at once
@@ -72,9 +74,24 @@ def member_info(units, items, lims) -> np.ndarray:
     return np.ascontiguousarray(info.astype(np.int32))
 
 
+def digit_bins(items: int) -> int:
+    """The most bins a pass of the kernel's sort takes in a group of
+    ``items`` items at most a member: one pass of ``items`` bins, or
+    passes of PART_MAX_BINS (12-bit digits) past them."""
+    return max(1, min(PART_MAX_BINS, int(items)))
+
+
 def off_rows(info: np.ndarray) -> int:
-    """The rows of ``off`` for the members ``info``."""
+    """The offsets a segment holds for the members ``info`` (their items
+    + 1): ``off`` holds this many for each segment."""
     return int((np.asarray(info, np.int64)[:, 1] + 1).sum())
+
+
+def off_at(info, nseg: int, member: int, item: int, seg: int) -> int:
+    """The word of ``off`` that holds item ``item``'s first place in
+    segment ``seg`` of member ``member`` (csrc/item_lists.cuh::row_of)."""
+    ibase, items = int(info[member][3]), int(info[member][1])
+    return ibase * nseg + seg * (items + 1) + item
 
 
 def partition_plain(values: torch.Tensor, info) -> Tuple[torch.Tensor, ...]:
@@ -100,7 +117,7 @@ def partition_plain(values: torch.Tensor, info) -> Tuple[torch.Tensor, ...]:
     none = torch.full_like(order, -1)
     slot = torch.where(placed, order, none).to(torch.int32)
     val = torch.where(placed, torch.gather(v, 1, order), none).to(torch.int32)
-    off = torch.zeros((off_rows(info), nseg), dtype=torch.int64, device=dev)
+    off = torch.zeros(off_rows(info) * nseg, dtype=torch.int64, device=dev)
     for m in range(c):
         n_items = int(info[m, 1])
         k = key[m]
@@ -109,8 +126,8 @@ def partition_plain(values: torch.Tensor, info) -> Tuple[torch.Tensor, ...]:
                              minlength=nseg * n_items).view(nseg, n_items)
         first = torch.cat([torch.zeros((nseg, 1), dtype=torch.int64,
                                        device=dev), cnt.cumsum(1)], dim=1)
-        ib = int(info[m, 3])
-        off[ib: ib + n_items + 1] = first.t()
+        ib = int(info[m, 3]) * nseg
+        off[ib: ib + nseg * (n_items + 1)] = first.reshape(-1)
     return slot, val, off.to(torch.int32)
 
 
@@ -205,7 +222,7 @@ def partition(groups) -> List[Tuple[torch.Tensor, torch.Tensor,
             info = np.asarray(g["info"], np.int32)
             slot = torch.empty((c, s), dtype=torch.int32, device=dev)
             val = torch.empty((c, s), dtype=torch.int32, device=dev)
-            off = torch.empty((off_rows(info), nseg), dtype=torch.int32,
+            off = torch.empty(off_rows(info) * nseg, dtype=torch.int32,
                               device=dev)
             info_d = info_on(info, dev)
             ids = g.get("ids")
@@ -220,8 +237,51 @@ def partition(groups) -> List[Tuple[torch.Tensor, torch.Tensor,
             keep.append(info_d)
             blocks += c * nseg
             if c:
-                bins = max(bins, min(PART_MAX_BINS, int(info[:, 1].max())))
+                bins = max(bins, digit_bins(int(info[:, 1].max())))
             out.append((slot, val, off))
         kernels.launch("Part", b"".join(records), len(part), blocks, bins,
                        stream, keep=keep)
     return out
+
+
+class StepLists:
+    """The partition entries that one forward's lookups register for their
+    backward kernels (K3a's, K3b's and X1b's groups), listed by one launch
+    of Part for all of them: ``run``, which the executor calls once the
+    forward has queued every lookup, or else the first ``get`` of a
+    backward that finds its entry not yet listed.  The backward kernels
+    then launch no Part of their own.  An entry added after a run is
+    listed by the next one.  A lookup given none makes its own, which its
+    backward's first ``get`` lists."""
+
+    def __init__(self):
+        self._pending: List[Tuple[int, dict]] = []
+        self._lists: dict = {}
+
+    def add(self, entry: Optional[dict]) -> Optional[int]:
+        """Register ``entry`` (a ``partition`` group); returns its key, or
+        None for no entry or one on the CPU, whose plain backward versions
+        read no lists."""
+        src = None if entry is None else entry.get("ids", entry.get("raw"))
+        if src is None or src.device.type == "cpu":
+            return None
+        key = len(self._lists) + len(self._pending)
+        self._pending.append((key, entry))
+        return key
+
+    def run(self) -> None:
+        """List every pending entry: one launch of Part (up to
+        PART_MAX_GROUPS groups a launch)."""
+        if self._pending:
+            keys = [k for k, _ in self._pending]
+            got = partition([e for _, e in self._pending])
+            self._pending = []
+            self._lists.update(zip(keys, got))
+
+    def get(self, key: Optional[int]) -> Optional[Tuple[torch.Tensor, ...]]:
+        """The (slot, val, off) of the entry ``key``; None for None."""
+        if key is None:
+            return None
+        if key not in self._lists:
+            self.run()
+        return self._lists[key]

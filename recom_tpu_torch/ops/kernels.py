@@ -65,15 +65,13 @@ LIBRARIES = {
 
 # kernel id -> (library, C entry point, argtypes)
 KERNELS = {
-    "K1": ("onehot_lookup", "rt_onehot_lookup_f32",
-           [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "K1": ("onehot_lookup", "rt_onehot_lookup_f32", [_P, _I, _I, _P]),
     "K2": ("onehot_bucketize", "rt_onehot_bucketize_f32",
            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "X1": ("pooled_gather", "rt_pooled_gather_f32", [_P, _I, _I, _P]),
     # the stored-dtype variants: bf16 rows (K1, K2, X1) and int8 rows with
     # per-row f32 scales (X1), read as stored and pooled in f32
-    "K1-bf16": ("onehot_lookup", "rt_onehot_lookup_bf16",
-                [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "K1-bf16": ("onehot_lookup", "rt_onehot_lookup_bf16", [_P, _I, _I, _P]),
     "K2-bf16": ("onehot_bucketize", "rt_onehot_bucketize_bf16",
                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "X1-bf16": ("pooled_gather", "rt_pooled_gather_bf16", [_P, _I, _I, _P]),

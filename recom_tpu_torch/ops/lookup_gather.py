@@ -435,7 +435,7 @@ def _x1_library() -> None:
                            "differ in size")
 
 
-def groups_pooled(groups) -> List[torch.Tensor]:
+def groups_pooled(groups, lists=None) -> List[torch.Tensor]:
     """Pooled lookups of several groups, [Bp, C, d] f32 each.
 
     groups: one argument tuple of ``group_pooled`` per group (table, ids,
@@ -444,7 +444,9 @@ def groups_pooled(groups) -> List[torch.Tensor]:
     of kernel X1 (X1-bf16, X1-int8 for those stored dtypes) serves up to
     X1_MAX_GROUPS groups of one stored dtype.  Differentiable in each f32
     table (backward: ``groups_pooled_grad``, one launch of X1b for every
-    group)."""
+    group; ``lists``: an ``item_lists.StepLists`` that takes each such
+    group's partition entry, ``x1b_forward_entry``, for the step's one
+    launch of Part, or None: X1b's call lists them)."""
     groups = [tuple(g) for g in groups]
     for g in groups:
         _check_group(g[0], g[1], g[4] if len(g) > 4 else None)
@@ -453,7 +455,8 @@ def groups_pooled(groups) -> List[torch.Tensor]:
     if torch.is_grad_enabled() and any(
             isinstance(g[0], torch.Tensor) and g[0].requires_grad
             for g in groups):
-        return list(_GroupsPooled.apply(groups, *(g[0] for g in groups)))
+        return list(_GroupsPooled.apply(groups, lists,
+                                        *(g[0] for g in groups)))
     return _groups_pooled(groups)
 
 
@@ -949,6 +952,18 @@ def shares_rows(row_offsets, c: int) -> bool:
     return c > 1 and np.unique(np.asarray(offs)).size < c
 
 
+def shared_rows_ids(ids, row_offsets, vocab_caps=None) -> torch.Tensor:
+    """``shared_rows_grad_args``' ids, ``[C, Bp, L]``: each id clamped to
+    its cap and offset by its row offset (-1 stays)."""
+    dev = ids.device
+    c, bp, l = ids.shape
+    if vocab_caps is not None:
+        ids = torch.minimum(
+            ids, as_device(vocab_caps, torch.int32, dev)[:, None, None])
+    offs = as_device(row_offsets, torch.int32, dev)[:, None, None]
+    return torch.where(ids >= 0, ids + offs, torch.full_like(ids, -1))
+
+
 def shared_rows_grad_args(g, num_rows, ids, row_offsets, combiner_code,
                           weights=None, weighted_cols=None, vocab_caps=None):
     """The arguments of one group whose columns share rows, rewritten as
@@ -962,11 +977,7 @@ def shared_rows_grad_args(g, num_rows, ids, row_offsets, combiner_code,
     sparse ranges, each item reading only its own slots."""
     dev = ids.device
     c, bp, l = ids.shape
-    if vocab_caps is not None:
-        ids = torch.minimum(
-            ids, as_device(vocab_caps, torch.int32, dev)[:, None, None])
-    offs = as_device(row_offsets, torch.int32, dev)[:, None, None]
-    ids = torch.where(ids >= 0, ids + offs, torch.full_like(ids, -1))
+    ids = shared_rows_ids(ids, row_offsets, vocab_caps)
     dacc = combiner_cotangent(g, ids, _host_array(combiner_code), weights,
                               _weighted_mask(weighted_cols, weights, c))
     dacc = dacc.reshape(c * bp, 1, dacc.shape[2])
@@ -977,6 +988,26 @@ def shared_rows_grad_args(g, num_rows, ids, row_offsets, combiner_code,
     return (dacc, num_rows, ids, zero, zero, weights, flags, no_cap)
 
 
+def x1b_forward_entry(num_rows: int, d: int, ids, row_offsets,
+                      vocab_caps=None) -> dict:
+    """The partition's entry of one X1 group as its X1b will list it, made
+    in the forward, before any cotangent (``groups_pooled``' ``lists``):
+    the entry ``x1b_partition_groups`` makes from the same arguments."""
+    c, bp, l = ids.shape
+    if shares_rows(row_offsets, c):
+        ids = shared_rows_ids(ids, row_offsets, vocab_caps).reshape(
+            1, c * bp, l)
+        row_offsets, vocab_caps, _ = shared_rows_consts(1, str(ids.device))
+        c, bp = 1, c * bp
+    # the caps X1b's call makes (``_column_args``), with no host copy: a
+    # capture may be under way
+    caps = (shared_rows_consts(c, str(ids.device))[1] if vocab_caps is None
+            else as_device(vocab_caps, torch.int32, ids.device))
+    return _x1b_entry(ids.contiguous(), caps,
+                      _x1b_key(int(num_rows), int(d), row_offsets,
+                               vocab_caps, bp * l))
+
+
 def _one_column(grp):
     """A group's arguments, as one SUM column where its columns share rows
     (``shared_rows_grad_args``)."""
@@ -985,7 +1016,7 @@ def _one_column(grp):
     return grp
 
 
-def groups_pooled_grad(groups, out=None) -> List[torch.Tensor]:
+def groups_pooled_grad(groups, out=None, lists=None) -> List[torch.Tensor]:
     """d(table) [R, d] f32 of several groups: one argument tuple of
     ``group_pooled_grad`` per group, (g, num_rows, ids, row_offsets,
     combiner_code[, weights, weighted_cols, vocab_caps]), all on one
@@ -993,8 +1024,12 @@ def groups_pooled_grad(groups, out=None) -> List[torch.Tensor]:
     kernel X1b serves up to X1B_MAX_GROUPS groups, with no sort and no fill:
     the kernel writes every element once, into ``out`` (one [R, d] tensor a
     group) where given.  A group whose columns share rows (``shares_rows``)
-    is taken as one SUM column (``shared_rows_grad_args``)."""
+    is taken as one SUM column (``shared_rows_grad_args``).  ``lists``:
+    one entry a group, the (slot, val, off) that Part already wrote for its
+    ``x1b_forward_entry`` (the forward's launch) or None; Part then lists
+    only the groups left without."""
     checked = [_x1b_check(*_one_column(grp)) for grp in groups]
+    lists = [None] * len(checked) if lists is None else list(lists)
     if not checked:
         return []
     dev = checked[0][0].device
@@ -1015,16 +1050,21 @@ def groups_pooled_grad(groups, out=None) -> List[torch.Tensor]:
         made = [_x1b_group(a, None if out is None else out[i + k])
                 for k, a in enumerate(checked[i: i + X1B_MAX_GROUPS])]
         work = _x1b_work_on(tuple(k for _, k, _, _ in made), dev)
-        # each group's slots listed by work item (one launch of Part)
+        # each group's slots listed by work item (one launch of Part for
+        # the groups the forward did not list)
         entries = [_x1b_entry(keep[1], keep[3], key)
                    for _, key, _, keep in made]
-        parts = item_lists.partition(entries)   # held until X1b is queued
+        given = lists[i: i + X1B_MAX_GROUPS]
+        todo = [e for e, got in zip(entries, given) if got is None]
+        fresh = iter(item_lists.partition(todo))
+        # held until X1b is queued
+        parts = [next(fresh) if got is None else got for got in given]
         infos = [item_lists.info_on(e["info"], dev) for e in entries]
-        lists = b"".join(X1B_LISTS.pack(
+        packed = b"".join(X1B_LISTS.pack(
             slot.data_ptr(), val.data_ptr(), off.data_ptr(), slot.shape[1],
-            off.shape[1], info.data_ptr())
+            item_lists.segments(slot.shape[1]), info.data_ptr())
             for (slot, val, off), info in zip(parts, infos))
-        kernels.launch("X1b", b"".join(m[0] for m in made), len(made), lists,
+        kernels.launch("X1b", b"".join(m[0] for m in made), len(made), packed,
                        work.data_ptr(), work.shape[0],
                        kernels.stream_of(checked[i][0]),
                        keep=[work] + infos)
@@ -1054,20 +1094,31 @@ def group_pooled_grad(
 class _GroupsPooled(torch.autograd.Function):
     """X1 forward and X1b backward, each one launch for every group (the
     backward skips groups whose table needs no gradient).  Saves the
-    groups' ids, weights and per-column arguments, not their outputs."""
+    groups' ids, weights and per-column arguments, not their outputs;
+    where ``lists`` is given, each group that needs a gradient registers
+    its partition entry there (a ``StepLists`` of its own where none is
+    given), for the step's one launch of Part."""
 
     @staticmethod
-    def forward(ctx, groups, *tables):
+    def forward(ctx, groups, lists, *tables):
         ctx.groups = [(t.shape[0],) + tuple(grp[1:])
                       for t, grp in zip(tables, groups)]
+        ctx.lists = item_lists.StepLists() if lists is None else lists
+        ctx.keys = {k: ctx.lists.add(x1b_forward_entry(
+            t.shape[0], t.shape[1], grp[1], grp[2],
+            grp[6] if len(grp) > 6 else None))
+            for k, (t, grp) in enumerate(zip(tables, groups))
+            if isinstance(t, torch.Tensor) and t.requires_grad}
         return tuple(_groups_pooled(groups))
 
     @staticmethod
     def backward(ctx, *grads):
         need = [i for i, gr in enumerate(grads)
-                if ctx.needs_input_grad[1 + i] and gr is not None]
-        got = groups_pooled_grad([(grads[i],) + ctx.groups[i] for i in need])
-        out = [None] * (1 + len(grads))
+                if ctx.needs_input_grad[2 + i] and gr is not None]
+        args = [(grads[i],) + ctx.groups[i] for i in need]
+        got = groups_pooled_grad(args, lists=[
+            ctx.lists.get(ctx.keys.get(i)) for i in need])
+        out = [None] * (2 + len(grads))
         for i, gr in zip(need, got):
-            out[1 + i] = gr
+            out[2 + i] = gr
         return tuple(out)

@@ -51,12 +51,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from recom_tpu_torch.ops.item_lists import StepLists
 from recom_tpu_torch.ops.lookup_gather import (
     as_device,
     gather_rows_f32,
     group_pooled,
-    group_pooled_grad,
+    groups_pooled_grad,
     shared_rows_consts,
+    x1b_forward_entry,
 )
 from recom_tpu_torch.ops.quant import QuantizedTable
 from recom_tpu_torch.parallel.mesh import all_gather
@@ -195,26 +197,33 @@ class _OwnerGather(torch.autograd.Function):
     rows' cotangents into the stripe, the received ids taken as one SUM
     column of L = 1 over ``n`` batch rows (``group_pooled_grad``): one
     member of sparse ranges, each reading only the slots that land in it
-    (the partition pass lists them, ops/item_lists.py), so each row's
-    terms add in slot order (the stable sort of csrc/ordered_runs.cuh),
-    with no float atomics.  The unfilled slots (-1) add nothing: JAX adds
+    (the partition pass lists them, ops/item_lists.py; in the step's one
+    launch where ``lists``, an ``item_lists.StepLists``, is given, else in
+    its own), so each row's terms add in slot order (the stable sort of
+    csrc/ordered_runs.cuh), with no float atomics.  The unfilled slots (-1) add nothing: JAX adds
     their +0.0 cotangents to row 0, and X1b, whose sums start at +0.0,
     gives the same bits either way, without summing tens of thousands of
     zero terms into one row."""
 
     @staticmethod
-    def forward(ctx, table, recv):
+    def forward(ctx, table, recv, lists):
         ctx.save_for_backward(recv)
         ctx.rows = table.shape[0]
+        ctx.lists = StepLists() if lists is None else lists
+        zero, no_cap, _ = shared_rows_consts(1, str(recv.device))
+        ctx.key = ctx.lists.add(x1b_forward_entry(
+            table.shape[0], table.shape[1], recv.view(1, -1, 1), zero,
+            no_cap))
         return owner_rows(table, recv)
 
     @staticmethod
     def backward(ctx, g):
         (recv,) = ctx.saved_tensors
         zero, no_cap, flags = shared_rows_consts(1, str(g.device))
-        return group_pooled_grad(
-            g.contiguous()[:, None, :], ctx.rows, recv.view(1, -1, 1),
-            zero, zero, None, flags, no_cap), None
+        args = (g.contiguous()[:, None, :], ctx.rows, recv.view(1, -1, 1),
+                zero, zero, None, flags, no_cap)
+        return groups_pooled_grad([args], lists=[
+            ctx.lists.get(ctx.key)])[0], None, None
 
 
 class _RowsBack(torch.autograd.Function):
@@ -255,12 +264,14 @@ class _RowsBack(torch.autograd.Function):
 
 
 def a2a_exchange(mesh, table, route: Dict[str, torch.Tensor],
-                 chunks: int = 1, model_axis: str = "model") -> torch.Tensor:
+                 chunks: int = 1, model_axis: str = "model",
+                 lists=None) -> torch.Tensor:
     """The two exchanges of a routed batch: the ids out, the owners' rows
     (f32) back.  Returns the receive buffer ``[m * cap + 1, d]`` f32, its
     last row zero, laid out as ``chunked_positions`` says.  Differentiable
     in an f32 ``table`` that requires grad (``_OwnerGather``,
-    ``_RowsBack``)."""
+    ``_RowsBack``; ``lists``: an ``item_lists.StepLists`` that takes the
+    owner's scatter's entry, or None)."""
     m = mesh.shape[model_axis]
     cap = route["cap"]
     d = _dim_of(table)
@@ -268,7 +279,7 @@ def a2a_exchange(mesh, table, route: Dict[str, torch.Tensor],
     chunks = a2a_chunks(cap, chunks)
     if isinstance(table, torch.Tensor) and table.requires_grad and \
             torch.is_grad_enabled():
-        rows = _OwnerGather.apply(table, recv.reshape(-1))
+        rows = _OwnerGather.apply(table, recv.reshape(-1), lists)
     else:
         rows = owner_rows(table, recv.reshape(-1))
     return _RowsBack.apply(rows.reshape(m, cap, d), mesh, model_axis, chunks)

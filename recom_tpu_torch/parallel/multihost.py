@@ -15,13 +15,16 @@ process drives all of its host's devices; here every device is one rank
     rank's memory
   * gather_to_host(): every rank's piece of a result, on every rank
   * init_from_env() and spawn(): a world from torchrun's environment, or
-    ``n`` local ranks started with that environment (the tools' ``--spawn
-    N``)
+    ``n`` local ranks started by ``spawn`` (the tools' ``--spawn N``),
+    which meet through a ``FileStore`` in a fresh temporary directory, so
+    that worlds started at once never race for a port
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,12 +55,22 @@ def init(coordinator: str, num_processes: int, process_id: int,
                             world_size=num_processes, rank=process_id)
 
 
+# the environment variable through which ``spawn`` hands its ranks the
+# store they meet at (a ``file://`` init method)
+SPAWN_INIT = "RECOM_TORCH_INIT_METHOD"
+
+
 def init_from_env(backend: Optional[str] = None) -> None:
-    """Join the default process group from torchrun's environment
-    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; ``spawn``
-    sets the same); a no-op once a group exists.  Raises where the
-    environment names no world."""
+    """Join the default process group from the environment: a rank that
+    ``spawn`` started meets its world at the store it was given
+    (``RECOM_TORCH_INIT_METHOD``); otherwise torchrun's ``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``.  A no-op once a
+    group exists.  Raises where the environment names no world."""
     if dist.is_initialized():
+        return
+    if SPAWN_INIT in os.environ:
+        init(os.environ[SPAWN_INIT], int(os.environ["WORLD_SIZE"]),
+             int(os.environ["RANK"]), backend)
         return
     need = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
     missing = [k for k in need if k not in os.environ]
@@ -69,41 +82,37 @@ def init_from_env(backend: Optional[str] = None) -> None:
          int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]), backend)
 
 
-def free_port() -> int:
-    """A TCP port on localhost that is free now."""
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def spawn(argv: Sequence[str], n: int, timeout_s: float = 1200.0):
-    """Run ``python argv...`` as ``n`` local ranks with torchrun's
-    environment (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``,
-    ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` localhost, ``MASTER_PORT`` a free
-    port), and wait for them: [(return code, output)] in rank order.  A
-    rank that has not ended when the first failure is seen, or at the time
-    limit, is killed."""
+    """Run ``python argv...`` as ``n`` local ranks (``RANK``,
+    ``LOCAL_RANK``, ``WORLD_SIZE``, ``LOCAL_WORLD_SIZE`` as torchrun sets
+    them), and wait for them: [(return code, output)] in rank order.  The
+    ranks meet through a ``FileStore`` in a temporary directory of this
+    call's own (``RECOM_TORCH_INIT_METHOD``, read by ``init_from_env``):
+    no port is picked, freed and bound again, so worlds spawned at once
+    cannot take each other's.  A rank that has not ended when the first
+    failure is seen, or at the time limit, is killed; the directory is
+    removed."""
     import subprocess
     import sys
+    import threading
     import time
 
-    port = free_port()
+    where = tempfile.mkdtemp(prefix="recom_torch_world_")
+    store = "file://" + os.path.join(where, "store")
     procs = []
-    for r in range(n):
-        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
-                   WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
-                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
-        procs.append(subprocess.Popen(
-            [sys.executable] + list(argv), env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    import threading
-
     outs = [None] * n
-    deadline = time.monotonic() + timeout_s
     threads = []
     try:
+        for r in range(n):
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("MASTER_ADDR", "MASTER_PORT")}
+            env.update(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(n),
+                       LOCAL_WORLD_SIZE=str(n), **{SPAWN_INIT: store})
+            procs.append(subprocess.Popen(
+                [sys.executable] + list(argv), env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout_s
+
         def drain(i):
             outs[i] = procs[i].communicate()[0].decode(errors="replace")
 
@@ -122,6 +131,7 @@ def spawn(argv: Sequence[str], n: int, timeout_s: float = 1200.0):
                 p.kill()
         for t in threads:
             t.join(timeout=30)
+        shutil.rmtree(where, ignore_errors=True)
     return [(p.returncode, o or "") for p, o in zip(procs, outs)]
 
 

@@ -52,10 +52,13 @@ from recom_tpu_torch.compiler.pipeline import run_passes
 from recom_tpu_torch.config import EngineConfig
 from recom_tpu_torch.ir.spec import ModelSpec
 from recom_tpu_torch.ops.lookup_gather import device_bucketize, groups_pooled
+from recom_tpu_torch.ops.item_lists import StepLists
 from recom_tpu_torch.ops.lookup_onehot import (
+    Searched,
     bucket_bounds,
     onehot_bucketize_lookup,
     onehot_lookups,
+    searched_bounds,
 )
 from recom_tpu_torch.ops.quant import QuantizedTable, quantize_rows_chunked
 from recom_tpu_torch.parallel.all_to_all_lookup import (
@@ -737,6 +740,17 @@ class Engine:
                 if g.lut_matrix is not None:
                     c["lut"] = torch.as_tensor(g.lut_matrix,
                                                dtype=torch.int32, device=dev)
+            if self._onehot(g) and g.n_bucketize and \
+                    not self._fused_bucketize(g):
+                # the bucketize members K1 searches in its id read
+                # (``Searched``): their bounds and the id LUT
+                hi, cnts, lut = searched_bounds(g.boundary_matrix,
+                                                g.boundary_counts,
+                                                g.lut_matrix)
+                c["k1_hi"] = torch.from_numpy(hi).to(dev)
+                c["k1_counts"] = torch.from_numpy(cnts).to(dev)
+                if lut is not None:
+                    c["k1_lut"] = torch.from_numpy(lut).to(dev)
             if self._fused_bucketize(g):
                 # K2's interval arrays, sized like the group's table3
                 c_pad = int(self.device_params["stacked"][str(g.gid)].shape[0])
@@ -817,6 +831,11 @@ class Engine:
         routed = []             # (slot, group, route, weights)
         onehots = []            # (slot, onehot_lookup args)
         m_ax, k = self._model_split()
+        # under autograd on the card: every backward kernel's entries,
+        # listed by one launch of Part once the lookups are queued
+        plan = (StepLists() if torch.is_grad_enabled()
+                and self.device.type == "cuda" else None)
+        listed = {} if plan is None else {"lists": plan}
         for g, packed in zip(self.compiled.groups, arrays["groups"]):
             c = self._consts[g.gid]
             table = self.device_params["stacked"][str(g.gid)]
@@ -825,8 +844,23 @@ class Engine:
                 # materializes ids (recom_tpu/runtime/executor.py:452-476)
                 pooled_list.append(onehot_bucketize_lookup(
                     table, packed["raw_bz"], c["bz_lo"],
-                    c["bz_hi"], c["bz_counts"],
+                    c["bz_hi"], c["bz_counts"], **listed,
                 ))
+                continue
+            if "k1_hi" in c and "raw_bz" in packed:
+                # the raw [n_bz, Bp] plane and the host ids as staged: K1
+                # searches the bucketize members in its id read
+                # (recom_tpu/runtime/executor.py:482-505)
+                host = packed.get("host_ids")
+                host = (torch.empty((0, packed["raw_bz"].shape[1]),
+                                    dtype=torch.int32, device=table.device)
+                        if host is None else
+                        host[:, :, 0].to(torch.int32).contiguous())
+                onehots.append((len(pooled_list), (
+                    table, host, c["caps"], Searched(
+                        packed["raw_bz"].contiguous(), c["k1_hi"],
+                        c["k1_counts"], c.get("k1_lut")))))
+                pooled_list.append(None)
                 continue
             ids, weights = self.group_ids(g, packed)
             if weights is not None:
@@ -857,27 +891,29 @@ class Engine:
                     table, ids, c["row_offsets"], c["codes"], weights,
                     c["weighted"], c["caps"],
                 )))
-        # K1 a one-hot group; under autograd one K3a launch for them all
+        # every one-hot group in one launch of K1; under autograd one K3a
+        # launch for them all
         for (slot, _), pooled in zip(
-                onehots, onehot_lookups([a for _, a in onehots])):
+                onehots, onehot_lookups([a for _, a in onehots], **listed)):
             pooled_list[slot] = pooled
         # every gather group in one launch of X1
         for (slot, _), pooled in zip(
-                gathers, groups_pooled([a for _, a in gathers])):
+                gathers, groups_pooled([a for _, a in gathers], **listed)):
             pooled_list[slot] = pooled
         overflow = None
         if routed:
             model = self._axes()[1]
             chunks = self.config.a2a_chunks
             bufs = [a2a_exchange(self.mesh, self.device_params["stacked"][
-                str(g.gid)], route, chunks, model)
+                str(g.gid)], route, chunks, model, **listed)
                 for _, g, route, _ in routed]
             # the returned rows of every exchanged group in one more launch
             consts = [self._consts[g.gid] for _, g, _, _ in routed]
             mine = groups_pooled([
                 pool_args(buf, route, m_ax, chunks, c["codes"], w,
                           c["weighted"], k)
-                for buf, c, (_, _, route, w) in zip(bufs, consts, routed)])
+                for buf, c, (_, _, route, w) in zip(bufs, consts, routed)],
+                **listed)
             for (slot, _, _, _), p in zip(routed, mine):
                 pooled_list[slot] = all_gather(self.mesh, p, model).flatten(
                     0, 1)
@@ -892,6 +928,8 @@ class Engine:
             # [m, b, C, d/m] -> [b, C, m, d/m] -> [b, C, d]
             parts = all_gather(self.mesh, pooled_list[slot], self._axes()[1])
             pooled_list[slot] = parts.permute(1, 2, 0, 3).flatten(2)
+        if plan is not None:
+            plan.run()
         # the concats only once every group has pooled: a mul_column post
         # reads another column's raw pooled output, from any group
         col_pooled = None

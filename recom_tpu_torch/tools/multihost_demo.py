@@ -101,10 +101,9 @@ def main(argv=None):
     if args.spawn:
         from recom_tpu_torch.parallel import multihost
 
-        port = multihost.free_port()
         res = multihost.spawn(
-            ["-m", "recom_tpu_torch.tools.multihost_demo", "--coordinator",
-             f"localhost:{port}", "--num-processes", str(args.spawn),
+            ["-m", "recom_tpu_torch.tools.multihost_demo",
+             "--num-processes", str(args.spawn),
              "--backend", args.backend or "gloo", "--device",
              args.device or "cuda:0", "--process-id", "-1"], args.spawn)
         ok = True
@@ -118,13 +117,14 @@ def main(argv=None):
 
     if args.process_id is None:
         raise SystemExit("--process-id required (or --spawn)")
-    pid = args.process_id
-    if pid < 0:                      # a spawned rank: its RANK
+    pid, coordinator = args.process_id, args.coordinator
+    if pid < 0:                      # a spawned rank: its RANK and store
         import os
 
-        pid = int(os.environ["RANK"])
-    worker(args.coordinator, args.num_processes, pid, args.device,
-           args.backend)
+        from recom_tpu_torch.parallel.multihost import SPAWN_INIT
+
+        pid, coordinator = int(os.environ["RANK"]), os.environ[SPAWN_INIT]
+    worker(coordinator, args.num_processes, pid, args.device, args.backend)
 
 
 if __name__ == "__main__":

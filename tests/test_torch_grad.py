@@ -30,7 +30,7 @@ from recom_tpu.ops import lookup_xla
 from recom_tpu.ops.lookup_pallas import bucket_bounds as j_bucket_bounds
 from recom_tpu.ops.lookup_pallas import onehot_bucketize_lookup as j_k2
 from recom_tpu.ops.lookup_pallas import onehot_lookup as j_k1
-from recom_tpu_torch.ops import kernels
+from recom_tpu_torch.ops import item_lists, kernels
 from recom_tpu_torch.ops import lookup_gather as tg
 from recom_tpu_torch.ops import lookup_onehot as tk
 
@@ -466,9 +466,9 @@ def test_groups_pooled_backward_is_one_call(monkeypatch):
     calls = []
     real = tg.groups_pooled_grad
 
-    def spy(entries, out=None):
+    def spy(entries, out=None, lists=None):
         calls.append(len(entries))
-        return real(entries, out)
+        return real(entries, out, lists)
 
     monkeypatch.setattr(tg, "groups_pooled_grad", spy)
     tables = [torch.zeros((x["rows"], x["g"].shape[2]),
@@ -518,6 +518,34 @@ def test_x1b_one_launch_for_every_group_on_card(cuda):
     got = tg.groups_pooled_grad(dev)
     torch.cuda.synchronize()
     assert kernels.launches["X1b"] == before + 1
+    for gr, w in zip(got, want):
+        assert _equal_bits(gr, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given", ["none", "all", "some"])
+def test_x1b_more_groups_than_a_launch_on_card(cuda, given):
+    """Twelve groups in one call, past X1B_MAX_GROUPS: two launches of
+    X1b, each group == its plain version, whether Part's lists come from
+    the call (one launch of Part a launch of X1b), from a partition made
+    beforehand, as the forward's ``StepLists`` makes it, or for every
+    other group only."""
+    groups = [x for seed in (15, 16, 17, 18) for x in _x1b_groups(seed)]
+    assert len(groups) > tg.X1B_MAX_GROUPS
+    want = [tg.group_pooled_grad_plain(*_x1b_args(x)) for x in groups]
+    dev = [tuple(a.to(cuda) if isinstance(a, torch.Tensor) else a
+                 for a in _x1b_args(x)) for x in groups]
+    made = item_lists.partition(tg.x1b_partition_groups(dev))
+    lists = {"none": None, "all": made,
+             "some": [p if k % 2 else None for k, p in enumerate(made)]}
+    torch.cuda.synchronize()
+    before = dict(kernels.launches)
+    got = tg.groups_pooled_grad(dev, lists=lists[given])
+    torch.cuda.synchronize()
+    launches = -(-len(groups) // tg.X1B_MAX_GROUPS)
+    assert kernels.launches["X1b"] == before["X1b"] + launches
+    assert kernels.launches["Part"] == before["Part"] + (
+        0 if given == "all" else launches)
     for gr, w in zip(got, want):
         assert _equal_bits(gr, w)
 

@@ -45,7 +45,7 @@ def _definition(values, info):
     nseg = il.segments(s)
     slot = np.full((c, s), -1, np.int64)
     val = np.full((c, s), -1, np.int64)
-    off = np.zeros((il.off_rows(info), nseg), np.int64)
+    off = np.zeros(il.off_rows(info) * nseg, np.int64)
     for m in range(c):
         unit, items, lim, ibase = (int(x) for x in info[m])
         for sg in range(nseg):
@@ -59,7 +59,8 @@ def _definition(values, info):
                 val[m, lo + p] = values[m, e]
             keys = [k for k, _ in mine]
             for i in range(items + 1):
-                off[ibase + i, sg] = sum(k < i for k in keys)
+                off[il.off_at(info, nseg, m, i, sg)] = sum(k < i
+                                                           for k in keys)
     return slot, val, off
 
 
@@ -108,8 +109,24 @@ def test_partition_plain_edge_inputs(case):
         values = values[:, :0]
     slot, val, off = _check(values, il.member_info(units, items, lims))
     if case == "one item":
-        assert (slot.numpy()[:, :4096] == np.arange(4096)).all()
-        assert (off.numpy()[1:7, 0] == [0, 4096, 4096, 4096, 4096, 4096]).all()
+        seg = il.PART_SEG
+        assert (slot.numpy()[:, :seg] == np.arange(seg)).all()
+        # member 0's offsets of its first segment: one contiguous row
+        assert (off.numpy()[1:7] == [0] + [seg] * 5).all()
+
+
+@pytest.mark.parametrize("items,bins", [
+    (256, 256),             # model E's large X1b member: its items
+    (4000, 4000),           # more items than a segment's entries
+    (79, 79),               # Criteo's K3a tiles
+    (5000, 4096),           # past one pass: 12-bit digits
+    (3, 3), (0, 1), (9000, 4096)])
+def test_digit_bins_cover_every_pass(items, bins):
+    """The shared memory a launch takes: no pass of a block's sort uses
+    more bins than ``digit_bins`` (one pass of a bin an item up to 4096
+    items, 12-bit digits past them)."""
+    assert il.digit_bins(items) == bins
+    assert min(items, il.PART_MAX_BINS) <= bins <= il.PART_MAX_BINS
 
 
 def test_partition_of_clamped_ids_and_buckets():
@@ -288,9 +305,9 @@ def test_onehot_lookups_backward_is_one_call(monkeypatch):
     calls = []
     real = tk.onehot_lookups_grad
 
-    def spy(groups):
+    def spy(groups, lists=None):
         calls.append(len(groups))
-        return real(groups)
+        return real(groups, lists)
 
     monkeypatch.setattr(tk, "onehot_lookups_grad", spy)
     tables = [torch.from_numpy(t3).requires_grad_(k != 1)
