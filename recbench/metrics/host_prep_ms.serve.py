@@ -1,0 +1,7 @@
+"""Mean milliseconds of one request's ``Engine.prepare``: host prep."""
+
+from recbench.readers import span_mean_ms
+
+
+def read(run):
+    return span_mean_ms(run, "serve", "prepare")
