@@ -468,12 +468,12 @@ def check_micro(ref, out, bs: int) -> None:
 def latency(torch, eng, name: str, cases) -> None:
     """Median ``predict`` latency (host clock, 10 calls), its stages, and
     the device forward alone (CUDA events), for each (batch size, batch)."""
-    from recom_tpu_torch.utils.logging import StageTimer
+    from recom_tpu_torch.utils import spans
 
     for bs, batch in cases:
         for _ in range(2):
             eng.predict(batch)
-        eng.timers = StageTimer()
+        spans.enable()
         lat = []
         for _ in range(10):
             t = time.perf_counter()
@@ -482,7 +482,8 @@ def latency(torch, eng, name: str, cases) -> None:
         log(f"{name}: predict latency batch {bs}: median "
             f"{statistics.median(lat):.3f} ms (min {min(lat):.3f}, max "
             f"{max(lat):.3f}, 10 calls; host prep + H2D + device + D2H)")
-        stages = eng.timers.summary()
+        stages = spans.summary()
+        spans.disable()
         log(f"  stage p50 ms (host clock): " + ", ".join(
             f"{k} {v['p50_ms']}" for k, v in sorted(stages.items())))
         prep = eng.prepare(batch)
@@ -5129,6 +5130,14 @@ def stripe_sample_initial(eng, params, sample) -> "np.ndarray":
     return out
 
 
+def collectives_p50(spans) -> dict:
+    """{"<collective>/<axis>": p50 ms} of the span recorder's collective
+    spans (each a host enqueue)."""
+    return {k[len("collective."):]: v["p50_ms"]
+            for k, v in spans.summary().items()
+            if k.startswith("collective.")}
+
+
 def mesh_train_layout(torch, rank: int, label: str, shape, cfg, gate: str,
                       mesh, model, params, ref) -> dict:
     """One training layout on this rank: the mesh Trainer stepped on the
@@ -5142,7 +5151,7 @@ def mesh_train_layout(torch, rank: int, label: str, shape, cfg, gate: str,
     from recom_tpu_torch import EngineConfig, Trainer
     from recom_tpu_torch.ops import kernels
     from recom_tpu_torch.train import dlrm_optimizer, param_leaves
-    from recom_tpu_torch.utils.logging import StageTimer
+    from recom_tpu_torch.utils import spans
 
     t = time.perf_counter()
     tr = Trainer(model, EngineConfig(mesh_shape=shape, **cfg),
@@ -5151,7 +5160,7 @@ def mesh_train_layout(torch, rank: int, label: str, shape, cfg, gate: str,
     torch.cuda.synchronize()
     rec = {"build_s": time.perf_counter() - t}
     want = mesh_train_launches(cfg)
-    mesh.timers = StageTimer()
+    spans.enable()
     torch.cuda.reset_peak_memory_stats()
     losses, parts, counts = [], [], []
     for i, (b, lab) in enumerate(zip(ref["batches"], ref["labels"])):
@@ -5186,8 +5195,8 @@ def mesh_train_layout(torch, rank: int, label: str, shape, cfg, gate: str,
             rec["grads"] = mesh_train_checks(torch, tr, ref,
                                              f"rank {rank} {label}", 1)
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    rec["collectives"] = {kk: v["p50_ms"]
-                          for kk, v in mesh.timers.summary().items()}
+    rec["collectives"] = collectives_p50(spans)
+    spans.disable()
     what = f"rank {rank} {label}"
     d_ax = shape[0]
     if gate == "==" and losses[0] == ref["losses"][0]:
@@ -5471,7 +5480,7 @@ def mesh_rank_work(torch, rank: int, world: int, path: str) -> dict:
     from recom_tpu_torch.ops import kernels
     from recom_tpu_torch.parallel import make_mesh
     from recom_tpu_torch.runtime.executor import Engine
-    from recom_tpu_torch.utils.logging import StageTimer
+    from recom_tpu_torch.utils import spans
 
     params, batches, refs = load_mesh_inputs(path)
     model = make_model_e(seed=0)
@@ -5507,13 +5516,13 @@ def mesh_rank_work(torch, rank: int, world: int, path: str) -> dict:
             # on the host), and each collective's wall time
             prep = eng.prepare(batch)
             on_dev = eng.to_device(prep)
-            mesh.timers = StageTimer()
+            spans.enable()
             with torch.inference_mode():
                 rec[f"forward_ms_{bs}"] = time_ms(
                     torch, lambda: eng._forward(on_dev, prep.signature),
                     iters=5, warmup=2, queued=False)
-            rec[f"collectives_{bs}"] = {
-                k: v["p50_ms"] for k, v in mesh.timers.summary().items()}
+            rec[f"collectives_{bs}"] = collectives_p50(spans)
+            spans.disable()
         if label == MESH_MAIN:
             out.update(mesh_main_extras(torch, eng, model, params, batches,
                                         refs, rank))

@@ -10,7 +10,8 @@ It builds full-size model E (random weights from seed 0) with the default
 ``EngineConfig()`` on the card; then, for ROUNDS rounds, for batch 512 and
 2048 in turn, it makes two warm-up calls and times CALLS calls of
 ``Engine.predict`` on the host clock.  For each round and batch it prints
-the median ``predict`` latency and the stage p50s of ``Engine.timers``.
+the median ``predict`` latency and the p50 of each span the port records
+(``recom_tpu_torch.utils.spans``, on while the calls are timed).
 The package it times is the one beside the script, so to compare two trees
 in the same process state, copy the script into the other checkout and run
 the two in turns.  The last line is one JSON object: per batch size, the
@@ -37,7 +38,7 @@ def main() -> int:
     from recom_tpu_torch import EngineConfig
     from recom_tpu_torch.models import make_model_e, make_random_batch
     from recom_tpu_torch.runtime.executor import Engine
-    from recom_tpu_torch.utils.logging import StageTimer
+    from recom_tpu_torch.utils import spans
     from recom_tpu_torch.utils.params import init_model_params
 
     model = make_model_e(seed=0)
@@ -50,14 +51,15 @@ def main() -> int:
         for bs, batch in batches.items():
             for _ in range(2):
                 eng.predict(batch)
-            eng.timers = StageTimer()
+            spans.enable()
             lat = []
             for _ in range(CALLS):
                 t = time.perf_counter()
                 eng.predict(batch)
                 lat.append((time.perf_counter() - t) * 1e3)
             medians[bs].append(statistics.median(lat))
-            stages = eng.timers.summary()
+            stages = spans.summary()
+            spans.disable()
             print(f"round {r} batch {bs}: predict median "
                   f"{medians[bs][-1]:.3f} ms (min {min(lat):.3f}, max "
                   f"{max(lat):.3f}, {CALLS} calls); stage p50 ms: "

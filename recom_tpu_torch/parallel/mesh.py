@@ -12,8 +12,10 @@ backend, and one process subgroup for each data row (the ranks that
 share a data index: the "model" axis's collectives) and each model
 column (the "data" axis's), plus one over all of its ranks.  Its
 ``all_reduce``, ``all_gather`` and ``all_to_all`` run over one axis (or
-all of it), skip a group of one rank, and add each call's wall time to
-``timers`` under ``<collective>/<axis>``.
+all of it), skip a group of one rank, and record each call as the span
+``collective.<collective>/<axis>`` while the span recorder
+(``utils/spans``) is on: the host's time to enqueue it, which under NCCL is
+not the card's time to run it.
 
 Backends: NCCL by default where each rank has its own card, gloo for
 ``device="cpu"``.  NCCL refuses two ranks on one card ("Duplicate GPU
@@ -41,14 +43,13 @@ already.
 from __future__ import annotations
 
 import os
-import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from recom_tpu_torch.utils.logging import StageTimer
+from recom_tpu_torch.utils import spans
 
 
 def mesh_shape(shape: Optional[Sequence[int]], world: int) -> Tuple[int, int]:
@@ -106,7 +107,6 @@ class Mesh:
         self.rank = dist.get_rank()
         self.device = device
         self.backend = backend
-        self.timers = StageTimer()
         # dist.new_group is collective over the default group: every rank
         # creates every subgroup, in this order, even those it is not in
         rows = [dist.new_group([r * m + k for k in range(m)], backend=backend)
@@ -129,10 +129,10 @@ class Mesh:
         return self.coords[self.axis_names.index(axis)]
 
     def _timed(self, name: str, axis, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        self.timers.add(f"{name}/{axis or 'world'}", time.perf_counter() - t0)
-        return out
+        if not spans.enabled():
+            return fn()
+        with spans.span(f"collective.{name}/{axis or 'world'}"):
+            return fn()
 
     def all_reduce(self, x: torch.Tensor,
                    axis: Optional[str]) -> torch.Tensor:

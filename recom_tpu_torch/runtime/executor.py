@@ -76,9 +76,10 @@ from recom_tpu_torch.parallel.sharded_lookup import (
 )
 from recom_tpu_torch.runtime.graphs import CudaCapture, Program
 from recom_tpu_torch.runtime.host_prep import PreparedBatch, prepare_batch
+from recom_tpu_torch.utils import spans
 from recom_tpu_torch.utils.device import resolve_device
 from recom_tpu_torch.utils.params import init_model_params
-from recom_tpu_torch.utils.tree import tree_map
+from recom_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
 _MALLOC_TUNED = False
@@ -305,6 +306,11 @@ def mlp_apply(layers, x, activation: str, final_activation):
     return x
 
 
+def _nbytes(tree) -> int:
+    """The bytes of the tensors of ``tree``."""
+    return sum(t.nbytes for t in tree_leaves(tree))
+
+
 def _pinned_copy(x):
     """A non-blocking copy of device tensor(s) ``x`` (a tensor or a list of
     them) into pinned host memory."""
@@ -327,19 +333,23 @@ class InFlight:
     the events follow; ``a2a_overflow``: on a mesh, the ids the all-to-all
     exchange dropped (summed over every rank), and ``recomputed``: whether
     the forward was then run again losslessly.  The staged input tensors
-    are held until ``result()`` returns."""
+    are held until ``result()`` returns.  ``timing``: while the span
+    recorder is on, on the card, (the dispatch's span, CUDA events before
+    and after its replay), read into a ``device.forward`` span once the
+    forward is done; else None."""
 
-    def __init__(self, engine, outputs, host, event, staged, seq, t0,
-                 a2a_overflow: int = 0, recomputed: bool = False):
+    def __init__(self, engine, outputs, host, event, staged, seq,
+                 a2a_overflow: int = 0, recomputed: bool = False,
+                 timing=None):
         self.engine = engine
         self.outputs = outputs
         self.host = host
         self.event = event
         self.staged = staged
         self.seq = seq
-        self._t0 = t0
         self.a2a_overflow = a2a_overflow
         self.recomputed = recomputed
+        self.timing = timing
 
     def check_overflow(self) -> int:
         """Apply ``a2a_overflow_policy`` to a dispatch that dropped ids
@@ -357,9 +367,15 @@ class InFlight:
         return self.a2a_overflow
 
     def wait(self) -> None:
-        """Block until the forward and its copies are done."""
+        """Block until the forward and its copies are done (and record the
+        forward's device time, where it was timed)."""
         if self.event is not None:
             self.event.synchronize()
+        if self.timing is not None:
+            parent, t0, t1 = self.timing
+            self.timing = None
+            spans.device(("device.forward",), (t0.elapsed_time(t1),),
+                         spans.now(), parent)
 
     def result(self) -> Dict[str, np.ndarray]:
         """Wait, then the numpy outputs ``predict_prepared`` returns:
@@ -383,9 +399,6 @@ class InFlight:
                 col: groups[gid][:, idx, :]
                 for col, (gid, idx) in eng.compiled.column_slot.items()
             }
-        if self._t0 is not None:
-            eng.timers.add("device_step", time.perf_counter() - self._t0)
-            self._t0 = None
         self.staged = None
         return result
 
@@ -424,6 +437,10 @@ class Engine:
         device=None,
         mesh=None,
     ):
+        with spans.span("engine.init"):
+            self._init(model, config, params, device, mesh)
+
+    def _init(self, model, config, params, device, mesh) -> None:
         self.config = config or EngineConfig()
         cfg = self.config
         self.mesh = self._make_mesh(mesh, device)
@@ -434,8 +451,10 @@ class Engine:
         # the f32 oracle; both switches off (cuDNN's is on by default)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.model, self.pass_report = run_passes(model, cfg)
-        self.compiled: CompiledModel = lower_model(self.model, cfg)
+        with spans.span("engine.passes"):
+            self.model, self.pass_report = run_passes(model, cfg)
+        with spans.span("engine.lowering"):
+            self.compiled: CompiledModel = lower_model(self.model, cfg)
         self._fold_emb_perm = folds_emb_perm(self.model.tower,
                                              self.compiled.total_emb_dim)
         self._sharded_gids, self._dim_sharded_gids = self._shard_groups()
@@ -450,19 +469,22 @@ class Engine:
         # stream
         self._dispatch_lock = threading.Lock()
 
-        np_params = params if params is not None else init_model_params(model)
-        self.device_params = self._build_device_params(np_params)
-        self._consts = self._build_group_consts()
-        self._post_consts = self._build_post_consts()
-        self._has_mul_column = any(
-            p.op == "mul_column" for g in self.compiled.groups
-            for m in g.members for p in m.column.post)
-        # the model-order permutation of the grouped embeddings, on the
-        # device once (_model_order)
-        self._emb_perm = torch.as_tensor(self.compiled.emb_perm,
-                                         dtype=torch.int64,
-                                         device=self.device)
-        self._triu = self._build_triu()
+        with spans.span("engine.device_params"):
+            np_params = (params if params is not None
+                         else init_model_params(model))
+            self.device_params = self._build_device_params(np_params)
+        with spans.span("engine.consts"):
+            self._consts = self._build_group_consts()
+            self._post_consts = self._build_post_consts()
+            self._has_mul_column = any(
+                p.op == "mul_column" for g in self.compiled.groups
+                for m in g.members for p in m.column.post)
+            # the model-order permutation of the grouped embeddings, on the
+            # device once (_model_order)
+            self._emb_perm = torch.as_tensor(self.compiled.emb_perm,
+                                             dtype=torch.int64,
+                                             device=self.device)
+            self._triu = self._build_triu()
         self._rowlen_hints: Dict[int, int] = {}
         # (signature, mode) -> its captured Program on one card; -> None
         # (a signature served eagerly) on the CPU and on a mesh
@@ -470,11 +492,14 @@ class Engine:
         self._capture = (CudaCapture(self.device)
                          if self.device.type == "cuda" and self.mesh is None
                          else None)
-        self.stats = {"calls": 0, "compiles": 0}
-        from recom_tpu_torch.utils.logging import Logger, StageTimer
+        # h2d_bytes: the bytes staged for the device; d2h_bytes: those of
+        # the outputs fetched to the host (each added under the dispatch
+        # lock, or by the one thread that trains)
+        self.stats = {"calls": 0, "compiles": 0, "h2d_bytes": 0,
+                      "d2h_bytes": 0}
+        from recom_tpu_torch.utils.logging import Logger
 
         self.log = Logger("engine", cfg.log_verbosity or None)
-        self.timers = StageTimer()
         for s in self.pass_report.stages:
             self.log.vlog(f"pass {s}")
 
@@ -1066,7 +1091,9 @@ class Engine:
     def to_device(self, prepared: PreparedBatch) -> Dict:
         """The prepared host arrays as device tensors (``_stage``, then
         ``_on_device``)."""
-        return self._on_device(self._stage(prepared)[0])
+        arrays = self._stage(prepared)[0]
+        self.stats["h2d_bytes"] += _nbytes(arrays)
+        return self._on_device(arrays)
 
     def _on_device(self, arrays: Dict) -> Dict:
         """``_stage``'s arrays on the engine's device: from pinned memory
@@ -1129,23 +1156,26 @@ class Engine:
 
     # ------------------------------------------------------------------
     def prepare(self, batch: Dict, batch_size: Optional[int] = None):
-        """prepare_batch with the engine's cached per-group rowlen hints."""
-        if self._wire:
-            from recom_tpu_torch.runtime.wire import prepare_batch_wire
+        """prepare_batch with the engine's cached per-group rowlen hints:
+        host prep, the span ``prepare`` (on the wire, with its ``prep.*``
+        stages under it while the recorder is on)."""
+        with spans.span("prepare"):
+            if self._wire:
+                from recom_tpu_torch.runtime.wire import prepare_batch_wire
 
-            prepared = prepare_batch_wire(
-                self.compiled, batch, batch_size,
-                rowlen_hints=self._rowlen_hints,
-                timers=self.timers,
-            )
-        else:
-            prepared = prepare_batch(
-                self.compiled, batch, batch_size,
-                rowlen_hints=self._rowlen_hints,
-            )
-        for g, rl in zip(self.compiled.groups, prepared.rowlens):
-            if g.ragged:
-                self._rowlen_hints[g.gid] = rl
+                prepared = prepare_batch_wire(
+                    self.compiled, batch, batch_size,
+                    rowlen_hints=self._rowlen_hints,
+                    timers=spans if spans.enabled() else None,
+                )
+            else:
+                prepared = prepare_batch(
+                    self.compiled, batch, batch_size,
+                    rowlen_hints=self._rowlen_hints,
+                )
+            for g, rl in zip(self.compiled.groups, prepared.rowlens):
+                if g.ragged:
+                    self._rowlen_hints[g.gid] = rl
         return prepared
 
     def predict(
@@ -1155,9 +1185,7 @@ class Engine:
         return_pooled: bool = False,
         return_concat: bool = False,
     ) -> Dict[str, np.ndarray]:
-        t0 = time.perf_counter()
         prepared = self.prepare(batch, batch_size)
-        self.timers.add("host_prep", time.perf_counter() - t0)
         return self.predict_prepared(
             prepared, return_pooled=return_pooled, return_concat=return_concat
         )
@@ -1198,45 +1226,70 @@ class Engine:
         read here, a host sync: it lands in ``stats["a2a_overflow"]``, and
         under ``a2a_overflow_policy="recompute"`` the forward runs again at
         once at the lossless capacity (``stats["a2a_recomputes"]``);
-        ``InFlight.check_overflow`` applies "warn" and "raise"."""
-        mode = tuple(mode)
-        t0 = time.perf_counter()
+        ``InFlight.check_overflow`` applies "warn" and "raise".
+
+        Spans (``utils/spans``): ``dispatch``, and under it
+        ``dispatch.stage``, ``dispatch.lock`` (the wait for the lock),
+        ``_run``'s, and ``dispatch.fetch`` (the copies back queued); on the
+        card, while the recorder is on, CUDA events around the replay give
+        the request's ``device.forward`` once it is done."""
+        with spans.span("dispatch") as sp:
+            return self._dispatch(prepared, tuple(mode), fetch, sp)
+
+    def _dispatch(self, prepared: PreparedBatch, mode, fetch: bool, sp):
         graphed = self._capture is not None
-        arrays, staged = self._stage(prepared)
+        with spans.span("dispatch.stage"):
+            arrays, staged = self._stage(prepared)
         b = prepared.batch_size
         cuda = self.device.type == "cuda"
-        host = event = None
-        with self._dispatch_lock, torch.inference_mode():
-            dev_out = self._run(arrays, prepared.signature, mode)
-            overflow = int(dev_out.get("a2a_overflow", 0))
-            recomputed = bool(overflow) and self._overflowed(overflow)
-            if recomputed:
-                dev_out = self._forward(self._on_device(arrays),
-                                        prepared.signature, mode,
-                                        lossless=True)
-            outputs = {"output": dev_out["output"][:b]}
-            if "concat" in mode:
-                outputs["concat"] = dev_out["concat"][:b]
-            if "pooled" in mode:
-                outputs["pooled_groups"] = [p[:b]
-                                            for p in dev_out["pooled_groups"]]
-            if graphed and not (cuda and fetch):
-                # a program's outputs are its own: its next replay
-                # overwrites them
-                outputs = tree_map(torch.clone, outputs)
-            if cuda:
-                # the copies and the event queue under the lock too, so the
-                # events of successive dispatches follow their order
+        host = event = timing = None
+        with spans.span("dispatch.lock"):
+            self._dispatch_lock.acquire()
+        try:
+            with torch.inference_mode():
+                self.stats["h2d_bytes"] += _nbytes(arrays)
+                if graphed and spans.enabled():
+                    timing = (sp, torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                    timing[1].record()
+                dev_out = self._run(arrays, prepared.signature, mode)
+                overflow = int(dev_out.get("a2a_overflow", 0))
+                recomputed = bool(overflow) and self._overflowed(overflow)
+                if recomputed:
+                    dev_out = self._forward(self._on_device(arrays),
+                                            prepared.signature, mode,
+                                            lossless=True)
+                if timing is not None:
+                    timing[2].record()
+                outputs = {"output": dev_out["output"][:b]}
+                if "concat" in mode:
+                    outputs["concat"] = dev_out["concat"][:b]
+                if "pooled" in mode:
+                    outputs["pooled_groups"] = [
+                        p[:b] for p in dev_out["pooled_groups"]]
+                if graphed and not (cuda and fetch):
+                    # a program's outputs are its own: its next replay
+                    # overwrites them
+                    outputs = tree_map(torch.clone, outputs)
                 if fetch:
-                    host = {k: _pinned_copy(v) for k, v in outputs.items()}
-                event = torch.cuda.Event()
-                event.record()
-            self.stats["calls"] += 1
-            seq = self.stats["calls"]
+                    self.stats["d2h_bytes"] += _nbytes(outputs)
+                if cuda:
+                    # the copies and the event queue under the lock too, so
+                    # the events of successive dispatches follow their order
+                    with spans.span("dispatch.fetch"):
+                        if fetch:
+                            host = {k: _pinned_copy(v)
+                                    for k, v in outputs.items()}
+                        event = torch.cuda.Event()
+                        event.record()
+                self.stats["calls"] += 1
+                seq = self.stats["calls"]
+        finally:
+            self._dispatch_lock.release()
         if not cuda and fetch:
             host = outputs
-        return InFlight(self, outputs, host, event, staged, seq, t0,
-                        overflow, recomputed)
+        return InFlight(self, outputs, host, event, staged, seq,
+                        overflow, recomputed, timing)
 
     def _overflowed(self, overflow: int) -> bool:
         """Count a forward whose exchange dropped ``overflow`` ids; whether
@@ -1276,11 +1329,15 @@ class Engine:
             if key not in self._programs:
                 self._programs[key] = None
                 self.stats["compiles"] += 1
-            return self._forward(self._on_device(arrays), signature, mode)
+            with spans.span("device.forward"):
+                return self._forward(self._on_device(arrays), signature,
+                                     mode)
         prog = self._programs.get(key)
         if prog is not None:
-            prog.load(arrays)
-            return prog.replay()
+            with spans.span("dispatch.load"):
+                prog.load(arrays)
+            with spans.span("dispatch.replay"):
+                return prog.replay()
         prog, out = Program.capture(
             self._capture, self.device, arrays,
             lambda a: self._forward(a, signature, mode))
@@ -1293,9 +1350,11 @@ class Engine:
             torch.cuda.synchronize(self.device)
 
     def stats_report(self) -> Dict:
-        """Serving snapshot: call and program counters, per-stage latency
-        percentiles (host clock; on a mesh also each collective's, from
-        ``Mesh.timers``), and each group's layout and kernel."""
+        """Serving snapshot: call, program and byte counters, each span's
+        latency percentiles while the span recorder is on
+        (``utils/spans.summary``: the process's spans by name, on a mesh
+        each collective's enqueue among them; {} while it is off), and
+        each group's layout and kernel."""
 
         def backend(g) -> str:
             if g.gid in self._sharded_gids:
@@ -1308,12 +1367,9 @@ class Engine:
                 return "onehot_bucketize (K2)"
             return "onehot_lookup (K1)"
 
-        latency = self.timers.summary()
-        if self.mesh is not None:
-            latency.update(self.mesh.timers.summary())
         return {
             "counters": dict(self.stats),
-            "stage_latency": latency,
+            "stage_latency": spans.summary(),
             "programs_compiled": len(self._programs),
             "groups": [
                 {
@@ -1362,7 +1418,9 @@ class Engine:
             ]
         with self._dispatch_lock, torch.inference_mode():
             for p in prepared:
-                self._run(self._stage(p)[0], p.signature)
+                arrays = self._stage(p)[0]
+                self.stats["h2d_bytes"] += _nbytes(arrays)
+                self._run(arrays, p.signature)
         self._sync()
         return self.stats["compiles"] - before
 

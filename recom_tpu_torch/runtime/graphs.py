@@ -48,6 +48,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from recom_tpu_torch.ops import kernels
+from recom_tpu_torch.utils import spans
 from recom_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -185,7 +186,12 @@ class Program:
         runs the eager pass (``warm``) and the capture (``capture``, which
         also reads what the graph holds): a ``CudaCapture`` on the card.
         Raises if the graph's kernels are not the launches the capture
-        recorded."""
+        recorded.  The span ``capture`` holds it all."""
+        with spans.span("capture"):
+            return cls._capture(capturer, device, host, forward)
+
+    @classmethod
+    def _capture(cls, capturer, device, host, forward):
         inputs = tree_map(lambda h: torch.empty(h.shape, dtype=h.dtype,
                                                 device=device), host)
         prog = cls(inputs, None, None, {})

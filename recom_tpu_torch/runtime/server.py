@@ -29,6 +29,17 @@ runs inside ``Engine.dispatch``, in its turn).
 Left out of the reference: the completer's adaptive linger on the cost of
 its waits (server.py:134-146), which exists for a remote device's RPC
 waits.
+
+While the span recorder (``utils/spans``) is on, each request is a span
+``serve.request`` from its submit to its result, and every span of it, on
+whichever thread, carries its number: ``serve.admit`` (the wait for an
+in-flight slot in ``submit``), ``serve.queue`` (from the slot to a
+worker's start), the Engine's ``prepare`` and ``dispatch`` with theirs,
+``serve.turn`` (on a mesh, the wait for its dispatch turn), ``serve.wait``
+(from the hand-off to the completer to the start of its resolve: the
+completer's wait on the batch it drained and the resolves before it),
+``serve.resolve`` (the result's copy-out and ``set_result``) and, on the
+card, its ``device.forward``.
 """
 
 from __future__ import annotations
@@ -41,6 +52,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
+
+from recom_tpu_torch.utils import spans
 
 
 class ServingPipeline:
@@ -132,19 +145,26 @@ class ServingPipeline:
                 if shutdown:
                     return
                 continue
-            for rec, fut, _ in batch_items:
+            for rec, fut, work in batch_items:
+                req = work["span"]
+                if work.get("handed") is not None:
+                    spans.record("serve.wait", work["handed"], spans.now(),
+                                 req)
                 try:
-                    self._resolve_overflow(rec)
-                    if self.fetch_outputs:
-                        out = rec.result()["output"]
-                    else:
-                        out = rec.outputs["output"]
-                    self._bump("completed")
-                    fut.set_result(out)
+                    with spans.under(req), spans.span("serve.resolve"):
+                        self._resolve_overflow(rec)
+                        if self.fetch_outputs:
+                            out = rec.result()["output"]
+                        else:
+                            rec.wait()
+                            out = rec.outputs["output"]
+                        self._bump("completed")
+                        fut.set_result(out)
                 except Exception as e:
                     fut.set_exception(e)
                 finally:
                     self._inflight.release()
+                    req.end()
             if shutdown:
                 return
 
@@ -176,6 +196,8 @@ class ServingPipeline:
                 and not self._mesh:
             work["attempt"] += 1
             self._bump("retries")
+            if work["span"].sid is not None:
+                work["queued"] = spans.now()
             try:
                 self._pool.submit(self._work, work)
                 return
@@ -183,6 +205,7 @@ class ServingPipeline:
                 pass    # pool shut down while scheduling: fail the request
         fut.set_exception(exc)
         self._inflight.release()
+        work["span"].end()
 
     def _dispatch(self, batch: Dict, batch_size: Optional[int]):
         """Prep + asynchronous dispatch; returns the in-flight record
@@ -199,7 +222,7 @@ class ServingPipeline:
         eng = self.engine
         try:
             prepared = eng.prepare(batch, batch_size)
-            with self._turn:
+            with spans.span("serve.turn"), self._turn:
                 self._turn.wait_for(lambda: self._tickets[1] == ticket)
             return eng.dispatch(prepared, fetch=self.fetch_outputs)
         finally:
@@ -210,19 +233,26 @@ class ServingPipeline:
 
     def _work(self, work):
         fut = work["future"]
+        req = work["span"]
+        if req.sid is not None:
+            spans.record("serve.queue", work["queued"], spans.now(), req)
         try:
-            if "ticket" in work:
-                rec = self._dispatch_in_turn(work["batch"],
-                                             work["batch_size"],
-                                             work["ticket"])
-            else:
-                rec = self._dispatch(work["batch"], work["batch_size"])
+            with spans.under(req):
+                if "ticket" in work:
+                    rec = self._dispatch_in_turn(work["batch"],
+                                                 work["batch_size"],
+                                                 work["ticket"])
+                else:
+                    rec = self._dispatch(work["batch"], work["batch_size"])
+            if req.sid is not None:
+                work["handed"] = spans.now()
             self._done_q.put((rec, fut, work))
         except Exception as e:  # prep/dispatch errors
             self._retry_or_fail(fut, work, e)
         except BaseException as e:
             fut.set_exception(e)
             self._inflight.release()
+            req.end()
             raise
 
     def submit(
@@ -232,11 +262,14 @@ class ServingPipeline:
         when ``max_inflight`` requests are already in flight, the call
         blocks in the submitting thread until a slot frees (bounding both
         device-queue depth and submitter memory)."""
-        self._inflight.acquire()
+        req = spans.begin("serve.request", fresh=True)
+        with spans.under(req), spans.span("serve.admit"):
+            self._inflight.acquire()
         self._bump("submitted")
         result: "Future[np.ndarray]" = Future()
         work = {"batch": batch, "batch_size": batch_size, "future": result,
-                "attempt": 0}
+                "attempt": 0, "span": req,
+                "queued": spans.now() if req.sid is not None else None}
         with self._turn:
             if self._mesh:
                 # the pool takes work in submission order, so the lowest

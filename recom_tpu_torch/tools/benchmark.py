@@ -44,6 +44,8 @@ from typing import Dict, List
 
 import numpy as np
 
+from recom_tpu_torch.utils import spans
+
 
 def percentile(xs: List[float], p: float) -> float:
     return float(np.percentile(np.asarray(xs), p))
@@ -316,6 +318,8 @@ def main(argv=None):
         multihost.init_from_env(args.backend)
         mesh = make_mesh(config.mesh_shape, backend=args.backend,
                          device=args.device)
+        # each collective's enqueue, for collectives_p50_ms
+        spans.enable()
     model = model_from_name(args.model)
 
     if args.sla_ms is not None:
@@ -359,7 +363,10 @@ def main(argv=None):
         result["mesh"] = list(mesh.shape.values())
         result["rank"] = mesh.rank
         result["collectives_p50_ms"] = {
-            k: v["p50_ms"] for k, v in mesh.timers.summary().items()}
+            k[len("collective."):]: v["p50_ms"]
+            for k, v in spans.summary().items()
+            if k.startswith("collective.")}
+        spans.disable()
         if mesh.rank != 0:
             return result
     print(json.dumps(result, indent=1))

@@ -41,6 +41,7 @@ static inputs and replays it.  The CPU and a mesh step eagerly.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Callable, Dict, List, Optional
 
@@ -54,6 +55,7 @@ from recom_tpu_torch.runtime.executor import Engine
 from recom_tpu_torch.parallel.mesh import psum
 from recom_tpu_torch.runtime.graphs import CudaCapture, Program
 from recom_tpu_torch.runtime.host_prep import PreparedBatch
+from recom_tpu_torch.utils import spans
 from recom_tpu_torch.utils.tree import tree_leaves, tree_map
 
 OptimizerFactory = Callable[[Dict], torch.optim.Optimizer]
@@ -86,11 +88,12 @@ class OptaxOptimizer(torch.optim.Optimizer):
         # id(param) -> (mesh, model axis, whole row width) of a table split
         # by columns over a mesh's model axis (Trainer sets it)
         self.column_split: Dict[int, tuple] = {}
-        for group in self.param_groups:
-            if group["rule"] == "adam":
-                group["count"] = 0
-            for p in group["params"]:
-                self.state[p] = self._init_state(group["rule"], p)
+        with spans.span("trainer.optimizer_state"):
+            for group in self.param_groups:
+                if group["rule"] == "adam":
+                    group["count"] = 0
+                for p in group["params"]:
+                    self.state[p] = self._init_state(group["rule"], p)
 
     @staticmethod
     def _init_state(rule: str, p: torch.Tensor) -> Dict:
@@ -369,6 +372,44 @@ def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
             - (1.0 - labels) * F.logsigmoid(-logits))
 
 
+class _Phases:
+    """The boundaries of a step's device phases, ``NAMES``.  On the card
+    four timing events, external so that a capture records them as nodes
+    of the step's graph (whether the span recorder is on or not, so the
+    graph is the same), read after the step's loss (``report``); elsewhere
+    host spans around the eager phases."""
+
+    NAMES = ("device.forward", "device.backward", "device.optimizer")
+
+    def __init__(self, device: torch.device):
+        self.events = ([torch.cuda.Event(enable_timing=True, external=True)
+                        for _ in range(4)]
+                       if device.type == "cuda" else None)
+
+    @contextlib.contextmanager
+    def phase(self, i: int):
+        """Phase ``i`` of the step: on the card between events ``i`` and
+        ``i + 1``, recorded on the current stream; elsewhere a host span."""
+        if self.events is None:
+            with spans.span(self.NAMES[i]):
+                yield
+            return
+        if i == 0:
+            self.events[0].record()
+        yield
+        self.events[i + 1].record()
+
+    def report(self, parent) -> None:
+        """While the recorder is on, record the last step's device phases
+        under ``parent``; the step's events must be done (its loss read)."""
+        if self.events is None or not spans.enabled():
+            return
+        ev = self.events
+        spans.device(self.NAMES,
+                     [a.elapsed_time(b) for a, b in zip(ev, ev[1:])],
+                     spans.now(), parent)
+
+
 class Trainer:
     """Mini training loop: BCE loss on the tower's logits, masked over the
     padded batch, and an optax-rule optimizer, on one device or on a mesh.
@@ -419,10 +460,16 @@ class Trainer:
                 "training requires table_dtype='float32' (bf16/int8 table "
                 "storage is an inference-serving optimization)"
             )
+        with spans.span("trainer.init"):
+            self._init(model, config, optimizer, params, device, mesh)
+
+    def _init(self, model, config, optimizer, params, device, mesh) -> None:
         self.engine = Engine(model, config, params, device=device, mesh=mesh)
         for leaf in param_leaves(self.engine.device_params):
             leaf.requires_grad_(True)
-        self.optimizer = (optimizer or adam(1e-3))(self.engine.device_params)
+        with spans.span("trainer.optimizer"):
+            self.optimizer = (optimizer or adam(1e-3))(
+                self.engine.device_params)
         eng = self.engine
         # id(leaf) -> its layout over the mesh's model axis
         self._layouts = {
@@ -440,6 +487,8 @@ class Trainer:
         # (signature, "train") -> its captured Program on one card; -> None
         # (a signature stepped eagerly) on the CPU and on a mesh
         self._programs: Dict = {}
+        # (signature, "train") -> the _Phases its program records
+        self._phases: Dict = {}
         self._capture = (CudaCapture(eng.device)
                          if eng._capture is not None else None)
 
@@ -513,27 +562,55 @@ class Trainer:
         """One optimizer step on a raw batch; returns its loss (before the
         update).  On one card through the signature's program
         (``_program_step``; reading the loss is the step's one host sync),
-        elsewhere eagerly."""
-        prepared = self.engine.prepare(batch)
+        elsewhere eagerly.
+
+        Spans (``utils/spans``): ``step``, with the step's number, and
+        under it ``prepare``; on one card ``step.stage``, ``step.load`` and
+        ``step.replay`` (or ``capture``), ``step.loss_wait`` (the host
+        blocked in the loss read) and, timed by the card's events, the
+        device phases ``device.forward`` (the forward and the masked loss),
+        ``device.backward`` (``torch.autograd.grad``) and
+        ``device.optimizer`` (``OptaxOptimizer.apply``); elsewhere those
+        three host spans around the eager phases, then ``step.loss_wait``."""
+        with spans.span("step", fresh=True) as sp:
+            return self._step(batch, labels, sp)
+
+    def _step(self, batch: Dict, labels, sp) -> float:
+        eng = self.engine
+        prepared = eng.prepare(batch)
         if self._capture is not None:
-            return float(self._program_step(prepared, labels))
+            loss, phases = self._program_step(prepared, labels)
+        else:
+            loss, phases = self._eager_step(prepared, labels), None
+        with spans.span("step.loss_wait"):
+            value = float(loss)
+        eng.stats["d2h_bytes"] += loss.nbytes
+        if phases is not None:
+            phases.report(sp)
+        return value
+
+    def _eager_step(self, prepared: PreparedBatch, labels) -> torch.Tensor:
+        """One step run eagerly (the CPU, a mesh); its loss, detached."""
         self._programs.setdefault((prepared.signature, "train"), None)
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(prepared, labels)
-        loss.backward()
-        if self.engine.mesh is not None:
-            leaves = param_leaves(self.params)
-            for p in leaves:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            self.reduce_grads([p.grad for p in leaves])
-        self.optimizer.step()
-        return float(loss.detach())
+        with spans.span("device.forward"):
+            loss = self.loss(prepared, labels)
+        with spans.span("device.backward"):
+            loss.backward()
+            if self.engine.mesh is not None:
+                leaves = param_leaves(self.params)
+                for p in leaves:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                self.reduce_grads([p.grad for p in leaves])
+        with spans.span("device.optimizer"):
+            self.optimizer.step()
+        return loss.detach()
 
-    def _program_step(self, prepared: PreparedBatch, labels) -> torch.Tensor:
+    def _program_step(self, prepared: PreparedBatch, labels):
         """Queue one step through the ``(signature, "train")`` program and
         return its loss, a 0-d device tensor: the program's static output,
-        which the next replay overwrites.  The batch's staged arrays
+        which the next replay overwrites; and the program's ``_Phases``.  The batch's staged arrays
         (``Engine._stage``), the labels, the mask and the Adam groups'
         step scalars (``OptaxOptimizer.step_scalars`` after ``advance``)
         are the program's inputs.  The first step of a signature captures
@@ -550,37 +627,49 @@ class Trainer:
                 "rowwise_adagrad, dlrm_optimizer), got "
                 f"{type(opt).__name__}")
         pin = eng.device.type == "cuda"
-        arrays, _ = eng._stage(prepared)
-        lab, mask = self._labels_mask(prepared, labels)
-        opt.advance()
-        host = {"arrays": arrays, "labels": _host_tensor(lab, pin),
-                "mask": _host_tensor(mask, pin),
-                "scalars": _host_tensor(opt.step_scalars(eng.device), pin)}
+        with spans.span("step.stage"):
+            arrays, _ = eng._stage(prepared)
+            lab, mask = self._labels_mask(prepared, labels)
+            opt.advance()
+            host = {"arrays": arrays, "labels": _host_tensor(lab, pin),
+                    "mask": _host_tensor(mask, pin),
+                    "scalars": _host_tensor(opt.step_scalars(eng.device),
+                                            pin)}
         key = (prepared.signature, "train")
         with eng._dispatch_lock:
+            eng.stats["h2d_bytes"] += sum(t.nbytes for t in tree_leaves(host))
             prog = self._programs.get(key)
             if prog is None:
+                phases = _Phases(eng.device)
                 prog, out = Program.capture(
                     self._capture, eng.device, host,
-                    lambda inputs: self._train_fn(inputs, prepared.signature))
+                    lambda inputs: self._train_fn(inputs, prepared.signature,
+                                                  phases))
                 self._programs[key] = prog
-                return out["loss"]
-            prog.load(host)
-            return prog.replay()["loss"]
+                self._phases[key] = phases
+                return out["loss"], phases
+            with spans.span("step.load"):
+                prog.load(host)
+            with spans.span("step.replay"):
+                return prog.replay()["loss"], self._phases[key]
 
-    def _train_fn(self, inputs: Dict, signature) -> Dict:
+    def _train_fn(self, inputs: Dict, signature, phases: _Phases) -> Dict:
         """The step a program holds, on its static ``inputs``: the forward
         and the masked BCE, the gradients by ``torch.autograd.grad`` (the
         step's temporaries: no ``.grad`` is kept), and the optimizer's
-        update in place with the step scalars read on the device.
-        Returns ``{"loss": the loss before the update}``."""
-        loss = self._masked_loss(inputs["arrays"], signature,
-                                 inputs["labels"], inputs["mask"])
+        update in place with the step scalars read on the device, each a
+        phase of ``phases``.  Returns ``{"loss": the loss before the
+        update}``."""
+        with phases.phase(0):
+            loss = self._masked_loss(inputs["arrays"], signature,
+                                     inputs["labels"], inputs["mask"])
         leaves = self.optimizer.leaves()
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        self.optimizer.apply(
-            [g if g is not None else torch.zeros_like(p)
-             for g, p in zip(grads, leaves)], inputs["scalars"])
+        with phases.phase(1):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with phases.phase(2):
+            self.optimizer.apply(
+                [g if g is not None else torch.zeros_like(p)
+                 for g, p in zip(grads, leaves)], inputs["scalars"])
         return {"loss": loss.detach()}
 
     def _state_layout(self, p, t) -> str:

@@ -175,9 +175,11 @@ def serve(ctx, shape, model_json, cfg, params, batches, pooled=True,
     ``{"raised": message}``), then the engine's counters and layouts, and
     with ``export`` its ``export_params`` (the stored values as f32)."""
     from recom_tpu_torch.runtime.checkpoint import export_params
+    from recom_tpu_torch.utils import spans
 
     eng = _engine(ctx, shape, model_json, cfg, params)
     outs = []
+    spans.enable()
     for b in batches:
         try:
             outs.append(eng.predict(b, return_pooled=pooled,
@@ -185,12 +187,15 @@ def serve(ctx, shape, model_json, cfg, params, batches, pooled=True,
         except RuntimeError as e:
             outs.append({"raised": str(e)})
     rep = eng.stats_report()
+    spans.disable()
     return {"outs": outs, "stats": dict(eng.stats),
             "layouts": {g["gid"]: (g["layout"], g["backend"])
                         for g in rep["groups"]},
             "sharded": sorted(eng._sharded_gids),
             "dim_sharded": sorted(eng._dim_sharded_gids),
-            "collectives": sorted(eng.mesh.timers.samples),
+            "collectives": sorted(k[len("collective."):]
+                                  for k in rep["stage_latency"]
+                                  if k.startswith("collective.")),
             **({"params": export_params(eng)} if export else {})}
 
 
