@@ -89,7 +89,7 @@ width, one engine at a time (``runtime_phases``):
 * ``reload_params`` of seed 1's params: outputs ``==`` a fresh engine's, no
   new program, every tensor in place; and a ``Trainer`` reloaded after a
   step steps on (its loss ``==`` a fresh Trainer's at rtol 1e-6; K3a 1,
-  X1b 1 and Part 1).
+  X1b 1, Part 1 and O1 1).
 
 Then model E on meshes of ranks that share the one card
 (``mesh_phases``): the single-device engines freed, model E's seed-0
@@ -273,10 +273,10 @@ It checks:
    the Criteo DLRM);
 4. that each ``predict``, pipelined request and training step (also on
    the mesh layouts, per rank) went through its path's kernels and no other (model E: one launch of X1 a predict; a training
-   step K1 1, X1 1, X2 3, K3a 1, X1b 1 and Part 1, under
-   ``host_bucketize=False`` too; the bucketize path K2 1 and K3b 1 a step
-   (its one vocab tile needs no Part); Criteo: K1 1 and X1 1 a predict,
-   and K3a 1, X1b 1 and Part 1 more a step; each PostPool model: K1 once, X1 once, X2 a group of
+   step K1 1, X1 1, X2 3, K3a 1, X1b 1, Part 1 and O1 1 (row-wise
+   AdaGrad), under ``host_bucketize=False`` too; the bucketize path K2 1,
+   K3b 1 and O1 1 a step (its one vocab tile needs no Part); Criteo: K1 1
+   and X1 1 a predict, and K3a 1, X1b 1, Part 1 and O1 1 more a step; each PostPool model: K1 once, X1 once, X2 a group of
    strings hashed on the card, and K3a and X1b to match a step): the
    launch counts are zeroed just before and read just after;
 5. pooled outputs of every column against the port's NumPy oracle
@@ -1033,6 +1033,9 @@ KERNEL_META = {
     # scatter-adds of K3a's _bwd, K3b's and XLA's autodiff of X1's)
     "Part": ("recom_tpu_torch/csrc/partition.cu",
              "recom_tpu/ops/lookup_pallas.py:321"),
+    # row-wise AdaGrad on the tables: XLA's fusion of the optax update
+    "O1": ("recom_tpu_torch/csrc/rowwise_adagrad.cu",
+           "recom_tpu/train.py:28"),
 }
 
 
@@ -2656,11 +2659,93 @@ def measure_backward(torch, recs):
     return results
 
 
+def o1_record(torch, tr, batch, labels, what: str) -> dict:
+    """Kernel O1 on ``tr``'s row-wise AdaGrad leaves at the dense gradient
+    of one step on ``batch`` (``value_and_grad``), on copies of the params
+    and accumulators: held to the dense formula on the card (the plain
+    version) with ``==`` as bits, every untouched row unchanged, where O1
+    sums a row in ATen's order (2-D leaves of d <= 128; elementwise
+    leaves), else within rtol 1e-6; then timed warm, cold L2 and plain
+    (the dense formula).  Bound: the gradient read once and each touched
+    row's p and accumulator read and written once.  Returns the results,
+    with the rows O1 updated and saw in one call."""
+    import numpy as np
+
+    from recom_tpu_torch.ops import rowwise_adagrad as o1
+    from recom_tpu_torch.train import param_leaves
+    from recom_tpu_torch.utils.tree import tree_leaves
+
+    opt = tr.optimizer
+    group = next(g for g in opt.param_groups
+                 if g["rule"] == "rowwise_adagrad")
+    lr, eps = group["lr"], group["eps"]
+    _, grads = tr.value_and_grad(batch, labels)
+    by_id = {id(p): g for p, g in zip(param_leaves(tr.params),
+                                      tree_leaves(grads))}
+    base = [(p.detach(), by_id[id(p)], opt.state[p]["acc"])
+            for p in group["params"]]
+    want = [(p.clone(), g, a.clone()) for p, g, a in base]
+    for p, g, a in want:
+        o1.rowwise_adagrad_plain(p, g, a, lr, eps)
+    got = [(p.clone(), g, a.clone()) for p, g, a in base]
+    counts = torch.zeros(2, dtype=torch.int64, device=got[0][0].device)
+    o1.update(got, lr, eps, counts)
+    torch.cuda.synchronize()
+    err, nbytes, shapes = 0.0, 0, []
+    bits = lambda t: t.view(torch.int32)
+    for (p0, g, a0), (p, _, a), (pw, _, aw) in zip(base, got, want):
+        d = p.shape[-1]
+        rows = (bits(g).reshape(-1, d) != 0).any(dim=1)
+        kept = ~rows
+        acc_rows = (lambda t: t[kept]) if p.dim() == 2 else (
+            lambda t: t.reshape(-1, d)[kept])
+        require(torch.equal(bits(p).reshape(-1, d)[kept],
+                            bits(p0).reshape(-1, d)[kept])
+                and torch.equal(bits(acc_rows(a)), bits(acc_rows(a0))),
+                f"O1, {what}: an untouched row of {list(p.shape)} changed")
+        exact = p.dim() != 2 or d <= 128
+        if exact:
+            require(torch.equal(bits(p), bits(pw))
+                    and torch.equal(bits(a), bits(aw)),
+                    f"O1, {what}: {list(p.shape)} != the dense formula's "
+                    "bits")
+        else:
+            require(torch.allclose(p, pw, rtol=1e-6, atol=0, equal_nan=True)
+                    and torch.allclose(a, aw, rtol=1e-6, atol=0,
+                                       equal_nan=True),
+                    f"O1, {what}: {list(p.shape)} past rtol 1e-6 of the "
+                    "dense formula")
+            err = max(err, float((p - pw).abs().nan_to_num().max()))
+        touched = int(rows.sum())
+        nbytes += g.numel() * 4 + touched * 2 * 4 * (
+            d + (1 if p.dim() == 2 else d))
+        shapes.append(f"{list(p.shape)} ({touched} rows touched)")
+    updated, seen = counts.tolist()
+    del want
+    kern = lambda: o1.update(got, lr, eps)
+    ms = time_ms(torch, kern)
+    cold = time_cold_ms(torch, kern)
+    plain = [(p.clone(), g, a.clone()) for p, g, a in base]
+    pms = time_ms(torch, lambda: [o1.rowwise_adagrad_plain(p, g, a, lr, eps)
+                                  for p, g, a in plain], iters=5, warmup=1)
+    bms, by = bound_ms(nbytes)
+    log(f"O1, {what} ({'; '.join(shapes)}): kernel {ms:.4f} ms warm, "
+        f"{cold:.4f} ms cold L2, plain (the dense formula) {pms:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}, share {bms / ms:.0%}); rows updated "
+        f"{updated} of {seen} ({updated / max(seen, 1):.4%}); == the dense "
+        f"formula on the card, max abs diff {err:.3g}")
+    del plain, got, grads
+    torch.cuda.empty_cache()
+    return dict(err=err, ms=ms, cold_ms=cold, plain_ms=pms, bound_ms=bms,
+                bound_by=by, lib=None, rows_updated=updated, rows_seen=seen)
+
+
 def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     """Phases 7-10: train model E (default config, dlrm_optimizer) and the
     880-column bucketize model (host_bucketize=False) on the card; hold
     the backward kernels K3a, K3b and X1b against their plain versions at
-    the path's shapes and on edge inputs, and time them; hold each path's
+    the path's shapes and on edge inputs, and time them (and O1, the
+    optimizer's, at model E's step: ``o1_record``); hold each path's
     captured training step to the eager one (``train_program_gate``: model
     E at every batch bucket).  Returns the kernels' results, the launch
     counts of one counted (replayed) step of each path and the step
@@ -2884,12 +2969,13 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     # K3a 1 (model E's one-hot group is one vocab tile: not listed); X1b
     # 1, after the one partition launch of its groups
     path_e = dict(exactly={"K1": 1, "X1": 1, "X2": 3, "K3a": 1, "X1b": 1,
-                           "Part": 1})
+                           "Part": 1, "O1": 1})
     kernels.reset_launches()
     losses = [tr.step(batch_big, lab_big)]      # eager pass + capture
     torch.cuda.synchronize()
     counts_first = dict(kernels.launches)
-    require_launches(counts_first, ("K1", "X1", "X2", "K3a", "X1b", "Part"),
+    require_launches(counts_first, ("K1", "X1", "X2", "K3a", "X1b", "Part",
+                                    "O1"),
                      "training, model E, a signature's first step", **path_e)
     # the main path of training: a step replaying its captured program
     kernels.reset_launches()
@@ -2900,12 +2986,15 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
         f"signature's first (eager pass + capture) "
         f"{ {k: n for k, n in counts_first.items() if n} }, a replayed one "
         f"{counts_train}")
-    require_launches(counts_train, ("K1", "X1", "X2", "K3a", "X1b", "Part"),
+    require_launches(counts_train, ("K1", "X1", "X2", "K3a", "X1b", "Part",
+                                    "O1"),
                      "training, model E, a replayed step", **path_e)
     losses += [tr.step(batch_big, lab_big) for _ in range(3)]
     require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
             f"model E losses on one batch do not decrease: {losses}")
     log(f"model E, 5 steps on one batch of 2048: losses {losses}")
+    results["O1"] = o1_record(torch, tr, batch_big, lab_big,
+                              "model E, batch 2048")
     log(f"peak device memory (model E training): "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del tr, eng
@@ -2923,7 +3012,7 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     gate_e = train_program_gate(
         torch, *pair_e, [(bs, shuffled(batch_big, bs, seed=300 + bs))
                          for bs in buckets],
-        "model E, dlrm_optimizer", ("K3a", "X1b", "Part"))
+        "model E, dlrm_optimizer", ("K3a", "X1b", "Part", "O1"))
     times_e = step_times(torch, pair_e, "model E",
                          ((512, batch_small, lab_small),
                           (2048, batch_big, lab_big)))
@@ -2961,12 +3050,14 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     torch.cuda.empty_cache()
     gate_s = train_program_gate(
         torch, *pair_s, [(512, batch_small), (2048, batch_big)],
-        "model E, host_bucketize=False", ("K1", "K3a", "X1b", "Part"))
+        "model E, host_bucketize=False",
+        ("K1", "K3a", "X1b", "Part", "O1"))
     for counts in gate_s["counts"]:
-        require_launches(counts, ("K1", "X1", "X2", "K3a", "X1b", "Part"),
+        require_launches(counts, ("K1", "X1", "X2", "K3a", "X1b", "Part",
+                                  "O1"),
                          "training, model E, host_bucketize=False",
                          exactly={"K1": 1, "X1": 1, "K3a": 1, "X1b": 1,
-                                  "Part": 1})
+                                  "Part": 1, "O1": 1})
     log(f"launches in a training step (model E, host_bucketize=False, "
         f"2048): {gate_s['counts'][-1]}")
     del pair_s
@@ -2978,12 +3069,13 @@ def train_phases(torch, model, np_params, batch_small, batch_big, ref):
     lab2 = rng.integers(0, 2, 2048).astype(np.float32)
     gate_bz = train_program_gate(torch, tr_bz, tr_bz_eager, [(2048, b2)],
                                  "bucketize-880, host_bucketize=False",
-                                 ("K3b",))
+                                 ("K3b", "O1"))
     for counts_bz in gate_bz["counts"]:
         # one vocab tile of 4 columns at d = 8: K3b takes its columns'
         # batch rows whole, with no partition launch
-        require_launches(counts_bz, ("K2", "K3b"), "training, bucketize-880",
-                         exactly={"K2": 1, "K3b": 1, "Part": 0})
+        require_launches(counts_bz, ("K2", "K3b", "O1"),
+                         "training, bucketize-880",
+                         exactly={"K2": 1, "K3b": 1, "Part": 0, "O1": 1})
     losses = gate_bz["losses"]
     log(f"launches in each of 3 training steps (bucketize-880, batch "
         f"2048; a capture and two replays): {counts_bz}")
@@ -3389,13 +3481,16 @@ def criteo_phases(torch):
     # X1b once, after the forward's one partition launch (every one-hot
     # group at d = 64 but the smallest is cut into vocab tiles of 64 rows,
     # and X1b's group is listed too)
-    require_launches(train_counts, ("K1", "X1", "K3a", "X1b", "Part"),
+    require_launches(train_counts, ("K1", "X1", "K3a", "X1b", "Part", "O1"),
                      "training, Criteo", exactly={
-                         "K1": 1, "X1": 1, "K3a": 1, "X1b": 1, "Part": 1})
+                         "K1": 1, "X1": 1, "K3a": 1, "X1b": 1, "Part": 1,
+                         "O1": 1})
     losses += [tr.step(batches[2048], lab_big) for _ in range(3)]
     require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
             f"Criteo losses on one batch do not decrease: {losses}")
     log(f"Criteo, 4 steps on one batch of 2048: losses {losses}")
+    results["O1"] = o1_record(torch, tr, batches[2048], lab_big,
+                              "Criteo DLRM, batch 2048")
     log(f"peak device memory (Criteo training and its kernel checks): "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del tr
@@ -3406,14 +3501,14 @@ def criteo_phases(torch):
                          params=params) for _ in range(2))
     pair[1]._capture = None
     gate = train_program_gate(torch, *pair, list(batches.items()),
-                              "Criteo DLRM", ("K3a", "X1b", "Part"))
+                              "Criteo DLRM", ("K3a", "X1b", "Part", "O1"))
     times = step_times(torch, pair, "Criteo DLRM",
                        ((512, batches[512], lab_small),
                         (2048, batches[2048], lab_big)))
     del pair
     launches = {"K1": serve_counts["K1"], "X1": serve_counts["X1"],
                 "K3a": train_counts["K3a"], "X1b": train_counts["X1b"],
-                "Part": train_counts["Part"]}
+                "Part": train_counts["Part"], "O1": train_counts["O1"]}
     out = {k: dict(results[k], launches=launches[k]) for k in launches}
     out["training"] = {"gate": gate, "times": times}
     return out
@@ -3847,8 +3942,8 @@ def reload_phase(torch, model, np_params, served, eng):
 def reload_trainer_phase(torch, model, np_params, p2, served):
     """A Trainer steps, then ``trainer.engine.reload_params(p2)``: its
     tensors stay the same objects, and the next step's loss == a fresh
-    Trainer's first loss on p2 at rtol 1e-6, launching K3a 1, X1b 1 and
-    Part 1.  Returns that step's launch counts."""
+    Trainer's first loss on p2 at rtol 1e-6, launching K3a 1, X1b 1,
+    Part 1 and O1 1.  Returns that step's launch counts."""
     import numpy as np
 
     from recom_tpu_torch import EngineConfig
@@ -3871,10 +3966,10 @@ def reload_trainer_phase(torch, model, np_params, p2, served):
     loss = tr.step(small, labels)
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
-    require_launches(counts, ("K1", "X1", "X2", "K3a", "X1b", "Part"),
+    require_launches(counts, ("K1", "X1", "X2", "K3a", "X1b", "Part", "O1"),
                      "Trainer step after reload_params",
                      exactly={"K1": 1, "X1": 1, "X2": 3, "K3a": 1, "X1b": 1,
-                              "Part": 1})
+                              "Part": 1, "O1": 1})
     del tr, leaves
     free_engines()
     tr2 = Trainer(model, EngineConfig(), optimizer=dlrm_optimizer(),
@@ -4965,10 +5060,12 @@ def mesh_train_launches(cfg) -> dict:
     path's partial sums on the stripe among them), and under the exchange
     twice more: its pool into the receive buffer and the owner's scatter
     into the stripe; one partition launch (Part) in the forward for all
-    of X1b's groups (item_lists.StepLists)."""
+    of X1b's groups (item_lists.StepLists); O1 once, the row-wise AdaGrad
+    of the rank's leaves not split by columns (the striped group's stripe
+    among them)."""
     a2a = cfg.get("shard_comm") == "all_to_all"
     return {"K1": 1, "X1": 2 if a2a else 1, "K3a": 1,
-            "X1b": 3 if a2a else 1, "Part": 1}
+            "X1b": 3 if a2a else 1, "Part": 1, "O1": 1}
 
 
 def big_group(eng):
@@ -6163,11 +6260,15 @@ def fuzz_launches(compiled, cfg, prep, train: bool = False) -> dict:
       X1b group, each K3a group and each K3b group cut into several vocab
       tiles (``k3_listed``);
     * X2 once for each group whose strings the card hashes: the wire's
-      ``prep.wsig``, which the batch's string widths decide."""
+      ``prep.wsig``, which the batch's string widths decide;
+    * O1, in a training step (``dlrm_optimizer``: row-wise AdaGrad on the
+      stacked tables, a leaf a group), once for up to ``O1_MAX_LEAVES``
+      leaves."""
     from recom_tpu_torch.ops.lookup_gather import (
         X1_MAX_GROUPS,
         X1B_MAX_GROUPS,
     )
+    from recom_tpu_torch.ops.rowwise_adagrad import O1_MAX_LEAVES
     from recom_tpu_torch.ops.item_lists import PART_MAX_GROUPS
     from recom_tpu_torch.ops.lookup_onehot import (
         K1_MAX_GROUPS,
@@ -6213,6 +6314,7 @@ def fuzz_launches(compiled, cfg, prep, train: bool = False) -> dict:
         n["K3a"] = launches(k1, K3_MAX_GROUPS)
         n["X1b"] = launches(gather, X1B_MAX_GROUPS)
         n["Part"] = launches(listed + gather, PART_MAX_GROUPS)
+        n["O1"] = launches(len(compiled.groups), O1_MAX_LEAVES)
     n["X2"] = sum(1 for w in prep.wsig if any(w)) if wire else 0
     return n
 
@@ -6680,6 +6782,7 @@ def main() -> int:
         "K3b": trained["counts_bz"]["K3b"],
         "X1b": trained["counts_train"]["X1b"],
         "Part": trained["counts_train"]["Part"],
+        "O1": trained["counts_train"]["O1"],
         **{kid: r["launches"] for kid, r in stored.items()},
     }
 

@@ -15,8 +15,9 @@ the kernels spell the rounding out with ``__fmul_rn``/``__fadd_rn`` besides.
 Every entry point returns the ``cudaError_t`` of its launch, which
 ``launch`` turns into an exception.  ``launches`` counts the launches of each
 kernel (the forwards K1, K2, X1, X2, the stored-dtype variants K1-bf16,
-K2-bf16, X1-bf16 and X1-int8, the backwards K3a, K3b, X1b, and the
-partition pass Part that lists their work items' entries): a
+K2-bf16, X1-bf16 and X1-int8, the backwards K3a, K3b, X1b, the
+partition pass Part that lists their work items' entries, and the
+optimizer's row-wise AdaGrad O1): a
 wrapper adds one where it launches, and nowhere else, so a run can show that
 a path went through its kernels.  Only launches that run on the card count:
 while a CUDA graph is captured (``recording``) the launches queued on the
@@ -61,6 +62,7 @@ LIBRARIES = {
     "onehot_grad": "onehot_grad.cu",
     "pooled_gather_grad": "pooled_gather_grad.cu",
     "partition": "partition.cu",
+    "rowwise_adagrad": "rowwise_adagrad.cu",
 }
 
 # kernel id -> (library, C entry point, argtypes)
@@ -85,6 +87,10 @@ KERNELS = {
     # the partition pass that lists each work item's entries for X1b, K3a
     # and K3b (ops/item_lists.py)
     "Part": ("partition", "rt_partition", [_P, _I, _I, _I, _P]),
+    # the optimizer: row-wise AdaGrad on a param group's leaves, writing
+    # only the rows a step touched (ops/rowwise_adagrad.py)
+    "O1": ("rowwise_adagrad", "rt_rowwise_adagrad_f32",
+           [_P, _I, _I, ctypes.c_float, ctypes.c_float, _P, _P]),
 }
 
 launches: Dict[str, int] = {kid: 0 for kid in KERNELS}
@@ -159,6 +165,7 @@ _FUNCTIONS = tuple((re.compile(p), kid) for p, kid in (
     (r"\bonehot_grad_kernel<true,", "K3b"),
     (r"\bpooled_gather_grad_kernel\b", "X1b"),
     (r"\bpartition_kernel\b", "Part"),
+    (r"\browwise_adagrad_kernel\b", "O1"),
 ))
 
 

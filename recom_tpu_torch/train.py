@@ -18,7 +18,10 @@ tables, Adam on the tower).  Like optax's transformations they exist before
 the params do: each returns a factory that the Trainer calls on its params,
 giving a ``torch.optim.Optimizer``.  Its state is saved as optax's tree
 leaves (``opt_state.npz``), so a training checkpoint resumes in either
-package.
+package.  On the card row-wise AdaGrad is one launch of kernel O1 for a
+group's leaves (ops/rowwise_adagrad.py), which skips every row whose
+gradient is +0.0 throughout, as the rows no slot touched are: the dense
+formula leaves them as they were, bit for bit.
 
     >>> tr = Trainer(make_model_e(), EngineConfig(), optimizer=dlrm_optimizer())
     >>> loss = tr.step(raw_batch, labels)
@@ -51,6 +54,7 @@ import torch.nn.functional as F
 
 from recom_tpu_torch.config import EngineConfig
 from recom_tpu_torch.ir.spec import ModelSpec
+from recom_tpu_torch.ops import rowwise_adagrad as o1
 from recom_tpu_torch.runtime.executor import Engine
 from recom_tpu_torch.parallel.mesh import psum
 from recom_tpu_torch.runtime.graphs import CudaCapture, Program
@@ -81,19 +85,32 @@ class OptaxOptimizer(torch.optim.Optimizer):
     with no gradient steps with a zero one, as JAX's dense cotangent
     would.  Every state tensor is written in place, by ``step`` and by
     ``load_state_leaves``, so a captured step (``apply``) reads and writes
-    the live state."""
+    the live state.
+
+    On the card a row-wise AdaGrad group's leaves take one launch of kernel
+    O1, which writes only the rows whose gradient is not +0.0 throughout
+    (the dense formula leaves the others' bits as they were); the CPU, and
+    a leaf split by columns over a mesh, take the dense formula.  O1 adds
+    the rows it updated and saw to a counter on the card
+    (``row_counts``)."""
 
     def __init__(self, param_groups: List[Dict]):
         super().__init__(param_groups, defaults={})
         # id(param) -> (mesh, model axis, whole row width) of a table split
         # by columns over a mesh's model axis (Trainer sets it)
         self.column_split: Dict[int, tuple] = {}
+        # O1's int64 [2] on the card: rows updated, rows seen
+        self._rows: Optional[torch.Tensor] = None
         with spans.span("trainer.optimizer_state"):
             for group in self.param_groups:
                 if group["rule"] == "adam":
                     group["count"] = 0
                 for p in group["params"]:
                     self.state[p] = self._init_state(group["rule"], p)
+                    if (group["rule"] == "rowwise_adagrad"
+                            and p.device.type == "cuda" and self._rows is None):
+                        self._rows = torch.zeros(2, dtype=torch.int64,
+                                                 device=p.device)
 
     @staticmethod
     def _init_state(rule: str, p: torch.Tensor) -> Dict:
@@ -158,16 +175,24 @@ class OptaxOptimizer(torch.optim.Optimizer):
         grads = iter(grads)
         k = 0
         for group in self.param_groups:
+            gs = [next(grads) for _ in group["params"]]
+            if group["rule"] != "adam":
+                self._rowwise_adagrad_group(group, gs)
+                continue
             corr = None
-            if group["rule"] == "adam" and scalars is not None:
+            if scalars is not None:
                 corr, k = (scalars[k], scalars[k + 1]), k + 2
-            for p in group["params"]:
-                g = next(grads)
-                if group["rule"] == "adam":
-                    self._adam(group, p, g, self.state[p], corr)
-                else:
-                    self._rowwise_adagrad(group, p, g, self.state[p],
-                                          self.column_split.get(id(p)))
+            for p, g in zip(group["params"], gs):
+                self._adam(group, p, g, self.state[p], corr)
+
+    def row_counts(self) -> Optional[tuple]:
+        """(rows updated, rows seen) by O1 since the optimizer was made,
+        read from the card with one copy; None where no row-wise AdaGrad
+        param is on a card."""
+        if self._rows is None:
+            return None
+        updated, seen = self._rows.tolist()
+        return updated, seen
 
     @staticmethod
     def _adam(group, p, g, st, corr=None) -> None:
@@ -195,26 +220,44 @@ class OptaxOptimizer(torch.optim.Optimizer):
         upd = mu_hat / (torch.sqrt(nu_hat + group["eps_root"]) + group["eps"])
         p.add_(-group["lr"] * upd)
 
+    def _rowwise_adagrad_group(self, group, grads) -> None:
+        """One row-wise AdaGrad step of the group's params from ``grads``:
+        the leaves on a card that are not split by columns in one launch of
+        O1 (``ops/rowwise_adagrad.update``), each other leaf by
+        ``_rowwise_adagrad``."""
+        on_card = []
+        for p, g in zip(group["params"], grads):
+            if self._o1_routed(p):
+                on_card.append((p, g.contiguous(), self.state[p]["acc"]))
+            else:
+                self._rowwise_adagrad(group, p, g, self.state[p],
+                                      self.column_split.get(id(p)))
+        o1.update(on_card, group["lr"], group["eps"], self._rows)
+
+    def _o1_routed(self, p) -> bool:
+        """Whether row-wise AdaGrad steps ``p`` by O1: a param on a card,
+        not split by columns over a mesh (a row may be +0.0 in this rank's
+        columns and not in another's)."""
+        return p.device.type == "cuda" and id(p) not in self.column_split
+
     @staticmethod
     def _rowwise_adagrad(group, p, g, st, split=None) -> None:
-        """recom_tpu/train.py::rowwise_adagrad: one accumulator per row of a
-        2-D table (the mean of its squared gradients), elementwise
-        otherwise.  ``split``: (mesh, axis, d) of a table split by columns
-        over ``axis``: the row's sum of squares is its columns' partial
-        sums summed over the axis, then divided by the whole width d, as
-        GSPMD reduces ``jnp.mean`` of a column-sharded array.  The
-        accumulator is written in place."""
-        if p.dim() == 2 and split is not None:
-            mesh, axis, d = split
-            sq = mesh.all_reduce((g * g).sum(dim=1), axis)
-            acc = st["acc"].add_(sq / d)
-            s = torch.rsqrt(acc + group["eps"])[:, None]
-        elif p.dim() == 2:
-            acc = st["acc"].add_((g * g).mean(dim=1))
-            s = torch.rsqrt(acc + group["eps"])[:, None]
-        else:
-            acc = st["acc"].add_(g * g)
-            s = torch.rsqrt(acc + group["eps"])
+        """recom_tpu/train.py::rowwise_adagrad as dense torch ops: one
+        accumulator per row of a 2-D table (the mean of its squared
+        gradients), elementwise otherwise (``rowwise_adagrad_plain``).
+        ``split``: (mesh, axis, d) of a table split by columns over
+        ``axis``: the row's sum of squares is its columns' partial sums
+        summed over the axis, then divided by the whole width d, as GSPMD
+        reduces ``jnp.mean`` of a column-sharded array.  The accumulator
+        is written in place."""
+        if p.dim() != 2 or split is None:
+            o1.rowwise_adagrad_plain(p, g, st["acc"], group["lr"],
+                                     group["eps"])
+            return
+        mesh, axis, d = split
+        sq = mesh.all_reduce((g * g).sum(dim=1), axis)
+        acc = st["acc"].add_(sq / d)
+        s = torch.rsqrt(acc + group["eps"])[:, None]
         upd = -group["lr"] * g
         upd.mul_(s)
         p.add_(upd)

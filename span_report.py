@@ -18,8 +18,10 @@ report gives:
   ms a step of ``step.stage`` + ``step.load`` + ``step.replay``;
   ``backward_ms`` and ``optimizer_ms``, the card's ms a step of
   ``device.backward`` and ``device.optimizer``; the three device phases
-  summed over the window against the trace's busy time; and how much of
-  each benchmark ``step`` span the program's spans inside it cover;
+  summed over the window against the trace's busy time; how much of
+  each benchmark ``step`` span the program's spans inside it cover; and
+  the share of the rows the optimizer's row-wise AdaGrad (kernel O1)
+  updated of those it saw over the window (``OptaxOptimizer.row_counts``);
 - for a serving cell, each span's mean ms a request and its share of a
   request's latency;
 - for both, the device's idle gaps put down to the innermost program span
@@ -175,6 +177,14 @@ def train_report(rows, bench_spans, summary, offset_ns):
     }
 
 
+def row_counts(cell):
+    """(rows updated, rows seen) so far by the training cell's row-wise
+    AdaGrad on the card, or None (a serving cell; no such counter)."""
+    opt = getattr(getattr(cell, "trainer", None), "optimizer", None)
+    fn = getattr(opt, "row_counts", None)
+    return fn() if fn is not None else None
+
+
 def serve_report(rows):
     reqs = [r for r in rows if r["name"] == "serve.request"]
     ids = {r["id"] for r in reqs}
@@ -264,11 +274,16 @@ def main(argv=None) -> int:
     gc.collect()
     gc.freeze()
     spans.enable()
+    counted = row_counts(cell)
     with Tracer() as tracer:
         cell.window(args.seconds)
     summary = tracer.summary(bench.records)
     rows = spans.records()
     spans.disable()
+    if counted is not None:
+        (u0, s0), (u1, s1) = counted, row_counts(cell)
+        out["rows_updated"], out["rows_seen"] = u1 - u0, s1 - s0
+        out["rows_updated_share"] = (u1 - u0) / max(s1 - s0, 1)
     out["window"] = cell.end_to_end()
     out["busy_s"], out["window_s"] = summary["busy_s"], summary["window_s"]
     out["idle_by_benchmark_span"] = dict(summary["idle_gaps"])
