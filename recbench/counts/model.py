@@ -9,15 +9,17 @@ could keep on chip not at all.  So a program that moves less reads higher
 against the same count, and one that reads over 100% has found a fault in
 the count or in the timing.
 
-* forward: the products of the tower (2 a multiply-add) and DLRM's dot
-  interaction (its strict upper triangle), a pooling add an item and
-  element; bytes: the inputs (4 an id, or the raw bytes of a string hashed
-  on the device, 4 a dense value), the distinct rows touched, the tower's
-  params, the output.
-* training step: the products three times (forward, and the gradients of
-  inputs and weights), pooling and its scatter, and the update rule's
-  operations (``reference/rules/<rule>.py``, ``OPS``) a tower param and an
-  element of each touched row; bytes: the touched rows and their state
+* forward: the tower's operations as its module counts them
+  (``towers/<arch>.py``, ``ops``: 2 a multiply-add of its layers and of
+  DLRM's dot interaction, its strict upper triangle), a pooling add an
+  item and element; bytes: the inputs (4 an id, or the raw bytes of a
+  string hashed on the device, 4 a dense value), the distinct rows
+  touched, the tower's params, the output.
+* training step: the tower's step operations (its module's: the products
+  three times, forward and the gradients of inputs and weights), pooling
+  and its scatter, and the update rule's operations
+  (``reference/rules/<rule>.py``, ``OPS``) a tower param and an element of
+  each touched row; bytes: the touched rows and their state
   read and written once, the tower's params, gradients and state read and
   written once, the inputs and labels.
 * the kernels' work, whichever kernel does it (``counts/kernels/<id>.json``
@@ -33,7 +35,8 @@ the count or in the timing.
 
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -47,26 +50,32 @@ WORK = ("lookup", "hash", "lookup_grad")
 
 
 def device_hashed(cfg: Dict, cls) -> bool:
+    """Whether the card hashes the class's columns (its kind's
+    ``DEVICE_HASHED``)."""
     return (cfg["engine_config"]["device_hash"] and cls.transform == "hash"
-            and cls.kind in ("string", "string_list"))
+            and cls.kind_module.DEVICE_HASHED)
 
 
 def _raw_bytes(cls, batch: Dict) -> int:
-    return int(sum(np.char.str_len(np.asarray(batch[f], np.bytes_)).sum()
-                   for f in cls.fields))
+    return int(sum(cls.kind_module.raw_bytes(batch[f]) for f in cls.fields))
+
+
+def _leaf_shapes(cfg: Dict) -> List[Tuple[int, ...]]:
+    return [shape for layers in spec.tower_layers(cfg).values()
+            for layer in layers for shape in layer.values()]
 
 
 def _tower_update(cfg: Dict) -> Dict[str, float]:
     """The update's operations and bytes over the tower's params (params
-    and gradients read and written, the rule's state read and written)."""
+    and gradients read and written, the rule's state read and written; a
+    leaf that is not 2-D keeps its state an element)."""
     rule = rules.load(cfg["optimizer"]["tower"]["rule"])
     ops = nbytes = 0.0
-    for part in spec.tower_layers(cfg).values():
-        for i, o in part:
-            for size, per_el in ((i * o, False), (o, True)):
-                ops += rule.OPS * size
-                nbytes += F32 * size * (4 + 2 * rule.state_per_value(
-                    per_el, o))
+    for shape in _leaf_shapes(cfg):
+        size = math.prod(shape)
+        ops += rule.OPS * size
+        nbytes += F32 * size * (4 + 2 * rule.state_per_value(
+            len(shape) != 2, shape[-1]))
     return {"ops": ops, "bytes": nbytes}
 
 
@@ -74,21 +83,19 @@ def batch_counts(cfg: Dict, batch: Dict) -> Dict[str, Dict[str, float]]:
     """{name: {"ops": n, "bytes": n}} of one batch for "forward", "step"
     and each work of the kernels."""
     b = len(batch[spec.dense_fields(cfg)[0]])
-    layers = spec.tower_layers(cfg)
-    macs = sum(i * o for part in layers.values() for i, o in part)
-    params = sum(i * o + o for part in layers.values() for i, o in part)
+    tower_ops = spec.tower(cfg).ops(cfg)
+    params = sum(math.prod(shape) for shape in _leaf_shapes(cfg))
     tab_rule = rules.load(cfg["optimizer"]["tables"]["rule"])
     out: Dict[str, Dict[str, float]] = {
         k: {"ops": 0.0, "bytes": 0.0} for k in ("forward", "step") + WORK}
     fwd, step = out["forward"], out["step"]
     update = _tower_update(cfg)
-    fwd["ops"] += 2 * b * macs
-    step["ops"] += 6 * b * macs + update["ops"]
+    fwd["ops"] += b * tower_ops["forward"]
+    step["ops"] += b * tower_ops["step"] + update["ops"]
     n_dense = cfg["dense"]["count"]
     inputs = F32 * b * n_dense
     fwd["bytes"] += F32 * params + F32 * b
     step["bytes"] += update["bytes"]
-    n_vec = 1
     for cls in spec.classes(cfg):
         ids = ref_ids.flat_ids(cls, ref_ids.class_ids(cls, batch))
         cols = ids.reshape(ids.shape[0], cls.count, -1)
@@ -97,7 +104,6 @@ def batch_counts(cfg: Dict, batch: Dict) -> Dict[str, Dict[str, float]]:
                                for c in cols.transpose(1, 0, 2)])
         row_bytes = F32 * cls.dim * distinct
         pooled = F32 * b * cls.dim
-        n_vec += cls.count
         if device_hashed(cfg, cls):
             raw = _raw_bytes(cls, batch)
             out["hash"]["bytes"] += raw + F32 * int(items.sum())
@@ -117,11 +123,6 @@ def batch_counts(cfg: Dict, batch: Dict) -> Dict[str, Dict[str, float]]:
                         + tab_rule.OPS * int(distinct.sum()) * cls.dim)
         step["bytes"] += 2 * int(row_bytes.sum()) + 2 * float(
             (state * row_bytes).sum())
-    if cfg["tower"]["arch"] == "dlrm_dot":
-        d = cfg["tower"]["bottom"][-1]
-        pairs = n_vec * (n_vec - 1) // 2
-        fwd["ops"] += 2 * b * pairs * d
-        step["ops"] += 6 * b * pairs * d
     fwd["bytes"] += inputs
     step["bytes"] += inputs + F32 * b
     return out

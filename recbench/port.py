@@ -13,6 +13,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from recbench import towers
+
 
 def program():
     """The program's package (fails where the checkout holds none)."""
@@ -91,12 +93,11 @@ def table_views(engine) -> Dict[str, torch.Tensor]:
 
 
 def tower_views(engine) -> Dict[str, torch.Tensor]:
-    """{"tower/<part>/<layer>/<w|b>": leaf}.  The first top layer's rows
-    may be in the program's own order: compare only what a row order
+    """{"tower/<part>/<layer>/<key>": leaf}, by the names the tower's
+    module gives its leaves (``towers.flatten``).  The first top layer's
+    rows may be in the program's own order: compare only what a row order
     leaves alone, such as a norm."""
-    return {f"tower/{part}/{i}/{k}": t
-            for part, layers in engine.device_params["tower"].items()
-            for i, layer in enumerate(layers) for k, t in layer.items()}
+    return towers.flatten(engine.device_params["tower"])
 
 
 def first_grad_norms(trainer, cfg: Dict) -> Dict[str, float]:

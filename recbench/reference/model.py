@@ -3,12 +3,11 @@ steps in plain PyTorch, from the raw batches and the seed's weights.
 
 It imports nothing of the program.  The ids come from ``ids.py``; a column
 pools its rows left to right in f32 (a mean multiplies by the reciprocal of
-its count, as TF's unweighted ``SparseSegmentMean`` does); the tower is
-``x @ w + b`` with ReLU between layers (and after the bottom MLP's last),
-DLRM's dot interaction the Gram matrix's strict upper triangle beside the
-bottom MLP's output, then the sigmoid.  Training is the masked mean of the
-sigmoid's binary cross-entropy, ``torch.autograd.grad``, and the update
-rule the configuration states for the tables and for the tower
+its count, as TF's unweighted ``SparseSegmentMean`` does); the tower is its
+architecture's module's forward (``towers/<arch>.py``), its layers ``x @ w
++ b`` with ReLU between them, then the sigmoid.  Training is the masked
+mean of the sigmoid's binary cross-entropy, ``torch.autograd.grad``, and
+the update rule the configuration states for the tables and for the tower
 (``rules/<rule>.py``; a row-wise rule keeps its state an element on the
 tables the program stacks for its one-hot path).  It works on the rows
 the batches touch: a row no batch touches has a zero gradient, and no
@@ -23,13 +22,13 @@ bits.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from recbench import spec, weights
+from recbench import spec, towers, weights
 from recbench.reference import ids as ref_ids
 from recbench.reference import rules
 
@@ -79,22 +78,6 @@ class Reference:
             return _tf32(x)
         return x
 
-    def _linear(self, x, layer):
-        return self._mm_in(x) @ self._mm_in(layer["w"]) + layer["b"]
-
-    def _mlp(self, layers, x, last_act: Optional[str]):
-        act = self.cfg["tower"]["activation"]
-        for i, layer in enumerate(layers):
-            x = self._linear(x, layer)
-            name = act if i < len(layers) - 1 else last_act
-            if name == "relu":
-                x = torch.relu(x)
-            elif name == "sigmoid":
-                x = torch.sigmoid(x)
-            elif name is not None:
-                raise ValueError(f"unknown activation {name!r}")
-        return x
-
     # -- forward ---------------------------------------------------------
     @staticmethod
     def _pool(cls, table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -122,22 +105,11 @@ class Reference:
 
     def _tower(self, tower: Dict, dense: torch.Tensor,
                emb: List[torch.Tensor], logits: bool) -> torch.Tensor:
-        cfg = self.cfg["tower"]
-        act = cfg["activation"]
-        final = None if logits else cfg["final_activation"]
-        if cfg["arch"] == "dlrm_dot":
-            bottom = self._mlp(tower["bottom"], dense, act)
-            vecs = torch.cat([bottom[:, None, :]] + emb, dim=1)
-            m = self._mm_in(vecs)
-            gram = torch.bmm(m, m.transpose(1, 2))
-            iu = torch.triu_indices(vecs.shape[1], vecs.shape[1], 1,
-                                    device=self.device)
-            x = torch.cat([bottom, gram[:, iu[0], iu[1]]], dim=1)
-        else:
-            front = (self._mlp(tower["bottom"], dense, act)
-                     if cfg["bottom"] and dense.shape[1] else dense)
-            x = torch.cat([front] + [e.flatten(1) for e in emb], dim=1)
-        return self._mlp(tower["top"], x, final)[:, 0]
+        """The tower's module's forward (``towers/<arch>.py``): logits, or
+        through the configuration's final activation."""
+        final = None if logits else self.cfg["tower"]["final_activation"]
+        return spec.tower(self.cfg).forward(self._mm_in, self.cfg, tower,
+                                            dense, emb, final)
 
     def class_rows(self, batch: Dict) -> List[np.ndarray]:
         """Each class's ids as rows of its stacked table."""
@@ -183,23 +155,15 @@ class Reference:
                 for r in rows])
         self.release()
         tables = [p.clone().requires_grad_(True) for p in p0]
-        tw0 = weights.tower(self.cfg, self.seed, self.device)
-        names = spec.tower_leaf_names(self.cfg)
-        tw_leaves0 = [tw0[n.split("/")[1]][int(n.split("/")[2])][
-            n.split("/")[3]] for n in names]
+        tw0 = towers.flatten(weights.tower(self.cfg, self.seed, self.device))
+        names, tw_leaves0 = list(tw0), list(tw0.values())
         tw_leaves = [t.clone().requires_grad_(True) for t in tw_leaves0]
         tw_el = [t.dim() != 2 for t in tw_leaves]
         tab_st = [tab_rule.init(p, e) for p, e in zip(tables, per_el)]
         tw_st = [tw_rule.init(t, e) for t, e in zip(tw_leaves, tw_el)]
         losses, first = [], None
         for step, (batch, lab) in enumerate(zip(batches, labels), start=1):
-            tw = {}
-            for n, t in zip(names, tw_leaves):
-                _, part, i, k = n.split("/")
-                tw.setdefault(part, [])
-                while len(tw[part]) <= int(i):
-                    tw[part].append({})
-                tw[part][int(i)][k] = t
+            tw = towers.unflatten(dict(zip(names, tw_leaves)))
             with self._matmuls():
                 emb = [self._pool(c, tables[ci], compact[ci][step - 1])
                        for ci, c in enumerate(self.classes)]

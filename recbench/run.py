@@ -140,13 +140,18 @@ def run_cell(name: str, work: Dict, cfg: Dict, mix: Dict, bench: Dict,
 
 
 def host_threads(work: str) -> int:
-    """Native threads a host-prep call may start: the cores this process
-    may use over the prep workers the cell's mix runs at once (one where it
-    names none), at most 4, the program's own cap, and at least 1.  So the
-    workers' threads never outnumber the cores."""
+    """Native threads a host-prep call may start: the cell's mix's
+    ``host_threads`` where it names them (the training mixes: 1, PERF.md
+    §2); else the cores this process may use over the prep workers the mix
+    runs at once (one where it names none), at most 4, the program's own
+    cap, and at least 1, so the workers' threads never outnumber the
+    cores."""
     from recbench import spec
 
-    workers = spec.mix(spec.workload(work)["traffic"]).get("prep_workers", 1)
+    mix = spec.mix(spec.workload(work)["traffic"])
+    if "host_threads" in mix:
+        return int(mix["host_threads"])
+    workers = mix.get("prep_workers", 1)
     return max(1, min(4, len(os.sched_getaffinity(0)) // workers))
 
 

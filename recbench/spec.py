@@ -19,11 +19,10 @@ from typing import Dict, List
 
 import numpy as np
 
+from recbench import kinds, towers
+
 PKG = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(PKG)
-
-SINGLE_KINDS = ("dense_float", "dense_int", "string")
-LIST_KINDS = ("string_list",)
 
 
 def load_json(path: str) -> Dict:
@@ -69,14 +68,14 @@ def cell_metrics(bench: Dict, cell: str, trace: bool) -> List[Dict]:
 class ColumnClass:
     """``count`` columns alike: fields ``<field>0..``, tables ``<table>0..``
     of ``rows`` rows each (one number for all, or one a table), ``dim``
-    wide."""
+    wide; ``kind_module`` is the module of its kind (``kinds/<kind>.py``),
+    which draws its columns and gives their ids."""
 
     def __init__(self, entry: Dict, onehot_limit: int):
         self.field = entry["field"]
         self.count = int(entry["count"])
         self.kind = entry["kind"]
-        if self.kind not in SINGLE_KINDS + LIST_KINDS:
-            raise ValueError(f"unknown column kind {self.kind!r}")
+        self.kind_module = kinds.load(self.kind)
         self.transform = entry["transform"]
         self.table = entry["table"]
         rows = entry["rows"]
@@ -94,7 +93,7 @@ class ColumnClass:
                                b["count"], dtype=np.float64))
         self.offsets = np.concatenate([[0], np.cumsum(self.rows)[:-1]])
         self.total_rows = int(self.rows.sum())
-        self.single = self.kind in SINGLE_KINDS
+        self.single = self.kind_module.SINGLE
         # tables the program stacks for its one-hot path (single-valued,
         # unweighted, at most ``onehot_vocab_limit`` rows) into one 3-D
         # leaf, on which a row-wise rule keeps its state an element
@@ -119,35 +118,14 @@ def dense_fields(cfg: Dict) -> List[str]:
     return [f"{d['field']}{i}" for i in range(d["count"])]
 
 
-def tower_layers(cfg: Dict) -> Dict[str, List[tuple]]:
-    """{"bottom": [(in, out), ...], "top": [...]}: the tower's layer
-    shapes."""
-    tower = cfg["tower"]
-    n_dense = cfg["dense"]["count"]
-    widths = [c.dim for c in classes(cfg) for _ in range(c.count)]
-    bottom, d = [], n_dense
-    for h in tower["bottom"]:
-        bottom.append((d, h))
-        d = h
-    if tower["arch"] == "mlp":
-        front = tower["bottom"][-1] if tower["bottom"] and n_dense else n_dense
-        top_in = front + sum(widths)
-    elif tower["arch"] == "dlrm_dot":
-        n_vec = len(widths) + 1
-        top_in = tower["bottom"][-1] + n_vec * (n_vec - 1) // 2
-    else:
-        raise ValueError(f"unknown tower arch {tower['arch']!r}")
-    top, d = [], top_in
-    for h in tower["top"]:
-        top.append((d, h))
-        d = h
-    return {"bottom": bottom, "top": top}
+def tower(cfg: Dict):
+    """The module of the configuration's tower (``towers/<arch>.py``)."""
+    return towers.load(cfg["tower"]["arch"])
 
 
-def tower_leaf_names(cfg: Dict) -> List[str]:
-    return [f"tower/{part}/{i}/{k}"
-            for part, layers in tower_layers(cfg).items()
-            for i in range(len(layers)) for k in ("w", "b")]
+def tower_layers(cfg: Dict) -> Dict[str, List[Dict]]:
+    """{part: [{key: shape}, ...]}: the tower's leaves, layer by layer."""
+    return tower(cfg).layers(cfg)
 
 
 def seed_words(seed: int, *keys) -> List[int]:

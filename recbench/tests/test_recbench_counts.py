@@ -11,8 +11,18 @@ from recbench.traffic import batches
 SEED = 99
 
 
+def _dense(layers):
+    """{part: [(in, out), ...]} of dense layers ``{"w": (in, out), "b":
+    (out,)}``."""
+    for part in layers.values():
+        for layer in part:
+            assert layer["b"] == (layer["w"][1],) and len(layer) == 2
+    return {part: [layer["w"] for layer in ls]
+            for part, ls in layers.items()}
+
+
 def test_model_e_tower():
-    layers = spec.tower_layers(spec.config("model_e"))
+    layers = _dense(spec.tower_layers(spec.config("model_e")))
     # 32 dense through bottom [32], then 880 + 50 + 50 + 15 columns of 8
     # and 5 of 32
     top_in = 32 + 880 * 8 + 50 * 8 + 50 * 8 + 15 * 8 + 5 * 32
@@ -24,7 +34,7 @@ def test_model_e_tower():
 
 
 def test_criteo_tower():
-    layers = spec.tower_layers(spec.config("criteo_dlrm"))
+    layers = _dense(spec.tower_layers(spec.config("criteo_dlrm")))
     assert layers["bottom"] == [(13, 512), (512, 256), (256, 64), (64, 16)]
     # the bottom's 16 beside the 27 * 26 / 2 = 351 pairs of 27 vectors
     assert layers["top"] == [(367, 512), (512, 256), (256, 1)]

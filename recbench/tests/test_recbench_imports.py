@@ -15,7 +15,8 @@ from recbench import spec
 FORBIDDEN = {"jax", "jaxlib", "flax", "recom_tpu"}
 # the yardstick that must not lean on the program
 PLAIN = ("reference", "counts", "traffic/batches.py", "weights.py",
-         "spec.py", "check.py", "control.py", "readers.py", "metrics")
+         "spec.py", "check.py", "control.py", "readers.py", "metrics",
+         "towers", "kinds")
 
 
 def _sources():
@@ -75,7 +76,13 @@ def test_harness_loads_no_jax():
 
 def test_reference_loads_no_program():
     mods = _loaded("import recbench.reference.model, recbench.control, "
-                   "recbench.counts.model, recbench.traffic.batches")
+                   "recbench.counts.model, recbench.traffic.batches\n"
+                   "import os, importlib\n"
+                   "for d in ('towers', 'kinds'):\n"
+                   "    for f in os.listdir(os.path.join('recbench', d)):\n"
+                   "        if f.endswith('.py') and f != '__init__.py':\n"
+                   "            importlib.import_module("
+                   "f'recbench.{d}.{f[:-3]}')")
     assert not mods & (FORBIDDEN | {"recom_tpu_torch"})
 
 

@@ -65,8 +65,11 @@ def test_every_file_is_named():
     assert not set(held) & set(CELLS)
     cells = {f[:-5] for f in os.listdir(os.path.join(spec.PKG, "workloads"))}
     assert cells == set(CELLS) | set(held)
-    configs = {f[:-5] for f in os.listdir(os.path.join(spec.PKG, "configs"))}
+    files = os.listdir(os.path.join(spec.PKG, "configs"))
+    configs = {f[:-5] for f in files if not f.endswith(".cpu.json")}
     assert configs == {c["name"] for c in BENCH["configs"]}
+    # each configuration's CPU sizes (tests/tiny.py), and no others
+    assert {f[:-9] for f in files if f.endswith(".cpu.json")} == configs
     mixes = {f[:-5] for f in os.listdir(os.path.join(spec.PKG, "traffic"))
              if f.endswith(".json")}
     assert mixes == {spec.workload(c)["traffic"] for c in cells}

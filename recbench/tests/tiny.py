@@ -1,7 +1,8 @@
-"""Cells at a size the CPU runs in seconds: the configurations' column
-classes and bottom MLP cut down (the top MLP kept, so that a product in
-TF32 shows as it does at full size), with the program's builder given the
-same sizes, and the mixes at 64 rows."""
+"""Cells at a size the CPU runs in seconds: each configuration with the
+overrides of its CPU sizes file (``configs/<name>.cpu.json``: column
+classes, dense features and bottom MLP cut down, the top MLP kept so that a
+product in TF32 shows as it does at full size, the program's builder given
+the same sizes), and the mixes at 64 rows."""
 
 from __future__ import annotations
 
@@ -11,29 +12,27 @@ from typing import Dict, List, Tuple
 
 from recbench import spec
 
-CRITEO_VOCABS = [3, 155, 976, 2209, 5000, 20000] * 4 + [10, 91]
+
+def merge(base, over):
+    """``over`` laid on ``base``: a dict key by key, a list of dicts entry
+    by entry (as many as ``base`` has), anything else replaced."""
+    if isinstance(base, dict) and isinstance(over, dict):
+        return {**base, **{k: merge(base.get(k), v) for k, v in over.items()}}
+    if isinstance(base, list) and isinstance(over, list) and over and all(
+            isinstance(o, dict) for o in over):
+        if len(base) != len(over):
+            raise ValueError(f"{len(over)} entries laid on {len(base)}")
+        return [merge(b, o) for b, o in zip(base, over)]
+    return copy.deepcopy(over)
+
+
+def cpu_sizes(name: str) -> Dict:
+    return spec.load_json(os.path.join(spec.PKG, "configs",
+                                       f"{name}.cpu.json"))
 
 
 def config(name: str) -> Dict:
-    cfg = copy.deepcopy(spec.config(name))
-    if name == "model_e":
-        counts = [6, 2, 2, 2, 1]
-        for c, n in zip(cfg["columns"], counts):
-            c["count"] = n
-        cfg["columns"][4]["rows"] = 20000
-        cfg["dense"]["count"] = 4
-        cfg["tower"]["bottom"] = [8]
-        cfg["builder"] = "make_dlrm_model"
-        cfg["builder_args"] = dict(
-            bucketize_num=6, hash_int_num=2, hash_str_num=2, sparse_str_num=2,
-            large_sparse_num=1, dense_num=4, bot_units=[8],
-            top_units=cfg["tower"]["top"][:-1],
-            name="mini", large_rows=20000)
-    else:
-        cfg["columns"][0]["rows"] = CRITEO_VOCABS
-        cfg["builder_args"] = {**cfg["builder_args"],
-                               "vocabs": CRITEO_VOCABS}
-    return cfg
+    return merge(spec.config(name), cpu_sizes(name)["overrides"])
 
 
 def mix(name: str) -> Dict:

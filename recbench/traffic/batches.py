@@ -15,59 +15,22 @@ pool is the same for the same seed whatever its size.
 
 from __future__ import annotations
 
-import string
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import numpy as np
 
 from recbench import spec
 
-ALPHABET = np.frombuffer((string.ascii_letters + string.digits).encode(),
-                         np.uint8)
-
-
-def _strings(rng, shape: Tuple[int, ...], nbytes: int) -> np.ndarray:
-    """Random ``S<nbytes>`` strings of letters and digits."""
-    chars = ALPHABET[rng.integers(0, len(ALPHABET), shape + (nbytes,))]
-    return np.ascontiguousarray(chars).view(f"S{nbytes}").reshape(shape)
-
-
-def _lists(rng, batch: int, items: Tuple[int, int], nbytes: int,
-           delimiter: str) -> np.ndarray:
-    """One joined string a row: ``items[0]..items[1]`` random strings."""
-    lens = rng.integers(items[0], items[1] + 1, size=batch)
-    width = nbytes + 1
-    flat = np.empty((int(lens.sum()), width), np.uint8)
-    flat[:, :nbytes] = ALPHABET[rng.integers(0, len(ALPHABET),
-                                             (len(flat), nbytes))]
-    flat[:, nbytes] = ord(delimiter)
-    raw = flat.tobytes()
-    ends = np.cumsum(lens) * width
-    starts = ends - lens * width
-    return np.asarray([raw[a:b - 1] for a, b in zip(starts, ends)],
-                      dtype=np.bytes_)
-
 
 def make_batch(cfg: Dict, values: Dict, batch: int, seed: int,
                k: int) -> Dict[str, np.ndarray]:
-    """Batch ``k`` of ``seed``: every field of ``cfg``'s columns and dense
+    """Batch ``k`` of ``seed``: every field of ``cfg``'s columns (as their
+    kinds draw them, ``kinds/<kind>.py``, class by class) and dense
     features, ``batch`` rows."""
     rng = np.random.default_rng(spec.seed_words(seed, k))
     out: Dict[str, np.ndarray] = {}
     for cls in spec.classes(cfg):
-        n = cls.count
-        if cls.kind == "dense_float":
-            lo, hi = values["bucketized_float"]
-            cols = rng.integers(lo, hi, (n, batch)).astype(np.float32)
-        elif cls.kind == "dense_int":
-            lo, hi = values["dense_int"]
-            cols = rng.integers(lo, hi, (n, batch), dtype=np.int64)
-        elif cls.kind == "string":
-            cols = _strings(rng, (n, batch), values["string_bytes"])
-        else:
-            cols = [_lists(rng, batch, values["list_items"],
-                           values["string_bytes"], cls.delimiter)
-                    for _ in range(n)]
+        cols = cls.kind_module.make(rng, cls, values, batch)
         for name, col in zip(cls.fields, cols):
             out[name] = col
     lo, hi = values["dense_float"]

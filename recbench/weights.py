@@ -4,8 +4,9 @@ calls.
 A class of tables (``spec.ColumnClass``) is one ``[total_rows, dim]``
 tensor, its tables one after another, drawn N(0, 1/dim) in chunks of at
 most 2^28 values, each chunk from a ``torch.Generator`` of its own seeded
-by (seed, class, chunk); the tower's layers are He-normal with zero biases,
-a generator a layer.  So the same seed on the same device gives the same
+by (seed, class, chunk); the tower's layers as its module draws them
+(``towers/<arch>.py``: He-normal weights and zero biases), a generator a
+layer.  So the same seed on the same device gives the same
 values, and the reference draws them again instead of holding a copy.
 """
 
@@ -64,23 +65,24 @@ def class_table(cfg: Dict, index: int, seed: int, device) -> torch.Tensor:
 
 
 def tower(cfg: Dict, seed: int, device) -> Dict[str, List[Dict]]:
-    """{"bottom": [{"w": [in, out], "b": [out]}, ...], "top": [...]} f32 on
-    ``device``."""
+    """{part: [{key: leaf}, ...]} f32 on ``device``: each layer of the
+    tower's ``layers`` drawn by its module (``towers/<arch>.py``) from a
+    generator of its own."""
+    arch = spec.tower(cfg)
     out: Dict[str, List[Dict]] = {}
-    for part, layers in spec.tower_layers(cfg).items():
+    for part, layers in arch.layers(cfg).items():
         out[part] = []
-        for i, (n_in, n_out) in enumerate(layers):
+        for i, layer in enumerate(layers):
             gen = torch.Generator(device=device)
             gen.manual_seed(_seed(seed, "tower", part, i))
-            w = torch.randn((n_in, n_out), generator=gen, device=device)
-            out[part].append({"w": w.mul_(math.sqrt(2.0 / n_in)),
-                              "b": torch.zeros(n_out, device=device)})
+            out[part].append(arch.draw(layer, gen, device))
     return out
 
 
 def program_params(cfg: Dict, seed: int, device) -> Dict:
     """The portable numpy tree the program takes as ``params=``: each table
-    a view into its class's host array, and the tower."""
+    a view into its class's host array, and the tower (a part with no
+    layers left out)."""
     tables: Dict[str, np.ndarray] = {}
     for ci, cls in enumerate(spec.classes(cfg)):
         host = class_table(cfg, ci, seed, device).cpu().numpy()
@@ -88,7 +90,5 @@ def program_params(cfg: Dict, seed: int, device) -> Dict:
             tables[name] = host[off:off + rows]
     tw = {part: [{k: v.cpu().numpy() for k, v in layer.items()}
                  for layer in layers]
-          for part, layers in tower(cfg, seed, device).items()}
-    if not cfg["tower"]["bottom"]:
-        tw.pop("bottom")
+          for part, layers in tower(cfg, seed, device).items() if layers}
     return {"tables": tables, "tower": tw}
